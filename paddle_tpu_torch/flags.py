@@ -1,0 +1,98 @@
+"""Flag registry of the PyTorch port (the serving knobs its engine reads).
+
+Same mechanics and environment names as ``paddle_tpu/flags.py``: every
+flag is registered once with type, default and help; its value comes
+from the ``PADDLE_TPU_<NAME>`` environment variable (gflags booleans:
+0/false/off/no = off) or from ``set_flag``. One environment therefore
+configures both packages. Only the ``serving_*`` flags the port's
+engine reads are registered here.
+"""
+
+import os
+
+_TRUTHY_OFF = ("0", "false", "off", "no")
+
+
+class _Flag:
+    def __init__(self, name, type_, default, help_):
+        self.name = name
+        self.type = type_
+        self.default = default
+        self.help = help_
+        self.env = "PADDLE_TPU_" + name.upper()
+        self._override = None
+
+    def value(self):
+        if self._override is not None:
+            return self._override
+        raw = os.environ.get(self.env)
+        if raw is None or not raw.strip():
+            return self.default
+        raw = raw.strip()
+        if self.type is bool:
+            return raw.lower() not in _TRUTHY_OFF
+        return self.type(raw)
+
+
+_FLAGS = {}
+
+
+def _register(name, type_, default, help_):
+    _FLAGS[name] = _Flag(name, type_, default, help_)
+
+
+_register("serving_prefill_chunk", int, 16,
+          "Engine prompt-prefill chunk length: an admitted prompt is "
+          "written into the KV pool this many tokens per engine "
+          "iteration, so one long prompt cannot stall the decode batch")
+_register("serving_admission_wait", float, 0.0,
+          "Engine wait-for-batch admission window (seconds): an IDLE "
+          "engine holds admissions up to this long for the queue to "
+          "fill to the slot count. 0 = greedy fill")
+_register("serving_megastep", int, 1,
+          "decode iterations fused into one dispatch. The port runs "
+          "1 only; a larger value raises (see ROADMAP.md)")
+_register("serving_paged", bool, True,
+          "paged KV block pool + per-slot block tables. The port runs "
+          "the paged layout only; 0 raises (see ROADMAP.md)")
+_register("serving_block_size", int, 16,
+          "paged-KV block length (cache positions per block): the "
+          "allocation, prefix-match and copy-on-write granule")
+_register("serving_kv_blocks", int, 0,
+          "paged-KV pool size in blocks. 0 = slots * ceil(max_len / "
+          "block_size); smaller pools preempt the lowest-priority "
+          "request when they run dry")
+_register("serving_block_kernel", bool, True,
+          "block-native paged attention: walk each slot's block chain "
+          "with online softmax (the CUDA kernel on the card, its plain "
+          "PyTorch version on the CPU). 0 = the dense-gather path")
+_register("serving_kv_quant", str, "",
+          "paged-KV pool quantization: '' (off) or 'int8' (per-vector "
+          "f32 scales beside the pool, quantized on write, dequantized "
+          "inside the attention block loop)")
+_register("serving_attn_unroll", int, 1,
+          "blocks gathered per online-softmax update in the plain "
+          "PyTorch paged attention (numerics-neutral)")
+_register("serving_prefix_cache", bool, True,
+          "radix prefix cache over full prompt blocks: a matching "
+          "admission skips those prefill chunks")
+_register("serving_speculative", bool, False,
+          "speculative decode. Not ported yet; 1 raises (see "
+          "ROADMAP.md)")
+
+
+def get_flag(name):
+    return _FLAGS[name].value()
+
+
+def set_flag(name, value):
+    """Programmatic override (wins over the environment); values coerce
+    through the flag's type with the same parsing env vars get."""
+    f = _FLAGS[name]
+    if value is not None and not isinstance(value, f.type):
+        if f.type is bool:
+            value = str(value).strip().lower() not in _TRUTHY_OFF
+        else:
+            value = f.type(value)
+    f._override = value
+

@@ -8,7 +8,9 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
 
   1. device — the card's name and power limit (``nvidia-smi``); TF32
      switched off for matmuls and cuDNN, so fp32 stays fp32;
-  2. build  — ``ops/csrc/paged_attention.cu`` compiled for sm_90a;
+  2. build  — ``ops/csrc/paged_attention.cu`` and
+     ``ops/csrc/flash_attention.cu`` compiled for sm_90a, one ``nvcc``
+     each, started together;
   3. kernel — the CUDA paged-attention kernel held against its plain
      PyTorch version (``_attend_plain``) at rtol 1e-4 / atol 1e-5 on
      live rows: decode (C=1, S=32), a prefill chunk (C=16, S=1), a
@@ -24,7 +26,33 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
      ``Engine(slots=32, prefill_chunk=16, block_size=16)``: 64 greedy
      requests, half sharing one 64-token prefix. The kernel's launch
      count is reset just before and read just after; tokens must equal
-     the gather path's and, for 4 requests, ``sequential_generate``'s.
+     the gather path's and, for 4 requests, ``sequential_generate``'s;
+  5. flash  — the three CUDA flash-attention kernels (forward: O and
+     LSE; dQ; dK/dV, with a nonzero dLSE cotangent) held against the
+     plain PyTorch version (``_dense_lse`` and its autograd) on causal
+     and non-causal T in {128, 256, 200, 1024}, D in {64, 128}, B*H in
+     {1, 16}, and the training shape (B=32, H=8, T=256, D=64, causal):
+     fp32 at rtol 1e-4 / atol 1e-5, bf16 at rtol 2^-7 / atol 1e-2 per
+     element (bf16 keeps 8 bits: outputs round at 2^-9 relative in both
+     versions, and the kernel's delta reads the rounded O); gradients
+     are compared with atol scaled by their largest value.
+     Then timed at the training shape (B=32, H=8, T=256, D=64, causal,
+     fp32) against the plain version, scaled_dot_product_attention
+     forward and backward (a yardstick the port never calls) and the
+     card's fp32 arithmetic bound;
+  6. train  — ``transformer_lm(packed=True)`` at its own widths with
+     ``Adam(1e-3)``, started on the card (``Executor(CUDAPlace(0))``),
+     10 steps over a fixed set of batch-32 batches
+     (``make_lm_batch(RandomState(seed), 32, 256, 4096)``): finite
+     losses that fall from step 1 to step 10, each flash launch count
+     exactly n_layer per step (reset just before, read just after);
+     tokens/s and step ms for it and the unpacked form (composed
+     matmul/softmax, no kernel). From one startup scope copied twice, 3
+     steps packed and 3 steps unpacked agree in losses (rtol 1e-4) and
+     weights: with SGD to 2e-4 of max(1, max|w|) per tensor, with Adam
+     to 5e-4 in the norm of the whole difference, a limit that the same
+     run with dK zeroed must exceed (see ``parity_phase``). Then a
+     traced pass of 3 steps.
 
 The last three lines of standard output are the kernels' JSON line, the
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device": ...}``.
@@ -32,8 +60,10 @@ Without a CUDA card, or outside the repository, it exits non-zero and
 prints no result.
 """
 
+import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -80,14 +110,34 @@ def device_phase(torch):
 
 
 # -- phase 2 -------------------------------------------------------------
+def _kernel_name(line):
+    """``kernel<args>`` from a ptxas line's mangled template name."""
+    m = re.search(r"([a-z_]+_kernel)I(\w*?)E", line)
+    if not m:
+        return line.strip()
+    args = m.group(2)
+    for mangled, plain in (("13__nv_bfloat16", "bf16"), ("Li", ", "),
+                           ("Lb0", ", false"), ("Lb1", ", true")):
+        args = args.replace(mangled, plain)
+    head = {"f": "float", "a": "int8"}.get(args[:1])
+    if head:
+        args = head + args[1:]
+    return "%s<%s>" % (m.group(1), args)
+
+
 def build_phase():
     from paddle_tpu_torch.ops import _build
+    names = ("paged_attention", "flash_attention")
     t0 = time.perf_counter()
-    _build.load("paged_attention")
-    log("build: paged_attention.cu in %.2f s", time.perf_counter() - t0)
-    for line in _build.build_log.get("paged_attention", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas: %s", line.strip())
+    _build.load_all(names)
+    log("build: %s in %.2f s (one nvcc each, in parallel)",
+        ", ".join(n + ".cu" for n in names), time.perf_counter() - t0)
+    for name in names:
+        for line in _build.build_log.get(name, "").splitlines():
+            if "Compiling entry" in line:
+                log("  ptxas %s: %s", name, _kernel_name(line))
+            elif "registers" in line or "spill" in line:
+                log("  ptxas %s:   %s", name, line.strip())
 
 
 # -- phase 3 -------------------------------------------------------------
@@ -324,20 +374,419 @@ def profile_phase(torch, model, reqs):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         steps = eng.stats["decode_steps"] + eng.stats["prefill_chunks"]
+    _report_profile(prof, wall, "profile (traced, 32 requests, %d "
+                    "dispatches)" % steps)
+
+
+# -- phase 5 -------------------------------------------------------------
+BF16_ATOL, BF16_RTOL = 1e-2, 2.0 ** -7
+# (causal, T, D, B, H); the last is the training path's own shape
+FLASH_CASES = [(causal, t, d, 1, h) for causal in (False, True)
+               for t in (128, 256, 200, 1024) for d in (64, 128)
+               for h in (1, 16)] + [(True, MAX_LEN, D_MODEL // N_HEAD, 32,
+                                     N_HEAD)]
+
+
+def _flash_case(torch, F, causal, t, d, b, h, dtype, seed):
+    """One forward + backward through the kernels and through the plain
+    version on the same inputs; returns the error of each output."""
+    g = torch.Generator().manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=g).to("cuda")
+    q, k, v = [draw(b, h, t, d).to(dtype).requires_grad_(True)
+               for _ in range(3)]
+    dout, dlse = draw(b, h, t, d), draw(b, h, t)
+    errs = {}
+    results = []
+    for fn in (F.flash_attention_lse, F._dense_lse):
+        out, lse = fn(q, k, v, causal=causal, scale=d ** -0.5)
+        loss = (out.float() * dout).sum() + (lse * dlse).sum()
+        grads = torch.autograd.grad(loss, [q, k, v])
+        results.append([x.detach().float() for x in (out, lse) + grads])
+    torch.cuda.synchronize()
+    atol, rtol = (ATOL, RTOL) if dtype == torch.float32 else (BF16_ATOL,
+                                                             BF16_RTOL)
+    for name, got, ref in zip(("o", "lse", "dq", "dk", "dv"), *results):
+        scale = 1.0
+        if name not in ("o", "lse"):
+            scale = float(ref.abs().max().clamp_min(1e-30))
+        err = (got - ref).abs()
+        bad = err > atol * scale + rtol * ref.abs()
+        check(bool(torch.isfinite(got).all()) and not bool(bad.any()),
+              "flash %s disagrees with the plain version: %s causal=%s "
+              "T=%d D=%d B=%d H=%d max_abs_err=%g", name, dtype, causal, t,
+              d, b, h, float(err.max()))
+        errs[name] = (float(err.max()), float(err.max()) / scale)
+    return errs
+
+
+def flash_kernel_phase(torch):
+    """Every case against the plain version; returns the largest fp32
+    absolute error per kernel."""
+    from paddle_tpu_torch.ops import flash_attention as F
+    worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    cases = [(c, torch.float32) for c in FLASH_CASES] + \
+        [((causal, t, d, 1, 16), torch.bfloat16) for causal in (False, True)
+         for t in (128, 200) for d in (64, 128)]
+    for i, ((causal, t, d, b, h), dtype) in enumerate(cases):
+        e = _flash_case(torch, F, causal, t, d, b, h, dtype, seed=i)
+        log("flash: %-8s causal=%-5s T=%-4d D=%-3d B=%-2d H=%-2d "
+            "max_abs_err o %.2e lse %.2e | scaled dq %.2e dk %.2e dv %.2e  "
+            "ok", str(dtype).replace("torch.", ""), causal, t, d, b, h,
+            e["o"][0], e["lse"][0], e["dq"][1], e["dk"][1], e["dv"][1])
+        if dtype == torch.float32:
+            worst["flash_fwd"] = max(worst["flash_fwd"], e["o"][0],
+                                     e["lse"][0])
+            worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], e["dq"][0])
+            worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"],
+                                         e["dk"][0], e["dv"][0])
+    log("flash: %d cases ok (%d fp32, %d bf16); largest fp32 abs errors %s",
+        len(cases), len(FLASH_CASES), len(cases) - len(FLASH_CASES),
+        ", ".join("%s %.3g" % kv for kv in worst.items()))
+    return worst
+
+
+def _events_ms(torch, fn, reps, prep=None):
+    """Mean device ms of ``fn(i)`` over ``reps`` calls, CUDA-event timed
+    around each call; ``prep(i)``, when given, runs before each call
+    outside the timed span (to build an autograd graph)."""
+    for i in range(3):
+        if prep:
+            prep(i)
+        fn(i)
+    torch.cuda.synchronize()
+    pairs = []
+    for i in range(reps):
+        if prep:
+            prep(i)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn(i)
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+def flash_timing_phase(torch):
+    """The training shape: B=32, H=8, T=256, D=64, causal, fp32. Four
+    input sets (4 x 67 MB) rotate through the 50 MB L2, as the layers of
+    a training step meet them."""
+    from paddle_tpu_torch.ops import flash_attention as F
+    b, h, t, d = 32, 8, 256, 64
+    scale = d ** -0.5
+    sets = []
+    for i in range(4):
+        g = torch.Generator().manual_seed(100 + i)
+        q, k, v, dout = [torch.randn(b, h, t, d, generator=g).to("cuda")
+                         for _ in range(4)]
+        out, lse = F._fwd_cuda(q, k, v, True, scale)
+        sets.append((q, k, v, dout, out, lse, F._delta(out, dout, None)))
+    cur = {}
+
+    def fwd(i):
+        q, k, v = sets[i % 4][:3]
+        F._fwd_cuda(q, k, v, True, scale)
+
+    def dq(i):
+        q, k, v, dout, _, lse, delta = sets[i % 4]
+        F._bwd_dq_cuda(q, k, v, dout, lse, delta, True, scale)
+
+    def dkv(i):
+        q, k, v, dout, _, lse, delta = sets[i % 4]
+        F._bwd_dkv_cuda(q, k, v, dout, lse, delta, True, scale)
+
+    def graph(fn):
+        def prep(i):
+            q, k, v, dout = [x.detach().requires_grad_(True)
+                             for x in sets[i % 4][:4]]
+            cur["out"] = fn(q, k, v)
+            cur["in"], cur["dout"] = (q, k, v), dout
+        return prep
+
+    def backward(i):
+        torch.autograd.grad(cur["out"], cur["in"], cur["dout"])
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def plain(q, k, v):
+        return F._dense_lse(q, k, v, True, scale)[0]
+
+    def lib(q, k, v):
+        return sdpa(q, k, v, is_causal=True, scale=scale)
+
+    times = {
+        "flash_fwd": _events_ms(torch, fwd, 50),
+        "flash_bwd_dq": _events_ms(torch, dq, 50),
+        "flash_bwd_dkv": _events_ms(torch, dkv, 50),
+    }
+    with torch.no_grad():
+        plain_fwd = _events_ms(torch, lambda i: plain(*sets[i % 4][:3]), 10)
+        lib_fwd = _events_ms(torch, lambda i: lib(*sets[i % 4][:3]), 50)
+    plain_bwd = _events_ms(torch, backward, 10, prep=graph(plain))
+    lib_bwd = _events_ms(torch, backward, 50, prep=graph(lib))
+    q, k, v, _, out = sets[0][:5]
+    check(torch.allclose(out, lib(q, k, v), rtol=RTOL, atol=ATOL),
+          "flash forward disagrees with scaled_dot_product_attention")
+    # the work this run's data needs: causal keeps T(T+1)/2 of the T^2
+    # (query, key) pairs; each product is 2 flops per pair and head dim
+    pairs = b * h * t * (t + 1) // 2
+    elem = b * h * t * d * 4                # one [B, H, T, D] f32 tensor
+    row = b * h * t * 4                     # one [B, H, T] f32 tensor
+    work = {   # (flops, bytes: inputs read once, outputs written once)
+        "flash_fwd": (2 * 2 * pairs * d, 4 * elem + row),
+        "flash_bwd_dq": (3 * 2 * pairs * d, 5 * elem + 2 * row),
+        "flash_bwd_dkv": (4 * 2 * pairs * d, 6 * elem + 2 * row),
+    }
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        ops_ms = flops / FP32_FLOPS * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        fwd_side = name == "flash_fwd"
+        out[name] = {
+            "ms": times[name],
+            "plain_ms": plain_fwd if fwd_side else plain_bwd,
+            "library_ms": lib_fwd if fwd_side else lib_bwd,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+        log("timing %s (B=32 H=8 T=256 D=64 causal fp32): kernel_ms=%.5f "
+            "bound_ms=%.5f (%s: %d flops, %d bytes) plain_ms=%.5f "
+            "library_ms=%.5f%s", name, times[name], out[name]["bound_ms"],
+            out[name]["bound_by"], flops, nbytes, out[name]["plain_ms"],
+            out[name]["library_ms"], "" if fwd_side else
+            " (plain and library: one backward computing dq, dk, dv)")
+    log("timing: flash backward kernel_ms=%.5f (dq + dkv), plain backward "
+        "%.5f, library backward %.5f", times["flash_bwd_dq"]
+        + times["flash_bwd_dkv"], plain_bwd, lib_bwd)
+    return out
+
+
+# -- phase 6 -------------------------------------------------------------
+TRAIN_BATCH, TRAIN_STEPS, PARITY_STEPS = 32, 10, 3
+
+
+def _lm_program(fluid, T, packed, optimizer="adam"):
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        # the constants are transformer_lm's own defaults
+        avg_cost, _ = T.transformer_lm(
+            vocab_size=VOCAB, max_len=MAX_LEN, n_layer=N_LAYER,
+            n_head=N_HEAD, d_model=D_MODEL, d_inner=D_INNER, packed=packed)
+        if optimizer == "adam":
+            fluid.optimizer.Adam(learning_rate=1e-3).minimize(avg_cost)
+        else:
+            fluid.optimizer.SGD(learning_rate=0.1).minimize(avg_cost)
+    return main, startup, avg_cost
+
+
+def _train(torch, fluid, exe, prog, init, batches, steps):
+    """``steps`` steps from a fresh copy of ``init``: (losses, wall
+    seconds of steps 2..n, scope)."""
+    main, _, avg_cost = prog
+    scope = fluid.Scope()
+    fluid.load_numpy_state(scope, init, exe.device)
+    losses = []
+    t0 = None
+    for i in range(steps):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        loss, = exe.run(main, feed=batches[i % len(batches)],
+                        fetch_list=[avg_cost], scope=scope)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    return losses, time.perf_counter() - t0, scope
+
+
+def train_phase(torch):
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.ops import flash_attention as F
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    check(exe.device.type == "cuda", "the executor is not on the card")
+    check(fluid.Executor().device.type == "cuda",
+          "Executor() does not default to the card")
+    packed = _lm_program(fluid, T, True)
+    unpacked = _lm_program(fluid, T, False)
+    ops = [op.type for op in packed[0].global_block().ops]
+    check(ops.count("sp_attention") == N_LAYER and "softmax" not in ops,
+          "the packed program does not route attention to sp_attention")
+    scope0 = fluid.Scope()
+    exe.run(packed[1], scope=scope0)
+    init = {n: scope0.get_numpy(n) for n in scope0.local_var_names()
+            if scope0.find_var(n) is not None}
+    batches = [T.make_lm_batch(np.random.RandomState(seed), TRAIN_BATCH,
+                               MAX_LEN, VOCAB) for seed in (0, 1)]
+    tokens = TRAIN_BATCH * MAX_LEN
+    runs = {}
+    for name, prog in (("packed", packed), ("unpacked", unpacked)):
+        for key in F.flash_attention.launches:
+            F.flash_attention.launches[key] = 0
+        losses, wall, _ = _train(torch, fluid, exe, prog, init, batches,
+                                 TRAIN_STEPS)
+        launches = dict(F.flash_attention.launches)
+        runs[name] = (losses, wall, launches)
+        log("train (%s): %d steps, losses %s; %.1f tokens/s, mean step "
+            "%.3f ms (steps 2..%d); flash launches %s", name, TRAIN_STEPS,
+            " ".join("%.4f" % x for x in losses),
+            tokens * (TRAIN_STEPS - 1) / wall,
+            1e3 * wall / (TRAIN_STEPS - 1), TRAIN_STEPS, launches)
+        check(all(np.isfinite(losses)), "%s losses not finite", name)
+        check(losses[-1] < losses[0], "%s loss did not fall: %r", name,
+              losses)
+    launches = runs["packed"][2]
+    for key, n in launches.items():
+        check(n == N_LAYER * TRAIN_STEPS, "flash %s launches %d != "
+              "n_layer x steps = %d", key, n, N_LAYER * TRAIN_STEPS)
+    check(not any(runs["unpacked"][2].values()),
+          "the unpacked program launched a flash kernel")
+
+    parity_phase(torch, fluid, T, exe, packed, unpacked, init, batches)
+    train_profile(torch, fluid, exe, packed, init, batches)
+    return {"flash_fwd": launches["fwd"],
+            "flash_bwd_dq": launches["bwd_dq"],
+            "flash_bwd_dkv": launches["bwd_dkv"]}
+
+
+ADAM_NORM_TOL = 5e-4
+
+
+@contextlib.contextmanager
+def _patched(module, name, wrap):
+    """``module.name`` replaced by ``wrap(original)`` for the block."""
+    real = getattr(module, name)
+    setattr(module, name, wrap(real))
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def _plain_route(real):
+    return lambda q, scale: (False, real(q, scale)[1])
+
+
+def _zero_dk(real):
+    def faulted(*args):
+        dk, dv = real(*args)
+        return dk.zero_(), dv
+    return faulted
+
+
+def _apart(wp, wu):
+    """(largest |diff| / max(1, max|w|) per tensor, its tensor, norm of
+    the whole difference over the weights' norm)."""
+    graft = {n: float(np.abs(wp[n] - wu[n]).max()) /
+             max(1.0, float(np.abs(wu[n]).max())) for n in wp}
+    worst = max(graft, key=graft.get)
+    norm = float(np.sqrt(sum(float(np.sum((wp[n] - wu[n]) ** 2))
+                             for n in wp)) /
+                 np.sqrt(sum(float(np.sum(wu[n] ** 2)) for n in wp)))
+    return graft[worst], worst, norm
+
+
+def parity_phase(torch, fluid, T, exe, packed, unpacked, init, batches):
+    """From one startup scope copied twice, PARITY_STEPS steps packed
+    (the flash kernels) and unpacked (composed matmul/softmax, no
+    kernel). The two forms differ only in rounding, but a ReLU input
+    within rounding of 0 switches a unit on in one form and off in the
+    other, which moves that unit's gradient column by one token's share.
+    SGD carries such a difference into the weights at its size, so the
+    SGD run is held to the reference's multi-step bound: 2e-4 of
+    max(1, max|w|) per tensor (__graft_entry__.py:154). Adam divides
+    every update by its gradient's own magnitude, so a weight whose
+    gradient is within rounding of zero can step +lr in one form and -lr
+    in the other: the Adam run is held in losses (rtol 1e-4) and in the
+    norm of the whole weight difference over the weights' norm
+    (ADAM_NORM_TOL), the per-tensor figure printed. Two controls at the
+    same width place that limit: the packed form with its attention
+    routed to the plain version (the two forms' own rounding noise, no
+    kernel), and the packed form with the dK/dV kernel's dK zeroed (a
+    wrong backward), which must land above the limit."""
+    sgd = (_lm_program(fluid, T, True, "sgd"),
+           _lm_program(fluid, T, False, "sgd"))
+    scope = fluid.Scope()
+    exe.run(sgd[0][1], scope=scope)
+    sgd_init = {n: scope.get_numpy(n) for n in scope.local_var_names()
+                if scope.find_var(n) is not None}
+
+    def run(prog, start):
+        losses, _, sc = _train(torch, fluid, exe, prog, start, batches,
+                               PARITY_STEPS)
+        return losses, {n: sc.get_numpy(n) for n in start}
+
+    for opt, progs, start in (("sgd", sgd, sgd_init),
+                              ("adam", (packed, unpacked), init)):
+        (lp, wp), (lu, wu) = run(progs[0], start), run(progs[1], start)
+        for i, (a, b) in enumerate(zip(lp, lu)):
+            check(abs(a - b) <= 1e-4 * abs(b), "%s step %d loss packed %r "
+                  "vs unpacked %r", opt, i + 1, a, b)
+        graft, worst, norm = _apart(wp, wu)
+        if opt == "sgd":
+            check(graft <= 2e-4, "sgd weights diverge after %d steps: %s "
+                  "%g", PARITY_STEPS, worst, graft)
+        else:
+            check(norm <= ADAM_NORM_TOL, "adam weights diverge after %d "
+                  "steps: relative norm %g", PARITY_STEPS, norm)
+        log("train parity (%s, %d steps): losses packed %s vs unpacked %s; "
+            "weights: largest |diff| / max(1, max|w|) %.3g (%s), relative "
+            "norm of the whole difference %.3g", opt, PARITY_STEPS,
+            ["%.6f" % x for x in lp], ["%.6f" % x for x in lu], graft,
+            worst, norm)
+    from paddle_tpu_torch.ops import flash_attention as F
+    controls = {}
+    for name, attr, wrap in (("plain attention", "_route", _plain_route),
+                             ("dK zeroed", "_bwd_dkv_cuda", _zero_dk)):
+        with _patched(F, attr, wrap):
+            lc, wc = run(packed, init)
+        graft, worst, norm = _apart(wc, wu)
+        controls[name] = norm
+        log("train parity control (adam, packed with %s vs unpacked): "
+            "losses %s; largest |diff| / max(1, max|w|) %.3g (%s), relative "
+            "norm %.3g (limit %g)", name, ["%.6f" % x for x in lc], graft,
+            worst, norm, ADAM_NORM_TOL)
+    check(controls["dK zeroed"] > ADAM_NORM_TOL, "the Adam parity limit "
+          "%g does not catch a zeroed dK (relative norm %g)", ADAM_NORM_TOL,
+          controls["dK zeroed"])
+
+
+def train_profile(torch, fluid, exe, prog, init, batches):
+    """A separate traced pass of 3 packed training steps (after one warm
+    step): device busy share of the wall time and the kernels that take
+    the most of it."""
+    from torch.profiler import ProfilerActivity, profile
+    main, _, avg_cost = prog
+    scope = fluid.Scope()
+    fluid.load_numpy_state(scope, init, exe.device)
+    exe.run(main, feed=batches[0], fetch_list=[avg_cost], scope=scope)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(3):
+            exe.run(main, feed=batches[i % 2], fetch_list=[avg_cost],
+                    scope=scope)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _report_profile(prof, wall, "train profile (traced, 3 steps)")
+
+
+def _report_profile(prof, wall, title):
     rows = []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0.0))
         if dev_us > 0:
             rows.append((dev_us, ev.count, ev.key))
-    busy_s = sum(r[0] for r in rows) / 1e6
     if not rows:
-        log("profile: the profiler reported no device time (not measured)")
+        log("%s: the profiler reported no device time (not measured)",
+            title)
         return
-    log("profile (traced, 32 requests, %d dispatches): wall %.3f s, device "
-        "busy %.3f s = %.1f%% (idle %.1f%%)", steps, wall, busy_s,
-        100 * busy_s / wall, 100 - 100 * busy_s / wall)
-    for dev_us, count, key in sorted(rows, reverse=True)[:8]:
+    busy_s = sum(r[0] for r in rows) / 1e6
+    log("%s: wall %.3f s, device busy %.3f s = %.1f%% (idle %.1f%%)",
+        title, wall, busy_s, 100 * busy_s / wall, 100 - 100 * busy_s / wall)
+    for dev_us, count, key in sorted(rows, reverse=True)[:10]:
         log("  %6.1f%% of device time  %8.3f ms  x%-6d %s",
             100 * dev_us / 1e6 / busy_s, dev_us / 1e3, count, key[:70])
 
@@ -366,15 +815,26 @@ def main():
         max_err = kernel_phase(torch)
         times = timing_phase(torch)
         launches = slice_phase(torch)
+        flash_err = flash_kernel_phase(torch)
+        flash_times = flash_timing_phase(torch)
+        flash_launches = train_phase(torch)
     except SmokeFailure as e:
         print("chip_smoke: FAILED: %s" % e, file=sys.stderr)
         return 1
-    kernel = {"name": "paged_attention", "route": "cuda",
-              "source": "paddle_tpu_torch/ops/csrc/paged_attention.cu",
-              "replaces": "paddle_tpu/ops/paged_attention.py:185",
-              "launches": launches, "max_abs_err": max_err}
-    kernel.update(times)
-    print(json.dumps({"kernels": [kernel]}))
+    flash_src = "paddle_tpu_torch/ops/csrc/flash_attention.cu"
+    kernels = [dict({
+        "name": "paged_attention", "route": "cuda",
+        "source": "paddle_tpu_torch/ops/csrc/paged_attention.cu",
+        "replaces": "paddle_tpu/ops/paged_attention.py:185",
+        "launches": launches, "max_abs_err": max_err}, **times)]
+    for name, line in (("flash_fwd", 68), ("flash_bwd_dq", 163),
+                       ("flash_bwd_dkv", 202)):
+        kernels.append(dict({
+            "name": name, "route": "cuda", "source": flash_src,
+            "replaces": "paddle_tpu/ops/flash_attention.py:%d" % line,
+            "launches": flash_launches[name],
+            "max_abs_err": flash_err[name]}, **flash_times[name]))
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,27 +3,33 @@
 The package mirrors ``paddle_tpu``'s layout and names so each module's
 counterpart is easy to find; it imports ``torch`` and never ``jax`` or
 ``paddle_tpu``. Entry points run on the CUDA card unless the caller
-passes ``device="cpu"``.
+passes ``device="cpu"`` (or ``CPUPlace()``), and raise without a card.
 
-Ported so far (the serving slice): ``serving.Engine`` over
-``models.transformer_infer.TransformerLMInfer`` with the paged KV pool,
-the radix prefix cache and the hand-written CUDA paged-attention kernel
-(``ops/csrc/paged_attention.cu``).
+Ported so far:
+
+  * serving: ``serving.Engine`` over
+    ``models.transformer_infer.TransformerLMInfer`` with the paged KV
+    pool, the radix prefix cache and the hand-written CUDA
+    paged-attention kernel (``ops/csrc/paged_attention.cu``);
+  * training: the Fluid front half as far as the flagship LM's training
+    step needs it — ``Program``/``layers``/``Executor``/
+    ``append_backward``/``optimizer.SGD``/``optimizer.Adam`` — with
+    ``sp_attention`` on the hand-written CUDA flash-attention forward and
+    backward kernels (``ops/csrc/flash_attention.cu``).
+
+Used as ``import paddle_tpu_torch as fluid``, as scripts use
+``paddle_tpu``.
 """
 
-import torch
-
-__all__ = ["resolve_device"]
-
-
-def resolve_device(device=None):
-    """The ``torch.device`` an entry point runs on: ``cuda`` when
-    ``device`` is None. Raises when a CUDA device is asked for (or
-    defaulted to) and none is present — the port never falls back to
-    the CPU on its own."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "port's plain PyTorch path on the CPU")
-    return dev
+from .core.places import resolve_device  # noqa: F401
+from . import ops  # noqa: F401  (registers the lowerings)
+from . import layers  # noqa: F401
+from . import initializer  # noqa: F401
+from . import optimizer  # noqa: F401
+from .core import (  # noqa: F401
+    CPUPlace, CUDAPlace, Executor, Program, Scope, TPUPlace,
+    append_backward, default_main_program, default_startup_program,
+    global_scope, load_numpy_state, program_guard, scope_guard,
+    unique_name,
+)
+from .param_attr import ParamAttr  # noqa: F401

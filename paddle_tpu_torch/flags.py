@@ -1,11 +1,12 @@
-"""Flag registry of the PyTorch port (the serving knobs its engine reads).
+"""Flag registry of the PyTorch port.
 
 Same mechanics and environment names as ``paddle_tpu/flags.py``: every
 flag is registered once with type, default and help; its value comes
 from the ``PADDLE_TPU_<NAME>`` environment variable (gflags booleans:
 0/false/off/no = off) or from ``set_flag``. One environment therefore
-configures both packages. Only the ``serving_*`` flags the port's
-engine reads are registered here.
+configures both packages. Registered here: the ``serving_*`` flags the
+port's engine reads, and the Executor switches of features not ported
+yet, so that setting one fails loudly instead of being ignored.
 """
 
 import os
@@ -79,6 +80,15 @@ _register("serving_prefix_cache", bool, True,
 _register("serving_speculative", bool, False,
           "speculative decode. Not ported yet; 1 raises (see "
           "ROADMAP.md)")
+_register("check_nan_inf", bool, False,
+          "per-op NaN/Inf guards in the Executor. Not ported yet; 1 "
+          "makes Executor.run raise (see ROADMAP.md)")
+_register("transform", bool, False,
+          "run the program-transform pass pipeline before execution. "
+          "Not ported yet; 1 makes Executor.run raise (see ROADMAP.md)")
+_register("monitor", bool, False,
+          "runtime telemetry (metrics, flight recorder). Not ported "
+          "yet; 1 makes Executor.run raise (see ROADMAP.md)")
 
 
 def get_flag(name):

@@ -1,0 +1,11 @@
+"""Op lowerings and kernels of the port. Importing the package registers
+every lowering (as ``paddle_tpu/ops/__init__.py`` does)."""
+
+from . import activations  # noqa: F401
+from . import elementwise  # noqa: F401
+from . import loss  # noqa: F401
+from . import math  # noqa: F401
+from . import nn  # noqa: F401
+from . import optimizer_ops  # noqa: F401
+from . import parallel_ops  # noqa: F401
+from . import tensor_ops  # noqa: F401

@@ -4,7 +4,8 @@ Each kernel source under ``ops/csrc/`` is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into a shared library with a plain C interface,
 loaded with ``ctypes``. Libraries go to ``build/paddle_tpu_torch/`` at
 the repository root, named by a hash of the source and the flags, so a
-changed source rebuilds and an unchanged one loads at once. A missing
+changed source rebuilds and an unchanged one loads at once. ``load_all``
+builds several sources at once, one ``nvcc`` process each. A missing
 ``nvcc`` or a failed build raises: there is no fallback.
 """
 
@@ -15,7 +16,7 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["load", "build_log", "nvcc_path"]
+__all__ = ["load", "load_all", "build_log", "nvcc_path"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "ops", "csrc")
@@ -48,30 +49,51 @@ def nvcc_path():
         "/usr/local/cuda/bin); the port's CUDA kernels cannot be built")
 
 
-def load(name):
-    """The loaded ``ctypes.CDLL`` of kernel ``name`` (source
-    ``ops/csrc/<name>.cu``), building it first when needed."""
+def _target(name):
+    """(source path, library path) of kernel ``name``."""
+    src = os.path.join(_CSRC, name + ".cu")
+    with open(src, "rb") as f:
+        text = f.read()
+    digest = hashlib.sha256(
+        text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return src, os.path.join(BUILD_DIR, "%s_%s.so" % (name, digest))
+
+
+def load_all(names):
+    """The loaded ``ctypes.CDLL`` of each kernel in ``names`` (sources
+    ``ops/csrc/<name>.cu``). Libraries not built yet are compiled first,
+    all ``nvcc`` processes started together and every one waited for."""
     with _lock:
-        lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        src = os.path.join(_CSRC, name + ".cu")
-        with open(src, "rb") as f:
-            text = f.read()
-        digest = hashlib.sha256(
-            text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so = os.path.join(BUILD_DIR, "%s_%s.so" % (name, digest))
-        if not os.path.exists(so):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = "%s.%d.tmp" % (so, os.getpid())
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            build_log[name] = proc.stdout + proc.stderr
+        jobs = []
+        for name in names:
+            if name in _libs:
+                continue
+            src, so = _target(name)
+            if not os.path.exists(so):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                tmp = "%s.%d.tmp" % (so, os.getpid())
+                proc = subprocess.Popen(
+                    [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)
+                jobs.append((name, src, so, tmp, proc))
+        failed = []
+        for name, src, so, tmp, proc in jobs:
+            build_log[name] = proc.communicate()[0]
             if proc.returncode != 0:
-                raise RuntimeError(
-                    "nvcc failed building %s (exit %d):\n%s"
-                    % (src, proc.returncode, build_log[name]))
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
-        _libs[name] = lib
-        return lib
+                failed.append("nvcc failed building %s (exit %d):\n%s"
+                              % (src, proc.returncode, build_log[name]))
+            else:
+                os.replace(tmp, so)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for name in names:
+            if name not in _libs:
+                _libs[name] = ctypes.CDLL(_target(name)[1])
+        return [_libs[name] for name in names]
+
+
+def load(name):
+    """The loaded ``ctypes.CDLL`` of kernel ``name``, building it first
+    when needed."""
+    return load_all([name])[0]

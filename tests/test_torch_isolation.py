@@ -47,8 +47,10 @@ def _imports(path):
 def test_scan_covers_the_port():
     srcs = _sources()
     assert os.path.join(ROOT, "chip_smoke.py") in srcs
-    assert any(p.endswith(os.path.join("serving", "engine.py"))
-               for p in srcs)
+    for tail in (("serving", "engine.py"), ("core", "executor.py"),
+                 ("ops", "flash_attention.py"),
+                 ("models", "transformer.py")):
+        assert any(p.endswith(os.path.join(*tail)) for p in srcs), tail
 
 
 @pytest.mark.parametrize("module, banned", [
@@ -69,7 +71,8 @@ def test_no_banned_imports():
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, paddle_tpu_torch.serving, "
-            "paddle_tpu_torch.models.transformer_infer; "
+            "paddle_tpu_torch.models.transformer_infer, "
+            "paddle_tpu_torch.models.transformer; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -15,7 +15,13 @@ Ported so far:
     step needs it — ``Program``/``layers``/``Executor``/
     ``append_backward``/``optimizer.SGD``/``optimizer.Adam`` — with
     ``sp_attention`` on the hand-written CUDA flash-attention forward and
-    backward kernels (``ops/csrc/flash_attention.cu``).
+    backward kernels (``ops/csrc/flash_attention.cu``);
+  * vision training: ``models.resnet`` (ResNet-CIFAR and ResNet-ImageNet)
+    through ``conv2d``/``pool2d``/``batch_norm``/``cross_entropy``/
+    ``accuracy`` and ``optimizer.Momentum``; with the flag
+    ``fuse_conv_bn`` on, each 1x1 convolution feeding a train-mode batch
+    norm runs on the hand-written CUDA matmul + column-statistics kernel
+    (``ops/csrc/matmul_stats.cu``).
 
 Used as ``import paddle_tpu_torch as fluid``, as scripts use
 ``paddle_tpu``.

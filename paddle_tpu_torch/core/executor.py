@@ -111,7 +111,17 @@ class Executor:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(program.random_seed * 1000003 + self._rng_counter)
         self._rng_counter += 1
-        fetches, new_state = step(state, feeds, gen)
+        # cuDNN runs float32 convolutions in TF32 unless told otherwise;
+        # the port holds them to float32, as the JAX package computes
+        # them. The convolutions' backward runs inside the step too (in
+        # torch.autograd.grad), so the setting covers the whole step and
+        # is restored after it.
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            fetches, new_state = step(state, feeds, gen)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
         for n, v in new_state.items():
             scope.set(n, v)
         if return_numpy:

@@ -5,8 +5,9 @@ flag is registered once with type, default and help; its value comes
 from the ``PADDLE_TPU_<NAME>`` environment variable (gflags booleans:
 0/false/off/no = off) or from ``set_flag``. One environment therefore
 configures both packages. Registered here: the ``serving_*`` flags the
-port's engine reads, and the Executor switches of features not ported
-yet, so that setting one fails loudly instead of being ignored.
+port's engine reads, ``fuse_conv_bn`` (the conv lowering's), and the
+Executor switches of features not ported yet, so that setting one fails
+loudly instead of being ignored.
 """
 
 import os
@@ -80,6 +81,13 @@ _register("serving_prefix_cache", bool, True,
 _register("serving_speculative", bool, False,
           "speculative decode. Not ported yet; 1 raises (see "
           "ROADMAP.md)")
+_register("fuse_conv_bn", bool, False,
+          "fuse 1x1-conv + train-BN batch stats: a 1x1 convolution whose "
+          "output feeds a train-mode batch_norm runs as one matmul whose "
+          "epilogue also sums the shifted per-channel statistics BN needs "
+          "(ops/matmul_stats.py: the CUDA kernel on the card, its plain "
+          "PyTorch version on the CPU), so BN skips its own pass over "
+          "the conv output. Default off, as in the JAX package")
 _register("check_nan_inf", bool, False,
           "per-op NaN/Inf guards in the Executor. Not ported yet; 1 "
           "makes Executor.run raise (see ROADMAP.md)")

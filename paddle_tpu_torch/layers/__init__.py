@@ -1,12 +1,13 @@
 """fluid.layers-compatible DSL surface: the layers whose ops the port
-lowers. The others (conv, sequence, RNN, control flow, recompute, ...)
-come with their lowerings (ROADMAP.md, queue 1)."""
+lowers. The others (the other convs and pools, sequence, RNN, control
+flow, recompute, ...) come with their lowerings (ROADMAP.md, queue 1)."""
 
+from .conv_layers import conv2d, pool2d  # noqa: F401
 from .io_ops import data  # noqa: F401
 from .math_ops import scale  # noqa: F401
 from .nn import (  # noqa: F401
-    embedding, fc, layer_norm, matmul, reduce_sum, softmax,
-    softmax_with_cross_entropy,
+    accuracy, batch_norm, cross_entropy, embedding, fc, layer_norm,
+    matmul, mean, reduce_sum, softmax, softmax_with_cross_entropy, topk,
 )
 from .ops import (  # noqa: F401
     elementwise_add, elementwise_div, elementwise_mul, relu,

@@ -1,8 +1,9 @@
 """Neural-network layers.
 
 The counterpart of ``paddle_tpu/layers/nn.py``, holding the layers whose
-ops the port lowers (the flagship LM's): fc, embedding, softmax,
-softmax_with_cross_entropy, layer_norm, matmul and reduce_sum. Each
+ops the port lowers (the flagship LM's and the ResNet models'): fc,
+embedding, softmax, cross_entropy, softmax_with_cross_entropy, mean,
+accuracy, batch_norm, layer_norm, matmul, topk and reduce_sum. Each
 builds ops through LayerHelper exactly as the JAX package's does, so the
 two packages emit the same Program. The rest of the JAX package's layers
 come with their lowerings (ROADMAP.md, queue 1 item 7).
@@ -80,6 +81,18 @@ def softmax(input, use_cudnn=True, name=None):
     return out
 
 
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper("cross_entropy")
+    shape = tuple(input.shape[:-1]) + (1,) if input.shape else None
+    out = helper.create_variable_for_type_inference(input.dtype, shape=shape)
+    helper.append_op(type="cross_entropy",
+                     inputs={"X": [input], "Label": [label]},
+                     outputs={"Y": [out]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index})
+    return out
+
+
 def softmax_with_cross_entropy(logits, label, soft_label=False,
                                return_softmax=False):
     helper = LayerHelper("softmax_with_cross_entropy")
@@ -95,6 +108,83 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     if return_softmax:
         return loss, sm
     return loss
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, shape=())
+    helper.append_op(type="mean", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def accuracy(input, label, k=1, correct=None, total=None):
+    helper = LayerHelper("accuracy")
+    topk_out = helper.create_variable_for_type_inference(
+        input.dtype, shape=tuple(input.shape[:-1]) + (k,))
+    topk_idx = helper.create_variable_for_type_inference(
+        "int64", shape=tuple(input.shape[:-1]) + (k,))
+    helper.append_op(type="top_k", inputs={"X": [input]},
+                     outputs={"Out": [topk_out], "Indices": [topk_idx]},
+                     attrs={"k": k})
+    acc_out = helper.create_variable_for_type_inference("float32", shape=(1,))
+    correct = correct or helper.create_variable_for_type_inference(
+        "int64", shape=(1,))
+    total = total or helper.create_variable_for_type_inference(
+        "int64", shape=(1,))
+    helper.append_op(type="accuracy",
+                     inputs={"Out": [topk_out], "Indices": [topk_idx],
+                             "Label": [label]},
+                     outputs={"Accuracy": [acc_out], "Correct": [correct],
+                              "Total": [total]})
+    return acc_out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None, do_model_average_for_mean_and_var=False):
+    from ..initializer import ConstantInitializer
+    helper = LayerHelper("batch_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    ch = (input.shape[1] if data_layout == "NCHW" and len(input.shape) > 1
+          else input.shape[-1])
+    pshape = [ch]
+    scale = helper.create_parameter(
+        helper.param_attr, shape=pshape, dtype=dtype,
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(helper.bias_attr, shape=pshape,
+                                   dtype=dtype, is_bias=True)
+    mean = helper.create_parameter(
+        _nt_attr(moving_mean_name), shape=pshape, dtype=dtype,
+        default_initializer=ConstantInitializer(0.0))
+    mean.stop_gradient = True
+    variance = helper.create_parameter(
+        _nt_attr(moving_variance_name), shape=pshape, dtype=dtype,
+        default_initializer=ConstantInitializer(1.0))
+    variance.stop_gradient = True
+
+    saved_mean = helper.create_variable_for_type_inference(
+        dtype, shape=pshape, stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(
+        dtype, shape=pshape, stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype, shape=input.shape)
+
+    helper.append_op(
+        type="batch_norm",
+        inputs={"X": [input], "Scale": [scale], "Bias": [bias],
+                "Mean": [mean], "Variance": [variance]},
+        outputs={"Y": [out], "MeanOut": [mean], "VarianceOut": [variance],
+                 "SavedMean": [saved_mean], "SavedVariance": [saved_var]},
+        attrs={"momentum": momentum, "epsilon": epsilon,
+               "is_test": is_test, "data_layout": data_layout})
+    return helper.append_activation(out)
+
+
+def _nt_attr(name):
+    from ..param_attr import ParamAttr
+    a = ParamAttr(name=name, trainable=False)
+    return a
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
@@ -142,6 +232,18 @@ def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
                      attrs={"transpose_X": transpose_x,
                             "transpose_Y": transpose_y, "alpha": alpha})
     return out
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", name=name)
+    shape = tuple(input.shape[:-1]) + (k,) if input.shape else None
+    values = helper.create_variable_for_type_inference(input.dtype,
+                                                       shape=shape)
+    indices = helper.create_variable_for_type_inference("int64", shape=shape)
+    helper.append_op(type="top_k", inputs={"X": [input]},
+                     outputs={"Out": [values], "Indices": [indices]},
+                     attrs={"k": k})
+    return values, indices
 
 
 def reduce_op_layer(op_type):

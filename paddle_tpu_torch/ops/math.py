@@ -1,9 +1,10 @@
-"""Core math ops: mul, matmul, scale, reduce_sum.
+"""Core math ops: mul, matmul, mean, scale, reduce_sum, top_k.
 
 The counterpart of ``paddle_tpu/ops/math.py`` for the types the flagship
-LM uses. The products are plain ``torch.matmul`` (cuBLAS on the card), as
-the JAX package leaves them to XLA; fp32 stays fp32 as long as TF32 is
-off (``torch.backends.cuda.matmul.allow_tf32``, False by default).
+LM and the ResNet models use. The products are plain ``torch.matmul``
+(cuBLAS on the card), as the JAX package leaves them to XLA; fp32 stays
+fp32 as long as TF32 is off (``torch.backends.cuda.matmul.allow_tf32``,
+False by default).
 """
 
 import functools
@@ -11,6 +12,7 @@ import functools
 import torch
 
 from ..core.registry import register
+from ..core.scope import torch_dtype
 
 
 def _flatten2d(x, num_col_dims):
@@ -50,6 +52,13 @@ def _matmul(ctx, op):
     ctx.set_out(op, "Out", out)
 
 
+@register("mean")
+def _mean(ctx, op):
+    """Mean over every element (LoD feeds, whose padded rows the JAX
+    package masks out here, raise in the Executor)."""
+    ctx.set_out(op, "Out", torch.mean(ctx.in1(op, "X")))
+
+
 @register("scale")
 def _scale(ctx, op):
     x = ctx.in1(op, "X")
@@ -74,3 +83,12 @@ def _reduce_sum(ctx, op):
         axes = tuple(d % x.dim() for d in dim)
     ctx.set_out(op, "Out", torch.sum(x, dim=axes,
                                      keepdim=op.attr("keep_dim", False)))
+
+
+@register("top_k")
+def _top_k(ctx, op):
+    """The k largest along the last axis, largest first; indices narrowed
+    to int32 as the port holds int64 (``torch_dtype``)."""
+    vals, idx = torch.topk(ctx.in1(op, "X"), op.attr("k", 1), dim=-1)
+    ctx.set_out(op, "Out", vals)
+    ctx.set_out(op, "Indices", idx.to(torch_dtype("int64")))

@@ -1,4 +1,4 @@
-"""Optimizer ops: sgd, adam (dense gradients).
+"""Optimizer ops: sgd, momentum, adam (dense gradients).
 
 The counterpart of ``paddle_tpu/ops/optimizer_ops.py:40-130``. Each op
 writes the updated value back into the env under the *input* var's name
@@ -28,6 +28,24 @@ def _sgd(ctx, op):
     g = ctx.in1(op, "Grad")
     lr = ctx.in1(op, "LearningRate")
     _upd(ctx, op, "Param", "ParamOut", p - lr * g)
+
+
+@register("momentum")
+def _momentum(ctx, op):
+    """v = mu v + g; p -= lr v, or with ``use_nesterov``
+    p -= (g + mu v) lr."""
+    p = ctx.in1(op, "Param")
+    g = ctx.in1(op, "Grad")
+    v = ctx.in1(op, "Velocity")
+    lr = ctx.in1(op, "LearningRate")
+    mu = op.attr("mu", 0.9)
+    v_new = mu * v + g
+    if op.attr("use_nesterov", False):
+        p_new = p - (g + mu * v_new) * lr
+    else:
+        p_new = p - lr * v_new
+    _upd(ctx, op, "Velocity", "VelocityOut", v_new)
+    _upd(ctx, op, "Param", "ParamOut", p_new)
 
 
 @register("adam")

@@ -2,10 +2,11 @@
 
 The counterpart of ``paddle_tpu/optimizer.py``: the base class creates a
 learning-rate variable and per-parameter accumulators, and ``minimize``
-= append_backward + (regularize, clip) + per-param optimize ops. SGD and
-Adam run in the port (ops/optimizer_ops.py); the other classes build the
-same Programs as in the JAX package, whose optimize ops are not lowered
-yet (ROADMAP.md, queue 1 item 3).
+= append_backward + (regularize, clip) + per-param optimize ops. SGD,
+Momentum (with or without Nesterov) and Adam run in the port
+(ops/optimizer_ops.py); the other classes build the same Programs as in
+the JAX package, whose optimize ops are not lowered yet (ROADMAP.md,
+queue 1 item 3).
 """
 
 from .core import unique_name

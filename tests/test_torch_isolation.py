@@ -49,7 +49,8 @@ def test_scan_covers_the_port():
     assert os.path.join(ROOT, "chip_smoke.py") in srcs
     for tail in (("serving", "engine.py"), ("core", "executor.py"),
                  ("ops", "flash_attention.py"),
-                 ("models", "transformer.py")):
+                 ("ops", "matmul_stats.py"), ("ops", "conv.py"),
+                 ("models", "transformer.py"), ("models", "resnet.py")):
         assert any(p.endswith(os.path.join(*tail)) for p in srcs), tail
 
 
@@ -72,7 +73,8 @@ def test_no_banned_imports():
 def test_import_leaves_jax_unloaded():
     code = ("import sys, paddle_tpu_torch.serving, "
             "paddle_tpu_torch.models.transformer_infer, "
-            "paddle_tpu_torch.models.transformer; "
+            "paddle_tpu_torch.models.transformer, "
+            "paddle_tpu_torch.models.resnet; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -28,18 +28,27 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
      count is reset just before and read just after; tokens must equal
      the gather path's and, for 4 requests, ``sequential_generate``'s;
   5. flash  — the three CUDA flash-attention kernels (forward: O and
-     LSE; dQ; dK/dV, with a nonzero dLSE cotangent) held against the
-     plain PyTorch version (``_dense_lse`` and its autograd) on causal
-     and non-causal T in {128, 256, 200, 1024}, D in {64, 128}, B*H in
-     {1, 16}, and the training shape (B=32, H=8, T=256, D=64, causal):
-     fp32 at rtol 1e-4 / atol 1e-5, bf16 at rtol 2^-7 / atol 1e-2 per
-     element (bf16 keeps 8 bits: outputs round at 2^-9 relative in both
-     versions, and the kernel's delta reads the rounded O); gradients
-     are compared with atol scaled by their largest value.
+     LSE; dQ, which also writes delta; dK/dV, with a nonzero dLSE
+     cotangent) held against the plain PyTorch version (``_dense_lse``
+     and its autograd) on causal and non-causal T in {128, 256, 200,
+     1024}, D in {64, 128}, B*H in {1, 16}; T in {200, 256} at D 8 and
+     256 (the contract's ends); and the training shape (B=32, H=8,
+     T=256, D=64, causal): fp32 at rtol 1e-4 / atol 1e-5, bf16 (D up to
+     256) at rtol 2^-7 / atol 1e-2 per element (bf16 keeps 8 bits:
+     outputs round at 2^-9 relative in both versions, and the kernel's
+     delta reads the rounded O); gradients are compared with atol scaled
+     by their largest value. ptxas must report no spills in the backward
+     kernels; two backwards on the same inputs must be bitwise equal; the
+     delta the dQ kernel wrote must agree with ``_delta``.
      Then timed at the training shape (B=32, H=8, T=256, D=64, causal,
      fp32) against the plain version, scaled_dot_product_attention
-     forward and backward (a yardstick the port never calls) and the
-     card's fp32 arithmetic bound;
+     forward and backward (a yardstick the port never calls; its
+     backward's kernels are named from a traced pass) and the card's
+     bound: fp32 arithmetic for the forward, the larger of TF32
+     tensor-core arithmetic and bytes for the backward kernels; the
+     kernel route's whole backward through autograd beside the library's
+     and the plain version's, as device time alone (a sleep kernel hides
+     the host's enqueue) and with the host's gaps;
   6. train  — ``transformer_lm(packed=True)`` at its own widths with
      ``Adam(1e-3)``, started on the card (``Executor(CUDAPlace(0))``),
      10 steps over a fixed set of batch-32 batches
@@ -102,6 +111,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOPS = 67e12                 # H100 SXM fp32, outside tensor cores
+TF32_FLOPS = 495e12                # H100 SXM TF32 tensor cores, dense
 RTOL, ATOL = 1e-4, 1e-5
 
 # the flagship transformer_lm defaults (models/transformer.py)
@@ -154,6 +164,28 @@ def _kernel_name(line):
     return "%s<%s>" % (m.group(1), args)
 
 
+def _ptxas_report(text):
+    """{kernel<args>: (registers, spill store bytes, spill load bytes)}
+    from nvcc's -Xptxas -v output."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        if "Compiling entry" in line:
+            cur = _kernel_name(line)
+            out[cur] = [0, 0, 0]
+        elif cur is None:
+            continue
+        elif "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                out[cur][1:] = [int(m.group(1)), int(m.group(2))]
+        elif "Used" in line and "registers" in line:
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[cur][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def build_phase():
     from paddle_tpu_torch.ops import _build
     names = ("paged_attention", "flash_attention", "matmul_stats")
@@ -161,12 +193,19 @@ def build_phase():
     _build.load_all(names)
     log("build: %s in %.2f s (one nvcc each, in parallel)",
         ", ".join(n + ".cu" for n in names), time.perf_counter() - t0)
+    bwd = {}
     for name in names:
-        for line in _build.build_log.get(name, "").splitlines():
-            if "Compiling entry" in line:
-                log("  ptxas %s: %s", name, _kernel_name(line))
-            elif "registers" in line or "spill" in line:
-                log("  ptxas %s:   %s", name, line.strip())
+        report = _ptxas_report(_build.build_log.get(name, ""))
+        for kernel, (regs, st, ld) in sorted(report.items()):
+            log("  ptxas %s: %-36s %3d registers, spill stores %d bytes, "
+                "spill loads %d bytes", name, kernel, regs, st, ld)
+            if kernel.startswith("flash_bwd"):
+                bwd[kernel] = st, ld
+    check(len(bwd) == 12, "ptxas reported %d backward flash kernels, "
+          "expected 12 (2 kernels x 2 dtypes x 3 widths)", len(bwd))
+    spilled = [k for k, (st, ld) in bwd.items() if st or ld]
+    check(not spilled, "ptxas spills in the backward flash kernels: %s",
+          spilled)
 
 
 # -- phase 3 -------------------------------------------------------------
@@ -409,11 +448,16 @@ def profile_phase(torch, model, reqs):
 
 # -- phase 5 -------------------------------------------------------------
 BF16_ATOL, BF16_RTOL = 1e-2, 2.0 ** -7
-# (causal, T, D, B, H); the last is the training path's own shape
+# (causal, T, D, B, H); then the contract's narrowest and widest D; the
+# last is the training path's own shape
 FLASH_CASES = [(causal, t, d, 1, h) for causal in (False, True)
                for t in (128, 256, 200, 1024) for d in (64, 128)
-               for h in (1, 16)] + [(True, MAX_LEN, D_MODEL // N_HEAD, 32,
-                                     N_HEAD)]
+               for h in (1, 16)] + \
+    [(causal, t, d, 1, 16) for causal in (False, True) for t in (200, 256)
+     for d in (8, 256)] + [(True, MAX_LEN, D_MODEL // N_HEAD, 32, N_HEAD)]
+FLASH_BF16_CASES = [(causal, t, d, 1, 16) for causal in (False, True)
+                    for t in (128, 200) for d in (64, 128)] + \
+    [(True, 200, 256, 1, 16)]
 
 
 def _flash_case(torch, F, causal, t, d, b, h, dtype, seed):
@@ -456,8 +500,7 @@ def flash_kernel_phase(torch):
     from paddle_tpu_torch.ops import flash_attention as F
     worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     cases = [(c, torch.float32) for c in FLASH_CASES] + \
-        [((causal, t, d, 1, 16), torch.bfloat16) for causal in (False, True)
-         for t in (128, 200) for d in (64, 128)]
+        [(c, torch.bfloat16) for c in FLASH_BF16_CASES]
     for i, ((causal, t, d, b, h), dtype) in enumerate(cases):
         e = _flash_case(torch, F, causal, t, d, b, h, dtype, seed=i)
         log("flash: %-8s causal=%-5s T=%-4d D=%-3d B=%-2d H=%-2d "
@@ -473,13 +516,60 @@ def flash_kernel_phase(torch):
     log("flash: %d cases ok (%d fp32, %d bf16); largest fp32 abs errors %s",
         len(cases), len(FLASH_CASES), len(cases) - len(FLASH_CASES),
         ", ".join("%s %.3g" % kv for kv in worst.items()))
+    flash_backward_checks(torch, F)
     return worst
 
 
-def _events_ms(torch, fn, reps, prep=None):
+def flash_backward_checks(torch, F):
+    """At the training shape (fp32) and the widest bf16 case, with a
+    nonzero dLSE: two backwards on the same inputs give bitwise-equal dQ,
+    dK, dV and delta (no atomics), and the delta the dQ kernel wrote
+    agrees with its plain version ``_delta`` (atol 1e-5 of max|delta|,
+    rtol 1e-4: the two sum the D products in other orders)."""
+    for (causal, t, d, b, h), dtype in (
+            ((True, MAX_LEN, D_MODEL // N_HEAD, 32, N_HEAD), torch.float32),
+            ((True, 200, 256, 1, 16), torch.bfloat16)):
+        g = torch.Generator().manual_seed(7)
+        q, k, v, dout = [torch.randn(b, h, t, d, generator=g).to(
+            "cuda", dtype) for _ in range(4)]
+        dlse = torch.randn(b, h, t, generator=g).to("cuda")
+        scale = d ** -0.5
+        out, lse = F._fwd_cuda(q, k, v, causal, scale)
+        runs = []
+        for _ in range(2):
+            dq, delta = F._bwd_dq_cuda(q, k, v, out, dout, lse, dlse,
+                                        causal, scale)
+            dk, dv = F._bwd_dkv_cuda(q, k, v, dout, lse, delta, causal,
+                                     scale)
+            runs.append((dq, dk, dv, delta))
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(*runs)]
+        check(all(same), "flash backward not bitwise repeatable (%s T=%d "
+              "D=%d): dq, dk, dv, delta equal %s", dtype, t, d, same)
+        ref = F._delta(out, dout, dlse)
+        err = (runs[0][3] - ref).abs()
+        top = float(ref.abs().max())
+        check(not bool((err > ATOL * top + RTOL * ref.abs()).any()),
+              "kernel-written delta disagrees with _delta (%s T=%d D=%d): "
+              "max_abs_err %g of max|delta| %g", dtype, t, d,
+              float(err.max()), top)
+        log("flash backward: %s causal=%s T=%d D=%d B=%d H=%d: two "
+            "backwards bitwise equal (dq, dk, dv, delta); kernel delta vs "
+            "_delta max_abs_err %.3g (max|delta| %.3g)  ok",
+            str(dtype).replace("torch.", ""), causal, t, d, b, h,
+            float(err.max()), top)
+
+
+HIDE_HOST_CYCLES = 4_000_000       # ~2 ms of the card's clock
+
+
+def _events_ms(torch, fn, reps, prep=None, hide_host=False):
     """Mean device ms of ``fn(i)`` over ``reps`` calls, CUDA-event timed
     around each call; ``prep(i)``, when given, runs before each call
-    outside the timed span (to build an autograd graph)."""
+    outside the timed span (to build an autograd graph). With
+    ``hide_host``, a sleep kernel queued before the start event keeps the
+    card busy while the host enqueues the call, so the span is device
+    time alone, without the host's gaps between the call's launches."""
     for i in range(3):
         if prep:
             prep(i)
@@ -489,6 +579,8 @@ def _events_ms(torch, fn, reps, prep=None):
     for i in range(reps):
         if prep:
             prep(i)
+        if hide_host:
+            torch.cuda._sleep(HIDE_HOST_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -512,7 +604,9 @@ def flash_timing_phase(torch):
         q, k, v, dout = [torch.randn(b, h, t, d, generator=g).to("cuda")
                          for _ in range(4)]
         out, lse = F._fwd_cuda(q, k, v, True, scale)
-        sets.append((q, k, v, dout, out, lse, F._delta(out, dout, None)))
+        _, delta = F._bwd_dq_cuda(q, k, v, out, dout, lse, None, True,
+                                  scale)
+        sets.append((q, k, v, dout, out, lse, delta))
     cur = {}
 
     def fwd(i):
@@ -520,8 +614,8 @@ def flash_timing_phase(torch):
         F._fwd_cuda(q, k, v, True, scale)
 
     def dq(i):
-        q, k, v, dout, _, lse, delta = sets[i % 4]
-        F._bwd_dq_cuda(q, k, v, dout, lse, delta, True, scale)
+        q, k, v, dout, out, lse, _ = sets[i % 4]
+        F._bwd_dq_cuda(q, k, v, out, dout, lse, None, True, scale)
 
     def dkv(i):
         q, k, v, dout, _, lse, delta = sets[i % 4]
@@ -546,6 +640,9 @@ def flash_timing_phase(torch):
     def lib(q, k, v):
         return sdpa(q, k, v, is_causal=True, scale=scale)
 
+    def kernels(q, k, v):
+        return F.flash_attention(q, k, v, causal=True, scale=scale)
+
     times = {
         "flash_fwd": _events_ms(torch, fwd, 50),
         "flash_bwd_dq": _events_ms(torch, dq, 50),
@@ -554,8 +651,17 @@ def flash_timing_phase(torch):
     with torch.no_grad():
         plain_fwd = _events_ms(torch, lambda i: plain(*sets[i % 4][:3]), 10)
         lib_fwd = _events_ms(torch, lambda i: lib(*sets[i % 4][:3]), 50)
-    plain_bwd = _events_ms(torch, backward, 10, prep=graph(plain))
-    lib_bwd = _events_ms(torch, backward, 50, prep=graph(lib))
+    # the whole backward through autograd, each route timed the same way:
+    # with the host's gaps (as enqueued) and as device time alone; the
+    # library twice, before and after the kernel route
+    whole = {}
+    for hide in (False, True):
+        for route, fn, reps in (("plain", plain, 10), ("library", lib, 50),
+                                ("kernels", kernels, 50),
+                                ("library again", lib, 50)):
+            whole[route, hide] = _events_ms(torch, backward, reps,
+                                            prep=graph(fn), hide_host=hide)
+    plain_bwd, lib_bwd = whole["plain", True], whole["library", True]
     q, k, v, _, out = sets[0][:5]
     check(torch.allclose(out, lib(q, k, v), rtol=RTOL, atol=ATOL),
           "flash forward disagrees with scaled_dot_product_attention")
@@ -564,14 +670,20 @@ def flash_timing_phase(torch):
     pairs = b * h * t * (t + 1) // 2
     elem = b * h * t * d * 4                # one [B, H, T, D] f32 tensor
     row = b * h * t * 4                     # one [B, H, T] f32 tensor
-    work = {   # (flops, bytes: inputs read once, outputs written once)
-        "flash_fwd": (2 * 2 * pairs * d, 4 * elem + row),
-        "flash_bwd_dq": (3 * 2 * pairs * d, 5 * elem + 2 * row),
-        "flash_bwd_dkv": (4 * 2 * pairs * d, 6 * elem + 2 * row),
+    # (flops, bytes: inputs read once, outputs written once, peak). The
+    # forward's products run on the fp32 FMA units; the backward's on the
+    # TF32 tensor cores (3xTF32: the emulation's 3 MMAs are not counted
+    # as work). dq reads q, k, v, o, do and lse and writes dq and delta;
+    # dkv reads q, k, v, do, lse and delta and writes dk and dv.
+    work = {
+        "flash_fwd": (2 * 2 * pairs * d, 4 * elem + row, FP32_FLOPS),
+        "flash_bwd_dq": (3 * 2 * pairs * d, 6 * elem + 2 * row, TF32_FLOPS),
+        "flash_bwd_dkv": (4 * 2 * pairs * d, 6 * elem + 2 * row,
+                          TF32_FLOPS),
     }
     out = {}
-    for name, (flops, nbytes) in work.items():
-        ops_ms = flops / FP32_FLOPS * 1e3
+    for name, (flops, nbytes, peak) in work.items():
+        ops_ms = flops / peak * 1e3
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         fwd_side = name == "flash_fwd"
         out[name] = {
@@ -581,15 +693,51 @@ def flash_timing_phase(torch):
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
         log("timing %s (B=32 H=8 T=256 D=64 causal fp32): kernel_ms=%.5f "
-            "bound_ms=%.5f (%s: %d flops, %d bytes) plain_ms=%.5f "
-            "library_ms=%.5f%s", name, times[name], out[name]["bound_ms"],
-            out[name]["bound_by"], flops, nbytes, out[name]["plain_ms"],
+            "bound_ms=%.5f (%s; operations %.5f ms at %g TFLOP/s, bytes "
+            "%.5f ms: %d flops, %d bytes; fp32-SIMT operations bound "
+            "%.5f ms) plain_ms=%.5f library_ms=%.5f%s", name, times[name],
+            out[name]["bound_ms"], out[name]["bound_by"], ops_ms,
+            peak / 1e12, bytes_ms, flops, nbytes,
+            flops / FP32_FLOPS * 1e3, out[name]["plain_ms"],
             out[name]["library_ms"], "" if fwd_side else
             " (plain and library: one backward computing dq, dk, dv)")
-    log("timing: flash backward kernel_ms=%.5f (dq + dkv), plain backward "
-        "%.5f, library backward %.5f", times["flash_bwd_dq"]
-        + times["flash_bwd_dkv"], plain_bwd, lib_bwd)
+    for hide, how in ((True, "device time alone"),
+                      (False, "with the host's gaps")):
+        kern = whole["kernels", hide]
+        libs = whole["library", hide], whole["library again", hide]
+        log("timing: whole backward through autograd (B=32 H=8 T=256 D=64 "
+            "causal fp32), %s: kernel route %.5f ms (dq %.5f + dkv %.5f "
+            "timed alone), library (scaled_dot_product_attention) %.5f / "
+            "%.5f ms (before and after), plain %.5f ms; kernel route / "
+            "library %.3f", how, kern, times["flash_bwd_dq"],
+            times["flash_bwd_dkv"], libs[0], libs[1], whole["plain", hide],
+            kern / min(libs))
+    _library_backward_kernels(torch, backward, graph(lib))
     return out
+
+
+def _library_backward_kernels(torch, backward, prep):
+    """Name the kernels of scaled_dot_product_attention's backward (which
+    backend the library yardstick is) from a short traced pass."""
+    from torch.profiler import ProfilerActivity, profile
+    prep(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        backward(0)
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+        if dev_us > 0:
+            rows.append((dev_us, ev.count, ev.key))
+    if not rows:
+        log("library backward kernels: the profiler reported no device "
+            "time (not measured)")
+        return
+    for dev_us, count, key in sorted(rows, reverse=True)[:6]:
+        log("library backward kernel: %8.4f ms x%d  %s", dev_us / 1e3,
+            count, key[:110])
 
 
 # -- phase 6 -------------------------------------------------------------

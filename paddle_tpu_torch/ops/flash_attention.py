@@ -5,9 +5,9 @@ one function:
 
   * the hand-written CUDA kernels (``csrc/flash_attention.cu``, built by
     ``_build``): a forward that writes O and the per-row log-sum-exp, and
-    the two backward kernels (dQ; dK and dV) that recompute P from it.
-    Taken for every CUDA tensor; a tensor they cannot take raises, there
-    is no fallback.
+    the two backward kernels that recompute P from it: dQ, which also
+    computes delta, and dK/dV, which reads it. Taken for every CUDA
+    tensor; a tensor they cannot take raises, there is no fallback.
   * ``_dense_lse`` — plain PyTorch with the JAX package's ``_dense_lse``
     semantics (f32 scores, the -1e30 mask, ``p / l``, LSE = m + log l),
     differentiated by autograd. Taken for CPU tensors; ``chip_smoke.py``
@@ -19,7 +19,9 @@ package's ``_flash`` / ``_flash_lse`` custom-vjp functions. q, k, v are
 [B, H, T, D] (one T for all three), f32 or bf16; out is in q's dtype, lse
 f32 [B, H, T]; ``scale`` defaults to D**-0.5. Both outputs of the lse
 variant are differentiable: dLSE folds into delta = rowsum(dO * O) - dLSE,
-computed here in plain PyTorch as the JAX package computes it in jnp.
+which the dQ kernel computes for its own rows and hands to the dK/dV
+kernel (the JAX package computes it in jnp; ``_delta`` is its plain
+version here).
 
 ``flash_attention.launches`` counts kernel launches per kernel (``fwd``,
 ``bwd_dq``, ``bwd_dkv``); the lse variant shares the same counts.
@@ -59,7 +61,7 @@ def _lib():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         tail = [i, i, i, f, i, i, p]     # bh, t, d, scale, causal, kind,
         lib.ptt_flash_fwd.argtypes = [p] * 5 + tail          # stream
-        lib.ptt_flash_bwd_dq.argtypes = [p] * 7 + tail
+        lib.ptt_flash_bwd_dq.argtypes = [p] * 9 + tail
         lib.ptt_flash_bwd_dkv.argtypes = [p] * 8 + tail
         for fn in (lib.ptt_flash_fwd, lib.ptt_flash_bwd_dq,
                    lib.ptt_flash_bwd_dkv):
@@ -123,29 +125,51 @@ def _fwd_cuda(q, k, v, causal, scale):
 
 
 def _delta(out, dout, dlse):
-    """delta = rowsum(dO * O) - dLSE in f32 [B, H, T] (plain PyTorch)."""
+    """delta = rowsum(dO * O) - dLSE in f32 [B, H, T]: the plain version
+    of what the dQ kernel computes for its rows."""
     delta = (dout.float() * out.float()).sum(dim=-1)
     if dlse is not None:
         delta = delta - dlse.float()
     return delta.contiguous()
 
 
-def _bwd_dq_cuda(q, k, v, dout, lse, delta, causal, scale):
-    _check_inputs(q, k, v, dout)
+def _check_rows(q, *rows):
+    """lse, dlse (when given) and delta: f32 [B, H, T] beside q."""
+    for r in rows:
+        if r is None:
+            continue
+        _check(r.shape == q.shape[:3] and r.dtype == torch.float32,
+               "per-row statistics must be float32 %s, got %s %s",
+               tuple(q.shape[:3]), r.dtype, tuple(r.shape))
+        _check(r.device == q.device and r.is_contiguous(),
+               "per-row statistics must be contiguous on %s", q.device)
+
+
+def _bwd_dq_cuda(q, k, v, out, dout, lse, dlse, causal, scale):
+    """Launch the dQ kernel: (dq in q's dtype, delta f32 [B, H, T]). It
+    computes delta = rowsum(dO * O) - dLSE itself (dlse may be None)."""
+    _check_inputs(q, k, v, out, dout)
+    _check_rows(q, lse, dlse)
     b, h, t, d = q.shape
     dq = torch.empty_like(q)
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.ptt_flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              dout.data_ptr(), lse.data_ptr(),
-                              delta.data_ptr(), dq.data_ptr(), b * h, t, d,
-                              scale, int(causal), _KIND[q.dtype], stream)
+    rc = lib.ptt_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(),
+        None if dlse is None else dlse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), b * h, t, d, scale, int(causal), _KIND[q.dtype],
+        stream)
     _launched(lib, rc, "bwd_dq")
-    return dq
+    return dq, delta
 
 
 def _bwd_dkv_cuda(q, k, v, dout, lse, delta, causal, scale):
+    """Launch the dK/dV kernel: (dk, dv) in q's dtype; delta is the dQ
+    kernel's, on the same stream."""
     _check_inputs(q, k, v, dout)
+    _check_rows(q, lse, delta)
     b, h, t, d = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -161,9 +185,11 @@ def _bwd_dkv_cuda(q, k, v, dout, lse, delta, causal, scale):
 
 
 def _bwd_cuda(q, k, v, out, lse, dout, dlse, causal, scale):
+    """The backward as two launches: dQ (and delta), then dK/dV."""
     dout = dout.contiguous()
-    delta = _delta(out, dout, dlse)
-    dq = _bwd_dq_cuda(q, k, v, dout, lse, delta, causal, scale)
+    if dlse is not None:
+        dlse = dlse.float().contiguous()
+    dq, delta = _bwd_dq_cuda(q, k, v, out, dout, lse, dlse, causal, scale)
     dk, dv = _bwd_dkv_cuda(q, k, v, dout, lse, delta, causal, scale)
     return dq, dk, dv
 

@@ -1,0 +1,1 @@
+"""Development tools of the port that run on the card."""

@@ -10,7 +10,10 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
      switched off for matmuls and cuDNN, so fp32 stays fp32;
   2. build  — ``ops/csrc/paged_attention.cu``,
      ``ops/csrc/flash_attention.cu`` and ``ops/csrc/matmul_stats.cu``
-     compiled for sm_90a, one ``nvcc`` each, started together;
+     compiled for sm_90a, one ``nvcc`` each, started together; ptxas
+     must report no spills in any of the 18 flash instantiations (3
+     kernels x 2 dtypes x 3 widths) or the 6 matmul_stats ones (2 dtypes
+     x 3 tiles);
   3. kernel — the CUDA paged-attention kernel held against its plain
      PyTorch version (``_attend_plain``) at rtol 1e-4 / atol 1e-5 on
      live rows: decode (C=1, S=32), a prefill chunk (C=16, S=1), a
@@ -37,15 +40,16 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
      256) at rtol 2^-7 / atol 1e-2 per element (bf16 keeps 8 bits:
      outputs round at 2^-9 relative in both versions, and the kernel's
      delta reads the rounded O); gradients are compared with atol scaled
-     by their largest value. ptxas must report no spills in the backward
-     kernels; two backwards on the same inputs must be bitwise equal; the
-     delta the dQ kernel wrote must agree with ``_delta``.
-     Then timed at the training shape (B=32, H=8, T=256, D=64, causal,
-     fp32) against the plain version, scaled_dot_product_attention
+     by their largest value. Two forwards (O and LSE) and two backwards
+     on the same inputs must be bitwise equal; the delta the dQ kernel
+     wrote must agree with ``_delta``. Then each kernel timed at the
+     training shape (B=32, H=8, T=256, D=64, causal, fp32), as device
+     time alone and with the host's gaps (calls enqueued one after
+     another), against the plain version, scaled_dot_product_attention
      forward and backward (a yardstick the port never calls; its
      backward's kernels are named from a traced pass) and the card's
-     bound: fp32 arithmetic for the forward, the larger of TF32
-     tensor-core arithmetic and bytes for the backward kernels; the
+     bound: the larger of TF32 tensor-core arithmetic (3xTF32's extra
+     MMAs not counted) and bytes, the fp32-SIMT figure beside it; the
      kernel route's whole backward through autograd beside the library's
      and the plain version's, as device time alone (a sleep kernel hides
      the host's enqueue) and with the host's gaps;
@@ -71,11 +75,16 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
      (the two versions sum up to 100,352 rows in other orders); fp32 dX
      and dW through the autograd Function (all three cotangents nonzero)
      against autograd through the plain version, atol 1e-5 of the largest
-     value. Then each shape timed against the plain version,
-     ``torch.matmul`` of the same product (the product WITHOUT the
-     statistics, a yardstick the port never calls), the composed route
-     (cuDNN 1x1 conv + the BN statistics pass) and the fp32 bound, per
-     shape and summed over the 36 launches of one step;
+     value; two launches bitwise equal (y, s1, s2) at the largest shape
+     and at M=1,568 K=2,048 N=512. Then each shape timed as device time
+     alone (and, for the kernel and ``torch.matmul``, with the host's
+     gaps too) against the plain version, ``torch.matmul`` of the same
+     product (the product WITHOUT the statistics, a yardstick the port
+     never calls), the composed route (cuDNN 1x1 conv + the BN
+     statistics pass) and the bound (the larger of TF32 tensor-core
+     arithmetic and bytes, the fp32-SIMT figure beside it), per shape and
+     summed over the 36 launches of one step; each shape's tile must put
+     a block on every SM or be bound by bytes;
   8. resnet — ``models.resnet.build_train_net`` (ResNet-50, ImageNet
      224x224x3, batch 32, 1000 classes, fp32, ``Momentum(0.01, 0.9)``)
      started on the card, with ``fuse_conv_bn`` on: 10 steps over two
@@ -90,10 +99,13 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
 
 The last three lines of standard output are the kernels' JSON line, the
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device": ...}``.
-In the kernels' line, matmul_stats's times and bound are sums over the 36
-launches of one ResNet-50 step, and its max_abs_err covers y, s1 and s2
-(the sums' absolute errors dominate: they are sums of up to 100,352
-rows).
+In the kernels' line, the flash and matmul_stats entries' ``ms`` and
+``library_ms`` are device time alone, and they add both read with the
+host's gaps (``ms_with_host_gaps``, ``library_ms_with_host_gaps``);
+paged attention's are the mean of calls enqueued back to back.
+matmul_stats's times and bound are sums over the 36 launches of one
+ResNet-50 step, and its max_abs_err covers y, s1 and s2 (the sums'
+absolute errors dominate: they are sums of up to 100,352 rows).
 Without a CUDA card, or outside the repository, it exits non-zero and
 prints no result.
 """
@@ -151,11 +163,12 @@ def device_phase(torch):
 # -- phase 2 -------------------------------------------------------------
 def _kernel_name(line):
     """``kernel<args>`` from a ptxas line's mangled template name."""
-    m = re.search(r"([a-z_]+_kernel)I(\w*?)E", line)
+    m = re.search(r"([a-z_]+_kernel)I(\w*?)EE", line)
     if not m:
         return line.strip()
     args = m.group(2)
-    for mangled, plain in (("13__nv_bfloat16", "bf16"), ("Li", ", "),
+    for mangled, plain in (("13__nv_bfloat16", "bf16"), ("ELi", ", "),
+                           ("Li", ", "),
                            ("Lb0", ", false"), ("Lb1", ", true")):
         args = args.replace(mangled, plain)
     head = {"f": "float", "a": "int8"}.get(args[:1])
@@ -193,19 +206,22 @@ def build_phase():
     _build.load_all(names)
     log("build: %s in %.2f s (one nvcc each, in parallel)",
         ", ".join(n + ".cu" for n in names), time.perf_counter() - t0)
-    bwd = {}
+    held = {}
     for name in names:
         report = _ptxas_report(_build.build_log.get(name, ""))
         for kernel, (regs, st, ld) in sorted(report.items()):
             log("  ptxas %s: %-36s %3d registers, spill stores %d bytes, "
                 "spill loads %d bytes", name, kernel, regs, st, ld)
-            if kernel.startswith("flash_bwd"):
-                bwd[kernel] = st, ld
-    check(len(bwd) == 12, "ptxas reported %d backward flash kernels, "
-          "expected 12 (2 kernels x 2 dtypes x 3 widths)", len(bwd))
-    spilled = [k for k, (st, ld) in bwd.items() if st or ld]
-    check(not spilled, "ptxas spills in the backward flash kernels: %s",
-          spilled)
+            if kernel.startswith(("flash_", "matmul_stats_kernel")):
+                held[kernel] = st, ld
+    nflash = sum(k.startswith("flash_") for k in held)
+    check(nflash == 18, "ptxas reported %d flash kernels, expected 18 (3 "
+          "kernels x 2 dtypes x 3 widths)", nflash)
+    check(len(held) - nflash == 6, "ptxas reported %d matmul_stats "
+          "kernels, expected 6 (2 dtypes x 3 tiles)", len(held) - nflash)
+    spilled = [k for k, (st, ld) in held.items() if st or ld]
+    check(not spilled, "ptxas spills in the flash or matmul_stats kernels: "
+          "%s", spilled)
 
 
 # -- phase 3 -------------------------------------------------------------
@@ -522,8 +538,9 @@ def flash_kernel_phase(torch):
 
 def flash_backward_checks(torch, F):
     """At the training shape (fp32) and the widest bf16 case, with a
-    nonzero dLSE: two backwards on the same inputs give bitwise-equal dQ,
-    dK, dV and delta (no atomics), and the delta the dQ kernel wrote
+    nonzero dLSE: two forwards on the same inputs give bitwise-equal O and
+    LSE, two backwards bitwise-equal dQ, dK, dV and delta (no atomics),
+    and the delta the dQ kernel wrote
     agrees with its plain version ``_delta`` (atol 1e-5 of max|delta|,
     rtol 1e-4: the two sum the D products in other orders)."""
     for (causal, t, d, b, h), dtype in (
@@ -535,6 +552,12 @@ def flash_backward_checks(torch, F):
         dlse = torch.randn(b, h, t, generator=g).to("cuda")
         scale = d ** -0.5
         out, lse = F._fwd_cuda(q, k, v, causal, scale)
+        out2, lse2 = F._fwd_cuda(q, k, v, causal, scale)
+        torch.cuda.synchronize()
+        check(torch.equal(out, out2) and torch.equal(lse, lse2),
+              "flash forward not bitwise repeatable (%s T=%d D=%d): o, lse "
+              "equal %s", dtype, t, d,
+              [torch.equal(out, out2), torch.equal(lse, lse2)])
         runs = []
         for _ in range(2):
             dq, delta = F._bwd_dq_cuda(q, k, v, out, dout, lse, dlse,
@@ -554,7 +577,8 @@ def flash_backward_checks(torch, F):
               "max_abs_err %g of max|delta| %g", dtype, t, d,
               float(err.max()), top)
         log("flash backward: %s causal=%s T=%d D=%d B=%d H=%d: two "
-            "backwards bitwise equal (dq, dk, dv, delta); kernel delta vs "
+            "forwards bitwise equal (o, lse), two backwards bitwise equal "
+            "(dq, dk, dv, delta); kernel delta vs "
             "_delta max_abs_err %.3g (max|delta| %.3g)  ok",
             str(dtype).replace("torch.", ""), causal, t, d, b, h,
             float(err.max()), top)
@@ -643,14 +667,21 @@ def flash_timing_phase(torch):
     def kernels(q, k, v):
         return F.flash_attention(q, k, v, causal=True, scale=scale)
 
-    times = {
-        "flash_fwd": _events_ms(torch, fwd, 50),
-        "flash_bwd_dq": _events_ms(torch, dq, 50),
-        "flash_bwd_dkv": _events_ms(torch, dkv, 50),
-    }
+    # each launch read two ways: as device time alone (a sleep kernel
+    # hides the host's enqueue, which can outlast a 0.1 ms kernel) and
+    # with the host's gaps (calls enqueued one after another, as a step
+    # enqueues them: a host slower than the card shows as idle card)
+    times, gaps = {}, {}
+    for name, fn in (("flash_fwd", fwd), ("flash_bwd_dq", dq),
+                     ("flash_bwd_dkv", dkv)):
+        times[name] = _events_ms(torch, fn, 50, hide_host=True)
+        gaps[name] = _events_ms(torch, fn, 50)
     with torch.no_grad():
-        plain_fwd = _events_ms(torch, lambda i: plain(*sets[i % 4][:3]), 10)
-        lib_fwd = _events_ms(torch, lambda i: lib(*sets[i % 4][:3]), 50)
+        plain_fwd = _events_ms(torch, lambda i: plain(*sets[i % 4][:3]), 10,
+                               hide_host=True)
+        lib_fwd = _events_ms(torch, lambda i: lib(*sets[i % 4][:3]), 50,
+                             hide_host=True)
+        lib_fwd_gaps = _events_ms(torch, lambda i: lib(*sets[i % 4][:3]), 50)
     # the whole backward through autograd, each route timed the same way:
     # with the host's gaps (as enqueued) and as device time alone; the
     # library twice, before and after the kernel route
@@ -670,13 +701,13 @@ def flash_timing_phase(torch):
     pairs = b * h * t * (t + 1) // 2
     elem = b * h * t * d * 4                # one [B, H, T, D] f32 tensor
     row = b * h * t * 4                     # one [B, H, T] f32 tensor
-    # (flops, bytes: inputs read once, outputs written once, peak). The
-    # forward's products run on the fp32 FMA units; the backward's on the
-    # TF32 tensor cores (3xTF32: the emulation's 3 MMAs are not counted
-    # as work). dq reads q, k, v, o, do and lse and writes dq and delta;
-    # dkv reads q, k, v, do, lse and delta and writes dk and dv.
+    # (flops, bytes: inputs read once, outputs written once, peak). Every
+    # kernel's products run on the TF32 tensor cores (3xTF32: the
+    # emulation's 3 MMAs are not counted as work). fwd reads q, k, v and
+    # writes o and lse; dq reads q, k, v, o, do and lse and writes dq and
+    # delta; dkv reads q, k, v, do, lse and delta and writes dk and dv.
     work = {
-        "flash_fwd": (2 * 2 * pairs * d, 4 * elem + row, FP32_FLOPS),
+        "flash_fwd": (2 * 2 * pairs * d, 4 * elem + row, TF32_FLOPS),
         "flash_bwd_dq": (3 * 2 * pairs * d, 6 * elem + 2 * row, TF32_FLOPS),
         "flash_bwd_dkv": (4 * 2 * pairs * d, 6 * elem + 2 * row,
                           TF32_FLOPS),
@@ -691,15 +722,20 @@ def flash_timing_phase(torch):
             "plain_ms": plain_fwd if fwd_side else plain_bwd,
             "library_ms": lib_fwd if fwd_side else lib_bwd,
             "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
-        log("timing %s (B=32 H=8 T=256 D=64 causal fp32): kernel_ms=%.5f "
-            "bound_ms=%.5f (%s; operations %.5f ms at %g TFLOP/s, bytes "
-            "%.5f ms: %d flops, %d bytes; fp32-SIMT operations bound "
-            "%.5f ms) plain_ms=%.5f library_ms=%.5f%s", name, times[name],
-            out[name]["bound_ms"], out[name]["bound_by"], ops_ms,
-            peak / 1e12, bytes_ms, flops, nbytes,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "ms_with_host_gaps": gaps[name],
+            "library_ms_with_host_gaps": (lib_fwd_gaps if fwd_side else
+                                          whole["library", False])}
+        log("timing %s (B=32 H=8 T=256 D=64 causal fp32), device time "
+            "alone: kernel_ms=%.5f bound_ms=%.5f (%s; operations %.5f ms "
+            "at %g TFLOP/s, bytes %.5f ms: %d flops, %d bytes; fp32-SIMT "
+            "operations bound %.5f ms) plain_ms=%.5f library_ms=%.5f; with "
+            "the host's gaps: kernel_ms=%.5f library_ms=%.5f%s", name,
+            times[name], out[name]["bound_ms"], out[name]["bound_by"],
+            ops_ms, peak / 1e12, bytes_ms, flops, nbytes,
             flops / FP32_FLOPS * 1e3, out[name]["plain_ms"],
-            out[name]["library_ms"], "" if fwd_side else
+            out[name]["library_ms"], gaps[name],
+            out[name]["library_ms_with_host_gaps"], "" if fwd_side else
             " (plain and library: one backward computing dq, dk, dv)")
     for hide, how in ((True, "device time alone"),
                       (False, "with the host's gaps")):
@@ -1068,6 +1104,7 @@ def mm_kernel_phase(torch, shapes):
         "abs error over y, s1, s2 %.3g", len(cases),
         len(distinct) + len(MM_RAGGED),
         len(cases) - len(distinct) - len(MM_RAGGED), worst)
+    mm_repeat_checks(torch, MS, shapes)
     return worst
 
 
@@ -1079,18 +1116,40 @@ def _mm_work(m, k, n, itemsize=4):
             itemsize * (m * k + k * n + m * n) + 4 * 3 * n)
 
 
+def mm_repeat_checks(torch, MS, shapes):
+    """Two launches on the same inputs give bitwise-equal y, s1 and s2
+    (fixed summation orders, no atomics): at the step's largest shape and
+    at the narrowest grid's (M=1,568 K=2,048 N=512: 52 blocks of
+    128 x 128)."""
+    largest = max(set(shapes), key=lambda s: _mm_work(*s)[0])
+    for m, k, n in (largest, (1568, 2048, 512)):
+        x, w_nk, c = _mm_inputs(torch, m, k, n, torch.float32, seed=3)
+        a = MS._fwd_cuda(x, w_nk.t(), c)
+        b = MS._fwd_cuda(x, w_nk.t(), c)
+        torch.cuda.synchronize()
+        same = [torch.equal(u, v) for u, v in zip(a, b)]
+        check(all(same), "matmul_stats not bitwise repeatable (M=%d K=%d "
+              "N=%d): y, s1, s2 equal %s", m, k, n, same)
+        log("mm: M=%d K=%d N=%d fp32: two launches bitwise equal (y, s1, "
+            "s2)  ok", m, k, n)
+
+
 def mm_timing_phase(torch, shapes):
     """Each distinct shape, fp32: the kernel, the plain version, the
     product alone in torch.matmul and the composed route, CUDA-event
-    timed per call; then the sum over one step's launches."""
+    timed per call; then the sum over one step's launches. Each shape's
+    tile must give every SM a block, or the shape must be bound by bytes
+    at that tile."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import matmul_stats as MS
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     counts = {}
     for s in shapes:
         counts[s] = counts.get(s, 0) + 1
     step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
             "composed_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0,
-            "bytes_ms": 0.0}
+            "bytes_ms": 0.0, "simt_ms": 0.0, "ms_with_host_gaps": 0.0,
+            "library_ms_with_host_gaps": 0.0}
     largest = max(counts, key=lambda s: _mm_work(*s)[0])
     per_shape = {}
     for m, k, n in sorted(counts, reverse=True):
@@ -1107,42 +1166,72 @@ def mm_timing_phase(torch, shapes):
             yc = y - c.reshape(1, -1, 1, 1)
             return yc.sum(dim=(0, 2, 3)), (yc * yc).sum(dim=(0, 2, 3))
 
-        t = {"ms": _events_ms(torch, lambda i: MS._fwd_cuda(x, w, c), 20),
+        def kernel(i):
+            MS._fwd_cuda(x, w, c)
+
+        def library(i):
+            torch.matmul(x, w)
+
+        # device time alone (a sleep kernel hides the host's enqueue), and
+        # the kernel and torch.matmul also with the host's gaps
+        t = {"ms": _events_ms(torch, kernel, 20, hide_host=True),
              "plain_ms": _events_ms(
-                 torch, lambda i: MS._dense_matmul_stats(x, w, c), 10),
-             "library_ms": _events_ms(torch, lambda i: torch.matmul(x, w),
-                                      20),
-             "composed_ms": _events_ms(torch, composed, 10)}
+                 torch, lambda i: MS._dense_matmul_stats(x, w, c), 10,
+                 hide_host=True),
+             "library_ms": _events_ms(torch, library, 20, hide_host=True),
+             "composed_ms": _events_ms(torch, composed, 10, hide_host=True),
+             "ms_with_host_gaps": _events_ms(torch, kernel, 20),
+             "library_ms_with_host_gaps": _events_ms(torch, library, 20)}
+        # the products run on the TF32 tensor cores (3xTF32: the
+        # emulation's 3 MMAs are not counted as work)
         flops, nbytes = _mm_work(m, k, n)
-        ops_ms = flops / FP32_FLOPS * 1e3
+        ops_ms = flops / TF32_FLOPS * 1e3
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         t["bound_ms"] = max(ops_ms, bytes_ms)
         t["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+        bm, bn, blocks = MS._tile(m, n)
+        check(blocks >= sms or t["bound_by"] == "bytes", "matmul_stats "
+              "M=%d N=%d: %d blocks of %dx%d for %d SMs, and not bound by "
+              "bytes", m, n, blocks, bm, bn, sms)
         per_shape[(m, k, n)] = t
         for key in ("ms", "plain_ms", "library_ms", "composed_ms",
-                    "bound_ms"):
+                    "bound_ms", "ms_with_host_gaps",
+                    "library_ms_with_host_gaps"):
             step[key] += counts[(m, k, n)] * t[key]
         step["ops_ms"] += counts[(m, k, n)] * ops_ms
         step["bytes_ms"] += counts[(m, k, n)] * bytes_ms
-        log("timing mm M=%-6d K=%-4d N=%-4d x%d per step: kernel_ms=%.5f "
-            "bound_ms=%.5f (%s: %d flops, %d bytes) plain_ms=%.5f "
-            "library_ms=%.5f (product only) composed_ms=%.5f", m, k, n,
-            counts[(m, k, n)], t["ms"], t["bound_ms"], t["bound_by"], flops,
-            nbytes, t["plain_ms"], t["library_ms"], t["composed_ms"])
-    log("timing mm, summed over the %d launches of one step: kernel_ms=%.4f "
-        "bound_ms=%.4f (operations %.4f, bytes %.4f) plain_ms=%.4f "
+        step["simt_ms"] += counts[(m, k, n)] * flops / FP32_FLOPS * 1e3
+        log("timing mm M=%-6d K=%-4d N=%-4d x%d per step, device time "
+            "alone: kernel_ms=%.5f bound_ms=%.5f (%s: %d flops, %d bytes; "
+            "fp32-SIMT operations bound %.5f) plain_ms=%.5f library_ms=%.5f "
+            "(product only) composed_ms=%.5f; with the host's gaps: "
+            "kernel_ms=%.5f library_ms=%.5f; tile %dx%d, %d blocks for %d "
+            "SMs", m, k, n, counts[(m, k, n)], t["ms"], t["bound_ms"],
+            t["bound_by"], flops, nbytes, flops / FP32_FLOPS * 1e3,
+            t["plain_ms"], t["library_ms"], t["composed_ms"],
+            t["ms_with_host_gaps"], t["library_ms_with_host_gaps"], bm, bn,
+            blocks, sms)
+    log("timing mm, summed over the %d launches of one step, device time "
+        "alone: kernel_ms=%.4f bound_ms=%.4f (TF32 operations %.4f, bytes "
+        "%.4f; fp32-SIMT operations %.4f) plain_ms=%.4f "
         "library_ms=%.4f (torch.matmul, product only) composed_ms=%.4f "
-        "(cuDNN 1x1 conv + BN statistics pass); largest shape M=%d K=%d N=%d:"
+        "(cuDNN 1x1 conv + BN statistics pass); kernel / library %.3f; "
+        "with the host's gaps: kernel_ms=%.4f library_ms=%.4f, kernel / "
+        "library %.3f; largest shape M=%d K=%d N=%d:"
         " kernel_ms=%.5f bound_ms=%.5f plain_ms=%.5f library_ms=%.5f",
         len(shapes), step["ms"], step["bound_ms"], step["ops_ms"],
-        step["bytes_ms"], step["plain_ms"], step["library_ms"],
-        step["composed_ms"], *largest, per_shape[largest]["ms"],
+        step["bytes_ms"], step["simt_ms"], step["plain_ms"], step["library_ms"],
+        step["composed_ms"], step["ms"] / step["library_ms"],
+        step["ms_with_host_gaps"], step["library_ms_with_host_gaps"],
+        step["ms_with_host_gaps"] / step["library_ms_with_host_gaps"],
+        *largest, per_shape[largest]["ms"],
         per_shape[largest]["bound_ms"], per_shape[largest]["plain_ms"],
         per_shape[largest]["library_ms"])
     return {"ms": step["ms"], "plain_ms": step["plain_ms"],
             "library_ms": step["library_ms"], "bound_ms": step["bound_ms"],
             "bound_by": "operations" if step["ops_ms"] >= step["bytes_ms"]
-            else "bytes"}
+            else "bytes", "ms_with_host_gaps": step["ms_with_host_gaps"],
+            "library_ms_with_host_gaps": step["library_ms_with_host_gaps"]}
 
 
 # -- phase 8 -------------------------------------------------------------

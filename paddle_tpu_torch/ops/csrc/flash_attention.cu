@@ -20,29 +20,40 @@
 // then dK/dV (which reads it). No atomics: bitwise repeatable.
 //
 // Bounds on an H100 SXM at the LM's training shape (B=32, H=8, T=256,
-// D=64, causal, fp32):
-//   * forward: fp32 arithmetic (4 T(T+1)/2 D flops per head at 67
-//     TFLOP/s, 0.032 ms), since its products run on the fp32 FMA units;
-//   * dQ and dK/dV: bytes (each reads and writes ~101 MB: 0.030 ms at
-//     3.35 TB/s). Their products run on the TF32 tensor cores, where the
-//     algorithm's 3 (dQ) and 4 (dK/dV) products take 0.0065 / 0.0087 ms
-//     at 495 TFLOP/s.
+// D=64, causal, fp32). Every product runs on the TF32 tensor cores, so
+// each kernel is bound by its bytes:
+//   * forward: reads q, k, v and writes o and lse, 67.4 MB: 0.0201 ms at
+//     3.35 TB/s (its 2 products take 0.0044 ms at 495 TFLOP/s; on the
+//     fp32 FMA units, as the first version ran them, 0.032 ms);
+//   * dQ and dK/dV: each reads and writes ~101 MB: 0.030 ms. The
+//     algorithm's 3 (dQ) and 4 (dK/dV) products take 0.0065 / 0.0087 ms.
+// The 3xTF32 emulation's extra MMAs are not counted as work.
 // Measured there (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py and
-// paddle_tpu_torch/tools/flash_bwd_trials.py): dQ ~0.137 ms and dK/dV
-// ~0.155 ms, 4.5x / 5.1x the bound, down from 0.27 / 0.39 ms for the
-// first (fp32-SIMT) version. By the trials tool's diagnostic builds, the
-// TF32 splits take about a quarter of that and the two extra MMAs of
-// 3xTF32 with their splits about two fifths.
+// paddle_tpu_torch/tools/kernel_trials.py, device time alone): forward
+// ~0.092 ms, 4.6x its bound and 0.74x scaled_dot_product_attention's
+// forward (0.125 ms; with the host's gaps between calls 0.092 against
+// 0.123), down from 0.179 ms for the first (fp32-SIMT) version timed
+// the same way; dQ ~0.134 ms and dK/dV ~0.155 ms, 4.4x / 5.1x the
+// bound, down from 0.27 / 0.39 ms. By the trials tool's diagnostic
+// builds, the TF32 splits take about a quarter of the backward's time
+// and the two extra MMAs of 3xTF32 with their splits about two fifths.
 //
-// Forward design (first version, still SIMT): 128 threads as 16 row
-// groups x 8 column groups; one block per (head, tile of 64/32/16 query
-// rows for D <= 64/128/256), looping over tiles of 64 keys up to the
-// diagonal with an online softmax; tiles staged in shared memory as f32,
-// rows padded to D+1 floats; every product a scalar fmaf. Left for a
-// later version: tensor-core products and staged copies, as the backward
-// has them.
+// Forward design: the backward's building blocks below. Each warp owns
+// 16 query rows (4 warps for D <= 128, 2 for D = 256); the block's Q
+// tile is staged once with cp.async and K/V tiles (32 keys for D <= 128,
+// 16 for D = 256) stream through a two-stage cp.async
+// ring. S = Q K^T and O += P V run as 3xTF32 mma.sync (bf16: S one MMA,
+// P V two); P goes from S's C fragment to the A fragment in registers,
+// never through shared memory. The online softmax stays in registers:
+// the row max over a quad's 4 lanes by two shuffles, P = exp2(S s log2e
+// - m) with one FMA, O rescaled in place, the row sums reduced once at
+// the end; LSE is written as a natural log, as the backward reads it.
+// The mask is applied on the tiles that reach past T or the diagonal,
+// and a warp skips a tile the causal mask empties for its rows; blocks
+// launch longest first, as dQ's.
 //
-// Backward design:
+// Backward design (the forward shares the tensor-core products, the
+// fragment passing, the staging and its padding):
 //   * every product on the tensor cores with mma.sync m16n8k8 TF32 at
 //     fp32 accuracy (3xTF32): each f32 operand x splits into
 //     big = tf32(x) and small = tf32(x - big), both rounded to nearest
@@ -100,19 +111,8 @@
 
 namespace {
 
-constexpr int NT = 128;      // threads per block
-constexpr int RG = 16;       // row groups
-constexpr int CG = 8;        // column groups (lanes of one row group)
-constexpr int COLS = 64;     // columns (keys, or queries in dK/dV) per tile
-constexpr int CN = COLS / CG;
 constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;   // the backward's exp2 base
-
-// rows per thread (RM) for each head-width class DC
-template <int DC> struct Cfg;
-template <> struct Cfg<64> { static constexpr int RM = 4; };
-template <> struct Cfg<128> { static constexpr int RM = 2; };
-template <> struct Cfg<256> { static constexpr int RM = 1; };
+constexpr float LOG2E = 1.4426950408889634f;   // exp2 base of every kernel
 
 __device__ __forceinline__ void load4(const float* p, float* o) {
   const float4 a = *reinterpret_cast<const float4*>(p);
@@ -126,148 +126,8 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
   for (int i = 0; i < 4; ++i) o[i] = __bfloat162float(h[i]);
 }
 
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-// Stage rows row0 .. row0+n-1 of one head's [T, D] slab into dst
-// (row stride ld floats); rows at or past T read as zero.
-template <typename T>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src,
-                                          int row0, int n, int t, int d,
-                                          float* dst, int ld) {
-  const int nv = n * d / 4;
-  for (int e = threadIdx.x; e < nv; e += NT) {
-    const int r = (e * 4) / d, c = (e * 4) % d;
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (row0 + r < t) load4(src + (long long)(row0 + r) * d + c, v);
-    float* o = dst + r * ld + c;
-    o[0] = v[0]; o[1] = v[1]; o[2] = v[2]; o[3] = v[3];
-  }
-}
-
-__device__ __forceinline__ float group_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
-}
-
-__device__ __forceinline__ float group_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x + __shfl_xor_sync(0xffffffffu, x, 4);
-}
-
 // ---------------------------------------------------------------------
-template <typename T, int DC>
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-    int t, int d, float scale, int causal) {
-  constexpr int RM = Cfg<DC>::RM, ROWS = RG * RM, DN = DC / CG;
-  extern __shared__ float smem[];
-  const int ld = d + 1;
-  float* q_s = smem;                   // [ROWS][d + 1]
-  float* k_s = q_s + ROWS * ld;        // [COLS][d + 1]
-  float* v_s = k_s + COLS * ld;        // [COLS][d + 1]
-  float* p_s = v_s + COLS * ld;        // [ROWS][COLS + 1] probabilities
-  const int bh = blockIdx.y, q0 = blockIdx.x * ROWS;
-  const long long base = (long long)bh * t * d;
-  const int ty = threadIdx.x / CG, tx = threadIdx.x % CG;
-  const int nd = d / CG;
-
-  load_tile(q + base, q0, ROWS, t, d, q_s, ld);
-  float m[RM], l[RM], acc[RM][DN];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DN; ++c) acc[i][c] = 0.f;
-  }
-  const int last = min(q0 + ROWS, t) - 1;
-  const int ntiles = causal ? last / COLS + 1 : (t + COLS - 1) / COLS;
-  for (int kt = 0; kt < ntiles; ++kt) {
-    const int k0 = kt * COLS;
-    __syncthreads();   // the previous tile is consumed; q_s is staged
-    load_tile(k + base, k0, COLS, t, d, k_s, ld);
-    load_tile(v + base, k0, COLS, t, d, v_s, ld);
-    __syncthreads();
-    float s[RM][CN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int c = 0; c < CN; ++c) s[i][c] = 0.f;
-#pragma unroll 4
-    for (int e = 0; e < d; ++e) {
-      float qv[RM], kv[CN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) qv[i] = q_s[(ty * RM + i) * ld + e];
-#pragma unroll
-      for (int c = 0; c < CN; ++c) kv[c] = k_s[(tx + CG * c) * ld + e];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int c = 0; c < CN; ++c) s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
-    }
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int r = q0 + ty * RM + i;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int c = 0; c < CN; ++c) {
-        const int j = k0 + tx + CG * c;
-        float x = s[i][c] * scale;
-        if (j >= t || (causal && j > r)) x = NEG_INF;
-        s[i][c] = x;
-        mx = fmaxf(mx, x);
-      }
-      const float m_new = fmaxf(m[i], group_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < CN; ++c) {
-        const float p = expf(s[i][c] - m_new);
-        p_s[(ty * RM + i) * (COLS + 1) + tx + CG * c] = p;
-        sum += p;
-      }
-      l[i] = alpha * l[i] + group_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DN; ++c) acc[i][c] *= alpha;
-    }
-    __syncwarp();      // each warp reads back only its own rows of p_s
-    for (int j = 0; j < COLS; ++j) {
-      float pv[RM];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) pv[i] = p_s[(ty * RM + i) * (COLS + 1) + j];
-#pragma unroll
-      for (int c = 0; c < DN; ++c) {
-        if (c < nd) {
-          const float vv = v_s[j * ld + tx + CG * c];
-#pragma unroll
-          for (int i = 0; i < RM; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int r = q0 + ty * RM + i;
-    if (r < t) {
-      const float li = fmaxf(l[i], 1e-30f);
-#pragma unroll
-      for (int c = 0; c < DN; ++c)
-        if (c < nd) store1(o + base + (long long)r * d + tx + CG * c,
-                           acc[i][c] / li);
-      if (tx == 0) lse[(long long)bh * t + r] = m[i] + logf(li);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------
-// Building blocks of the backward kernels: cp.async staging and 3xTF32
+// Building blocks of every kernel: cp.async staging and 3xTF32
 // tensor-core products.
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -344,8 +204,8 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 // operations: add half a TF32 ulp to the magnitude bits, clear the 13
 // bits TF32 drops. The same bits as cvt for every finite x, on the
 // integer pipe instead of the slower conversion unit (dQ + dK/dV at the
-// LM training shape on an H100 80GB HBM3, 700 W: 0.288 ms so, 0.369
-// with cvt; paddle_tpu_torch/tools/flash_bwd_trials.py).
+// LM training shape on an H100 80GB HBM3, 700 W: 0.289 ms so, 0.371
+// with cvt; paddle_tpu_torch/tools/kernel_trials.py).
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
@@ -426,6 +286,183 @@ __device__ __forceinline__ void frag_a_from_c(FragA& f, const float* c) {
   split<false>(c[2], f.big[1], f.small[1]);
   split<false>(c[1], f.big[2], f.small[2]);
   split<false>(c[3], f.big[3], f.small[3]);
+}
+
+// Forward: NW warps of 16 query rows, COLS keys per streamed tile, MINB
+// blocks per SM (as many as the shared memory admits).
+template <int DC> struct FwdCfg;
+template <> struct FwdCfg<64> {
+  static constexpr int NW = 4, MINB = 3, COLS = 32;
+};
+template <> struct FwdCfg<128> {
+  static constexpr int NW = 4, COLS = 32, MINB = 2;
+};
+template <> struct FwdCfg<256> {
+  static constexpr int NW = 2, COLS = 16, MINB = 2;
+};
+
+// ---------------------------------------------------------------------
+template <typename T, int DC>
+__global__ void __launch_bounds__(32 * FwdCfg<DC>::NW, FwdCfg<DC>::MINB)
+flash_fwd_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+    int t, int d, float scale, int causal) {
+  constexpr int NW = FwdCfg<DC>::NW, NTH = 32 * NW, ROWS = 16 * NW;
+  constexpr int COLS = FwdCfg<DC>::COLS, NJ = COLS / 8, DN = DC / 8;
+  constexpr bool EXACT = sizeof(T) == 2;   // bf16: exact in TF32
+  extern __shared__ float4 fwd_smem[];
+  const int ld = d + 16 / (int)sizeof(T);
+  T* q_s = reinterpret_cast<T*>(fwd_smem);  // [ROWS][ld]   resident
+  T* kv_s = q_s + ROWS * ld;                // 2 x {K, V} x [COLS][ld]
+  const int bh = blockIdx.x;
+  const int nqt = (t + ROWS - 1) / ROWS;
+  const int q0 = (causal ? nqt - 1 - (int)blockIdx.y : (int)blockIdx.y) *
+                 ROWS;
+  const long long base = (long long)bh * t * d, rbase = (long long)bh * t;
+  const int lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const int wr = (threadIdx.x / 32) * 16;   // the warp's first row
+  const int r_lo = q0 + wr + g, r_hi = r_lo + 8;   // the fragment rows
+  const int nd8 = d / 8;
+
+  stage_tile<T, NTH>(q + base, q0, ROWS, t, d, q_s, ld);
+  const int last = min(q0 + ROWS, t) - 1;
+  const int nkt = causal ? last / COLS + 1 : (t + COLS - 1) / COLS;
+  auto stage_kv = [&](int kt, int buf) {
+    T* ks = kv_s + buf * 2 * COLS * ld;
+    stage_tile<T, NTH>(k + base, kt * COLS, COLS, t, d, ks, ld);
+    stage_tile<T, NTH>(v + base, kt * COLS, COLS, t, d, ks + COLS * ld, ld);
+  };
+  stage_kv(0, 0);
+  cp_commit();         // Q and K/V tile 0
+
+  // running max (of S s log2e), this lane's share of the running sum,
+  // and the O accumulators of rows r_lo (e = 0, 1) and r_hi (e = 2, 3)
+  const float sl2 = scale * LOG2E;
+  float m_lo = NEG_INF, m_hi = NEG_INF, l_lo = 0.f, l_hi = 0.f;
+  float acc[DN][4];
+#pragma unroll
+  for (int n = 0; n < DN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    if (kt + 1 < nkt) stage_kv(kt + 1, (kt + 1) & 1);
+    cp_commit();
+    cp_wait<1>();      // tile kt has landed; tile kt+1 is in flight
+    __syncthreads();
+    const T* ks = kv_s + (kt & 1) * 2 * COLS * ld;
+    const T* vs = ks + COLS * ld;
+    const int k0 = kt * COLS;
+    // a tile whose keys all lie above the warp's rows adds nothing
+    if (!(causal && k0 > q0 + wr + 15)) {
+      float s[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      // S = Q K^T
+#pragma unroll
+      for (int kk = 0; kk < DN; ++kk) {
+        if (kk < nd8) {
+          FragA aq;
+          frag_a<EXACT>(aq, q_s, ld, wr + g, 8 * kk + tq);
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            FragB bk;
+            frag_b_nrows<EXACT>(bk, ks, ld, 8 * j + g, 8 * kk + tq);
+            mma3<EXACT, EXACT>(s[j], aq, bk);
+          }
+        }
+      }
+      // the mask, on the tiles that reach past T or (causal) the diagonal
+      if (k0 + COLS > t || (causal && k0 + COLS - 1 > q0 + wr)) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + 8 * j + 2 * tq + (e & 1);
+            if (key >= t || (causal && key > (e < 2 ? r_lo : r_hi)))
+              s[j][e] = NEG_INF;
+          }
+      }
+      // online softmax: the tile's row max over the quad's 4 lanes
+      float mx_lo = NEG_INF, mx_hi = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        if (s[j][0] != NEG_INF) mx_lo = fmaxf(mx_lo, s[j][0] * sl2);
+        if (s[j][1] != NEG_INF) mx_lo = fmaxf(mx_lo, s[j][1] * sl2);
+        if (s[j][2] != NEG_INF) mx_hi = fmaxf(mx_hi, s[j][2] * sl2);
+        if (s[j][3] != NEG_INF) mx_hi = fmaxf(mx_hi, s[j][3] * sl2);
+      }
+#pragma unroll
+      for (int x = 1; x <= 2; x *= 2) {
+        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, x));
+        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, x));
+      }
+      const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+      const float al_lo = exp2f(m_lo - mn_lo), al_hi = exp2f(m_hi - mn_hi);
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+      // P = exp2(S s log2e - m) in place of S; masked entries are 0
+      float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = s[j][e] == NEG_INF ? 0.f :
+              exp2f(fmaf(s[j][e], sl2, -(e < 2 ? mn_lo : mn_hi)));
+          s[j][e] = p;
+          if (e < 2) sum_lo += p; else sum_hi += p;
+        }
+      l_lo = fmaf(l_lo, al_lo, sum_lo);
+      l_hi = fmaf(l_hi, al_hi, sum_hi);
+#pragma unroll
+      for (int n = 0; n < DN; ++n) {
+        acc[n][0] *= al_lo; acc[n][1] *= al_lo;
+        acc[n][2] *= al_hi; acc[n][3] *= al_hi;
+      }
+      // O += P V, P passed from the C to the A fragment in registers
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        FragA ap;
+        frag_a_from_c(ap, s[j]);
+#pragma unroll
+        for (int n = 0; n < DN; ++n) {
+          if (n < nd8) {
+            FragB bv;
+            frag_b_krows<EXACT>(bv, vs, ld, 8 * j + 2 * tq, 8 * n + g);
+            mma3<false, EXACT>(acc[n], ap, bv);
+          }
+        }
+      }
+    }
+    __syncthreads();   // tile kt is consumed before its buffer refills
+  }
+  // the row sums: each lane holds its own columns' share
+#pragma unroll
+  for (int x = 1; x <= 2; x *= 2) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, x);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, x);
+  }
+  l_lo = fmaxf(l_lo, 1e-30f);
+  l_hi = fmaxf(l_hi, 1e-30f);
+  const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
+#pragma unroll
+  for (int n = 0; n < DN; ++n) {
+    if (n < nd8) {
+      const int c = 8 * n + 2 * tq;
+      if (r_lo < t) store2(o + base + (long long)r_lo * d + c,
+                           acc[n][0] * inv_lo, acc[n][1] * inv_lo);
+      if (r_hi < t) store2(o + base + (long long)r_hi * d + c,
+                           acc[n][2] * inv_hi, acc[n][3] * inv_hi);
+    }
+  }
+  // LSE = m + log l as a natural log (m back from the exp2 domain)
+  if (tq == 0) {
+    if (r_lo < t) lse[rbase + r_lo] = m_lo / LOG2E + logf(l_lo);
+    if (r_hi < t) lse[rbase + r_hi] = m_hi / LOG2E + logf(l_hi);
+  }
 }
 
 // dQ: NW warps of 16 query rows, COLS keys per streamed tile; MINB
@@ -770,15 +807,15 @@ template <typename T, int DC>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
                 void* lse, int bh, int t, int d, float scale, int causal,
                 cudaStream_t st) {
-  constexpr int ROWS = RG * Cfg<DC>::RM;
-  const size_t ld = d + 1;
-  const size_t smem = sizeof(float) *
-      ((ROWS + 2 * COLS) * ld + (size_t)ROWS * (COLS + 1));
+  using C = FwdCfg<DC>;
+  constexpr int ROWS = 16 * C::NW;
+  const size_t ld = d + 16 / sizeof(T);
+  const size_t smem = sizeof(T) * (ROWS + 4 * C::COLS) * ld;
   auto fn = flash_fwd_kernel<T, DC>;
   static size_t granted = 0;
   cudaError_t err = prepare(fn, smem, granted);
   if (err != cudaSuccess) return err;
-  fn<<<dim3((t + ROWS - 1) / ROWS, bh), NT, smem, st>>>(
+  fn<<<dim3(bh, (t + ROWS - 1) / ROWS), 32 * C::NW, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o),
       static_cast<float*>(lse), t, d, scale, causal);

@@ -36,7 +36,7 @@ from . import _build
 __all__ = ["matmul_colstats", "matmul_flops", "dot_general_flops"]
 
 _KIND = {torch.float32: 0, torch.bfloat16: 1}
-_BM = 128          # rows of y per block of the kernel (csrc: BM)
+_BM = 64           # the fewest rows of y per block of the kernel's tiles
 
 
 def matmul_flops(m, k, n):
@@ -74,15 +74,22 @@ def _dense_matmul_stats(x, w, c):
 
 
 # --------------------------------------------------------------------------
+_loaded = []       # the bound library, once built and loaded
+
+
 def _lib():
-    lib = _build.load("matmul_stats")
-    if lib.ptt_matmul_stats.argtypes is None:
+    if not _loaded:
+        lib = _build.load("matmul_stats")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ptt_matmul_stats.argtypes = [p] * 6 + [i] * 4 + [p]
         lib.ptt_matmul_stats.restype = i
+        ip = ctypes.POINTER(i)
+        lib.ptt_matmul_stats_tile.argtypes = [i, i, ip, ip]
+        lib.ptt_matmul_stats_tile.restype = ctypes.c_longlong
         lib.ptt_matmul_stats_error_string.argtypes = [i]
         lib.ptt_matmul_stats_error_string.restype = ctypes.c_char_p
-    return lib
+        _loaded.append(lib)
+    return _loaded[0]
 
 
 def _check(cond, msg, *args):
@@ -90,45 +97,71 @@ def _check(cond, msg, *args):
         raise ValueError("matmul_stats CUDA kernel: " + msg % args)
 
 
-def _fwd_cuda(x, w, c):
-    """Launch the kernel: (y in x's dtype, s1 f32 [N], s2 f32 [N]).
-
-    x [M, K] contiguous; w [K, N] whose transpose is contiguous (the
-    [N, K] storage of a 1x1 conv filter, taken without a copy); c [N]."""
+def _validate(x, w, c):
+    """Raise ValueError naming the first thing ``_fwd_cuda`` cannot take."""
     _check(x.dim() == 2 and w.dim() == 2 and x.shape[1] == w.shape[0],
            "need x [M, K] and w [K, N], got %s and %s", tuple(x.shape),
            tuple(w.shape))
     _check(x.dtype in _KIND and w.dtype == x.dtype,
            "x and w must both be float32 or both bfloat16, got %s and %s",
            x.dtype, w.dtype)
-    m, k = x.shape
     n = w.shape[1]
     _check(c.shape == (n,), "c must be [%d], got %s", n, tuple(c.shape))
-    _check(m >= 1 and k >= 1 and n >= 1, "empty shape %s x %s",
+    _check(x.numel() > 0 and w.numel() > 0, "empty shape %s x %s",
            tuple(x.shape), tuple(w.shape))
-    wt = w.t()
     for name, t in (("x", x), ("w", w), ("c", c)):
         _check(t.device.type == "cuda" and t.device == x.device,
                "%s must be on x's CUDA device, got %s", name, t.device)
     _check(x.is_contiguous(), "x must be contiguous")
-    _check(wt.is_contiguous(), "w must be the transpose of a contiguous "
+    _check(w.t().is_contiguous(), "w must be the transpose of a contiguous "
            "[N, K] tensor (a conv filter's [Co, Ci] layout)")
-    c = c.float().contiguous()
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    part = torch.empty((2, -(-m // _BM), n), dtype=torch.float32,
-                       device=x.device)
-    s = torch.empty((2, n), dtype=torch.float32, device=x.device)
+
+
+def _fwd_cuda(x, w, c):
+    """Launch the kernel: (y in x's dtype, s1 f32 [N], s2 f32 [N]).
+
+    x [M, K] contiguous; w [K, N] whose transpose is contiguous (the
+    [N, K] storage of a 1x1 conv filter, taken without a copy); c [N].
+    The host's share of a call is kept short (36 calls per ResNet-50
+    step, some shorter on the card than a slow host's enqueue): the
+    inputs are checked in one expression, ``_validate`` names the fault
+    only when that fails, and no view is made that the call can do
+    without."""
+    dev = x.device
+    if not (x.dim() == 2 and w.dim() == 2 and x.dtype in _KIND
+            and w.dtype == x.dtype and x.shape[1] == w.shape[0]
+            and c.shape == (w.shape[1],) and x.numel() > 0
+            and w.numel() > 0 and dev.type == "cuda" and w.device == dev
+            and c.device == dev and x.is_contiguous()
+            and w.stride() == (1, w.shape[0])):
+        _validate(x, w, c)
+    m, k = x.shape
+    n = w.shape[1]
+    if c.dtype != torch.float32 or not c.is_contiguous():
+        c = c.float().contiguous()
+    y = torch.empty((m, n), dtype=x.dtype, device=dev)
+    part = torch.empty(2 * -(-m // _BM) * n, dtype=torch.float32, device=dev)
+    s = torch.empty((2, n), dtype=torch.float32, device=dev)
     lib = _lib()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.ptt_matmul_stats(x.data_ptr(), wt.data_ptr(), c.data_ptr(),
+    rc = lib.ptt_matmul_stats(x.data_ptr(), w.data_ptr(), c.data_ptr(),
                               y.data_ptr(), part.data_ptr(), s.data_ptr(),
-                              m, k, n, _KIND[x.dtype], stream)
+                              m, k, n, _KIND[x.dtype],
+                              torch._C._cuda_getCurrentRawStream(dev.index))
     if rc != 0:
         raise RuntimeError(
             "matmul_stats CUDA kernel failed to launch: %s (%d)"
             % (lib.ptt_matmul_stats_error_string(rc).decode(), rc))
     matmul_colstats.launches += 1
-    return y, s[0], s[1]
+    return (y, *s.unbind(0))
+
+
+def _tile(m, n):
+    """(rows, columns, blocks) of the tile the kernel picks for an (M, N)
+    on the current card."""
+    bm, bn = ctypes.c_int(), ctypes.c_int()
+    blocks = _lib().ptt_matmul_stats_tile(m, n, ctypes.byref(bm),
+                                          ctypes.byref(bn))
+    return bm.value, bn.value, blocks
 
 
 def _mmstats_bwd(x, w, c, y, dy, ds1, ds2):

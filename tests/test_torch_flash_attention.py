@@ -13,13 +13,17 @@ version reduces whole rows). The CUDA kernels themselves are compared
 with the plain version on the card by ``chip_smoke.py`` (TF32 switched
 off there for matmuls and cuDNN, so fp32 products stay fp32).
 
-The backward kernels run their products on TF32 tensor cores as 3xTF32
-(each f32 operand split into a TF32 big and small part, three MMAs). The
+The kernels run their products on TF32 tensor cores as 3xTF32 (each
+f32 operand split into a TF32 big and small part, three MMAs). The
 numerics of that design are held here in plain PyTorch: TF32 rounding
-emulated through an int32 view, the backward's five products run through
-it, and the result held to ``chip_smoke.py``'s fp32 tolerance against a
-float64 reference, which one-pass TF32 does not meet.
+emulated through an int32 view, the forward's two products (tiled over
+keys with the kernel's online softmax) and the backward's five run
+through it, and the results held to ``chip_smoke.py``'s fp32 tolerance
+against a float64 reference, which one-pass TF32 does not meet.
 """
+
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +34,8 @@ import torch
 from paddle_tpu.ops import flash_attention as JF
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import flash_attention as TF
+from paddle_tpu_torch.tools.tf32_numerics import (
+    CHIP_ATOL, CHIP_RTOL, _banks_conflict_free, _mm_3xtf32, _mm_tf32, _tf32)
 
 RTOL, ATOL = 1e-5, 2e-5
 
@@ -201,33 +207,7 @@ def test_delta_folds_the_lse_cotangent():
                                (dout * out).sum(-1).numpy(), rtol=1e-6)
 
 
-# -- 3xTF32 numerics of the backward kernels --------------------------------
-# chip_smoke.py's fp32 tolerance for gradients: atol 1e-5 of the largest
-# value plus rtol 1e-4 per element.
-CHIP_RTOL, CHIP_ATOL = 1e-4, 1e-5
-
-
-def _tf32(x):
-    """x rounded to TF32 (10 mantissa bits; nearest, ties away from zero),
-    as cvt.rna.tf32.f32 and the kernels' integer form round: add half a
-    TF32 ulp to the magnitude bits, clear the 13 low bits."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def _mm_3xtf32(a, b):
-    """a @ b as the kernels take it: small*big + big*small, then big*big.
-    Products of TF32 values are exact in f32; sums are f32."""
-    ab, bb = _tf32(a), _tf32(b)
-    asm, bsm = _tf32(a - ab), _tf32(b - bb)
-    return (asm @ bb + ab @ bsm) + ab @ bb
-
-
-def _mm_tf32(a, b):
-    """a @ b in one pass of TF32 (big*big only)."""
-    return _tf32(a) @ _tf32(b)
-
-
+# -- 3xTF32 numerics of the kernels --------------------------------------
 def _backward(q, k, v, out, lse, dout, dlse, scale, mm):
     """The causal backward's five products through ``mm``, the rest
     elementwise in the inputs' dtype, as the kernels order it."""
@@ -300,16 +280,7 @@ def test_one_pass_tf32_backward_breaks_the_fp32_tolerance():
         assert bad > 100 and worst > 2, (name, bad, worst)
 
 
-# -- shared-memory layout of the backward kernels ---------------------------
-def _banks_conflict_free(words):
-    """32 lanes' 32-bit word addresses: no two lanes on one bank with
-    different words (lanes on one word are served by a broadcast)."""
-    by_bank = {}
-    for w in words:
-        by_bank.setdefault(w % 32, set()).add(w)
-    return all(len(ws) == 1 for ws in by_bank.values())
-
-
+# -- shared-memory layout of the kernels -----------------------------------
 @pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
 @pytest.mark.parametrize("d", [16, 64, 128, 256])
 def test_fragment_reads_are_bank_conflict_free(d, itemsize):
@@ -329,3 +300,91 @@ def test_fragment_reads_are_bank_conflict_free(d, itemsize):
     for name, elems in reads.items():
         words = [e * itemsize // 4 for e in elems]
         assert _banks_conflict_free(words), (name, d, itemsize)
+
+
+LOG2E = 1.4426950408889634
+
+
+def _fwd_cfg(d):
+    """(warps, keys per tile, blocks per SM) of csrc/flash_attention.cu's
+    FwdCfg for head width ``d``, read from the source."""
+    dc = 64 if d <= 64 else 128 if d <= 128 else 256
+    with open(os.path.join(_build._CSRC, "flash_attention.cu")) as f:
+        body = re.search(r"struct FwdCfg<%d> \{(.*?)\};" % dc, f.read(),
+                         re.S).group(1)
+    return tuple(int(re.search(r"\b%s = (\d+)" % key, body).group(1))
+                 for key in ("NW", "COLS", "MINB"))
+
+
+def _forward(q, k, v, scale, mm):
+    """The causal forward as the kernel takes it, in f32: key tiles of
+    the kernel's width for q's D (FwdCfg), S = Q K^T through ``mm``, the online softmax in the exp2 domain
+    (running max m of S s log2e, P = exp2(S s log2e - m), O and the row
+    sum rescaled per tile), O += P V through ``mm``; then O / l and
+    LSE = m / log2e + log l."""
+    t = q.shape[-2]
+    cols = _fwd_cfg(q.shape[-1])[1]
+    sl2 = torch.tensor(scale * LOG2E, dtype=torch.float32)
+    rows = torch.arange(t)[:, None]
+    m = torch.full(q.shape[:-1], -1e30)
+    l = torch.zeros(q.shape[:-1])
+    acc = torch.zeros_like(q)
+    for k0 in range(0, t, cols):
+        s = mm(q, k[..., k0:k0 + cols, :].transpose(-1, -2))
+        masked = torch.arange(k0, k0 + s.shape[-1])[None, :] > rows
+        x = torch.where(masked, torch.tensor(-1e30), s * sl2)
+        mn = torch.maximum(m, x.amax(-1))
+        alpha = torch.exp2(m - mn)
+        p = torch.where(masked, torch.zeros(()),
+                        torch.exp2(x - mn[..., None]))
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + mm(p, v[..., k0:k0 + cols, :])
+        m = mn
+    return acc / l[..., None], m / LOG2E + torch.log(l)
+
+
+def _forward_outside(mm):
+    """Per output (o, lse) of the T=256, D=64 causal forward through
+    ``mm``: the count of elements outside chip_smoke's fp32 tolerance
+    (per element) of the float64 reference, and the worst error in units
+    of that tolerance."""
+    q, k, v, _, _ = [torch.from_numpy(x) for x in _inputs(12, 256, 64)]
+    scale = 64 ** -0.5
+    ref = TF._dense_lse(q.double(), k.double(), v.double(), True, scale)
+    got = _forward(q, k, v, scale, mm)
+    res = []
+    for g, r in zip(got, ref):
+        lim = CHIP_ATOL + CHIP_RTOL * r.abs()
+        err = (g.double() - r).abs()
+        res.append((int((err > lim).sum()), float((err / lim).max())))
+    return res
+
+
+def test_3xtf32_forward_holds_the_fp32_tolerance():
+    """O and LSE from 3xTF32 products, tiled as the forward kernel runs
+    them at D = 64, stay within chip_smoke.py's fp32 tolerance of float64."""
+    for name, (bad, worst) in zip(("o", "lse"),
+                                  _forward_outside(_mm_3xtf32)):
+        assert bad == 0, (name, bad, worst)
+        assert worst < 0.5, (name, worst)       # with room to spare
+
+
+def test_one_pass_tf32_forward_breaks_the_fp32_tolerance():
+    """One-pass TF32 puts many elements of O outside the same tolerance."""
+    (bad, worst), _ = _forward_outside(_mm_tf32)
+    assert bad > 100 and worst > 2, (bad, worst)
+
+
+@pytest.mark.parametrize("d", [8, 64, 128, 256])
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
+def test_forward_shared_memory_fits(d, itemsize):
+    """The forward's staging (resident Q tile and a two-stage K/V ring,
+    rows padded by 16 bytes) fits the card's 227 KB per block, and its
+    blocks-per-SM target (MINB) fits the SM's 228 KB, for each head-width
+    class: (warps, keys per tile, MINB) as csrc/flash_attention.cu's
+    FwdCfg."""
+    nw, cols, minb = _fwd_cfg(d)
+    ld = d + 16 // itemsize
+    smem = itemsize * (16 * nw + 4 * cols) * ld
+    assert smem <= 232448
+    assert minb * (smem + 1024) <= 233472

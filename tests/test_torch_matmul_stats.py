@@ -31,6 +31,8 @@ from paddle_tpu.ops import matmul_stats as JMS
 import paddle_tpu_torch as tfluid
 from paddle_tpu_torch.core import unique_name
 from paddle_tpu_torch.ops import matmul_stats as TMS
+from paddle_tpu_torch.tools.tf32_numerics import (
+    _banks_conflict_free, _tf32)
 
 # (M, K, N): the JAX package's test cases, then ragged M, K and N
 CASES = [(512, 32, 128), (512, 16, 128), (300, 72, 200), (97, 67, 131)]
@@ -221,3 +223,142 @@ def test_fusion_leaves_3x3_and_test_mode_alone(monkeypatch, fused_calls,
     out, = exe.run(main, feed={"x": xv}, fetch_list=[bn], scope=scope)
     assert np.isfinite(out).all() and out.shape == (2, 8, 6, 6)
     assert fused_calls == []
+
+
+# --------------------------------------------------------------------------
+# numerics and shared-memory layout of the CUDA kernel (csrc/
+# matmul_stats.cu), held here in plain PyTorch: its fp32 products run as
+# 3xTF32 on the tensor cores with big = tf32(x) and small = tf32(x - big),
+# both rounded to nearest, the three MMAs of each k8 step summed into a
+# zeroed fragment that one f32 add carries into the accumulator
+
+CHIP_RTOL, MM_STAT_TOL = 1e-4, 1e-5    # chip_smoke.py's _mm_case limits
+RESNET_KS = (64, 128, 256, 512, 1024, 2048)   # K of ResNet-50's 1x1 convs
+
+
+def _kernel_split(x):
+    """(big, small) as the kernel's split() leaves them for the MMA, which
+    reads the top 19 bits of an operand: big = (bits + 0x1000) with the 13
+    low bits cleared; small = bits(x - big) + 0x1000, its low bits cleared
+    by the MMA."""
+    low = ~0x1FFF
+    big = ((x.contiguous().view(torch.int32) + 0x1000) & low).view(
+        torch.float32)
+    small = (((x - big).view(torch.int32) + 0x1000) & low).view(
+        torch.float32)
+    return big, small
+
+
+def _kernel_3xtf32(x, w):
+    """y = x @ w.T (w [N, K]) as the kernel takes it, in f32: per k8 step
+    small*big + big*small + big*big into a fresh fragment, added to y."""
+    (xb, xs), (wb, ws) = _kernel_split(x), _kernel_split(w)
+    y = torch.zeros(x.shape[0], w.shape[0])
+    for k0 in range(0, x.shape[1], 8):
+        sl = slice(k0, k0 + 8)
+        y = y + ((xs[:, sl] @ wb[:, sl].T + xb[:, sl] @ ws[:, sl].T)
+                 + xb[:, sl] @ wb[:, sl].T)
+    return y
+
+
+def _one_pass_tf32(x, w):
+    return _tf32(x) @ _tf32(w).T
+
+
+def test_kernel_split_rounds_both_parts_to_nearest():
+    """The kernel's four-operation split leaves the MMA the same bits as
+    rounding both parts to nearest TF32 (flash_attention.cu's to_tf32,
+    five operations), on normal values, ties, powers of two and zero."""
+    x = torch.from_numpy((np.random.RandomState(5).randn(4096) * 10.0 **
+                          np.random.RandomState(6).randint(-30, 30, 4096)
+                          ).astype(np.float32))
+    ties = (torch.arange(1, 257, dtype=torch.int32) << 13 | 0x1000).view(
+        torch.float32)
+    x = torch.cat([x, ties, -ties, torch.tensor([0.0, -0.0, 1.0, 2.0 ** -20,
+                                                 -3.0, 1.0 - 2.0 ** -24])])
+    big, small = _kernel_split(x)
+    assert torch.equal(big.view(torch.int32), _tf32(x).view(torch.int32))
+    assert torch.equal(small, _tf32(x - _tf32(x)))
+    assert torch.equal(big.double() + small.double(),
+                       _tf32(x).double() + _tf32(x - _tf32(x)).double())
+
+
+def _stats_outside(mm, m=512, k=2048, n=64, seed=21):
+    """Per output (y, s1, s2) of the kernel's function at width ``k``
+    through ``mm``: elements outside chip_smoke.py's limits against
+    float64, and the worst error in units of the limit."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(m, k).astype(np.float32)
+    w = (rng.randn(n, k) * k ** -0.5).astype(np.float32)
+    c = (0.1 * rng.randn(n)).astype(np.float32)
+    y = mm(torch.from_numpy(x), torch.from_numpy(w))
+    yc = y - torch.from_numpy(c)[None, :]
+    got = (y, yc.sum(0), (yc * yc).sum(0))
+    y64 = torch.from_numpy(x.astype(np.float64) @ w.astype(np.float64).T)
+    yc64 = y64 - torch.from_numpy(c.astype(np.float64))[None, :]
+    ref = (y64, yc64.sum(0), (yc64 * yc64).sum(0))
+    lims = (1e-5 + CHIP_RTOL * y64.abs(),
+            MM_STAT_TOL * yc64.abs().sum(0) + CHIP_RTOL * ref[1].abs(),
+            MM_STAT_TOL * (yc64 * yc64).sum(0) + CHIP_RTOL * ref[2].abs())
+    res = []
+    for g, r, lim in zip(got, ref, lims):
+        err = (g.double() - r).abs()
+        res.append((int((err > lim).sum()), float((err / lim).max())))
+    return res
+
+
+@pytest.mark.parametrize("seed", [21, 22, 23])
+@pytest.mark.parametrize("k", RESNET_KS)
+def test_3xtf32_kernel_products_hold_the_fp32_limits(k, seed):
+    """y, s1 and s2 from the kernel's 3xTF32 products stay within
+    chip_smoke.py's fp32 limits of float64 at every K of ResNet-50."""
+    for name, (bad, worst) in zip(("y", "s1", "s2"),
+                                  _stats_outside(_kernel_3xtf32, k=k,
+                                                 seed=seed)):
+        assert bad == 0, (name, bad, worst)
+        assert worst < 0.5, (name, worst)       # with room to spare
+
+
+def test_one_pass_tf32_breaks_the_fp32_limits():
+    """One-pass TF32 puts most of y (by up to ~100x the limit) and some of
+    s1 outside the same limits at K = 2,048: the reason for 3xTF32. (s2's
+    limit, a share of a sum of squares, is the loosest of the three.)"""
+    (ybad, yworst), (s1bad, s1worst), _ = _stats_outside(_one_pass_tf32)
+    assert ybad > 10000 and yworst > 20, (ybad, yworst)
+    assert s1bad > 0 and s1worst > 1, (s1bad, s1worst)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
+def test_fragment_reads_are_bank_conflict_free(itemsize):
+    """Each stage row holds 128 bytes of K padded by 16 (LD = 36 f32 or 72
+    bf16). f32 (m16n8k8): lane 4g+t reads rows g, g+8 at columns t, t+4;
+    bf16 (m16n8k16): the 32-bit word of columns 2t, 2t+1 and of 2t+8,
+    2t+9. Each read is one shared-memory wavefront."""
+    bk = 128 // itemsize
+    ld = bk + 16 // itemsize
+    assert (ld * itemsize) % 16 == 0            # cp.async row alignment
+    lanes = [(lane // 4, lane % 4) for lane in range(32)]
+    for kk in range(bk * itemsize // 32):       # k8 (f32) / k16 (bf16) steps
+        if itemsize == 4:
+            base = [(g * ld + 8 * kk + t) for g, t in lanes]
+            reads = [base, [e + 4 for e in base], [e + 8 * ld for e in base]]
+        else:
+            base = [(g * ld + 16 * kk + 2 * t) for g, t in lanes]
+            reads = [base, [e + 8 for e in base], [e + 8 * ld for e in base]]
+        for elems in reads:
+            words = [e * itemsize // 4 for e in elems]
+            assert _banks_conflict_free(words), (itemsize, kk)
+
+
+@pytest.mark.parametrize("bm, bn, minb", [(128, 128, 2), (128, 64, 2),
+                                          (64, 64, 3)])
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
+def test_tiles_fit_shared_memory(bm, bn, minb, itemsize):
+    """Each tile class's three-stage ring (csrc: NS, Tile) fits a block's
+    227 KB, and MINB of them fit the SM's 228 KB with 1 KB each reserved;
+    its scratch rows fit the wrapper's part buffer (rows of 64)."""
+    ld = 128 // itemsize + 16 // itemsize
+    smem = itemsize * 3 * (bm + bn) * ld
+    assert smem <= 232448 and minb * (smem + 1024) <= 233472
+    m = 1000
+    assert -(-m // bm) <= -(-m // TMS._BM)

@@ -11,18 +11,26 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
   2. build  — ``ops/csrc/paged_attention.cu``,
      ``ops/csrc/flash_attention.cu`` and ``ops/csrc/matmul_stats.cu``
      compiled for sm_90a, one ``nvcc`` each, started together; ptxas
-     must report no spills in any of the 18 flash instantiations (3
-     kernels x 2 dtypes x 3 widths) or the 6 matmul_stats ones (2 dtypes
-     x 3 tiles);
-  3. kernel — the CUDA paged-attention kernel held against its plain
-     PyTorch version (``_attend_plain``) at rtol 1e-4 / atol 1e-5 on
-     live rows: decode (C=1, S=32), a prefill chunk (C=16, S=1), a
-     speculative width (C=5), ragged chains of 1..16 blocks, layers 0
-     and 3 of a 4-layer pool, fp32, int8 and bf16 pools, bs 16, dk 64;
-     then timed at the serving shape against the plain version, one
-     PyTorch library call (scaled_dot_product_attention over the
-     gathered dense K/V, a yardstick the port never calls) and the
-     card's memory-bandwidth bound;
+     must report no spills in any of the 24 paged instantiations (4 pool
+     types x 3 widths x 2 row classes), the 18 flash ones (3 kernels x 2
+     dtypes x 3 widths) or the 6 matmul_stats ones (2 dtypes x 3 tiles);
+  3. kernel — the CUDA paged-attention kernel (each chain split across
+     blocks, the splits merged in the same launch) held against its
+     plain PyTorch version (``_attend_plain``) at rtol 1e-4 / atol 1e-5
+     on live rows (``PAGED_CASES``): decode (C=1, S=32), a prefill chunk
+     (C=16, S=1), a speculative width (C=5), ragged chains, layers 0 and
+     3 of a 4-layer pool, nblk at NBmax and capped at half of it, f32,
+     bf16, int8 and fp8-e4m3 pools, dk 64, 128 and 256, bs 16 and 32,
+     chains of up to 128 blocks, and 1-byte tiles of 24 bytes (8-byte
+     copies). Then timed at three shapes — (a) the serving decode shape
+     (S=32, H=8, C=1, dk 64, bs 16, 256 positions, fp32, a 4-layer pool
+     rotating through the L2), (b) the same pool with ragged chains of
+     1..16 blocks, (c) a prefill chunk (S=1, C=16, a chain of 14 blocks)
+     — each as device time alone and with the host's gaps, against the
+     plain version, scaled_dot_product_attention over the gathered dense
+     K/V (a boolean mask from qpos at b and c; a yardstick the port never
+     calls) and the bound (the bytes of the live chains, the fp32-SIMT
+     operations beside it); two launches bitwise equal at (a) and (c);
   4. slice  — the flagship ``transformer_lm`` at its own widths (vocab
      4096, max_len 256, 4 layers, 8 heads, d_model 512, d_inner 2048,
      fp32, weights from ``init_stream(seed=0)``) served by
@@ -30,6 +38,10 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
      requests, half sharing one 64-token prefix. The kernel's launch
      count is reset just before and read just after; tokens must equal
      the gather path's and, for 4 requests, ``sequential_generate``'s;
+     16 of the requests again over an fp8-e4m3 pool
+     (``kv_quant='fp8'``), the block kernel's tokens equal to the gather
+     path's; then a traced pass of 32 requests (device busy share, top
+     kernels, the paged kernel's share of device time);
   5. flash  — the three CUDA flash-attention kernels (forward: O and
      LSE; dQ, which also writes delta; dK/dV, with a nonzero dLSE
      cotangent) held against the plain PyTorch version (``_dense_lse``
@@ -99,10 +111,10 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
 
 The last three lines of standard output are the kernels' JSON line, the
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device": ...}``.
-In the kernels' line, the flash and matmul_stats entries' ``ms`` and
-``library_ms`` are device time alone, and they add both read with the
-host's gaps (``ms_with_host_gaps``, ``library_ms_with_host_gaps``);
-paged attention's are the mean of calls enqueued back to back.
+In the kernels' line every entry's ``ms`` and ``library_ms`` are device
+time alone, and each adds both read with the host's gaps
+(``ms_with_host_gaps``, ``library_ms_with_host_gaps``); paged
+attention's are at shape (a), and its ``launches`` count one per call.
 matmul_stats's times and bound are sums over the 36 launches of one
 ResNet-50 step, and its max_abs_err covers y, s1 and s2 (the sums'
 absolute errors dominate: they are sums of up to 100,352 rows).
@@ -162,17 +174,20 @@ def device_phase(torch):
 
 # -- phase 2 -------------------------------------------------------------
 def _kernel_name(line):
-    """``kernel<args>`` from a ptxas line's mangled template name."""
+    """``kernel<args>`` from a ptxas line's mangled template name (the
+    bare name for a kernel that is no template)."""
     m = re.search(r"([a-z_]+_kernel)I(\w*?)EE", line)
     if not m:
-        return line.strip()
+        m = re.search(r"([a-z_]+_kernel)E", line)
+        return m.group(1) if m else line.strip()
     args = m.group(2)
-    for mangled, plain in (("13__nv_bfloat16", "bf16"), ("ELi", ", "),
+    for mangled, plain in (("13__nv_bfloat16", "bf16"),
+                           ("13__nv_fp8_e4m3", "fp8"), ("ELi", ", "),
                            ("Li", ", "),
                            ("Lb0", ", false"), ("Lb1", ", true")):
         args = args.replace(mangled, plain)
     head = {"f": "float", "a": "int8"}.get(args[:1])
-    if head:
+    if head and not args.startswith("fp8"):
         args = head + args[1:]
     return "%s<%s>" % (m.group(1), args)
 
@@ -212,26 +227,38 @@ def build_phase():
         for kernel, (regs, st, ld) in sorted(report.items()):
             log("  ptxas %s: %-36s %3d registers, spill stores %d bytes, "
                 "spill loads %d bytes", name, kernel, regs, st, ld)
-            if kernel.startswith(("flash_", "matmul_stats_kernel")):
+            if kernel.startswith(("flash_", "matmul_stats_kernel",
+                                  "paged_")):
                 held[kernel] = st, ld
-    nflash = sum(k.startswith("flash_") for k in held)
-    check(nflash == 18, "ptxas reported %d flash kernels, expected 18 (3 "
-          "kernels x 2 dtypes x 3 widths)", nflash)
-    check(len(held) - nflash == 6, "ptxas reported %d matmul_stats "
-          "kernels, expected 6 (2 dtypes x 3 tiles)", len(held) - nflash)
+    counts = {p: sum(k.startswith(p) for k in held)
+              for p in ("flash_", "matmul_stats_kernel", "paged_")}
+    for prefix, want, what in (
+            ("flash_", 18, "3 kernels x 2 dtypes x 3 widths"),
+            ("matmul_stats_kernel", 6, "2 dtypes x 3 tiles"),
+            ("paged_", 24, "4 pool types x 3 widths x 2 row classes")):
+        check(counts[prefix] == want, "ptxas reported %d %s kernels, "
+              "expected %d (%s)", counts[prefix], prefix, want, what)
     spilled = [k for k, (st, ld) in held.items() if st or ld]
-    check(not spilled, "ptxas spills in the flash or matmul_stats kernels: "
-          "%s", spilled)
+    check(not spilled, "ptxas spills in the paged, flash or matmul_stats "
+          "kernels: %s", spilled)
 
 
 # -- phase 3 -------------------------------------------------------------
+QUANTS = {"fp32": None, "bf16": None, "int8": "int8", "fp8": "fp8"}
+
+
 def _pool_case(torch, rng, s, c, chains, quant, layers=4, h=8, bs=16,
-               dk=64, nbmax=16):
+               dk=64, nbmax=16, nb=None):
+    """A random pool problem: K/V drawn on the card from a seed taken
+    from ``rng``; slot i's chain of ``chains[i]`` blocks, its last query
+    at the chain's last block."""
+    from paddle_tpu_torch.ops import paged_attention as P
     dev = torch.device("cuda")
-    nb = s * nbmax + 4
+    nb = nb or s * nbmax + 4
     shape = (nb, layers, h, bs, dk)
-    pk = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
-    pv = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    pk = torch.randn(shape, generator=g, device=dev)
+    pv = torch.randn(shape, generator=g, device=dev)
     btab = rng.permutation(nb)[:s * nbmax].reshape(s, nbmax)
     qpos = np.stack([rng.integers(0, ch * bs, size=c) for ch in chains])
     qpos[:, -1] = (np.asarray(chains) - 1) * bs + rng.integers(0, bs, s)
@@ -240,38 +267,50 @@ def _pool_case(torch, rng, s, c, chains, quant, layers=4, h=8, bs=16,
             "btab": torch.from_numpy(btab.astype(np.int32)).to(dev),
             "qpos": torch.from_numpy(qpos.astype(np.int32)).to(dev),
             "k_scale": None, "v_scale": None}
-    from paddle_tpu_torch.ops import paged_attention as P
-    if quant == "int8":
-        pk, case["k_scale"] = P.quantize_kv(pk, torch.int8)
-        pv, case["v_scale"] = P.quantize_kv(pv, torch.int8)
+    spec = P.kv_quant_spec(QUANTS[quant])
+    if spec is not None:
+        pk, case["k_scale"] = P.quantize_kv(pk, spec[0])
+        pv, case["v_scale"] = P.quantize_kv(pv, spec[0])
     elif quant == "bf16":
         pk, pv = pk.to(torch.bfloat16), pv.to(torch.bfloat16)
     case["pool_k"], case["pool_v"] = pk.contiguous(), pv.contiguous()
     return case
 
 
+# (S, C, dk, bs, NBmax, pool types): the serving shapes (decode S=32,
+# a prefill chunk C=16, a speculative width C=5) at dk 64 and bs 16 in
+# all four pool types; dk 128 and 256; bs 32; chains up to 128 blocks
+# (many splits, many of them past a short chain); 1-byte codes whose
+# K/V tiles are not a multiple of 16 bytes (bs 3, dk 8: 8-byte copies)
+PAGED_CASES = [(s, c, 64, 16, 16, tuple(QUANTS))
+               for s, c in ((32, 1), (1, 16), (8, 5))] + \
+    [(s, c, dk, 16, 16, tuple(QUANTS)) for dk in (128, 256)
+     for s, c in ((8, 1), (1, 16), (4, 5))] + \
+    [(s, c, 64, 32, 8, tuple(QUANTS)) for s, c in ((8, 1), (1, 16))] + \
+    [(s, c, 64, 16, 128, ("fp32", "fp8")) for s, c in ((4, 1), (2, 16))] + \
+    [(s, c, 8, 3, 6, ("int8", "fp8")) for s, c in ((4, 1), (3, 5))]
+
+
 def kernel_phase(torch):
-    """Every listed case against the plain version; returns the largest
-    absolute error seen."""
+    """Every listed case against the plain version, at layers 0 and 3,
+    with nblk at NBmax and at half of it (which caps the walk below the
+    longest chain: only slots whose own chain fits are live rows);
+    returns the largest absolute error seen."""
     from paddle_tpu_torch.ops import paged_attention as P
     rng = np.random.default_rng(0)
-    worst = 0.0
-    shapes = [(32, 1), (1, 16), (8, 5)]
-    for s, c in shapes:
-        for quant in ("fp32", "int8", "bf16"):
-            if quant == "bf16" and c != 1:
-                continue
-            chains = rng.integers(1, 17, size=s)
-            chains[0] = 16
-            if c == 16:
-                chains[0] = 9
-            case = _pool_case(torch, rng, s, c, chains, quant)
+    worst, n = 0.0, 0
+    for s, c, dk, bs, nbmax, quants in PAGED_CASES:
+        for quant in quants:
+            chains = rng.integers(1, nbmax + 1, size=s)
+            chains[0] = nbmax
+            case = _pool_case(torch, rng, s, c, chains, quant, bs=bs, dk=dk,
+                              nbmax=nbmax)
+            args = tuple(case[k] for k in ("q", "pool_k", "pool_v", "btab",
+                                           "qpos"))
+            splits = P._splits(s, args[0].shape[1], c, nbmax, bs)
             for layer in (0, 3):
-                # nblk 8 caps the walk below the longest chain: only
-                # slots whose own chain fits are live rows
-                for nblk in [n for n in (16, 8) if (chains <= n).any()]:
-                    args = (case["q"], case["pool_k"], case["pool_v"],
-                            case["btab"], case["qpos"])
+                for nblk in [v for v in (nbmax, nbmax // 2)
+                             if v and (chains <= v).any()]:
                     nb_t = torch.tensor([nblk], dtype=torch.int32,
                                         device="cuda")
                     got = P.paged_attention(
@@ -285,80 +324,138 @@ def kernel_phase(torch):
                     err = (got[live] - ref[live]).abs()
                     bad = err > ATOL + RTOL * ref[live].abs()
                     worst = max(worst, float(err.max()))
+                    n += 1
                     check(bool(torch.isfinite(got[live]).all())
                           and not bool(bad.any()),
                           "kernel disagrees with _attend_plain: S=%d C=%d "
-                          "%s layer=%d nblk=%d max_abs_err=%g", s, c,
-                          quant, layer, nblk, float(err.max()))
-                    log("kernel: S=%-2d C=%-2d %-4s layer=%d nblk=%-2d "
-                        "max_abs_err=%.3g  ok", s, c, quant, layer, nblk,
-                        float(err.max()))
+                          "dk=%d bs=%d NBmax=%d %s layer=%d nblk=%d "
+                          "max_abs_err=%g", s, c, dk, bs, nbmax, quant,
+                          layer, nblk, float(err.max()))
+                    log("kernel: S=%-2d C=%-2d dk=%-3d bs=%-2d NBmax=%-3d "
+                        "%-4s splits=%-3d layer=%d nblk=%-3d "
+                        "max_abs_err=%.3g  ok", s, c, dk, bs, nbmax, quant,
+                        splits, layer, nblk, float(err.max()))
+    log("kernel: %d comparisons ok; largest abs error %.3g", n, worst)
     return worst
 
 
-def _time_ms(torch, fn, reps, rounds=4):
-    """Mean ms of ``fn(layer)`` over ``reps`` passes of layers 0..3 (a
-    different 33.5 MB pool slice each call: 134 MB rotate through the
-    50 MB L2, as the decode loop meets them), CUDA-event timed."""
-    for layer in range(rounds):
-        fn(layer)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        for layer in range(rounds):
-            fn(layer)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (reps * rounds)
+def _paged_shapes(torch):
+    """The three timed shapes on one 4-layer pool of 512 blocks (S=32,
+    H=8, bs 16, dk 64, fp32; 33.5 MB a layer, 134 MB rotating through
+    the 50 MB L2 as the decode loop meets them): (a) decode, every slot
+    at 256 positions; (b) decode with ragged chains of 1..16 blocks;
+    (c) a prefill chunk, S=1, C=16, a chain of 14 blocks."""
+    rng = np.random.default_rng(1)
+    s, bs, nbmax = 32, 16, 16
+    case = _pool_case(torch, rng, s, 1, [nbmax] * s, "fp32", nb=s * nbmax)
+    case["qpos"].fill_(nbmax * bs - 1)
+    ragged = rng.integers(1, nbmax + 1, size=s)
+    qpos_b = (ragged - 1) * bs + rng.integers(0, bs, size=s)
+    q16 = rng.normal(size=(1, 8, 16, 64)).astype(np.float32) * 0.125
+    shapes = {
+        "a": (case["q"], case["btab"], case["qpos"], nbmax),
+        "b": (case["q"], case["btab"], torch.from_numpy(
+            qpos_b[:, None].astype(np.int32)).cuda(), int(ragged.max())),
+        "c": (torch.from_numpy(q16).cuda(), case["btab"][:1],
+              torch.arange(13 * bs, 14 * bs, dtype=torch.int32,
+                           device="cuda")[None], 14),
+    }
+    return case["pool_k"], case["pool_v"], shapes
+
+
+def _paged_work(q, qpos, h, dk, bs, itemsize=4):
+    """(bytes, flops) one call needs: each live K/V element read once
+    (the blocks up to each slot's last query), q read and out written
+    once, the tables read; 4 flops per (query, key, dk) pair that
+    attends (2 for QK^T, 2 for PV)."""
+    s, c = qpos.shape
+    qp = qpos.long().cpu()
+    blocks = int((qp.max(dim=1).values // bs + 1).sum())
+    pairs = int((qp + 1).sum())
+    nbytes = (2 * blocks * h * bs * dk * itemsize + 2 * q.numel() * 4
+              + 4 * (qpos.numel() + blocks))
+    return nbytes, 4 * pairs * h * dk
 
 
 def timing_phase(torch):
-    """The serving decode shape: S=32, H=8, dk=64, C=1, 256 cached
-    positions (16 blocks of 16) per slot, 4-layer 512-block pool."""
+    """Kernel, plain version and library call at the three shapes, each
+    as device time alone (a sleep kernel hides the host's enqueue) and
+    with the host's gaps (calls back to back, each between its own
+    events); the library call is scaled_dot_product_attention over the
+    gathered dense K/V (a yardstick the port never calls), with a
+    boolean mask from qpos where the chains are ragged or C > 1. Then
+    two launches on the same inputs must be bitwise equal at (a) and
+    (c). Returns the kernels-line entry (shape a)."""
     from paddle_tpu_torch.ops import paged_attention as P
-    rng = np.random.default_rng(1)
-    s, h, dk, bs, npos, layers = 32, 8, 64, 16, 256, 4
-    nbmax = npos // bs
-    case = _pool_case(torch, rng, s, 1, [nbmax] * s, "fp32",
-                      layers=layers, h=h, bs=bs, dk=dk, nbmax=nbmax)
-    case["qpos"].fill_(npos - 1)
-    q, pk, pv, bt, qp = (case["q"], case["pool_k"], case["pool_v"],
-                         case["btab"], case["qpos"])
-    nblk = torch.tensor([nbmax], dtype=torch.int32, device="cuda")
-    kernel_ms = _time_ms(torch, lambda l: P.paged_attention(
-        q, pk, pv, bt, qp, nblk=nblk, layer=l), reps=50)
-    plain_ms = _time_ms(torch, lambda l: P._attend_plain(
-        q, pk, pv, bt, qp, nbmax, None, None, layer=l), reps=5)
-    dense = []
-    for layer in range(layers):
-        k = pk[:, layer][bt.long()].permute(0, 2, 1, 3, 4).reshape(
-            s, h, npos, dk).contiguous()
-        v = pv[:, layer][bt.long()].permute(0, 2, 1, 3, 4).reshape(
-            s, h, npos, dk).contiguous()
-        dense.append((k, v))
+    pk, pv, shapes = _paged_shapes(torch)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = _time_ms(torch, lambda l: sdpa(
-        q, dense[l][0], dense[l][1], scale=1.0), reps=50)
-    lib_out = sdpa(q, dense[0][0], dense[0][1], scale=1.0)
-    ker_out = P.paged_attention(q, pk, pv, bt, qp, nblk=nblk, layer=0)
-    check(torch.allclose(ker_out, lib_out, rtol=RTOL, atol=ATOL),
-          "kernel disagrees with scaled_dot_product_attention")
-    nbytes = 4 * (2 * s * h * npos * dk + 2 * s * h * dk) + 4 * (
-        s * nbmax + s)
-    flops = 4 * s * h * npos * dk
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / FP32_FLOPS * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    out = {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": bound_ms,
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-    log("timing (S=32 H=8 C=1 dk=64, 256 positions, fp32): kernel_ms=%.5f "
-        "plain_ms=%.5f library_ms=%.5f bound_ms=%.5f (%s, %d bytes, %d "
-        "flops)", kernel_ms, plain_ms, library_ms, bound_ms,
-        out["bound_by"], nbytes, flops)
-    return out
+    h, bs, dk = pk.shape[2], pk.shape[3], pk.shape[4]
+    out = {}
+    for name, (q, bt, qp, nblk) in shapes.items():
+        nb_t = torch.tensor([nblk], dtype=torch.int32, device="cuda")
+        c = qp.shape[1]
+        npos = nblk * bs
+        dense, mask = [], None
+        if name != "a":
+            kpos = torch.arange(npos, device="cuda")
+            mask = (kpos[None, None, None, :] <= qp[:, None, :, None])
+        for layer in range(4):
+            kv = []
+            for pool in (pk, pv):
+                g = pool[:, layer][bt[:, :nblk].long()]
+                kv.append(g.permute(0, 2, 1, 3, 4).reshape(
+                    bt.shape[0], h, npos, dk).contiguous())
+            dense.append(kv)
+
+        def kernel(i):
+            P.paged_attention(q, pk, pv, bt, qp, nblk=nb_t, layer=i % 4)
+
+        def library(i):
+            k, v = dense[i % 4]
+            sdpa(q, k, v, attn_mask=mask, scale=1.0)
+
+        def plain(i):
+            P._attend_plain(q, pk, pv, bt, qp, nblk, None, None,
+                            layer=i % 4)
+        r = {"ms": _events_ms(torch, kernel, 100, hide_host=True),
+             "ms_with_host_gaps": _events_ms(torch, kernel, 100),
+             "library_ms": _events_ms(torch, library, 100,
+                                      hide_host=True),
+             "library_ms_with_host_gaps": _events_ms(torch, library, 100),
+             "plain_ms": _events_ms(torch, plain, 5)}
+        got = P.paged_attention(q, pk, pv, bt, qp, nblk=nb_t, layer=0)
+        lib = sdpa(q, dense[0][0], dense[0][1], attn_mask=mask, scale=1.0)
+        check(torch.allclose(got, lib, rtol=RTOL, atol=ATOL),
+              "kernel disagrees with scaled_dot_product_attention at (%s)",
+              name)
+        if name in ("a", "c"):
+            again = P.paged_attention(q, pk, pv, bt, qp, nblk=nb_t,
+                                      layer=0)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), "two launches at (%s) are not "
+                  "bitwise equal", name)
+        nbytes, flops = _paged_work(q, qp, h, dk, bs)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / FP32_FLOPS * 1e3
+        r.update(bound_ms=max(bytes_ms, ops_ms),
+                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        splits = P._splits(q.shape[0], h, c, bt.shape[1], bs)
+        log("timing (%s) S=%d H=%d C=%d dk=%d bs=%d, %s fp32, splits %d: "
+            "device time alone kernel_ms=%.5f library_ms=%.5f (kernel / "
+            "library %.3f); with the host's gaps kernel_ms=%.5f "
+            "library_ms=%.5f; plain_ms=%.5f (with gaps); bound_ms=%.5f "
+            "(%s: %d bytes %.5f ms, %d flops at fp32 SIMT %.5f ms)%s",
+            name, q.shape[0], h, c, dk, bs,
+            {"a": "256 positions per slot",
+             "b": "ragged chains of 1..16 blocks",
+             "c": "a chain of 14 blocks"}[name], splits, r["ms"],
+            r["library_ms"], r["ms"] / r["library_ms"],
+            r["ms_with_host_gaps"], r["library_ms_with_host_gaps"],
+            r["plain_ms"], r["bound_ms"], r["bound_by"], nbytes, bytes_ms,
+            flops, ops_ms, "; two launches bitwise equal"
+            if name in ("a", "c") else "")
+        out[name] = r
+    return out["a"]
 
 
 # -- phase 4 -------------------------------------------------------------
@@ -438,15 +535,54 @@ def slice_phase(torch):
     log("slice: tokens equal the gather path (64 requests) and "
         "sequential_generate (4 requests); %d launches for %d dispatches "
         "x %d layers", launches, dispatches, N_LAYER)
+    fp8_slice_phase(torch, model, reqs[:16])
     profile_phase(torch, model, reqs)
     return launches
+
+
+def fp8_slice_phase(torch, model, reqs):
+    """The same engine over an fp8-e4m3 pool (``kv_quant='fp8'``): codes
+    and per-vector scales written on the card, read by the kernel and,
+    on the gather path, by the dense gather; both paths must give the
+    same tokens."""
+    from paddle_tpu_torch.ops import paged_attention as P
+    from paddle_tpu_torch.serving import Engine
+    prompts, max_new = [p for p, _ in reqs], [m for _, m in reqs]
+    outs = {}
+    for kernel in (True, False):
+        with Engine(model, slots=32, prefill_chunk=16, block_size=16,
+                    block_kernel=kernel, kv_quant="fp8") as eng:
+            check(eng._state["pool_k"].dtype == torch.float8_e4m3fn,
+                  "the fp8 engine's pool is %s", eng._state["pool_k"].dtype)
+            eng.warmup()
+            P.paged_attention.launches = 0
+            outs[kernel] = eng.generate_many(prompts, max_new)
+            torch.cuda.synchronize()
+            launches = P.paged_attention.launches
+            dispatches = (eng.stats["decode_steps"]
+                          + eng.stats["prefill_chunks"])
+        if kernel:
+            check(launches >= N_LAYER * dispatches, "fp8: kernel launches "
+                  "%d < n_layer x dispatches %d", launches,
+                  N_LAYER * dispatches)
+            kernel_launches = launches
+    for i, ((toks, score), req_m) in enumerate(zip(outs[True], max_new)):
+        check(len(toks) == req_m and all(0 <= t < VOCAB for t in toks)
+              and np.isfinite(score), "fp8 request %d: bad output", i)
+    diverged = [i for i, (a, b) in enumerate(zip(outs[True], outs[False]))
+                if a[0] != b[0]]
+    check(not diverged, "fp8 pool: block-kernel tokens differ from the "
+          "gather path's for requests %s", diverged)
+    log("slice (fp8 pool): %d requests, tokens equal on the block kernel "
+        "and the gather path; %d launches", len(reqs), kernel_launches)
 
 
 def profile_phase(torch, model, reqs):
     """A separate traced pass (the timed runs above are untraced): the
     block-kernel engine serves the first 32 requests under
     torch.profiler with device activity only; prints the device busy
-    share of the wall time and the kernels that take the most of it."""
+    share of the wall time, the kernels that take the most of it, and
+    the paged kernel's share."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.serving import Engine
     sub = reqs[:32]
@@ -459,7 +595,7 @@ def profile_phase(torch, model, reqs):
             wall = time.perf_counter() - t0
         steps = eng.stats["decode_steps"] + eng.stats["prefill_chunks"]
     _report_profile(prof, wall, "profile (traced, 32 requests, %d "
-                    "dispatches)" % steps)
+                    "dispatches)" % steps, focus="paged_attention_kernel")
 
 
 # -- phase 5 -------------------------------------------------------------
@@ -1386,7 +1522,9 @@ def resnet_parity_phase(torch, fluid, flags, exe, prog, init, batches):
           RESNET_PARITY_TOL, controls["ds2 term dropped"][0])
 
 
-def _report_profile(prof, wall, title):
+def _report_profile(prof, wall, title, focus=None):
+    """Device busy share of ``wall`` and the top kernels; with ``focus``,
+    also the share of the kernels whose names hold it."""
     rows = []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
@@ -1403,6 +1541,12 @@ def _report_profile(prof, wall, title):
     for dev_us, count, key in sorted(rows, reverse=True)[:10]:
         log("  %6.1f%% of device time  %8.3f ms  x%-6d %s",
             100 * dev_us / 1e6 / busy_s, dev_us / 1e3, count, key[:70])
+    if focus:
+        mine = [r for r in rows if focus in r[2]]
+        log("%s: %s %.3f ms in %d launches = %.1f%% of device time",
+            title, focus, sum(r[0] for r in mine) / 1e3,
+            sum(r[1] for r in mine),
+            100 * sum(r[0] for r in mine) / 1e6 / busy_s)
 
 
 def main():

@@ -69,9 +69,10 @@ _register("serving_block_kernel", bool, True,
           "with online softmax (the CUDA kernel on the card, its plain "
           "PyTorch version on the CPU). 0 = the dense-gather path")
 _register("serving_kv_quant", str, "",
-          "paged-KV pool quantization: '' (off) or 'int8' (per-vector "
-          "f32 scales beside the pool, quantized on write, dequantized "
-          "inside the attention block loop)")
+          "paged-KV pool quantization: '' (off), 'int8' or 'fp8' (e4m3 "
+          "codes; both with per-vector f32 scales beside the pool, "
+          "quantized on write, dequantized inside the attention block "
+          "loop)")
 _register("serving_attn_unroll", int, 1,
           "blocks gathered per online-softmax update in the plain "
           "PyTorch paged attention (numerics-neutral)")

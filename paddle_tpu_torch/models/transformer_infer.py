@@ -268,9 +268,9 @@ class TransformerLMInfer(nn.Module):
         """Shared paged KV pool ``[num_blocks, n_layer, n_head,
         block_size, dk]`` for K and V. Unassigned block-table entries
         read block 0, which the causal predicate masks. ``kv_quant``
-        ('int8') stores codes plus one f32 scale per cached vector
-        (``pool_ks``/``pool_vs``), initialized to 1 so block 0's zero
-        codes dequantize to exact zeros."""
+        ('int8' or 'fp8') stores codes plus one f32 scale per cached
+        vector (``pool_ks``/``pool_vs``), initialized to 1 so block 0's
+        zero codes dequantize to exact zeros."""
         dk = self.d_model // self.n_head
         shape = (int(num_blocks), self.n_layer, self.n_head,
                  int(block_size), dk)
@@ -282,8 +282,11 @@ class TransformerLMInfer(nn.Module):
                     "pool_v": torch.zeros(shape, dtype=self.dtype,
                                           device=dev)}
         qdtype, _ = spec
-        return {"pool_k": torch.zeros(shape, dtype=qdtype, device=dev),
-                "pool_v": torch.zeros(shape, dtype=qdtype, device=dev),
+        # zero bytes are zero codes in int8 and in fp8 e4m3
+        return {"pool_k": torch.zeros(shape, dtype=torch.uint8,
+                                      device=dev).view(qdtype),
+                "pool_v": torch.zeros(shape, dtype=torch.uint8,
+                                      device=dev).view(qdtype),
                 "pool_ks": torch.ones(shape[:-1], dtype=torch.float32,
                                       device=dev),
                 "pool_vs": torch.ones(shape[:-1], dtype=torch.float32,
@@ -311,7 +314,10 @@ class TransformerLMInfer(nn.Module):
             pool = pools[name][:, i]                     # [NB, H, bs, dk]
             if sname in pools:
                 codes, scale = _paged_ops.quantize_kv(vec, pool.dtype)
-                pool[phys, :, off, :] = codes
+                # 1-byte codes written through a uint8 view of the same
+                # bytes: index_put need not exist for fp8 on every device
+                pool.view(torch.uint8)[phys, :, off, :] = codes.view(
+                    torch.uint8)
                 pools[sname][:, i][phys, :, off] = scale
             else:
                 pool[phys, :, off, :] = vec.to(pool.dtype)
@@ -327,7 +333,8 @@ class TransformerLMInfer(nn.Module):
         dk = self.d_model // self.n_head
         out = []
         for name, sname in (("pool_k", "pool_ks"), ("pool_v", "pool_vs")):
-            g = pools[name][:, i][bt]                # [S, NB, H, bs, dk]
+            g = _paged_ops.take_blocks(pools[name][:, i], bt)
+            # g: [S, NB, H, bs, dk]
             if sname in pools:
                 g = _paged_ops.dequantize_kv(g, pools[sname][:, i][bt])
             out.append(g.permute(0, 2, 1, 3, 4).reshape(

@@ -101,9 +101,9 @@ class Engine:
     prefix cache on (default). ``block_kernel`` selects the block-chain
     attention (default for fp32 or quantized pools) over the dense
     gather (default for a bf16 unquantized pool); ``kv_quant='int8'``
-    quantizes the pool. ``device`` defaults to the CUDA card and must
-    be where the model lives; without a card the engine raises unless
-    ``device='cpu'`` is passed."""
+    or ``'fp8'`` (e4m3) quantizes the pool. ``device`` defaults to the
+    CUDA card and must be where the model lives; without a card the
+    engine raises unless ``device='cpu'`` is passed."""
 
     def __init__(self, model, slots=8, prefill_chunk=None,
                  admission_wait=None, name="engine", megastep=None,

@@ -19,14 +19,23 @@ show what a part of the kernel costs.
   matmul_stats  ``matmul_stats.cu``: f32 at the 15 distinct shapes of
                 ResNet-50's fused 1x1 convs (batch 32 at 224x224), summed
                 over the 36 launches of one training step.
+  paged         ``paged_attention.cu``: f32 pools at the serving decode
+                shape (a: S=32, H=8, C=1, dk 64, bs 16, 256 positions a
+                slot, four layers of 33.5 MB rotating through the L2),
+                decode over ragged chains (b) and a prefill chunk (c:
+                S=1, C=16, a chain of 14 blocks), at
+                the host rule's split count and at each of
+                ``PAGED_SPLITS`` (the split-rule variants).
 
-``--baseline FAMILY=PATH`` adds another version of a family's source with
-the same C interface (for example the parent commit's, unpacked from
-``git archive``).
+``--baseline FAMILY=PATH`` adds another version of a family's source (for
+example the parent commit's, unpacked from ``git archive``); its C
+interface must be the family's own, except for ``paged``, where the
+baseline is called through the interface of the first version (no
+splits; one launch per call).
 
 Run on the card from the repository root:
     python3 -m paddle_tpu_torch.tools.kernel_trials [flash] [matmul_stats]
-        [--rounds 2] [--baseline matmul_stats=PARENT.cu]
+        [paged] [--rounds 2] [--baseline matmul_stats=PARENT.cu]
 """
 
 import argparse
@@ -370,13 +379,156 @@ def _mm_time(lib, cases, reps):
     return times, got
 
 
+# -- paged ------------------------------------------------------------------
+_P_NS = "constexpr int NS = 3;            // cp.async ring stages"
+_P_KG = "constexpr int KG = 4;            // keys a warp scores per softmax"
+_P_MINB = "RW == 1 ? (NC == 1 ? 8 : 4)"
+
+# the first design of the split merge: a second kernel, one warp per row
+_P_MERGE_KERNEL = r"""// A second launch merges the splits' partials.
+__global__ void __launch_bounds__(NT) paged_merge_kernel(
+    const float* __restrict__ part, float* __restrict__ out, long long nrow,
+    int dk, int splits) {
+  const long long row = (long long)blockIdx.x * NW + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= nrow) return;
+  const float* ml = part + (long long)splits * nrow * dk;
+  float mx = NEG_INF;
+  for (int i = 0; i < splits; ++i) mx = fmaxf(mx, ml[2 * (i * nrow + row)]);
+  float lsum = 0.f;
+  for (int i = 0; i < splits; ++i) {
+    const long long pr = i * nrow + row;
+    lsum = fmaf(ml[2 * pr + 1], expf(ml[2 * pr] - mx), lsum);
+  }
+  const float inv = 1.f / fmaxf(lsum, 1e-30f);
+  for (int d = lane; d < dk; d += 32) {
+    float o = 0.f;
+    for (int i = 0; i < splits; ++i) {
+      const long long pr = i * nrow + row;
+      o = fmaf(part[pr * dk + d], expf(ml[2 * pr] - mx), o);
+    }
+    out[row * dk + d] = o * inv;
+  }
+}
+
+// Raise a kernel's dynamic shared-memory cap"""
+_P_TWO_LAUNCHES = [
+    ("  if (a.splits == 1) return;\n\n  // count this block in",
+     "  return;\n  // count this block in"),
+    ("// Raise a kernel's dynamic shared-memory cap", _P_MERGE_KERNEL),
+    ("  fn<<<grid, NT, lay.total, st>>>(a);\n  return cudaGetLastError();",
+     "  fn<<<grid, NT, lay.total, st>>>(a);\n"
+     "  err = cudaGetLastError();\n"
+     "  if (err != cudaSuccess || a.splits == 1) return err;\n"
+     "  const long long nrow = (long long)a.S * a.H * a.C;\n"
+     "  paged_merge_kernel<<<(unsigned)((nrow + NW - 1) / NW), NT, 0, st>>>(\n"
+     "      a.part, a.out, nrow, a.dk, a.splits);\n"
+     "  return cudaGetLastError();"),
+]
+
+PAGED_VARIANTS = {
+    "as built": [],
+    "merge kernel (two launches)": _P_TWO_LAUNCHES,
+    "2 stages": [(_P_NS, _P_NS.replace("3;", "2;"))],
+    "4 stages": [(_P_NS, _P_NS.replace("3;", "4;"))],
+    "6 stages": [(_P_NS, _P_NS.replace("3;", "6;"))],
+    "2 keys per update": [(_P_KG, _P_KG.replace("4;", "2;"))],
+    "decode registers for 4 blocks/SM": [
+        (_P_MINB, "RW == 1 ? (NC == 1 ? 4 : 4)")],
+}
+# split counts timed beside the host rule's at each shape
+PAGED_SPLITS = {"a": (1, 2, 8, 16), "b": (1, 2, 8), "c": (1, 4, 14)}
+
+
+def _paged_inputs(device="cuda"):
+    """The serving decode shape (a), decode over ragged chains of 1..16
+    blocks (b) and a prefill chunk (c) on one f32 pool of 512 blocks x
+    4 layers (S=32, H=8, bs 16, dk 64)."""
+    s, h, bs, dk, nbmax, layers = 32, 8, 16, 64, 16, 4
+    g = torch.Generator(device=device).manual_seed(0)
+    shape = (s * nbmax, layers, h, bs, dk)
+    pk = torch.randn(shape, generator=g, device=device)
+    pv = torch.randn(shape, generator=g, device=device)
+    btab = torch.randperm(s * nbmax, generator=g, device=device).reshape(
+        s, nbmax).to(torch.int32)
+    q = torch.randn(s, h, 1, dk, generator=g, device=device) / 8
+    ragged = torch.randint(0, nbmax * bs, (s, 1), generator=g,
+                           device=device, dtype=torch.int32)
+    shapes = {
+        "a": (q, btab, torch.full((s, 1), nbmax * bs - 1, dtype=torch.int32,
+                                  device=device), nbmax),
+        "b": (q, btab, ragged, int(ragged.max()) // bs + 1),
+        "c": (torch.randn(1, h, 16, dk, generator=g, device=device) / 8,
+              btab[:1].contiguous(),
+              torch.arange(13 * bs, 14 * bs, dtype=torch.int32,
+                           device=device)[None], 14)}
+    return pk, pv, {k: v[:3] + (torch.tensor([v[3]], dtype=torch.int32,
+                                             device=device),)
+                    for k, v in shapes.items()}
+
+
+def _paged_time(lib, inputs, reps):
+    from paddle_tpu_torch.ops import paged_attention as P
+    pk, pv, shapes = inputs
+    p = ctypes.c_void_p
+    lib.ptt_paged_attention.argtypes = [p] * 11 + [
+        ctypes.POINTER(ctypes.c_longlong), p]
+    lib.ptt_paged_attention.restype = ctypes.c_int
+    times, got = {}, []
+    for name, (q, bt, qp, nblk) in shapes.items():
+        rule = P._splits(q.shape[0], q.shape[1], q.shape[2], bt.shape[1],
+                         pk.shape[3])
+        for splits in (rule,) + PAGED_SPLITS[name]:
+            # out allocated here, outside the timed span
+            calls = [P._launch_args(q, pk, pv, bt, qp, nblk, None, None,
+                                    layer, splits) for layer in range(4)]
+
+            def launch(j):
+                _launched(lib.ptt_paged_attention(*calls[j % 4][1]))
+            key = name if splits == rule else "%s splits=%d" % (name,
+                                                                  splits)
+            times[key] = _events_ms(launch, reps)
+            if splits == rule:
+                launch(0)
+                torch.cuda.synchronize()
+                got.append(calls[0][0].clone())
+    return times, got
+
+
+def _paged_time_first_version(lib, inputs, reps):
+    """The first version's C interface: one launch per call, int strides
+    (p_sb, p_sl, p_sh, p_sp, s_sb, s_sl, s_sh), no splits."""
+    pk, pv, shapes = inputs
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ptt_paged_attention.argtypes = [p] * 9 + [i] * 14 + [i, p]
+    lib.ptt_paged_attention.restype = i
+    times, got = {}, []
+    st = pk.stride()
+    for name, (q, bt, qp, nblk) in shapes.items():
+        s, h, c, dk = q.shape
+        out = torch.empty_like(q)
+
+        def launch(j):
+            _launched(lib.ptt_paged_attention(
+                q.data_ptr(), pk.data_ptr(), pv.data_ptr(), None, None,
+                bt.data_ptr(), qp.data_ptr(), nblk.data_ptr(),
+                out.data_ptr(), s, h, c, dk, pk.shape[3], bt.shape[1], j % 4,
+                st[0], st[1], st[2], st[3], 0, 0, 0, 0, None))
+        times[name] = _events_ms(launch, reps)
+        launch(0)
+        torch.cuda.synchronize()
+        got.append(out.clone())
+    return times, got
+
+
 class Family:
     def __init__(self, source, variants, inputs, time, prepare=None,
-                 reps=20):
+                 reps=20, baseline_time=None):
         self.source = os.path.join(_build._CSRC, source)
         self.variants = variants
         self.inputs, self.time, self.reps = inputs, time, reps
         self.prepare = prepare or (lambda text: text)
+        self.baseline_time = baseline_time or time
 
     def sources(self, baseline=None):
         """{variant name: source text}, the baseline's last when given."""
@@ -395,6 +547,9 @@ FAMILIES = {
                     _flash_time, prepare=_flash_prepare, reps=50),
     "matmul_stats": Family("matmul_stats.cu", MM_VARIANTS, _mm_inputs,
                            _mm_time),
+    "paged": Family("paged_attention.cu", PAGED_VARIANTS, _paged_inputs,
+                    _paged_time, reps=100,
+                    baseline_time=_paged_time_first_version),
 }
 
 
@@ -425,8 +580,10 @@ def main():
                 lib = built[fam, v][0]
                 if lib is None:
                     continue
-                times, got = FAMILIES[fam].time(lib, inputs[fam],
-                                                FAMILIES[fam].reps)
+                family = FAMILIES[fam]
+                timer = family.baseline_time if v == "baseline" else \
+                    family.time
+                times, got = timer(lib, inputs[fam], family.reps)
                 base = ref.setdefault(fam, got)
                 diff = max(float((a - b).abs().max())
                            for a, b in zip(got, base))

@@ -141,6 +141,32 @@ def test_int8_kv_engine_is_deterministic(lms):
     assert a == b
 
 
+@pytest.mark.parametrize("block_kernel", [True, False],
+                         ids=["block", "gather"])
+def test_fp8_kv_engine_matches_jax(lms, block_kernel):
+    """``kv_quant='fp8'``: the port's engine stores e4m3 codes with
+    per-vector scales and gives the JAX package's fp8 engine's greedy
+    tokens on the same weights (through both attention paths)."""
+    jlm, tlm = lms[VOCAB]
+    reqs = _requests(4, 6)
+    with jserving.Engine(jlm, slots=3, prefill_chunk=4, block_size=4,
+                         kv_quant="fp8") as eng:
+        ref = eng.generate_many([p for p, _ in reqs], [m for _, m in reqs])
+    out, stats = _serve(tlm, reqs, slots=3, prefill_chunk=4, block_size=4,
+                        kv_quant="fp8", block_kernel=block_kernel)
+    _assert_identical(ref, out)
+    with serving.Engine(tlm, slots=1, device="cpu", kv_quant="fp8") as eng:
+        assert eng._state["pool_k"].dtype == torch.float8_e4m3fn
+        assert eng._state["pool_ks"].dtype == torch.float32
+        assert eng._block_bytes < _kvpool_dense_bytes(tlm, eng)
+
+
+def _kvpool_dense_bytes(tlm, eng):
+    from paddle_tpu_torch.serving import kvpool
+    return kvpool.bytes_per_block(tlm.n_layer, tlm.n_head, eng._block_size,
+                                  tlm.d_model // tlm.n_head)
+
+
 def test_default_attention_path_selection(lms):
     _, tlm = lms[VOCAB]
     with serving.Engine(tlm, slots=1, device="cpu") as eng:

@@ -107,11 +107,35 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
      twice, 3 steps fused and 3 flag-off agree in the step-1 loss (rtol
      1e-4), and in the weights and BN running statistics within a limit
      that controls place (see ``resnet_parity_phase``). Then traced
-     passes of 3 fused and 3 flag-off steps.
+     passes of 3 fused and 3 flag-off steps;
+  9. megastep — K steps as one CUDA graph, captured once and replayed,
+     against the eager steps (``core/graphs.py``): the packed LM with
+     Adam and ResNet-50 with ``fuse_conv_bn`` on and off, each 10
+     ``run()`` steps against 2 ``run_steps(K=5)`` dispatches over the
+     same 10 batches from one startup scope copied twice (the graph
+     captured before, by a warm call on a third copy): losses and every
+     state tensor bitwise equal, or the first differing op named and the
+     weights held to the limit the earlier controls place (ResNet's
+     eager steps are compared twice first; where cuDNN's default
+     algorithms part run to run, the comparison runs under
+     ``cudnn.deterministic``); flash launches exactly n_layer and
+     matmul_stats exactly 36 per logical step, counted through replays.
+     Then ``Engine(slots=32, prefill_chunk=16, block_size=16)`` at
+     megastep 1 and 8 on the 64-request mixed set and a decode-heavy set
+     (32 requests, prompts of 8-32 tokens, 192 new tokens each): tokens
+     equal between K=1 and K=8 and, for 4 requests,
+     ``sequential_generate``'s; paged launches exactly n_layer x (decode
+     steps the device ran + prefill chunks); captures, replays and
+     megastep dispatches printed. Each path is timed eager against graph
+     in A/B/A/B order (3 pairs: the host varies from run to run), with
+     the medians, and traced once each way for the device busy share;
+     every timing line carries the ``nvidia-smi`` line.
 
 The last three lines of standard output are the kernels' JSON line, the
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device": ...}``.
-In the kernels' line every entry's ``ms`` and ``library_ms`` are device
+In the kernels' line ``launches`` sums the eager main path's run and the
+megastep graph's (counted through replays), and ``graph_launches`` gives
+the graph's alone. Every entry's ``ms`` and ``library_ms`` are device
 time alone, and each adds both read with the host's gaps
 (``ms_with_host_gaps``, ``library_ms_with_host_gaps``); paged
 attention's are at shape (a), and its ``launches`` count one per call.
@@ -1522,9 +1546,458 @@ def resnet_parity_phase(torch, fluid, flags, exe, prog, init, batches):
           RESNET_PARITY_TOL, controls["ds2 term dropped"][0])
 
 
+# -- phase 9 -------------------------------------------------------------
+# megastep: K steps as one CUDA graph (Executor.run_steps,
+# Engine(megastep=K)) against the eager steps, on the full-width paths
+MEGA_TRAIN_K, MEGA_TRAIN_STEPS, MEGA_SERVE_K, MEGA_PAIRS = 5, 10, 8, 3
+
+
+def _reset_launches():
+    from paddle_tpu_torch.ops import flash_attention as F
+    from paddle_tpu_torch.ops import matmul_stats as MS
+    from paddle_tpu_torch.ops import paged_attention as P
+    for key in F.flash_attention.launches:
+        F.flash_attention.launches[key] = 0
+    MS.matmul_colstats.launches = 0
+    P.paged_attention.launches = 0
+
+
+def _launches():
+    from paddle_tpu_torch.core.graphs import launch_counts
+    return launch_counts()
+
+
+def _scope_from(fluid, init, device):
+    scope = fluid.Scope()
+    fluid.load_numpy_state(scope, init, device)
+    return scope
+
+
+def _eager_steps(torch, exe, main, avg_cost, scope, batches):
+    losses = [exe.run(main, feed=b, fetch_list=[avg_cost], scope=scope)[0]
+              for b in batches]
+    torch.cuda.synchronize()
+    return losses
+
+
+def _graph_steps(torch, exe, main, avg_cost, scope, batches):
+    losses = []
+    for i in range(0, len(batches), MEGA_TRAIN_K):
+        out = exe.run_steps(main, feeds=batches[i:i + MEGA_TRAIN_K],
+                            fetch_list=[avg_cost], scope=scope)
+        losses += [o[0] for o in out]
+    torch.cuda.synchronize()
+    return losses
+
+
+def _first_mismatch(torch, fluid, exe, prog, init, batch):
+    """The first op, in program order, whose output differs between one
+    eager step and one captured step (K=1) from the same state: every
+    lowered op's outputs are copied as it runs (under capture, into the
+    graph's memory, so a replay fills them). The autograd backward runs
+    inside one call, so a difference born there shows first at an
+    optimizer op."""
+    from paddle_tpu_torch.core import executor as E
+    main, _, avg_cost = prog
+    records = []
+    real = E._lower_op
+
+    def recording(ctx, op):
+        real(ctx, op)
+        for names in op.outputs.values():
+            for n in names:
+                v = ctx.env.get(n)
+                if isinstance(v, torch.Tensor):
+                    records.append((op.type, n, v.detach().clone()))
+
+    E._lower_op = recording
+    try:
+        exe.run(main, feed=batch, fetch_list=[avg_cost],
+                scope=_scope_from(fluid, init, exe.device))
+        eager = list(records)
+        del records[:]
+        exe.run_steps(main, feeds=[batch], fetch_list=[avg_cost],
+                      scope=_scope_from(fluid, init, exe.device),
+                      use_program_cache=False)
+        graph = records[-len(eager):]
+    finally:
+        E._lower_op = real
+    torch.cuda.synchronize()
+    for (op_type, name, a), (_, _, b) in zip(eager, graph):
+        if not torch.equal(a, b):
+            diff = (a.double() - b.double()).abs().max().item() \
+                if a.is_floating_point() else float("nan")
+            return "%s (output %s, largest |diff| %.3g)" % (op_type, name,
+                                                            diff)
+    return "none of the %d op outputs (the difference is in the state " \
+        "update)" % len(eager)
+
+
+def _mega_compare(torch, fluid, exe, prog, init, batches, what, limit,
+                  apart):
+    """MEGA_TRAIN_STEPS run() steps against MEGA_TRAIN_STEPS / K
+    run_steps(K) dispatches over the same batches, each from its own copy
+    of ``init``; the graph was captured before (a warm call on a third
+    copy), so the counted run only replays. Losses and weights must be
+    bitwise equal; where they are not, the first differing op is named
+    and the weights are held to ``limit`` by ``apart`` (the limit the
+    existing controls place). Returns (the graph run's launch counts,
+    bitwise)."""
+    main, _, avg_cost = prog
+    names = sorted(init)
+    sa = _scope_from(fluid, init, exe.device)
+    le = _eager_steps(torch, exe, main, avg_cost, sa, batches)
+    sb = _scope_from(fluid, init, exe.device)
+    _reset_launches()
+    replays = exe.stats["graph_replays"]
+    lg = _graph_steps(torch, exe, main, avg_cost, sb, batches)
+    counts = _launches()
+    check(exe.stats["graph_replays"] - replays
+          == MEGA_TRAIN_STEPS // MEGA_TRAIN_K, "%s: %d replays for %d "
+          "dispatches", what, exe.stats["graph_replays"] - replays,
+          MEGA_TRAIN_STEPS // MEGA_TRAIN_K)
+    we = {n: sa.get_numpy(n) for n in names}
+    wg = {n: sb.get_numpy(n) for n in names}
+    check(all(np.isfinite(lg)), "%s: graph losses not finite", what)
+    same_loss = all(np.array_equal(a, b) for a, b in zip(le, lg))
+    differ = [n for n in names if not np.array_equal(we[n], wg[n])]
+    log("%s: %d run() steps vs %d run_steps(K=%d) dispatches: losses %s; "
+        "graph losses %s; %s", what, MEGA_TRAIN_STEPS,
+        MEGA_TRAIN_STEPS // MEGA_TRAIN_K, MEGA_TRAIN_K,
+        " ".join("%.6f" % float(x) for x in le),
+        "bitwise equal" if same_loss else
+        " ".join("%.6f" % float(x) for x in lg),
+        "every one of %d state tensors bitwise equal" % len(names)
+        if not differ else "%d of %d state tensors differ (first %s)"
+        % (len(differ), len(names), differ[0]))
+    if same_loss and not differ:
+        return counts, True
+    op = _first_mismatch(torch, fluid, exe, prog, init, batches[0])
+    value, worst = apart(wg, we)
+    log("%s: NOT bitwise; first differing op: %s; weights apart %.3g "
+        "(%s), limit %g", what, op, value, worst, limit)
+    check(value <= limit, "%s: graph weights %g apart from eager (limit "
+          "%g; first differing op %s)", what, value, op, limit)
+    for i, (a, b) in enumerate(zip(le, lg)):
+        check(abs(float(a) - float(b)) <= 1e-4 * abs(float(b)),
+              "%s step %d loss eager %r vs graph %r", what, i + 1, a, b)
+    return counts, False
+
+
+def _capture_warm(torch, fluid, exe, prog, init, batches, what):
+    """A warm call on a scratch copy of ``init``: captures the K-step
+    graph, so that the counted and timed runs only replay."""
+    main, _, avg_cost = prog
+    captures = exe.stats["graph_captures"]
+    t0 = time.perf_counter()
+    exe.run_steps(main, feeds=batches[:MEGA_TRAIN_K], fetch_list=[avg_cost],
+                  scope=_scope_from(fluid, init, exe.device))
+    torch.cuda.synchronize()
+    check(exe.stats["graph_captures"] == captures + 1,
+          "%s: the warm call captured no graph", what)
+    log("%s: K=%d graph captured (warm-up step, capture, first replay) in "
+        "%.3f s", what, MEGA_TRAIN_K, time.perf_counter() - t0)
+
+
+def _median(xs):
+    return float(np.median(xs))
+
+
+def _timed_train(torch, exe, prog, scope, batches, graph):
+    main, _, avg_cost = prog
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (_graph_steps if graph else _eager_steps)(torch, exe, main, avg_cost,
+                                              scope, batches)
+    return time.perf_counter() - t0
+
+
+def _interleaved_train(torch, fluid, exe, prog, init, batches, what,
+                       unit, per_step, smi):
+    """Eager and graph steps in A/B/A/B order, MEGA_PAIRS pairs (the host
+    varies from run to run), each over the MEGA_TRAIN_STEPS batches on a
+    scope of its own; then one traced pass of each. Returns the medians
+    and busy shares."""
+    scopes = {g: _scope_from(fluid, init, exe.device) for g in (0, 1)}
+    walls = {0: [], 1: []}
+    for _ in range(MEGA_PAIRS):
+        for g in (0, 1):
+            walls[g].append(_timed_train(torch, exe, prog, scopes[g],
+                                         batches, g))
+    busy = {}
+    for g in (0, 1):
+        _timed_train(torch, exe, prog, scopes[g], batches[:MEGA_TRAIN_K], g)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            wall = _timed_train(torch, exe, prog, scopes[g],
+                                batches[:MEGA_TRAIN_K], g)
+            torch.cuda.synchronize()
+        busy[g] = _report_profile(
+            prof, wall, "%s profile (traced, %d %s steps)" % (
+                what, MEGA_TRAIN_K, "graph" if g else "eager"))[0]
+    n = len(batches)
+    out = {}
+    for g, name in ((0, "eager"), (1, "graph")):
+        ms = [1e3 * w / n for w in walls[g]]
+        rate = [per_step * n / w for w in walls[g]]
+        out[name] = (_median(ms), _median(rate), busy[g])
+        log("%s timing (%s, %d pairs interleaved eager/graph): step ms %s "
+            "(median %.3f); %s %s (median %.1f); device busy %s; %s", what,
+            name, MEGA_PAIRS, " ".join("%.3f" % x for x in ms), out[name][0],
+            unit, " ".join("%.1f" % x for x in rate), out[name][1],
+            "not measured" if busy[g] is None else "%.1f%%" % (100 * busy[g]),
+            smi)
+    log("%s timing: graph / eager step ms (medians) %.3f; %s", what,
+        out["graph"][0] / out["eager"][0], smi)
+    return out
+
+
+def mega_train_lm_phase(torch, smi):
+    """The packed LM with Adam(1e-3) at full width: 10 run() steps vs 2
+    run_steps(K=5) dispatches over the same 10 batches; flash launches
+    exactly n_layer per logical step, each kernel, through replays."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer as T
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    prog = _lm_program(fluid, T, True)
+    scope0 = fluid.Scope()
+    exe.run(prog[1], scope=scope0)
+    init = {n: scope0.get_numpy(n) for n in scope0.local_var_names()
+            if scope0.find_var(n) is not None}
+    batches = [T.make_lm_batch(np.random.RandomState(seed), TRAIN_BATCH,
+                               MAX_LEN, VOCAB)
+               for seed in range(MEGA_TRAIN_STEPS)]
+    what = "mega-train lm"
+    _capture_warm(torch, fluid, exe, prog, init, batches, what)
+    counts, bitwise = _mega_compare(
+        torch, fluid, exe, prog, init, batches, what, ADAM_NORM_TOL,
+        lambda a, b: (_apart(a, b)[2], "relative norm of the difference"))
+    for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(counts[key] == N_LAYER * MEGA_TRAIN_STEPS, "%s: %s launches "
+              "%d through replays != n_layer x steps = %d", what, key,
+              counts[key], N_LAYER * MEGA_TRAIN_STEPS)
+    log("%s: launches through %d replays %s (n_layer %d x %d logical "
+        "steps each); captures %d, replays %d", what,
+        MEGA_TRAIN_STEPS // MEGA_TRAIN_K,
+        {k: v for k, v in counts.items() if v}, N_LAYER, MEGA_TRAIN_STEPS,
+        exe.stats["graph_captures"], exe.stats["graph_replays"])
+    timing = _interleaved_train(torch, fluid, exe, prog, init, batches,
+                                what, "tokens/s", TRAIN_BATCH * MAX_LEN,
+                                smi)
+    return counts, bitwise, timing
+
+
+def mega_train_resnet_phase(torch, prog, smi):
+    """ResNet-50 (batch 32, 224x224) with fuse_conv_bn on and off: 10
+    run() steps vs 2 run_steps(K=5) dispatches over the same 10 batches.
+    Eager ResNet steps are not repeatable run to run by default (cuDNN's
+    backward), so a control runs the eager steps twice; where they part,
+    the comparison is repeated with cudnn.deterministic (graph captured
+    anew), which must be bitwise. matmul_stats launches exactly 36 per
+    logical step through replays (fused), none with the flag off."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import flags
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope0 = fluid.Scope()
+    exe.run(prog[1], scope=scope0)
+    init = {n: scope0.get_numpy(n) for n in scope0.local_var_names()
+            if scope0.find_var(n) is not None}
+    batches = [{"data": np.random.RandomState(seed).rand(
+                    RESNET_BATCH, 3, RESNET_IMAGE, RESNET_IMAGE).astype(
+                        np.float32),
+                "label": np.random.RandomState(seed + 100).randint(
+                    0, RESNET_CLASSES, (RESNET_BATCH, 1)).astype(np.int64)}
+               for seed in range(MEGA_TRAIN_STEPS)]
+    params = [p.name for p in prog[0].global_block().all_parameters()]
+
+    def apart(a, b):
+        graft, worst, _ = _apart({n: a[n] for n in params},
+                                 {n: b[n] for n in params})
+        return graft, worst
+
+    out = {}
+    for name, on in (("fused", True), ("flag off", False)):
+        what = "mega-train resnet50 (%s)" % name
+        with _fuse(flags, on):
+            _capture_warm(torch, fluid, exe, prog, init, batches, what)
+            main, _, avg_cost = prog
+            s1 = _scope_from(fluid, init, exe.device)
+            s2 = _scope_from(fluid, init, exe.device)
+            l1 = _eager_steps(torch, exe, main, avg_cost, s1, batches)
+            l2 = _eager_steps(torch, exe, main, avg_cost, s2, batches)
+            repeatable = all(np.array_equal(a, b) for a, b in zip(l1, l2)) \
+                and all(np.array_equal(s1.get_numpy(n), s2.get_numpy(n))
+                        for n in init)
+            log("%s: eager steps run twice %s", what,
+                "bitwise equal" if repeatable else
+                "part (cuDNN's default algorithms are not repeatable); the "
+                "graph is compared under cudnn.deterministic")
+            det = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = not repeatable or det
+            try:
+                if not repeatable:
+                    _capture_warm(torch, fluid, exe, prog, init, batches,
+                                  what + " deterministic")
+                counts, bitwise = _mega_compare(
+                    torch, fluid, exe, prog, init, batches, what,
+                    RESNET_PARITY_TOL, apart)
+            finally:
+                torch.backends.cudnn.deterministic = det
+            want = RESNET_FUSED_PER_STEP * MEGA_TRAIN_STEPS if on else 0
+            check(counts["matmul_stats"] == want, "%s: matmul_stats launches "
+                  "%d through replays, expected %d", what,
+                  counts["matmul_stats"], want)
+            log("%s: matmul_stats launches through %d replays %d (%d per "
+                "logical step); captures %d, replays %d", what,
+                MEGA_TRAIN_STEPS // MEGA_TRAIN_K, counts["matmul_stats"],
+                counts["matmul_stats"] // MEGA_TRAIN_STEPS,
+                exe.stats["graph_captures"], exe.stats["graph_replays"])
+            timing = _interleaved_train(torch, fluid, exe, prog, init,
+                                        batches, what, "images/s",
+                                        RESNET_BATCH, smi)
+        out[name] = (counts, bitwise, repeatable, timing)
+    return out
+
+
+def _decode_heavy_requests(rng):
+    """32 requests, one per slot: prompts of 8-32 tokens, 192 new tokens
+    each (long generation at a full batch)."""
+    return [([1] + rng.integers(3, VOCAB, int(rng.integers(7, 32))).tolist(),
+             192) for _ in range(32)]
+
+
+def _serve_once(torch, eng, reqs):
+    before = dict(eng.stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.generate_many([p for p, _ in reqs], [m for _, m in reqs])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    delta = {k: eng.stats[k] - before[k] for k in eng.stats}
+    return out, wall, delta
+
+
+def mega_serve_phase(torch, smi):
+    """The flagship served by Engine(slots=32, prefill_chunk=16,
+    block_size=16) at megastep=1 and megastep=8 on the 64-request mixed
+    set and a decode-heavy set (32 requests, max_new 192): tokens equal
+    between K=1 and K=8, and for 4 requests equal to
+    sequential_generate's; paged launches exactly n_layer x (decode steps
+    the device ran + prefill chunks). Then timed A/B/A/B and traced."""
+    from paddle_tpu_torch.models.transformer_infer import (
+        TransformerLMInfer, init_stream)
+    from paddle_tpu_torch.serving import Engine, sequential_generate
+    stream = init_stream(VOCAB, MAX_LEN, N_LAYER, N_HEAD, D_MODEL, D_INNER,
+                         seed=0)
+    model = TransformerLMInfer.from_stream(
+        stream, N_LAYER, N_HEAD, D_MODEL, MAX_LEN, end_id=VOCAB)
+    sets = {"mixed": _requests(np.random.default_rng(0)),
+            "decode-heavy": _decode_heavy_requests(np.random.default_rng(1))}
+    engines = {}
+    for k in (1, MEGA_SERVE_K):
+        eng = Engine(model, slots=32, prefill_chunk=16, block_size=16,
+                     megastep=k)
+        t0 = time.perf_counter()
+        eng.warmup()
+        log("mega-serve: Engine(megastep=%d) warmup %.3f s (graph "
+            "captures %d)", k, time.perf_counter() - t0,
+            eng.stats["graph_captures"])
+        engines[k] = eng
+    graph_paged = 0
+    try:
+        timing = {}
+        for set_name, reqs in sets.items():
+            outs = {}
+            for k, eng in engines.items():
+                _reset_launches()
+                out, wall, d = _serve_once(torch, eng, reqs)
+                launches = _launches()["paged_attention"]
+                outs[k] = out
+                ntok = sum(len(t) for t, _ in out)
+                log("mega-serve %s (megastep=%d): %d requests, %d tokens in "
+                    "%.3f s = %.1f tokens/s; decode steps consumed %d, run %d "
+                    "(%.3f ms each); megastep dispatches %d; prefill chunks "
+                    "%d; graph replays %d (captures %d); paged launches %d; "
+                    "%s", set_name, k, len(out), ntok, wall, ntok / wall,
+                    d["decode_steps"], d["decode_steps_run"],
+                    1e3 * d["decode_seconds"] / d["decode_steps_run"],
+                    d["megastep_dispatches"], d["prefill_chunks"],
+                    d["graph_replays"], eng.stats["graph_captures"],
+                    launches, smi)
+                want = N_LAYER * (d["decode_steps_run"] + d["prefill_chunks"])
+                check(launches == want, "mega-serve %s megastep=%d: paged "
+                      "launches %d != n_layer x (decode steps run + prefill "
+                      "chunks) = %d", set_name, k, launches, want)
+                for i, ((toks, score), (_, m)) in enumerate(zip(out, reqs)):
+                    check(len(toks) == m and np.isfinite(score),
+                          "mega-serve %s megastep=%d request %d: bad "
+                          "output", set_name, k, i)
+                if k > 1:
+                    check(d["megastep_dispatches"] > 0 and
+                          d["graph_replays"] == d["megastep_dispatches"],
+                          "mega-serve %s: %d megastep dispatches, %d "
+                          "replays", set_name, d["megastep_dispatches"],
+                          d["graph_replays"])
+                    graph_paged += launches
+            diverged = [i for i, (a, b) in enumerate(zip(outs[1],
+                                                         outs[MEGA_SERVE_K]))
+                        if a[0] != b[0]]
+            check(not diverged, "mega-serve %s: megastep=%d tokens differ "
+                  "from megastep=1 for requests %s", set_name, MEGA_SERVE_K,
+                  diverged)
+            seq = sequential_generate(model, reqs[:4])
+            for i, ((a, _), (b, _)) in enumerate(zip(outs[MEGA_SERVE_K][:4],
+                                                     seq)):
+                check(a == b, "mega-serve %s request %d differs from "
+                      "sequential_generate", set_name, i)
+            log("mega-serve %s: megastep=%d tokens equal megastep=1's (%d "
+                "requests) and sequential_generate's (4 requests)",
+                set_name, MEGA_SERVE_K, len(reqs))
+            timing[set_name] = _interleaved_serve(torch, engines, reqs,
+                                                  set_name, smi)
+    finally:
+        for eng in engines.values():
+            eng.close()
+    return graph_paged, timing
+
+
+def _interleaved_serve(torch, engines, reqs, set_name, smi):
+    walls = {k: [] for k in engines}
+    rates = {k: [] for k in engines}
+    steps = {k: [] for k in engines}
+    for _ in range(MEGA_PAIRS):
+        for k, eng in engines.items():
+            out, wall, d = _serve_once(torch, eng, reqs)
+            walls[k].append(wall)
+            rates[k].append(sum(len(t) for t, _ in out) / wall)
+            steps[k].append(1e3 * d["decode_seconds"] / d["decode_steps_run"])
+    busy = {}
+    from torch.profiler import ProfilerActivity, profile
+    for k, eng in engines.items():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, wall, _ = _serve_once(torch, eng, reqs)
+        busy[k] = _report_profile(
+            prof, wall, "mega-serve %s profile (traced, megastep=%d)" % (
+                set_name, k), focus="paged_attention_kernel")[0]
+    out = {}
+    for k in engines:
+        out[k] = (_median(steps[k]), _median(rates[k]), busy[k])
+        log("mega-serve %s timing (megastep=%d, %d pairs interleaved): "
+            "decode step ms %s (median %.3f); tokens/s %s (median %.1f); "
+            "wall s %s; device busy %s; %s", set_name, k, MEGA_PAIRS,
+            " ".join("%.3f" % x for x in steps[k]), out[k][0],
+            " ".join("%.1f" % x for x in rates[k]), out[k][1],
+            " ".join("%.3f" % x for x in walls[k]),
+            "not measured" if busy[k] is None else "%.1f%%" % (100 * busy[k]),
+            smi)
+    return out
+
+
 def _report_profile(prof, wall, title, focus=None):
     """Device busy share of ``wall`` and the top kernels; with ``focus``,
-    also the share of the kernels whose names hold it."""
+    also the share of the kernels whose names hold it. Returns (busy
+    share or None when the profiler saw no device time, launches of the
+    focus kernels in the trace)."""
     rows = []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
@@ -1534,19 +2007,20 @@ def _report_profile(prof, wall, title, focus=None):
     if not rows:
         log("%s: the profiler reported no device time (not measured)",
             title)
-        return
+        return None, 0
     busy_s = sum(r[0] for r in rows) / 1e6
     log("%s: wall %.3f s, device busy %.3f s = %.1f%% (idle %.1f%%)",
         title, wall, busy_s, 100 * busy_s / wall, 100 - 100 * busy_s / wall)
     for dev_us, count, key in sorted(rows, reverse=True)[:10]:
         log("  %6.1f%% of device time  %8.3f ms  x%-6d %s",
             100 * dev_us / 1e6 / busy_s, dev_us / 1e3, count, key[:70])
+    mine = [r for r in rows if focus and focus in r[2]]
     if focus:
-        mine = [r for r in rows if focus in r[2]]
         log("%s: %s %.3f ms in %d launches = %.1f%% of device time",
             title, focus, sum(r[0] for r in mine) / 1e3,
             sum(r[1] for r in mine),
             100 * sum(r[0] for r in mine) / 1e6 / busy_s)
+    return busy_s / wall, sum(r[1] for r in mine)
 
 
 def main():
@@ -1582,27 +2056,36 @@ def main():
         mm_err = mm_kernel_phase(torch, shapes)
         mm_times = mm_timing_phase(torch, shapes)
         mm_launches = resnet_phase(torch, resnet, shapes)
+        lm_counts, _, _ = mega_train_lm_phase(torch, smi)
+        mega_resnet = mega_train_resnet_phase(torch, resnet, smi)
+        serve_launches, _ = mega_serve_phase(torch, smi)
     except SmokeFailure as e:
         print("chip_smoke: FAILED: %s" % e, file=sys.stderr)
         return 1
     flash_src = "paddle_tpu_torch/ops/csrc/flash_attention.cu"
+    # launches: the eager main path's and the graph path's (counted
+    # through replays), each reset just before its run and read after
+    mm_graph = mega_resnet["fused"][0]["matmul_stats"]
     kernels = [dict({
         "name": "paged_attention", "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/paged_attention.cu",
         "replaces": "paddle_tpu/ops/paged_attention.py:185",
-        "launches": launches, "max_abs_err": max_err}, **times)]
+        "launches": launches + serve_launches,
+        "graph_launches": serve_launches, "max_abs_err": max_err}, **times)]
     for name, line in (("flash_fwd", 68), ("flash_bwd_dq", 163),
                        ("flash_bwd_dkv", 202)):
         kernels.append(dict({
             "name": name, "route": "cuda", "source": flash_src,
             "replaces": "paddle_tpu/ops/flash_attention.py:%d" % line,
-            "launches": flash_launches[name],
+            "launches": flash_launches[name] + lm_counts[name],
+            "graph_launches": lm_counts[name],
             "max_abs_err": flash_err[name]}, **flash_times[name]))
     kernels.append(dict({
         "name": "matmul_stats", "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/matmul_stats.cu",
         "replaces": "paddle_tpu/ops/matmul_stats.py:72",
-        "launches": mm_launches, "max_abs_err": mm_err}, **mm_times))
+        "launches": mm_launches + mm_graph, "graph_launches": mm_graph,
+        "max_abs_err": mm_err}, **mm_times))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,10 @@ Ported so far:
     ``accuracy`` and ``optimizer.Momentum``; with the flag
     ``fuse_conv_bn`` on, each 1x1 convolution feeding a train-mode batch
     norm runs on the hand-written CUDA matmul + column-statistics kernel
-    (``ops/csrc/matmul_stats.cu``).
+    (``ops/csrc/matmul_stats.cu``);
+  * megastep: ``Executor.run_steps`` and ``serving.Engine(megastep=K)``
+    run K steps as one CUDA graph on the card (``core/graphs.py``), the
+    same step bodies in a loop on the CPU.
 
 Used as ``import paddle_tpu_torch as fluid``, as scripts use
 ``paddle_tpu``.

@@ -5,7 +5,8 @@ flag is registered once with type, default and help; its value comes
 from the ``PADDLE_TPU_<NAME>`` environment variable (gflags booleans:
 0/false/off/no = off) or from ``set_flag``. One environment therefore
 configures both packages. Registered here: the ``serving_*`` flags the
-port's engine reads, ``fuse_conv_bn`` (the conv lowering's), and the
+port's engine reads, ``fuse_conv_bn`` (the conv lowering's),
+``megastep_inflight`` (``Executor.run_steps``'s), and the
 Executor switches of features not ported yet, so that setting one fails
 loudly instead of being ignored.
 """
@@ -52,8 +53,10 @@ _register("serving_admission_wait", float, 0.0,
           "engine holds admissions up to this long for the queue to "
           "fill to the slot count. 0 = greedy fill")
 _register("serving_megastep", int, 1,
-          "decode iterations fused into one dispatch. The port runs "
-          "1 only; a larger value raises (see ROADMAP.md)")
+          "serving.Engine decode iterations fused into one dispatch (a "
+          "CUDA graph of K decode steps on the card) when no admissions "
+          "or prefills are pending; output stays token-identical to the "
+          "K=1 engine. 1 = one eager decode step per iteration")
 _register("serving_paged", bool, True,
           "paged KV block pool + per-slot block tables. The port runs "
           "the paged layout only; 0 raises (see ROADMAP.md)")
@@ -89,6 +92,13 @@ _register("fuse_conv_bn", bool, False,
           "(ops/matmul_stats.py: the CUDA kernel on the card, its plain "
           "PyTorch version on the CPU), so BN skips its own pass over "
           "the conv output. Default off, as in the JAX package")
+_register("megastep_inflight", int, 2,
+          "Executor.run_steps async dispatch window: how many "
+          "un-fetched megastep dispatches may be in flight before the "
+          "next run_steps(return_numpy=False) call blocks on the "
+          "oldest. 2 = double buffering (host feed of megastep N+1 "
+          "overlaps device compute of megastep N); 1 restores "
+          "serialized dispatch")
 _register("check_nan_inf", bool, False,
           "per-op NaN/Inf guards in the Executor. Not ported yet; 1 "
           "makes Executor.run raise (see ROADMAP.md)")

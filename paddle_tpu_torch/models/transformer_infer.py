@@ -265,14 +265,17 @@ class TransformerLMInfer(nn.Module):
 
     # -- paged KV pool (serving.kvpool block pool) ---------------------
     def _init_paged_state(self, num_blocks, block_size, kv_quant=None):
-        """Shared paged KV pool ``[num_blocks, n_layer, n_head,
-        block_size, dk]`` for K and V. Unassigned block-table entries
-        read block 0, which the causal predicate masks. ``kv_quant``
-        ('int8' or 'fp8') stores codes plus one f32 scale per cached
-        vector (``pool_ks``/``pool_vs``), initialized to 1 so block 0's
-        zero codes dequantize to exact zeros."""
+        """Shared paged KV pool ``[num_blocks + 1, n_layer, n_head,
+        block_size, dk]`` for K and V. Block ``num_blocks`` is the trash
+        block: masked writes land there (the JAX package's drop-mode
+        index, given a block to drop into), and no block table names it.
+        Unassigned block-table entries read block 0, which the causal
+        predicate masks. ``kv_quant`` ('int8' or 'fp8') stores codes plus
+        one f32 scale per cached vector (``pool_ks``/``pool_vs``),
+        initialized to 1 so block 0's zero codes dequantize to exact
+        zeros."""
         dk = self.d_model // self.n_head
-        shape = (int(num_blocks), self.n_layer, self.n_head,
+        shape = (int(num_blocks) + 1, self.n_layer, self.n_head,
                  int(block_size), dk)
         dev = self.device
         spec = _paged_ops.kv_quant_spec(kv_quant)
@@ -293,20 +296,25 @@ class TransformerLMInfer(nn.Module):
                                       device=dev)}
 
     @staticmethod
-    def _write_index(wphys, off, num_blocks):
+    def _write_index(wphys, off):
         """The pool entries a call writes, as ``(rows, cols, phys,
-        off)`` over [S, C] ``wphys``/``off``. Masked entries point at
-        ``num_blocks`` (the JAX package's drop-mode convention); torch
-        has no drop mode, so they are filtered out here, once per call
-        — a masked row must never be written out of bounds."""
-        rows, cols = torch.nonzero(wphys < num_blocks, as_tuple=True)
-        return rows, cols, wphys[rows, cols], off[rows, cols]
+        off)`` over every entry of [S, C] ``wphys``/``off``. Masked
+        entries point at the trash block (``_init_paged_state``), so
+        the write needs no host read to drop them and leaves every
+        other block's bytes as they were."""
+        s, c = wphys.shape
+        rows = torch.arange(s, device=wphys.device)[:, None].expand(
+            s, c).reshape(-1)
+        cols = torch.arange(c, device=wphys.device)[None, :].expand(
+            s, c).reshape(-1)
+        return rows, cols, wphys.reshape(-1), off.reshape(-1)
 
     def _pool_write(self, pools, i, widx, k_new, v_new):
         """Write layer ``i``'s new K/V vectors ``k_new``/``v_new``
         [S, H, C, dk] into the pool IN PLACE at the entries of ``widx``
-        (``_write_index``): vector (s, c) lands at ``(phys, i, :,
-        off)``. Quantized pools store codes + per-vector scales."""
+        (``_write_index``, or the prefill's valid entries): vector (s,
+        c) lands at ``(phys, i, :, off)``. Quantized pools store codes +
+        per-vector scales."""
         rows, cols, phys, off = widx
         for name, sname, val in (("pool_k", "pool_ks", k_new),
                                  ("pool_v", "pool_vs", v_new)):
@@ -374,10 +382,12 @@ class TransformerLMInfer(nn.Module):
         """Per-slot decode step over the paged pool: tok/pos [S] int64,
         ``btab`` [S, max_blocks] int32 block tables, ``write_mask`` [S]
         bool gating the pool writes (idle and prefilling slots must not
-        write). Returns (logits [S, V], state) with the pool updated in
-        place. The walk bound is the longest LIVE chain, kept on the
-        device (no host sync)."""
-        nb, bs = state["pool_k"].shape[0], state["pool_k"].shape[3]
+        write: theirs go to the trash block, the pool's last). Returns
+        (logits [S, V], state) with the pool updated in place. Nothing
+        is read back to the host (the walk bound, the longest LIVE
+        chain, stays on the device), so a CUDA graph can hold the
+        step."""
+        trash, bs = state["pool_k"].shape[0] - 1, state["pool_k"].shape[3]
         nbmax = btab.shape[1]
         btab = btab.to(torch.int32)
         # an idle slot's stale pos may reach max_len: clamp the reads
@@ -389,8 +399,8 @@ class TransformerLMInfer(nn.Module):
         off = pos % bs
         phys = btab.gather(1, blk[:, None])[:, 0].long()
         wphys = phys if write_mask is None else \
-            torch.where(write_mask, phys, nb)
-        widx = self._write_index(wphys[:, None], off[:, None], nb)
+            torch.where(write_mask, phys, trash)
+        widx = self._write_index(wphys[:, None], off[:, None])
         qpos = pos_r[:, None].to(torch.int32)            # [S, 1]
         live = pos if write_mask is None else \
             torch.where(write_mask, pos, 0)
@@ -416,7 +426,7 @@ class TransformerLMInfer(nn.Module):
         so the write index and the walk bound need no device sync. No
         logits are computed. Returns the state (pool updated in
         place)."""
-        nb, bs = state["pool_k"].shape[0], state["pool_k"].shape[3]
+        bs = state["pool_k"].shape[3]
         nbmax = btab_row.shape[0]
         dev = self.device
         c = toks.shape[0]

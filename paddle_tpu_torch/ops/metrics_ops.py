@@ -19,7 +19,8 @@ def _accuracy(ctx, op):
     hit = torch.any(indices == label[:, None].to(indices.dtype), dim=1)
     i64 = torch_dtype("int64")
     correct = torch.sum(hit).to(i64)
-    total = torch.tensor(label.shape[0], dtype=i64, device=indices.device)
+    # made on the device (a fill, no host copy a CUDA graph would refuse)
+    total = torch.full((), label.shape[0], dtype=i64, device=indices.device)
     ctx.set_out(op, "Accuracy",
                 (correct.float() / total.float()).reshape(1))
     ctx.set_out(op, "Correct", correct.reshape(1))

@@ -367,11 +367,22 @@ _WORK = {}       # (device index, stream) -> (split scratch, counters)
 _RETIRED = []    # outgrown workspaces: a captured graph may still use one
 
 
+def take_workspace(dev, stream):
+    """Remove and return the workspace of device ``dev`` and raw stream
+    ``stream`` (None if it has none). A CUDA graph captured on a stream
+    of its own takes the workspace its capture allocated in the graph's
+    pool and keeps it alive as long as the graph; a warm-up's is
+    dropped."""
+    return _WORK.pop((torch.device(dev), stream), None)
+
+
 def _workspace(dev, stream, nfloat, ncount):
     """The split scratch (>= nfloat f32) and arrival counters (>= ncount
     int32, zero between calls) of one device and stream. Calls on one
     stream run in order, so they share one workspace; it grows (never
-    shrinks, never frees) as larger shapes come."""
+    shrinks, never frees) as larger shapes come. Under capture the
+    allocation lands in the graph's pool and the counters' zero fill is
+    part of the graph."""
     key = (dev, stream)
     work = _WORK.get(key)
     if work is None or work[0].numel() < nfloat or work[1].numel() < ncount:

@@ -3,19 +3,23 @@
 The counterpart of ``paddle_tpu/serving/engine.py`` in its default
 configuration: the paged KV pool with per-slot block tables, the radix
 prefix cache with copy-on-write, the allocation and preemption ladder,
-chunked prefill, and greedy decode through the block-chain attention
-kernel (``ops/paged_attention``: the CUDA kernel on the card). One
-decode step per engine iteration.
+chunked prefill, greedy decode through the block-chain attention kernel
+(``ops/paged_attention``: the CUDA kernel on the card), and megastep
+decode: with ``megastep=K`` an iteration with no queued admission and no
+prefilling slot runs K decode steps as one dispatch (a CUDA graph of K
+step bodies on the card, captured once; the same bodies in a loop on
+the CPU), with token-identical output.
 
 Not ported yet, and refused with a ``ValueError`` naming ROADMAP.md
-when asked for: fused multi-step decode (``megastep``), speculative
-decode, the dense ``paged=False`` layout. Sampled (temperature > 0)
-requests raise ``NotImplementedError``. The engine emits no telemetry.
+when asked for: speculative decode, the dense ``paged=False`` layout.
+Sampled (temperature > 0) requests raise ``NotImplementedError``. The
+engine emits no telemetry.
 
-PyTorch runs eagerly: every piece of device state lives in one dict of
-tensors (``self._state``) that the scheduler thread updates in place.
-One host fetch per decode step carries the emitted tokens and
-retirement flags back.
+Every piece of device state lives in one dict of tensors
+(``self._state``) that the scheduler thread updates in place, so a
+captured graph and the eager steps work on the same tensors. One host
+fetch per decode dispatch carries the emitted tokens and retirement
+flags of its K steps back.
 """
 
 import collections
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 
 from .. import flags, resolve_device
+from ..core import graphs as _graphs
 from ..ops import paged_attention as _paged_ops
 from . import kvpool as _kvpool
 from .sampling import SamplingParams
@@ -101,9 +106,11 @@ class Engine:
     prefix cache on (default). ``block_kernel`` selects the block-chain
     attention (default for fp32 or quantized pools) over the dense
     gather (default for a bf16 unquantized pool); ``kv_quant='int8'``
-    or ``'fp8'`` (e4m3) quantizes the pool. ``device`` defaults to the
-    CUDA card and must be where the model lives; without a card the
-    engine raises unless ``device='cpu'`` is passed."""
+    or ``'fp8'`` (e4m3) quantizes the pool. ``megastep`` (flag
+    ``serving_megastep``) is the decode steps one dispatch may run when
+    no admission is queued and no slot is prefilling. ``device``
+    defaults to the CUDA card and must be where the model lives; without
+    a card the engine raises unless ``device='cpu'`` is passed."""
 
     def __init__(self, model, slots=8, prefill_chunk=None,
                  admission_wait=None, name="engine", megastep=None,
@@ -118,11 +125,9 @@ class Engine:
                                      and dev.index != mdev.index):
             raise ValueError("the model lives on %s but the engine was "
                              "asked to run on %s" % (mdev, dev))
-        k = int(megastep if megastep is not None
-                else flags.get_flag("serving_megastep"))
-        if k > 1:
-            raise ValueError("megastep=%d: fused multi-step decode %s"
-                             % (k, _NOT_PORTED))
+        self._megastep = max(1, int(
+            megastep if megastep is not None
+            else flags.get_flag("serving_megastep")))
         if not bool(paged if paged is not None
                     else flags.get_flag("serving_paged")):
             raise ValueError("paged=False: the dense KV layout %s"
@@ -184,13 +189,28 @@ class Engine:
         self._error = None
         with torch.no_grad():
             self._state = self._init_state()
-        self.stats = {"steps": 0, "decode_steps": 0, "tokens": 0,
-                      "admissions": 0, "retirements": 0,
+            # the block tables every decode dispatch reads, copied in
+            # before it (a captured graph reads them at this address);
+            # [2, K, S]: the emits and retirement flags of up to K steps
+            self._btab = torch.zeros((self.slots, self._max_blocks),
+                                     dtype=torch.int32, device=self.device)
+            self._mega_out = torch.zeros((2, self._megastep, self.slots),
+                                         dtype=torch.long,
+                                         device=self.device)
+        self._graph = None       # the K-step CUDA graph, on the card
+        # decode_steps counts the steps whose emits were consumed;
+        # decode_steps_run the steps the device ran (a megastep that
+        # drains early runs more than it consumes)
+        self.stats = {"steps": 0, "decode_steps": 0, "decode_steps_run": 0,
+                      "tokens": 0, "admissions": 0, "retirements": 0,
                       "active_slot_steps": 0, "prefill_chunks": 0,
                       "prefix_hits": 0, "prefix_misses": 0,
                       "prefix_hit_tokens": 0, "prefix_evictions": 0,
                       "preemptions": 0, "cow_copies": 0,
-                      "kv_peak_blocks": 0, "decode_seconds": 0.0}
+                      "kv_peak_blocks": 0, "decode_seconds": 0.0,
+                      "megastep_dispatches": 0, "graph_captures": 0,
+                      "graph_replays": 0}
+        self._ready = threading.Event()
         self._thread = threading.Thread(
             target=self._loop, daemon=True, name="ptt-" + name)
         self._thread.start()
@@ -198,15 +218,23 @@ class Engine:
     # -- public API --------------------------------------------------------
     def warmup(self):
         """Run one decode step over the all-inactive slot state — a
-        no-op on the state (every pool write is masked) that builds and
-        loads the attention kernel and warms the allocator before
-        traffic. Call before submitting requests."""
+        no-op on the state (every pool write is masked into the trash
+        block) that builds and loads the attention kernel and warms the
+        allocator before traffic — and, with ``megastep`` > 1 on the
+        card, capture the K-step CUDA graph (without it the first fused
+        dispatch captures it mid-traffic). Call before submitting
+        requests."""
+        self._ready.wait()
         with self._cv:
             if self._queue or any(r is not None for r in self._recs):
                 raise RuntimeError(
                     "warmup() must run before traffic is submitted")
             with torch.no_grad():
-                self._step_impl(self._btab_dev(self._btab_all()))
+                self._set_btab(self._btab_all())
+                self._step_impl(self._state, self._btab)
+                if self._megastep > 1 and self.device.type == "cuda" \
+                        and self._graph is None:
+                    self._capture()
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         return self
@@ -297,11 +325,12 @@ class Engine:
                                   device=self.device)
         return s
 
-    def _step_impl(self, btab):
-        """One greedy decode iteration over all slots: argmax every
-        active slot, advance its cache position, flag retirements.
+    def _step_impl(self, st, btab):
+        """One greedy decode iteration over all slots of state ``st``:
+        argmax every active slot, advance its cache position, flag
+        retirements. Every state tensor is updated in place, and nothing
+        is read back to the host, so a CUDA graph can hold the step.
         Returns (emit [S], fin [S]) device tensors."""
-        st = self._state
         tok, pos, active = st["tok"], st["pos"], st["active"]
         logits, _ = self.model._step_logits_paged(
             tok, st, pos, btab, write_mask=active,
@@ -315,11 +344,40 @@ class Engine:
         count = st["count"] + active.long()
         fin = active & ((nxt == end) | (count >= st["max_new"]))
         st["score"] += torch.where(active, tok_logp, 0.0)
-        st["tok"] = torch.where(active, nxt, tok)
-        st["pos"] = pos + active.long()
-        st["count"] = count
-        st["active"] = active & ~fin
+        tok.copy_(torch.where(active, nxt, tok))
+        pos += active.long()
+        st["count"].copy_(count)
+        active.copy_(active & ~fin)
         return emit, fin
+
+    def _megastep_impl(self, st, btab, out):
+        """``out.shape[1]`` decode iterations over state ``st`` (the
+        JAX package's ``lax.scan`` over ``_step_impl``), streaming each
+        one's emits and retirement flags into ``out[0]`` and ``out[1]``
+        ([K, S]). A slot that retires at step j goes inactive, so later
+        steps emit end_id for it and write nothing; the host skips those
+        rows. The host grows every live slot's table for all K write
+        positions first, so one table serves the whole dispatch."""
+        for j in range(out.shape[1]):
+            emit, fin = self._step_impl(st, btab)
+            out[0, j].copy_(emit)
+            out[1, j].copy_(fin)
+
+    def _capture(self):
+        """Capture the K-step graph over the engine's state, the block
+        tables and the emit buffer. The warm-up runs one step on copies
+        of the state, so live requests are left as they are."""
+        graph = _graphs.StepGraph(
+            self.device, "Engine(megastep=%d) decode" % self._megastep)
+
+        def warmup():
+            self._step_impl({n: t.clone() for n, t in self._state.items()},
+                            self._btab)
+
+        graph.capture(warmup, lambda: self._megastep_impl(
+            self._state, self._btab, self._mega_out))
+        self._graph = graph
+        self.stats["graph_captures"] += 1
 
     def _activate(self, slot, tok, pos, max_new):
         st = self._state
@@ -357,6 +415,10 @@ class Engine:
 
     def _btab_dev(self, arr):
         return torch.from_numpy(arr).to(self.device)
+
+    def _set_btab(self, arr):
+        """Copy the [slots, max_blocks] tables into the decode buffer."""
+        self._btab.copy_(torch.from_numpy(arr))
 
     def _ensure_blocks(self, rec, last_pos):
         """Grow ``rec``'s block table to cover cache position
@@ -464,8 +526,11 @@ class Engine:
     def _loop(self):
         try:
             with torch.no_grad():
-                if self.device.type == "cuda":
-                    torch.cuda.set_device(self.device)
+                try:
+                    if self.device.type == "cuda":
+                        torch.cuda.set_device(self.device)
+                finally:
+                    self._ready.set()      # warmup() may capture now
                 while True:
                     with self._cv:
                         while (not self._stop and not self._queue
@@ -482,12 +547,13 @@ class Engine:
 
     def _step_once(self):
         """One engine iteration = admissions + one prefill chunk per
-        prefilling slot + one decode step over the active batch."""
+        prefilling slot + one decode dispatch over the active batch (K
+        steps when ``_choose_k`` allows it, else one)."""
         finished = ()
         try:
             admitted = self._admit()
             self._advance_prefills()
-            finished = self._decode()
+            finished = self._decode(self._choose_k())
             self.stats["steps"] += 1
             self.stats["admissions"] += admitted
             self.stats["retirements"] += len(finished)
@@ -585,49 +651,85 @@ class Engine:
                 self._activate(slot, req.prompt[-1], need, req.max_new)
                 rec["live"] = True
 
-    def _decode(self):
-        """One decode step over the active batch: grow every live
-        slot's table to cover its next write (the pressure ladder may
-        preempt here), run the step, fetch emits + fins in one copy,
-        and retire finished requests. Returns [(request, score)]."""
+    def _choose_k(self):
+        """Megastep K for this iteration: fuse only when nothing needs a
+        host decision between decode steps — no queued admission, no
+        prefilling slot. A pending admission or prefill forces K = 1, so
+        scheduling latency never stretches to K steps."""
+        if self._megastep <= 1:
+            return 1
+        with self._cv:
+            if self._queue:
+                return 1
+        if any(r is not None and not r["live"] for r in self._recs):
+            return 1
+        return self._megastep
+
+    def _decode(self, k=1):
+        """One decode dispatch over the active batch: a single eager
+        step (k=1), or K steps in one dispatch (the CUDA graph on the
+        card). First grow every live slot's table to cover the write
+        positions it can consume in this dispatch (the pressure ladder
+        may preempt here), then run, fetch the [K, S] emits and flags in
+        one copy, and retire finished requests. A slot retired at step j
+        consumes no later rows. Returns [(request, score)]."""
         for slot in range(self.slots):
             # re-read per slot: an earlier slot's allocation may have
             # preempted this one
             rec = self._recs[slot]
             if rec is not None and rec["live"]:
-                self._ensure_blocks(rec, rec["next_pos"])
+                # a request with fewer tokens left than k must not walk
+                # the pressure ladder for positions it will never write
+                rem = max(1, rec["req"].max_new - len(rec["req"].tokens))
+                self._ensure_blocks(rec, rec["next_pos"] + min(k, rem) - 1)
         live = [s for s, r in enumerate(self._recs)
                 if r is not None and r["live"]]
         if not live:
             return []
         t0 = time.perf_counter()
-        emit, fin = self._step_impl(self._btab_dev(self._btab_all()))
-        out = torch.stack([emit, fin.long()]).cpu().numpy()
+        self._set_btab(self._btab_all())
+        if k > 1 and self.device.type == "cuda":
+            if self._graph is None:
+                self._capture()
+            self._graph.replay()
+            self.stats["graph_replays"] += 1
+        else:                   # the CPU, or one eager step on the card
+            self._megastep_impl(self._state, self._btab,
+                                self._mega_out[:, :k])
+        out = self._mega_out[:, :k].cpu().numpy()
+        self.stats["megastep_dispatches"] += k > 1
         self.stats["decode_seconds"] += time.perf_counter() - t0
-        emits, fins = out[0], out[1]
-        self.stats["decode_steps"] += 1
-        self.stats["active_slot_steps"] += len(live)
+        self.stats["decode_steps_run"] += out.shape[1]
         scores = None
         finished = []
         now = time.perf_counter()
-        for slot in live:
-            rec = self._recs[slot]
-            req = rec["req"]
-            req.tokens.append(int(emits[slot]))
-            rec["next_pos"] += 1            # mirrors the device pos
-            self._publish_prefix(rec, req)
-            if req.t_first_token is None:
-                req.t_first_token = now
-            if fins[slot]:
-                req.t_retire = now
-                if scores is None:          # one [S] fetch per step
-                    scores = self._state["score"].cpu().numpy()
-                finished.append((req, float(scores[slot])))
-                # retirement frees the request's refs; published prefix
-                # blocks survive on the cache's own refs
-                self._release_blocks(rec)
-                self._recs[slot] = None
-        self.stats["tokens"] += len(live)
+        for j in range(out.shape[1]):
+            if not live:
+                break
+            emits, fins = out[0, j], out[1, j]
+            self.stats["decode_steps"] += 1
+            self.stats["active_slot_steps"] += len(live)
+            self.stats["tokens"] += len(live)
+            for slot in list(live):
+                rec = self._recs[slot]
+                req = rec["req"]
+                req.tokens.append(int(emits[slot]))
+                rec["next_pos"] += 1            # mirrors the device pos
+                self._publish_prefix(rec, req)
+                if req.t_first_token is None:
+                    req.t_first_token = now
+                if fins[slot]:
+                    req.t_retire = now
+                    if scores is None:          # one [S] fetch a dispatch
+                        # a retired slot's score is frozen by its
+                        # inactive mask for the rest of the dispatch
+                        scores = self._state["score"].cpu().numpy()
+                    finished.append((req, float(scores[slot])))
+                    # retirement frees the request's refs; published
+                    # prefix blocks survive on the cache's own refs
+                    self._release_blocks(rec)
+                    self._recs[slot] = None
+                    live.remove(slot)
         return finished
 
     def _fail_all(self, err):

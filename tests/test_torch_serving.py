@@ -186,13 +186,21 @@ def test_default_attention_path_selection(lms):
 
 
 def test_unported_options_raise(lms):
+    """Speculative decode, the dense layout and sampled requests still
+    raise; megastep is ported (tests/test_torch_megastep.py) and its
+    flag now configures the engine instead of refusing it."""
     _, tlm = lms[VOCAB]
-    for kw in ({"megastep": 4}, {"speculative": True}, {"paged": False}):
+    for kw in ({"speculative": True}, {"paged": False}):
         with pytest.raises(ValueError, match="ROADMAP"):
             serving.Engine(tlm, slots=1, device="cpu", **kw)
+    flags.set_flag("serving_megastep", 4)
+    try:
+        with serving.Engine(tlm, slots=1, device="cpu") as eng:
+            assert eng._megastep == 4
+    finally:
+        flags.set_flag("serving_megastep", None)
     # the flags (PADDLE_TPU_SERVING_* in the environment) refuse too
-    for name, value in (("serving_megastep", 4),
-                        ("serving_speculative", "1"),
+    for name, value in (("serving_speculative", "1"),
                         ("serving_paged", "off")):
         flags.set_flag(name, value)
         try:

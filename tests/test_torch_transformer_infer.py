@@ -95,7 +95,9 @@ def _pools(rng, nb=20, bs=4):
                          ids=["kernel", "gather"])
 def test_paged_step_matches_jax(lms, block_kernel):
     """One decode step over a random pool: 4 slots at ragged depths,
-    one masked (its write must drop, its logits are never read)."""
+    one masked (its write must drop, its logits are never read). The
+    port's pool carries one trash block past the JAX package's, which
+    takes the masked write."""
     jlm, tlm, _ = lms
     rng = np.random.default_rng(1)
     bs, nbmax = 4, MAX_LEN // 4
@@ -109,8 +111,9 @@ def test_paged_step_matches_jax(lms, block_kernel):
     jl, jstate = jlm._step_logits_paged(
         jnp.asarray(tok), jstate, jnp.asarray(pos), jnp.asarray(btab),
         write_mask=jnp.asarray(mask), block_kernel=block_kernel)
-    tstate = {"pool_k": torch.from_numpy(pk.copy()),
-              "pool_v": torch.from_numpy(pv.copy())}
+    trash = np.zeros((1,) + pk.shape[1:], np.float32)
+    tstate = {"pool_k": torch.from_numpy(np.concatenate([pk, trash])),
+              "pool_v": torch.from_numpy(np.concatenate([pv, trash]))}
     tl, tstate = tlm._step_logits_paged(
         torch.from_numpy(tok).long(), tstate,
         torch.from_numpy(pos).long(), torch.from_numpy(btab),
@@ -118,7 +121,7 @@ def test_paged_step_matches_jax(lms, block_kernel):
     np.testing.assert_allclose(tl.numpy()[mask], _np(jl)[mask],
                                atol=1e-4)
     for name in ("pool_k", "pool_v"):
-        np.testing.assert_allclose(tstate[name].numpy(),
+        np.testing.assert_allclose(tstate[name].numpy()[:-1],
                                    _np(jstate[name]), atol=1e-5)
     # the masked slot's target entry is untouched
     blk, off = btab[3, pos[3] // bs], pos[3] % bs
@@ -159,28 +162,30 @@ def test_paged_prefill_matches_jax(lms, block_kernel):
 
 def test_pool_write_indexing(lms):
     """Vector (s, c) of k_new [S, H, C, dk] lands at pool[phys[s, c],
-    layer, :, off[s, c], :]; entries pointing at num_blocks drop. The
-    advanced index (tensor, slice, tensor) moves the indexed dims to
-    the front in torch as in NumPy/JAX: checked, not assumed."""
+    layer, :, off[s, c], :]; entries pointing at num_blocks land in the
+    trash block and leave the pool's blocks as they were. The advanced
+    index (tensor, slice, tensor) moves the indexed dims to the front
+    in torch as in NumPy/JAX: checked, not assumed."""
     _, tlm, _ = lms
     nb, bs = 6, 4
     pools = tlm._init_paged_state(nb, bs)
+    assert pools["pool_k"].shape[0] == nb + 1
     rng = np.random.default_rng(3)
     k_new = rng.normal(size=(2, N_HEAD, 3, DK)).astype(np.float32)
     wphys = np.array([[1, 4, nb], [nb, 0, 5]])
     off = np.array([[0, 3, 2], [1, 1, 2]])
     widx = tlm._write_index(torch.from_numpy(wphys),
-                            torch.from_numpy(off), nb)
+                            torch.from_numpy(off))
     t = torch.from_numpy(k_new)
     tlm._pool_write(pools, 1, widx, t, t * 2)
-    pk = pools["pool_k"].numpy()
+    pk = pools["pool_k"].numpy()[:nb]
     want = np.zeros_like(pk)
     for s in range(2):
         for c in range(3):
             if wphys[s, c] < nb:
                 want[wphys[s, c], 1, :, off[s, c], :] = k_new[s, :, c]
     np.testing.assert_array_equal(pk, want)
-    np.testing.assert_array_equal(pools["pool_v"].numpy(), 2 * want)
+    np.testing.assert_array_equal(pools["pool_v"].numpy()[:nb], 2 * want)
 
 
 def test_int8_pool_write_matches_jax(lms):
@@ -195,11 +200,11 @@ def test_int8_pool_write_matches_jax(lms):
                          jnp.asarray(k_new), jnp.asarray(k_new))
     tp = tlm._init_paged_state(6, 4, kv_quant="int8")
     widx = tlm._write_index(torch.from_numpy(wphys).long(),
-                            torch.from_numpy(off).long(), 6)
+                            torch.from_numpy(off).long())
     t = torch.from_numpy(k_new)
     tlm._pool_write(tp, 0, widx, t, t)
-    for name in ("pool_k", "pool_v"):
-        np.testing.assert_array_equal(tp[name].numpy(), _np(jp[name]))
+    for name in ("pool_k", "pool_v"):         # [:6]: past the trash block
+        np.testing.assert_array_equal(tp[name].numpy()[:6], _np(jp[name]))
     for name in ("pool_ks", "pool_vs"):
-        np.testing.assert_allclose(tp[name].numpy(), _np(jp[name]),
+        np.testing.assert_allclose(tp[name].numpy()[:6], _np(jp[name]),
                                    rtol=1e-6)

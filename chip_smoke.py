@@ -129,13 +129,55 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
      megastep dispatches printed. Each path is timed eager against graph
      in A/B/A/B order (3 pairs: the host varies from run to run), with
      the medians, and traced once each way for the device busy share;
-     every timing line carries the ``nvidia-smi`` line.
+     every timing line carries the ``nvidia-smi`` line;
+ 10. spec    — speculative and sampled serving. Kernel #1 at the scoring
+     shape (S=32, H=8, C=gamma+1=5, dk 64, ragged per-row qpos = pos +
+     j, fp32 and fp8 pools) against its plain version at phase 3's
+     tolerances, then timed at (d) (every slot scoring positions
+     251..255 of 256) as device time alone and with the host's gaps
+     against the plain version, scaled_dot_product_attention with the
+     per-row causal mask and the bound. Then the flagship served by
+     ``Engine(slots=32, prefill_chunk=16, block_size=16)`` with
+     ``speculative=True``, gamma 4, drafter ``ngram`` and ``truncated``
+     (2 layers), on both request sets: tokens equal to the plain
+     engine's at megastep 1 and, for 4 requests, to
+     ``sequential_generate``'s (phase 9's); drafted scoring dispatches
+     required; paged launches exactly n_layer x (scoring dispatches +
+     plain steps run + prefill chunks) + spec_layers x draft steps;
+     accepted tokens per scoring dispatch printed. The scoring dispatch
+     computes a position at M = S x C GEMM rows and the kernel's C = 5
+     layout, the plain step at M = S and C = 1, so the two round
+     differently: where a speculative run's tokens part from the plain
+     run's, the first differing token is diagnosed (``_divergence``). A
+     near-tie within the row's fp32 rounding (the most the plain and
+     the dense fp32 dispatches of that row disagree on a logit) is
+     logged with its figures and counted: the scoring dispatch's logits
+     within twice that rounding of the plain step's, and the two
+     tokens' logits under the plain step no further apart than it
+     (sampled: the uniform no further from a CDF step than the two
+     dispatches' CDFs disagree); anything else fails. Sampled: 16
+     requests (temperature 0.8, top_k 50, top_p 0.95, seeds 100-115)
+     among 4 greedy ones, 64 new tokens each, through the plain engine,
+     the megastep-8 engine (its sampled CUDA graph, replays required)
+     and the ngram speculative engine: identical tokens, a second pass
+     identical, the greedy requests equal to their all-greedy tokens;
+     the counter RNG's bits (Philox words and uniforms) equal on the
+     CPU and the card for 1,000 (seed, counter) pairs. Last, the
+     decode-heavy set timed over plain K=1, plain K=8, spec-ngram and
+     spec-truncated in A/B/A/B order (3 rounds, medians: ms per decode
+     dispatch, tokens/s) and traced once each for the device busy
+     share.
 
 The last three lines of standard output are the kernels' JSON line, the
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device": ...}``.
-In the kernels' line ``launches`` sums the eager main path's run and the
-megastep graph's (counted through replays), and ``graph_launches`` gives
-the graph's alone. Every entry's ``ms`` and ``library_ms`` are device
+In the kernels' line ``launches`` sums the eager main path's run, the
+megastep graph's (counted through replays) and phase 10's speculative
+and plain runs; ``graph_launches`` gives the graph's alone and
+``spec_launches`` phase 10's. Paged attention's entry carries
+``scoring_shape``: its times and bound at (d), and its launches at the
+scoring shape among phase 10's: counted inside each scoring dispatch
+(the kernel's counter read before and after it, n_layer required) and
+each launch's query rows (C = 5 required). Every entry's ``ms`` and ``library_ms`` are device
 time alone, and each adds both read with the host's gaps
 (``ms_with_host_gaps``, ``library_ms_with_host_gaps``); paged
 attention's are at shape (a), and its ``launches`` count one per call.
@@ -1894,6 +1936,7 @@ def mega_serve_phase(torch, smi):
     sets = {"mixed": _requests(np.random.default_rng(0)),
             "decode-heavy": _decode_heavy_requests(np.random.default_rng(1))}
     engines = {}
+    seqs = {}
     for k in (1, MEGA_SERVE_K):
         eng = Engine(model, slots=32, prefill_chunk=16, block_size=16,
                      megastep=k)
@@ -1945,7 +1988,7 @@ def mega_serve_phase(torch, smi):
             check(not diverged, "mega-serve %s: megastep=%d tokens differ "
                   "from megastep=1 for requests %s", set_name, MEGA_SERVE_K,
                   diverged)
-            seq = sequential_generate(model, reqs[:4])
+            seq = seqs[set_name] = sequential_generate(model, reqs[:4])
             for i, ((a, _), (b, _)) in enumerate(zip(outs[MEGA_SERVE_K][:4],
                                                      seq)):
                 check(a == b, "mega-serve %s request %d differs from "
@@ -1953,15 +1996,21 @@ def mega_serve_phase(torch, smi):
             log("mega-serve %s: megastep=%d tokens equal megastep=1's (%d "
                 "requests) and sequential_generate's (4 requests)",
                 set_name, MEGA_SERVE_K, len(reqs))
-            timing[set_name] = _interleaved_serve(torch, engines, reqs,
-                                                  set_name, smi)
+            timing[set_name] = _interleaved_serve(
+                torch, {"megastep=%d" % k: e for k, e in engines.items()},
+                reqs, "mega-serve " + set_name, smi)
     finally:
         for eng in engines.values():
             eng.close()
-    return graph_paged, timing
+    return graph_paged, timing, seqs
 
 
-def _interleaved_serve(torch, engines, reqs, set_name, smi):
+def _interleaved_serve(torch, engines, reqs, title, smi):
+    """Each engine of ``{label: engine}`` serves ``reqs`` in turn,
+    MEGA_PAIRS rounds (A/B/A/B: the host varies from run to run), then
+    once traced. A decode dispatch is a plain step the device ran or a
+    scoring dispatch. Returns {label: (median ms per decode dispatch,
+    median tokens/s, busy share)}."""
     walls = {k: [] for k in engines}
     rates = {k: [] for k in engines}
     steps = {k: [] for k in engines}
@@ -1970,27 +2019,507 @@ def _interleaved_serve(torch, engines, reqs, set_name, smi):
             out, wall, d = _serve_once(torch, eng, reqs)
             walls[k].append(wall)
             rates[k].append(sum(len(t) for t, _ in out) / wall)
-            steps[k].append(1e3 * d["decode_seconds"] / d["decode_steps_run"])
+            steps[k].append(1e3 * d["decode_seconds"] / (
+                d["decode_steps_run"] + d["spec_dispatches"]))
     busy = {}
     from torch.profiler import ProfilerActivity, profile
     for k, eng in engines.items():
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             _, wall, _ = _serve_once(torch, eng, reqs)
         busy[k] = _report_profile(
-            prof, wall, "mega-serve %s profile (traced, megastep=%d)" % (
-                set_name, k), focus="paged_attention_kernel")[0]
+            prof, wall, "%s profile (traced, %s)" % (title, k),
+            focus="paged_attention_kernel")[0]
     out = {}
     for k in engines:
         out[k] = (_median(steps[k]), _median(rates[k]), busy[k])
-        log("mega-serve %s timing (megastep=%d, %d pairs interleaved): "
-            "decode step ms %s (median %.3f); tokens/s %s (median %.1f); "
-            "wall s %s; device busy %s; %s", set_name, k, MEGA_PAIRS,
+        log("%s timing (%s, %d rounds interleaved): decode dispatch ms %s "
+            "(median %.3f); tokens/s %s (median %.1f); wall s %s; device "
+            "busy %s; %s", title, k, MEGA_PAIRS,
             " ".join("%.3f" % x for x in steps[k]), out[k][0],
             " ".join("%.1f" % x for x in rates[k]), out[k][1],
             " ".join("%.3f" % x for x in walls[k]),
             "not measured" if busy[k] is None else "%.1f%%" % (100 * busy[k]),
             smi)
     return out
+
+
+# -- phase 10 ------------------------------------------------------------
+# speculative and sampled serving: the scoring dispatch (the paged kernel
+# at C = gamma + 1 rows), the truncated drafter, the counter-keyed
+# sampler and the sampled megastep graph
+SPEC_GAMMA, SPEC_LAYERS = 4, 2
+# a parting is a near-tie only if the scoring dispatch's logits of that
+# row stay within this many times the row's fp32 rounding of the plain
+# step's (``_divergence``)
+SPEC_DELTA_X = 2
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+SAMPLED_SEEDS = range(100, 116)
+
+
+def spec_kernel_phase(torch):
+    """Kernel #1 at the scoring shape (S=32, H=8, C=gamma+1=5, dk 64, bs
+    16, ragged per-row qpos = pos + j) against the plain version on
+    fp32 and fp8 pools (layers 0 and 3, phase 3's tolerances); then
+    timed at (d), every slot scoring positions 251..255 of a 256-position
+    chain on the phase-3 timing pool, as device time alone and with the
+    host's gaps, against the plain version, scaled_dot_product_attention
+    over the gathered K/V with the per-row causal mask, and the bound.
+    Returns (largest abs error, timing entry)."""
+    from paddle_tpu_torch.ops import paged_attention as P
+    rng = np.random.default_rng(10)
+    s, c, bs, nbmax = 32, SPEC_GAMMA + 1, 16, 16
+    worst = 0.0
+    for quant in ("fp32", "fp8"):
+        chains = rng.integers(1, nbmax + 1, size=s)
+        chains[0] = nbmax
+        case = _pool_case(torch, rng, s, c, chains, quant)
+        last = (chains - 1) * bs + rng.integers(0, bs, size=s)
+        pos = np.maximum(last - (c - 1), 0)
+        case["qpos"] = torch.from_numpy(
+            (pos[:, None] + np.arange(c)[None]).astype(np.int32)).cuda()
+        args = tuple(case[k] for k in ("q", "pool_k", "pool_v", "btab",
+                                       "qpos"))
+        nb_t = torch.tensor([nbmax], dtype=torch.int32, device="cuda")
+        for layer in (0, 3):
+            got = P.paged_attention(*args, nblk=nb_t,
+                                    k_scale=case["k_scale"],
+                                    v_scale=case["v_scale"], layer=layer)
+            ref = P._attend_plain(*args, nbmax, case["k_scale"],
+                                  case["v_scale"], layer=layer)
+            torch.cuda.synchronize()
+            err = (got - ref).abs()
+            bad = err > ATOL + RTOL * ref.abs()
+            worst = max(worst, float(err.max()))
+            check(bool(torch.isfinite(got).all()) and not bool(bad.any()),
+                  "scoring shape: kernel disagrees with _attend_plain (%s, "
+                  "layer %d): max_abs_err=%g", quant, layer,
+                  float(err.max()))
+            log("spec kernel: S=%d C=%d dk=64 bs=16 %s ragged qpos=pos+j "
+                "splits=%d layer=%d max_abs_err=%.3g  ok", s, c, quant,
+                P._splits(s, 8, c, nbmax, bs), layer, float(err.max()))
+    pk, pv, shapes = _paged_shapes(torch)
+    bt = shapes["a"][1]
+    h, dk = pk.shape[2], pk.shape[4]
+    q = torch.from_numpy(rng.normal(size=(s, h, c, dk)).astype(
+        np.float32) * dk ** -0.5).cuda()
+    qp = (torch.arange(c, dtype=torch.int32, device="cuda")[None]
+          + (nbmax * bs - c)).expand(s, c).contiguous()
+    nb_t = torch.tensor([nbmax], dtype=torch.int32, device="cuda")
+    npos = nbmax * bs
+    kpos = torch.arange(npos, device="cuda")
+    mask = kpos[None, None, None, :] <= qp[:, None, :, None]
+    dense = []
+    for layer in range(4):
+        dense.append([pool[:, layer][bt.long()].permute(0, 2, 1, 3, 4)
+                      .reshape(s, h, npos, dk).contiguous()
+                      for pool in (pk, pv)])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def kernel(i):
+        P.paged_attention(q, pk, pv, bt, qp, nblk=nb_t, layer=i % 4)
+
+    def library(i):
+        k, v = dense[i % 4]
+        sdpa(q, k, v, attn_mask=mask, scale=1.0)
+
+    def plain(i):
+        P._attend_plain(q, pk, pv, bt, qp, nbmax, None, None, layer=i % 4)
+    r = {"ms": _events_ms(torch, kernel, 100, hide_host=True),
+         "ms_with_host_gaps": _events_ms(torch, kernel, 100),
+         "library_ms": _events_ms(torch, library, 100, hide_host=True),
+         "library_ms_with_host_gaps": _events_ms(torch, library, 100),
+         "plain_ms": _events_ms(torch, plain, 5)}
+    got = P.paged_attention(q, pk, pv, bt, qp, nblk=nb_t, layer=0)
+    lib = sdpa(q, dense[0][0], dense[0][1], attn_mask=mask, scale=1.0)
+    check(torch.allclose(got, lib, rtol=RTOL, atol=ATOL),
+          "kernel disagrees with scaled_dot_product_attention at (d)")
+    nbytes, flops = _paged_work(q, qp, h, dk, bs)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_FLOPS * 1e3
+    r.update(bound_ms=max(bytes_ms, ops_ms),
+             bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    log("timing (d) scoring S=%d H=%d C=%d dk=%d bs=%d, positions 251..255 "
+        "of 256 per slot, fp32, splits %d: device time alone kernel_ms=%.5f "
+        "library_ms=%.5f (kernel / library %.3f); with the host's gaps "
+        "kernel_ms=%.5f library_ms=%.5f; plain_ms=%.5f (with gaps); "
+        "bound_ms=%.5f (%s: %d bytes %.5f ms, %d flops at fp32 SIMT %.5f "
+        "ms)", s, h, c, dk, bs, P._splits(s, h, c, nbmax, bs), r["ms"],
+        r["library_ms"], r["ms"] / r["library_ms"], r["ms_with_host_gaps"],
+        r["library_ms_with_host_gaps"], r["plain_ms"], r["bound_ms"],
+        r["bound_by"], nbytes, bytes_ms, flops, ops_ms)
+    return worst, r
+
+
+def _row_logits(torch, model, prompt, toks, i):
+    """The logits for generated token ``i`` of a request whose earlier
+    tokens are ``toks[:i]``, under three fp32 dispatches: the plain
+    paged step (S=32 slots, row 0 live, prefilled in chunks of 16, as the
+    plain engine computes that row), the scoring dispatch (C = gamma+1,
+    the position at j=0, the following tokens as drafts, on a copy of the
+    same pool) and the dense single-row step. Returns three [V] f32
+    tensors."""
+    dev, bs, s = model.device, 16, 32
+    nbmax = MAX_LEN // bs
+    need = len(prompt) - 1
+    st = model._init_paged_state(nbmax, bs)
+    btab = torch.zeros((s, nbmax), dtype=torch.int32, device=dev)
+    btab[0] = torch.arange(nbmax, dtype=torch.int32, device=dev)
+    for cur in range(0, need, 16):
+        n = min(16, need - cur)
+        chunk = torch.zeros(16, dtype=torch.long, device=dev)
+        chunk[:n] = torch.tensor(prompt[cur:cur + n], device=dev)
+        model._prefill_chunk_paged(st, chunk, cur, n, btab[0],
+                                   block_kernel=True)
+    active = torch.zeros(s, dtype=torch.bool, device=dev)
+    active[0] = True
+    tok = torch.zeros(s, dtype=torch.long, device=dev)
+    pos = torch.zeros(s, dtype=torch.long, device=dev)
+    seq = [prompt[-1]] + list(toks[:i])
+    c = SPEC_GAMMA + 1
+    for j in range(i + 1):
+        tok[0], pos[0] = seq[j], need + j
+        if j == i:
+            drafts = list(toks[i:i + c - 1])
+            toks_c = torch.zeros((s, c), dtype=torch.long, device=dev)
+            toks_c[0, :1 + len(drafts)] = torch.tensor(
+                [seq[i]] + drafts, device=dev)
+            nv = torch.zeros(s, dtype=torch.long, device=dev)
+            nv[0] = len(drafts)
+            spool = {n: t.clone() for n, t in st.items()}
+            score, _ = model._spec_logits_paged(
+                toks_c, spool, pos, btab, nv, write_mask=active,
+                block_kernel=True)
+        plain, _ = model._step_logits_paged(tok, st, pos, btab,
+                                            write_mask=active,
+                                            block_kernel=True)
+    dstate = model._init_state(1)
+    for t, tk in enumerate(list(prompt[:-1]) + seq):
+        dense, dstate = model._step_logits(
+            torch.full((1,), tk, dtype=torch.long, device=dev), dstate, t)
+    return plain[0].float(), score[0, 0].float(), dense[0].float()
+
+
+def _divergence(torch, model, req, a, b, sp=None):
+    """Diagnose the first token where the speculative run ``a`` and the
+    plain run ``b`` part. The row's fp32 rounding is taken as the largest
+    difference between two correct fp32 dispatches of it, the plain
+    paged step and the dense step (``_row_logits``), neither of them the
+    scoring dispatch under test. A near-tie needs both: the scoring
+    dispatch's logits of the row within ``SPEC_DELTA_X`` times that
+    rounding of the plain step's, and (greedy) the two tokens' logits
+    under the plain step no further apart than that rounding, or
+    (sampled, ``sp``) the uniform no further from a step of the plain
+    step's CDF than the two correct dispatches' CDFs differ. Returns
+    (near-tie, figures)."""
+    from paddle_tpu_torch.serving import sampling as SM
+    i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if i is None:
+        return False, "lengths %d vs %d" % (len(a), len(b))
+    with torch.no_grad():
+        plain, score, dense = _row_logits(torch, model, req[0], b, i)
+    eps = float((plain - dense).abs().max())
+    delta = float((plain - score).abs().max())
+    top = torch.topk(plain, 2)
+    gap = abs(float(plain[a[i]] - plain[b[i]]))
+    ulp = float(torch.finfo(torch.float32).eps * top.values[0].abs())
+    msg = ("token %d: %d vs %d (plain); plain step top-2 %s, logit gap of "
+           "the two %.3g (fp32 ulp of the top logit %.3g); scoring "
+           "dispatch picks %d (gap %.3g), differs from the plain step by "
+           "up to %.3g; the dense step picks %d, differs by up to %.3g"
+           % (i, a[i], b[i], top.indices.tolist(), gap, ulp,
+              int(score.argmax()), abs(float(score[a[i]] - score[b[i]])),
+              delta, int(dense.argmax()), eps))
+    close = delta <= SPEC_DELTA_X * eps
+    if not close:
+        msg += ("; the scoring dispatch is further from the plain step "
+                "than %d x the row's rounding" % SPEC_DELTA_X)
+    if sp is None:
+        return close and gap <= eps, msg
+    dev = model.device
+
+    def cdf(lg, order=None):
+        final = SM.filter_logits(
+            lg[None], torch.tensor([sp["temperature"]], device=dev),
+            torch.tensor([sp["top_k"]], device=dev),
+            torch.tensor([sp["top_p"]], device=dev))
+        p = torch.softmax(final, -1)[0]
+        if order is None:
+            order = torch.sort(p, descending=True, stable=True).indices
+        return torch.cumsum(p[order], 0), order
+    c_plain, order = cdf(plain)
+    c_dense, _ = cdf(dense, order)
+    u = float(SM.uniform(SM.step_keys(
+        torch.tensor([sp["seed"]], device=dev),
+        torch.tensor([i], device=dev)))[0])
+    dist = float((c_plain - u * c_plain[-1]).abs().min())
+    eps_cdf = float((c_plain - c_dense).abs().max())
+    msg += ("; sampled: u %.7f lands %.3g from the plain step's nearest "
+            "CDF step; the two dispatches' CDFs differ by up to %.3g"
+            % (u, dist, eps_cdf))
+    return close and dist <= eps_cdf, msg
+
+
+def _same_or_near_tie(torch, model, req, a, b, what, near_ties, sp=None):
+    """Tokens ``a`` (speculative) must equal ``b`` (plain), unless they
+    part at a near-tie (``_divergence``); a near-tie is logged and kept
+    in ``near_ties``, anything else fails."""
+    if a == b:
+        return True
+    tie, msg = _divergence(torch, model, req, a, b, sp)
+    log("%s: tokens part: %s: %s", what,
+        "a near-tie within the row's fp32 rounding" if tie
+        else "NOT a near-tie", msg)
+    check(tie, "%s differs from the plain engine, and not at a near-tie: "
+          "%s", what, msg)
+    near_ties.append("%s: %s" % (what, msg))
+    return False
+
+
+@contextlib.contextmanager
+def _scoring_launches(eng):
+    """Watch ``eng``'s scoring dispatches for one run: yields (the paged
+    launches inside each call of ``_spec_step_impl``, read from the
+    kernel's counter before and after it; {query rows C: launches}
+    inside those calls, read from each launch's q)."""
+    from paddle_tpu_torch.ops import paged_attention as P
+    per, rows, inside = [], {}, [False]
+    impl, attend = eng._spec_step_impl, P._attend_cuda
+
+    def attend_seen(q, *args, **kw):
+        if inside[0]:
+            rows[q.shape[2]] = rows.get(q.shape[2], 0) + 1
+        return attend(q, *args, **kw)
+
+    def scoring(*args, **kw):
+        n0 = P.paged_attention.launches
+        inside[0] = True
+        try:
+            return impl(*args, **kw)
+        finally:
+            inside[0] = False
+            per.append(P.paged_attention.launches - n0)
+    eng._spec_step_impl, P._attend_cuda = scoring, attend_seen
+    try:
+        yield per, rows
+    finally:
+        del eng._spec_step_impl
+        P._attend_cuda = attend
+
+
+def _spec_engines(model):
+    from paddle_tpu_torch.serving import Engine
+    out = {}
+    for label, kw in (("plain K=1", {}),
+                      ("plain K=%d" % MEGA_SERVE_K,
+                       {"megastep": MEGA_SERVE_K}),
+                      ("spec-ngram", {"speculative": True,
+                                      "spec_gamma": SPEC_GAMMA,
+                                      "spec_drafter": "ngram"}),
+                      ("spec-truncated", {"speculative": True,
+                                          "spec_gamma": SPEC_GAMMA,
+                                          "spec_drafter": "truncated",
+                                          "spec_layers": SPEC_LAYERS})):
+        eng = Engine(model, slots=32, prefill_chunk=16, block_size=16, **kw)
+        t0 = time.perf_counter()
+        eng.warmup(sampled=True)
+        log("spec-serve: %s warmup (greedy and sampled) %.3f s, graph "
+            "captures %d", label, time.perf_counter() - t0,
+            eng.stats["graph_captures"])
+        out[label] = eng
+    return out
+
+
+def spec_serve_phase(torch, smi, seqs):
+    """Speculative and sampled serving of the flagship LM. Greedy: both
+    request sets through the ngram and the truncated drafter, tokens
+    equal to the plain engine's at megastep 1 (or parted at a diagnosed
+    near-tie, ``_same_or_near_tie``), whose tokens equal (4 requests)
+    sequential_generate's (``seqs``, from phase 9); paged launches exactly
+    n_layer x (scoring dispatches + plain steps run + prefill chunks) +
+    spec_layers x truncated draft steps. Sampled: 16 requests (seeds
+    100-115) among 4 greedy ones through the plain engine, the megastep
+    graph (its sampled variant) and the speculative engine, twice;
+    the RNG's bits on the card against the CPU's. Then the decode-heavy
+    set timed A/B/A/B over the four engines. Returns (paged launches,
+    those of them inside scoring dispatches, at C = gamma + 1, counted
+    around each dispatch by ``_scoring_launches``; timing)."""
+    from paddle_tpu_torch.models.transformer_infer import (
+        TransformerLMInfer, init_stream)
+    stream = init_stream(VOCAB, MAX_LEN, N_LAYER, N_HEAD, D_MODEL, D_INNER,
+                         seed=0)
+    model = TransformerLMInfer.from_stream(
+        stream, N_LAYER, N_HEAD, D_MODEL, MAX_LEN, end_id=VOCAB)
+    sets = {"mixed": _requests(np.random.default_rng(0)),
+            "decode-heavy": _decode_heavy_requests(np.random.default_rng(1))}
+    engines = _spec_engines(model)
+    total = scoring = 0
+    near_ties = []
+    try:
+        for set_name, reqs in sets.items():
+            _reset_launches()
+            base, _, d = _serve_once(torch, engines["plain K=1"], reqs)
+            want = N_LAYER * (d["decode_steps_run"] + d["prefill_chunks"])
+            launches = _launches()["paged_attention"]
+            check(launches == want, "spec-serve %s plain: paged launches "
+                  "%d != %d", set_name, launches, want)
+            total += launches
+            for i, ((a, _), (b, _)) in enumerate(zip(base, seqs[set_name])):
+                check(a == b, "spec-serve %s: plain request %d differs from "
+                      "sequential_generate", set_name, i)
+            for label in ("spec-ngram", "spec-truncated"):
+                eng = engines[label]
+                _reset_launches()
+                with _scoring_launches(eng) as (per, rows):
+                    out, wall, d = _serve_once(torch, eng, reqs)
+                launches = _launches()["paged_attention"]
+                want = (N_LAYER * (d["spec_dispatches"] + d["decode_steps_run"]
+                                   + d["prefill_chunks"])
+                        + eng._spec_layers * d["spec_draft_steps"])
+                ntok = sum(len(t) for t, _ in out)
+                log("spec-serve %s (%s, gamma %d%s): %d requests, %d tokens "
+                    "in %.3f s = %.1f tokens/s; scoring dispatches %d, "
+                    "drafted %d, accepted %d (%.1f%% of drafted), emitted "
+                    "%d (accepted tokens per scoring dispatch %.3f, emitted "
+                    "%.3f, summed over its slots); plain steps run %d; "
+                    "draft steps %d; prefill chunks %d; paged launches %d; "
+                    "%s", set_name, label, SPEC_GAMMA,
+                    ", %d layers" % eng._spec_layers
+                    if eng._spec_layers else "", len(out), ntok, wall,
+                    ntok / wall, d["spec_dispatches"], d["spec_drafted"],
+                    d["spec_accepted"],
+                    100 * d["spec_accepted"] / max(1, d["spec_drafted"]),
+                    d["spec_emitted"],
+                    d["spec_accepted"] / max(1, d["spec_dispatches"]),
+                    d["spec_emitted"] / max(1, d["spec_dispatches"]),
+                    d["decode_steps_run"], d["spec_draft_steps"],
+                    d["prefill_chunks"], launches, smi)
+                check(d["spec_dispatches"] > 0 and d["spec_drafted"] > 0,
+                      "spec-serve %s %s: no drafted scoring dispatch",
+                      set_name, label)
+                check(launches == want, "spec-serve %s %s: paged launches "
+                      "%d != n_layer x (scoring dispatches + plain steps + "
+                      "prefill chunks) + spec_layers x draft steps = %d",
+                      set_name, label, launches, want)
+                total += launches
+                check(len(per) == d["spec_dispatches"]
+                      and all(n == N_LAYER for n in per),
+                      "spec-serve %s %s: %d scoring dispatches seen (stats "
+                      "%d), paged launches inside them %s, not n_layer "
+                      "each", set_name, label, len(per),
+                      d["spec_dispatches"], sorted(set(per)))
+                check(rows == {SPEC_GAMMA + 1: sum(per)},
+                      "spec-serve %s %s: paged launches inside scoring "
+                      "dispatches by query rows %s, not all at C = %d",
+                      set_name, label, rows, SPEC_GAMMA + 1)
+                log("spec-serve %s %s: %d paged launches inside its %d "
+                    "scoring dispatches (counted around each), all at C = "
+                    "%d", set_name, label, sum(per), len(per),
+                    SPEC_GAMMA + 1)
+                scoring += sum(per)
+                for i, ((a, sa), (b, sb)) in enumerate(zip(out, base)):
+                    what = "spec-serve %s %s request %d" % (set_name,
+                                                            label, i)
+                    if _same_or_near_tie(torch, model, reqs[i], a, b, what,
+                                         near_ties):
+                        check(abs(sa - sb) <= 1e-3 * max(1.0, abs(sb)),
+                              "%s: score %r vs %r", what, sa, sb)
+            log("spec-serve %s: both drafters' tokens equal the plain "
+                "engine's (%d requests; near-ties so far %d) and the plain "
+                "engine's equal sequential_generate's (4 requests)",
+                set_name, len(reqs), len(near_ties))
+        sampled_phase(torch, model, engines, sets["decode-heavy"], base,
+                      near_ties)
+        timing = _interleaved_serve(torch, engines, sets["decode-heavy"],
+                                    "spec-serve decode-heavy", smi)
+        log("spec-serve: %d near-tie(s) where a speculative run parted "
+            "from the plain one%s", len(near_ties),
+            "".join("\n  " + t for t in near_ties))
+    finally:
+        for eng in engines.values():
+            eng.close()
+    return total, scoring, timing
+
+
+def sampled_phase(torch, model, engines, heavy, heavy_greedy, near_ties):
+    """16 sampled requests (temperature 0.8, top_k 50, top_p 0.95, seeds
+    100-115) with 4 greedy ones among them, 64 new tokens each, through
+    the plain engine, the megastep-8 engine (its sampled CUDA graph) and
+    the speculative engine: identical tokens (the speculative engine's
+    may part at a diagnosed near-tie, appended to ``near_ties``), a
+    second pass identical, the greedy requests equal to their all-greedy
+    tokens, the sampled
+    ones not all greedy (``heavy_greedy``: the set's greedy tokens).
+    Then the counter RNG's bits on the card against the CPU's."""
+    from paddle_tpu_torch.serving import sampling as SM
+    reqs = [(p, 64) for p, _ in heavy[:20]]
+    greedy = (3, 8, 13, 18)
+    seeds = iter(SAMPLED_SEEDS)
+    samp = [None if i in greedy else dict(SAMPLED, seed=next(seeds))
+            for i in range(len(reqs))]
+
+    def run(eng):
+        hs = [eng.submit(p, m, sampling=sp)
+              for (p, m), sp in zip(reqs, samp)]
+        return [h.result(timeout=600)[0] for h in hs]
+    mega = engines["plain K=%d" % MEGA_SERVE_K]
+    outs = {}
+    for label in ("plain K=1", "plain K=%d" % MEGA_SERVE_K, "spec-ngram"):
+        eng = engines[label]
+        before = dict(eng.stats)
+        graph = eng._graphs[True]
+        replays = graph.replays if graph is not None else 0
+        outs[label] = [run(eng), run(eng)]
+        d = {k: eng.stats[k] - before[k] for k in eng.stats}
+        if graph is not None:
+            replays = graph.replays - replays
+        log("sampled %s: 2 passes of %d requests (%d sampled); sampled "
+            "graph replays %d (all graph replays %d); scoring dispatches %d "
+            "(accepted %d)", label, len(reqs), len(SAMPLED_SEEDS), replays,
+            d["graph_replays"], d["spec_dispatches"], d["spec_accepted"])
+        if eng is mega:
+            check(graph is not None and replays > 0,
+                  "sampled: the megastep engine replayed no sampled graph")
+    ref = outs["plain K=1"][0]
+    for label, (a, b) in outs.items():
+        for i, (x, y, r) in enumerate(zip(a, b, ref)):
+            check(x == y, "sampled %s request %d: the second pass differs",
+                  label, i)
+            if label.startswith("spec"):
+                _same_or_near_tie(torch, model, reqs[i], x, r,
+                                  "sampled %s request %d" % (label, i),
+                                  near_ties, samp[i])
+            else:
+                check(x == r, "sampled %s request %d differs from the plain "
+                      "engine's at megastep 1", label, i)
+    alone = engines["plain K=1"].generate_many(
+        [reqs[i][0] for i in greedy], [reqs[i][1] for i in greedy])
+    for i, (toks, _) in zip(greedy, alone):
+        check(ref[i] == toks, "sampled: greedy request %d differs from its "
+              "all-greedy tokens", i)
+    drew = sum(ref[i] != heavy_greedy[i][0][:64] for i in range(len(reqs))
+               if i not in greedy)
+    check(drew > 0, "sampled: every sampled request gave its greedy tokens")
+    rng = np.random.default_rng(7)
+    seeds = torch.from_numpy(rng.integers(0, 2 ** 32, 1000))
+    counts = torch.from_numpy(rng.integers(0, 2 ** 40, 1000))
+
+    def bits(keys):
+        seed, count = keys[:, 0], keys[:, 1]
+        zero = torch.zeros_like(count)
+        words = SM.philox4x32((count & 0xFFFFFFFF, count >> 32, zero, zero),
+                              (seed, zero))
+        return torch.stack(words, 1).cpu(), SM.uniform(keys).cpu()
+    keys = SM.step_keys(seeds, counts)
+    (w_cpu, u_cpu), (w_dev, u_dev) = bits(keys), bits(keys.cuda())
+    check(torch.equal(w_cpu, w_dev) and torch.equal(u_cpu, u_dev),
+          "the counter RNG's bits differ between the CPU and the card")
+    log("sampled: tokens equal across plain K=1, K=%d (sampled graph) and "
+        "spec-ngram (near-ties in phase 10: %d), and across two passes; "
+        "greedy requests equal their all-greedy tokens; %d of %d sampled "
+        "requests part from greedy; counter RNG bits (4 Philox words and "
+        "the uniform) equal on the CPU and the card for 1000 (seed, "
+        "counter) pairs", MEGA_SERVE_K, len(near_ties), drew,
+        len(SAMPLED_SEEDS))
 
 
 def _report_profile(prof, wall, title, focus=None):
@@ -2058,7 +2587,10 @@ def main():
         mm_launches = resnet_phase(torch, resnet, shapes)
         lm_counts, _, _ = mega_train_lm_phase(torch, smi)
         mega_resnet = mega_train_resnet_phase(torch, resnet, smi)
-        serve_launches, _ = mega_serve_phase(torch, smi)
+        serve_launches, _, seqs = mega_serve_phase(torch, smi)
+        spec_err, spec_times = spec_kernel_phase(torch)
+        spec_launches, scoring_launches, _ = spec_serve_phase(torch, smi,
+                                                              seqs)
     except SmokeFailure as e:
         print("chip_smoke: FAILED: %s" % e, file=sys.stderr)
         return 1
@@ -2070,8 +2602,11 @@ def main():
         "name": "paged_attention", "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/paged_attention.cu",
         "replaces": "paddle_tpu/ops/paged_attention.py:185",
-        "launches": launches + serve_launches,
-        "graph_launches": serve_launches, "max_abs_err": max_err}, **times)]
+        "launches": launches + serve_launches + spec_launches,
+        "graph_launches": serve_launches, "spec_launches": spec_launches,
+        "max_abs_err": max(max_err, spec_err),
+        "scoring_shape": dict(spec_times, launches=scoring_launches)},
+        **times)]
     for name, line in (("flash_fwd", 68), ("flash_bwd_dq", 163),
                        ("flash_bwd_dkv", 202)):
         kernels.append(dict({

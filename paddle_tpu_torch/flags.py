@@ -83,8 +83,35 @@ _register("serving_prefix_cache", bool, True,
           "radix prefix cache over full prompt blocks: a matching "
           "admission skips those prefill chunks")
 _register("serving_speculative", bool, False,
-          "speculative decode. Not ported yet; 1 raises (see "
-          "ROADMAP.md)")
+          "serving.Engine speculative decode: a drafter proposes up to "
+          "serving_spec_gamma tokens per live slot and one scoring "
+          "dispatch (the paged kernel at C = gamma + 1 query rows) "
+          "verifies them all, accepting the longest prefix that matches "
+          "the model's own greedy or counter-keyed sampled tokens, so "
+          "output stays the non-speculative engine's. Requires "
+          "serving_paged")
+_register("serving_spec_gamma", int, 4,
+          "speculative draft length gamma: tokens proposed per live "
+          "slot per iteration (the scoring dispatch's C = gamma + 1). "
+          "0 disables speculation outright: the engine runs the "
+          "existing programs")
+_register("serving_spec_drafter", str, "ngram",
+          "speculative drafter: 'ngram' (host-side n-gram lookup over "
+          "the request's own token chain and the radix prefix cache's "
+          "published chains; no device cost) or 'truncated' (gamma "
+          "decode steps through the first serving_spec_layers layers "
+          "of the same weights and pool, on the device)")
+_register("serving_spec_ngram", int, 3,
+          "longest suffix n-gram the ngram drafter matches (it falls "
+          "back to shorter suffixes down to serving_spec_ngram_min)")
+_register("serving_spec_ngram_min", int, 2,
+          "shortest suffix n-gram the ngram drafter accepts as "
+          "evidence. 2 skips single-token matches, whose drafts are "
+          "mostly rejected")
+_register("serving_spec_layers", int, 0,
+          "transformer layers the 'truncated' drafter runs (0 = "
+          "n_layer // 2). Draft quality moves only the acceptance "
+          "rate, never the output")
 _register("fuse_conv_bn", bool, False,
           "fuse 1x1-conv + train-BN batch stats: a 1x1 convolution whose "
           "output feeds a train-mode batch_norm runs as one matmul whose "

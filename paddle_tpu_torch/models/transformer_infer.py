@@ -3,9 +3,10 @@
 The counterpart of ``paddle_tpu/models/transformer_infer.py``, restricted
 to ``TransformerLMInfer``: the dense single-row step that
 ``sequential_generate`` drives, and the paged-pool steps the serving
-engine drives (``_step_logits_paged`` for decode, ``_prefill_chunk_paged``
-for chunked prefill), both writing through ``_pool_write`` and attending
-through ``_mha_paged``.
+engine drives (``_step_logits_paged`` for decode and the truncated
+drafter, ``_spec_logits_paged`` for speculative scoring,
+``_prefill_chunk_paged`` for chunked prefill), all writing through
+``_pool_write`` and attending through ``_mha_paged``.
 
 Weights arrive as the parameter stream ``paddle_tpu``'s
 ``extract_params(program, scope)`` yields, converted to numpy:
@@ -378,42 +379,74 @@ class TransformerLMInfer(nn.Module):
         return {n: state[n] for n in _POOL_KEYS if n in state}
 
     def _step_logits_paged(self, tok, state, pos, btab, write_mask=None,
-                           block_kernel=False, attn_unroll=1):
+                           n_layers=None, block_kernel=False,
+                           attn_unroll=1):
         """Per-slot decode step over the paged pool: tok/pos [S] int64,
         ``btab`` [S, max_blocks] int32 block tables, ``write_mask`` [S]
         bool gating the pool writes (idle and prefilling slots must not
         write: theirs go to the trash block, the pool's last). Returns
-        (logits [S, V], state) with the pool updated in place. Nothing
-        is read back to the host (the walk bound, the longest LIVE
-        chain, stays on the device), so a CUDA graph can hold the
-        step."""
+        (logits [S, V], state) with the pool updated in place. It is the
+        C = 1 case of ``_spec_logits_paged`` (no drafts), so nothing is
+        read back to the host and a CUDA graph can hold the step.
+        ``n_layers`` runs only the first n layers: the truncated
+        speculative drafter, whose K/V writes land only at layer rows
+        the full-depth scoring dispatch rewrites."""
+        logits, state = self._spec_logits_paged(
+            tok[:, None], state, pos, btab, torch.zeros_like(pos),
+            write_mask, n_layers, block_kernel, attn_unroll)
+        return logits[:, 0], state
+
+    def _spec_logits_paged(self, toks, state, pos, btab, n_valid,
+                           write_mask=None, n_layers=None,
+                           block_kernel=False, attn_unroll=1):
+        """Speculative scoring: logits at all ``C = gamma + 1`` positions
+        of every slot in one dispatch. ``toks`` [S, C] int64 holds each
+        slot's current token and its drafted tokens; position j is
+        written and read at cache position ``pos[s] + j`` through the
+        slot's block-table row, and the logits at j are what the j-th
+        single step of ``_step_logits_paged`` would give after
+        ``toks[s, :j+1]``. ``n_valid`` [S] counts each slot's valid
+        drafts: positions ``j > n_valid[s]``, and every position of a
+        ``write_mask``-False slot, write into the trash block, and
+        their logits are garbage the acceptance never reads. The
+        causal bound masks cache positions past each query, so a
+        rejected draft's stale K/V is never read before the dispatch
+        that rewrites it. The walk bound stays on the device, so
+        nothing is read back to the host. ``n_layers`` runs only the
+        first n layers (``_step_logits_paged``'s). Returns (logits
+        [S, C, V], state) with the pool updated in place; on the card
+        the paged kernel scores all C rows in one launch per layer."""
         trash, bs = state["pool_k"].shape[0] - 1, state["pool_k"].shape[3]
         nbmax = btab.shape[1]
         btab = btab.to(torch.int32)
-        # an idle slot's stale pos may reach max_len: clamp the reads
-        # that would index past the tables (its rows are never used)
-        pos_r = torch.clamp(pos, max=self.max_len - 1)
-        x = self._embed(tok, pos_r)[:, None, :]          # [S, 1, D]
-        bias = self._bias(pos)[:, None, None, :]         # [S, 1, 1, L]
-        blk = torch.clamp(pos // bs, max=nbmax - 1)
-        off = pos % bs
-        phys = btab.gather(1, blk[:, None])[:, 0].long()
-        wphys = phys if write_mask is None else \
-            torch.where(write_mask, phys, trash)
-        widx = self._write_index(wphys[:, None], off[:, None])
-        qpos = pos_r[:, None].to(torch.int32)            # [S, 1]
+        c = toks.shape[1]
+        cpos = pos[:, None] + torch.arange(c, device=pos.device)[None]
+        qpos_l = torch.clamp(cpos, max=self.max_len - 1)     # [S, C]
+        x = self._embed(toks, qpos_l)                    # [S, C, D]
+        bias = self._bias(cpos)[:, None]                 # [S, 1, C, L]
+        blk = torch.clamp(cpos // bs, max=nbmax - 1)
+        off = cpos % bs
+        phys = btab.gather(1, blk).long()                # [S, C]
+        valid = torch.arange(c, device=pos.device)[None] \
+            <= n_valid[:, None]
+        if write_mask is not None:
+            valid = valid & write_mask[:, None]
+        widx = self._write_index(torch.where(valid, phys, trash), off)
+        qpos = qpos_l.to(torch.int32)
         live = pos if write_mask is None else \
             torch.where(write_mask, pos, 0)
-        nblk = torch.clamp(live.max() // bs + 1, max=nbmax).to(
-            torch.int32).reshape(1)
+        nblk = torch.clamp((live + c - 1).max() // bs + 1,
+                           max=nbmax).to(torch.int32).reshape(1)
         pools = self._pool_slice(state)
-        for i, p in enumerate(self.layers):
-            k_new, v_new = self._kv(p, x)                # [S, H, 1, dk]
+        layers = self.layers if n_layers is None \
+            else self.layers[:n_layers]
+        for i, p in enumerate(layers):
+            k_new, v_new = self._kv(p, x)                # [S, H, C, dk]
             self._pool_write(pools, i, widx, k_new, v_new)
             a = self._mha_paged(p, x, pools, i, btab, qpos, nblk, bias,
                                 block_kernel, attn_unroll)
             x = self._block_tail(p, x, a)
-        return x[:, 0, :] @ self.w_out, state
+        return x @ self.w_out, state                     # [S, C, V]
 
     def _prefill_chunk_paged(self, state, toks, start, n_valid,
                              btab_row, block_kernel=False,

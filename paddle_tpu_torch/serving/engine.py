@@ -3,23 +3,37 @@
 The counterpart of ``paddle_tpu/serving/engine.py`` in its default
 configuration: the paged KV pool with per-slot block tables, the radix
 prefix cache with copy-on-write, the allocation and preemption ladder,
-chunked prefill, greedy decode through the block-chain attention kernel
-(``ops/paged_attention``: the CUDA kernel on the card), and megastep
-decode: with ``megastep=K`` an iteration with no queued admission and no
-prefilling slot runs K decode steps as one dispatch (a CUDA graph of K
-step bodies on the card, captured once; the same bodies in a loop on
-the CPU), with token-identical output.
+chunked prefill, greedy and sampled decode through the block-chain
+attention kernel (``ops/paged_attention``: the CUDA kernel on the card),
+megastep decode and speculative decode:
 
-Not ported yet, and refused with a ``ValueError`` naming ROADMAP.md
-when asked for: speculative decode, the dense ``paged=False`` layout.
-Sampled (temperature > 0) requests raise ``NotImplementedError``. The
-engine emits no telemetry.
+  * Sampled requests (``SamplingParams`` with temperature > 0) draw
+    through ``sampling.sample``, keyed on (seed, tokens generated), in a
+    second variant of the decode step that runs only while a sampled
+    request is live; temperature-0 slots keep the greedy argmax bit for
+    bit.
+  * ``megastep=K``: an iteration with no queued admission and no
+    prefilling slot runs K decode steps as one dispatch (a CUDA graph
+    of K step bodies on the card, captured once per variant, greedy and
+    sampled; the same bodies in a loop on the CPU), with
+    token-identical output.
+  * ``speculative=True``: a drafter (``spec.NgramDrafter``, or gamma
+    truncated-depth decode steps on the device) proposes up to gamma
+    tokens per live slot, and one scoring dispatch
+    (``_spec_logits_paged``: the paged kernel at C = gamma + 1 rows)
+    accepts the longest prefix that matches the model's own tokens, so
+    the output is the non-speculative engine's. An iteration with no
+    draft runs the plain or megastep dispatch.
+
+Not ported yet, and refused naming ROADMAP.md when asked for: the
+dense ``paged=False`` layout (``ValueError``), artifact cold start and
+the telemetry (``NotImplementedError``).
 
 Every piece of device state lives in one dict of tensors
 (``self._state``) that the scheduler thread updates in place, so a
 captured graph and the eager steps work on the same tensors. One host
 fetch per decode dispatch carries the emitted tokens and retirement
-flags of its K steps back.
+flags of its K steps (or of its scoring dispatch) back.
 """
 
 import collections
@@ -34,30 +48,40 @@ from .. import flags, resolve_device
 from ..core import graphs as _graphs
 from ..ops import paged_attention as _paged_ops
 from . import kvpool as _kvpool
+from . import sampling as _sampling
+from . import spec as _spec
 from .sampling import SamplingParams
 
 __all__ = ["Engine", "Request", "sequential_generate"]
 
-_NOT_PORTED = "is not ported yet (see ROADMAP.md, queue 1: serving slice)"
+_NOT_PORTED = ("is not ported yet (see ROADMAP.md, queue 1 item 6: the "
+               "dense layout, artifact cold start and telemetry are "
+               "still to port)")
+
+# the per-slot sampling state a greedy request activates with
+_GREEDY = SamplingParams()
 
 
 class Request:
     """One submitted generation request; also the result handle.
 
     ``result()`` blocks until the engine retires the request and returns
-    ``(tokens, score)`` — the greedy continuation (EOS included when hit,
-    at most ``max_new`` tokens) and the sum of token log-probs. The
-    engine stamps ``t_enqueue``/``t_admit``/``t_first_token``/
-    ``t_retire`` (``time.perf_counter``) before resolving it."""
+    ``(tokens, score)`` — the continuation (greedy, or drawn under
+    ``sampling``; EOS included when hit, at most ``max_new`` tokens) and
+    the sum of token log-probs. ``sampling`` is None for a greedy
+    request. The engine stamps ``t_enqueue``/``t_admit``/
+    ``t_first_token``/``t_retire`` (``time.perf_counter``) before
+    resolving it."""
 
     __slots__ = ("prompt", "max_new", "tokens", "score", "_event",
                  "_error", "t_enqueue", "t_admit", "t_first_token",
                  "t_retire", "prefill_chunks", "rid", "preemptions",
-                 "_seq")
+                 "_seq", "sampling")
 
-    def __init__(self, prompt, max_new, request_id=None):
+    def __init__(self, prompt, max_new, request_id=None, sampling=None):
         self.prompt = [int(t) for t in prompt]
         self.max_new = int(max_new)
+        self.sampling = sampling
         self.preemptions = 0
         # admission priority: set at FIRST admission and kept across
         # preemption, so a preempted request re-admits at its priority
@@ -108,17 +132,31 @@ class Engine:
     gather (default for a bf16 unquantized pool); ``kv_quant='int8'``
     or ``'fp8'`` (e4m3) quantizes the pool. ``megastep`` (flag
     ``serving_megastep``) is the decode steps one dispatch may run when
-    no admission is queued and no slot is prefilling. ``device``
-    defaults to the CUDA card and must be where the model lives; without
-    a card the engine raises unless ``device='cpu'`` is passed."""
+    no admission is queued and no slot is prefilling. ``speculative``
+    (flag ``serving_speculative``) turns speculative decode on, with
+    ``spec_gamma`` drafts per slot (0 turns it off), drafter
+    ``spec_drafter`` ('ngram' or 'truncated') and ``spec_layers``
+    layers for the truncated drafter (0 = n_layer // 2); each defaults
+    to its ``serving_spec_*`` flag. Requests may be greedy or sampled
+    (``submit(sampling=...)``). ``device`` defaults to the CUDA card
+    and must be where the model lives; without a card the engine raises
+    unless ``device='cpu'`` is passed."""
 
     def __init__(self, model, slots=8, prefill_chunk=None,
                  admission_wait=None, name="engine", megastep=None,
                  paged=None, block_size=None, num_blocks=None,
                  prefix_cache=None, speculative=None, block_kernel=None,
-                 kv_quant=None, device=None):
+                 kv_quant=None, device=None, spec_gamma=None,
+                 spec_drafter=None, spec_layers=None):
         if slots < 1:
             raise ValueError("slots must be >= 1, got %r" % (slots,))
+        if isinstance(model, (str, bytes)) or hasattr(model, "__fspath__"):
+            raise NotImplementedError(
+                "Engine(<artifact dir>): artifact cold start %s"
+                % _NOT_PORTED)
+        if flags.get_flag("monitor"):
+            raise NotImplementedError("serving telemetry (flag monitor) %s"
+                                      % _NOT_PORTED)
         dev = resolve_device(device)
         mdev = model.device
         if dev.type != mdev.type or (dev.index is not None
@@ -132,9 +170,6 @@ class Engine:
                     else flags.get_flag("serving_paged")):
             raise ValueError("paged=False: the dense KV layout %s"
                              % _NOT_PORTED)
-        if bool(speculative if speculative is not None
-                else flags.get_flag("serving_speculative")):
-            raise ValueError("speculative decode %s" % _NOT_PORTED)
         self.model = model
         self.device = mdev
         self.slots = int(slots)
@@ -181,6 +216,7 @@ class Engine:
             model.n_layer, model.n_head, self._block_size,
             model.d_model // model.n_head,
             dtype_bytes=model.dtype.itemsize, kv_quant=self._kv_quant)
+        self._init_spec(speculative, spec_gamma, spec_drafter, spec_layers)
         self._admit_seq = itertools.count()
         self._cv = threading.Condition()
         self._queue = collections.deque()
@@ -197,10 +233,22 @@ class Engine:
             self._mega_out = torch.zeros((2, self._megastep, self.slots),
                                          dtype=torch.long,
                                          device=self.device)
-        self._graph = None       # the K-step CUDA graph, on the card
-        # decode_steps counts the steps whose emits were consumed;
-        # decode_steps_run the steps the device ran (a megastep that
-        # drains early runs more than it consumes)
+            # a scoring dispatch's packed upload [S, gamma+1] (draft
+            # counts, then drafts) and packed fetch [S, gamma+3] (emits,
+            # emit count, retirement flag)
+            g = self._spec_gamma
+            self._spec_in = torch.zeros((self.slots, g + 1),
+                                        dtype=torch.long, device=self.device)
+            self._spec_out = torch.zeros((self.slots, g + 3),
+                                         dtype=torch.long,
+                                         device=self.device)
+        # the K-step CUDA graphs on the card, one per variant of the
+        # step (greedy, sampled)
+        self._graphs = {False: None, True: None}
+        # decode_steps counts the steps whose emits were consumed (a
+        # scoring dispatch is one); decode_steps_run the plain steps the
+        # device ran (a megastep that drains early runs more than it
+        # consumes); spec_draft_steps the truncated drafter's steps
         self.stats = {"steps": 0, "decode_steps": 0, "decode_steps_run": 0,
                       "tokens": 0, "admissions": 0, "retirements": 0,
                       "active_slot_steps": 0, "prefill_chunks": 0,
@@ -209,20 +257,56 @@ class Engine:
                       "preemptions": 0, "cow_copies": 0,
                       "kv_peak_blocks": 0, "decode_seconds": 0.0,
                       "megastep_dispatches": 0, "graph_captures": 0,
-                      "graph_replays": 0}
+                      "graph_replays": 0, "spec_dispatches": 0,
+                      "spec_drafted": 0, "spec_accepted": 0,
+                      "spec_emitted": 0, "spec_draft_steps": 0}
         self._ready = threading.Event()
         self._thread = threading.Thread(
             target=self._loop, daemon=True, name="ptt-" + name)
         self._thread.start()
 
+    def _init_spec(self, speculative, gamma, drafter, layers):
+        """Speculative decode's settings (the JAX package's rules):
+        gamma 0 or ``speculative`` off leaves every existing program as
+        it is."""
+        self._spec_gamma = max(0, int(
+            gamma if gamma is not None
+            else flags.get_flag("serving_spec_gamma")))
+        on = bool(speculative if speculative is not None
+                  else flags.get_flag("serving_speculative"))
+        self._speculative = on and self._spec_gamma > 0
+        self._spec_kind = None
+        self._drafter = None
+        self._spec_layers = 0
+        if not self._speculative:
+            return
+        kind = str(drafter if drafter is not None
+                   else flags.get_flag("serving_spec_drafter"))
+        if kind not in ("ngram", "truncated"):
+            raise ValueError("serving_spec_drafter must be 'ngram' or "
+                             "'truncated', got %r" % (kind,))
+        self._spec_kind = kind
+        self._drafter = _spec.NgramDrafter(
+            max_n=flags.get_flag("serving_spec_ngram"),
+            min_n=flags.get_flag("serving_spec_ngram_min"))
+        if kind == "truncated":
+            nl = int(layers if layers is not None
+                     else flags.get_flag("serving_spec_layers"))
+            if nl <= 0:
+                nl = max(1, self.model.n_layer // 2)
+            self._spec_layers = min(nl, self.model.n_layer)
+
     # -- public API --------------------------------------------------------
-    def warmup(self):
+    def warmup(self, sampled=False):
         """Run one decode step over the all-inactive slot state — a
         no-op on the state (every pool write is masked into the trash
         block) that builds and loads the attention kernel and warms the
         allocator before traffic — and, with ``megastep`` > 1 on the
         card, capture the K-step CUDA graph (without it the first fused
-        dispatch captures it mid-traffic). Call before submitting
+        dispatch captures it mid-traffic). A speculative engine also
+        runs its scoring step (and the truncated drafter) once.
+        ``sampled=True`` does the same for the sampled variant of each
+        step, capturing its graph too. Call before submitting
         requests."""
         self._ready.wait()
         with self._cv:
@@ -231,10 +315,19 @@ class Engine:
                     "warmup() must run before traffic is submitted")
             with torch.no_grad():
                 self._set_btab(self._btab_all())
-                self._step_impl(self._state, self._btab)
-                if self._megastep > 1 and self.device.type == "cuda" \
-                        and self._graph is None:
-                    self._capture()
+                self._spec_in.zero_()
+                for variant in ((False, True) if sampled else (False,)):
+                    self._step_impl(self._state, self._btab, variant)
+                    if self._megastep > 1 and self.device.type == "cuda" \
+                            and self._graphs[variant] is None:
+                        self._capture(variant)
+                    if self._speculative:
+                        self._spec_step_impl(self._state, self._btab,
+                                             self._spec_in, self._spec_out,
+                                             variant)
+                if self._spec_kind == "truncated":
+                    self._draft_truncated_impl(self._state, self._btab,
+                                               self._spec_in)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         return self
@@ -242,8 +335,8 @@ class Engine:
     def submit(self, prompt, max_new_tokens, request_id=None,
                sampling=None):
         """Enqueue one request; returns its Request handle. ``prompt``
-        is the token-id prefix (>= 1 token). ``sampling``: None or a
-        greedy ``SamplingParams`` (or its dict form)."""
+        is the token-id prefix (>= 1 token). ``sampling``: None (greedy)
+        or a ``SamplingParams`` (or its dict form)."""
         prompt = [int(t) for t in (prompt or [self.model.bos_id])]
         max_new = int(max_new_tokens)
         if max_new < 1:
@@ -255,9 +348,8 @@ class Engine:
                 % (len(prompt), max_new, self.model.max_len))
         sp = (SamplingParams.from_dict(sampling)
               if sampling is not None else None)
-        if sp is not None and not sp.greedy:
-            raise NotImplementedError(
-                "sampled decoding (temperature > 0) %s" % _NOT_PORTED)
+        if sp is not None and sp.greedy:
+            sp = None                  # the greedy step serves it as is
         with self._cv:
             if self._stop:
                 if self._error is not None:
@@ -265,7 +357,8 @@ class Engine:
                         "engine is closed (loop died: %r)"
                         % (self._error,))
                 raise RuntimeError("engine is closed")
-            req = Request(prompt, max_new, request_id=request_id)
+            req = Request(prompt, max_new, request_id=request_id,
+                          sampling=sp)
             self._queue.append(req)
             self._cv.notify_all()
         return req
@@ -323,21 +416,37 @@ class Engine:
         s["score"] = z(torch.float32)
         s["max_new"] = torch.ones(self.slots, dtype=torch.long,
                                   device=self.device)
+        # per-slot sampling state: zeros are the greedy request's
+        s["temp"] = z(torch.float32)
+        s["topk"] = z(torch.long)
+        s["topp"] = torch.ones(self.slots, dtype=torch.float32,
+                               device=self.device)
+        s["seed"] = z(torch.long)
         return s
 
-    def _step_impl(self, st, btab):
-        """One greedy decode iteration over all slots of state ``st``:
-        argmax every active slot, advance its cache position, flag
+    def _step_impl(self, st, btab, sampled=False):
+        """One decode iteration over all slots of state ``st``: argmax
+        every active slot (or, with ``sampled``, draw each slot of
+        temperature > 0 at its counter ``count``; temperature-0 slots
+        keep the argmax), advance its cache position, flag
         retirements. Every state tensor is updated in place, and nothing
         is read back to the host, so a CUDA graph can hold the step.
-        Returns (emit [S], fin [S]) device tensors."""
+        The sampled variant runs only while a sampled request is live,
+        so the all-greedy step stays as it was. Returns (emit [S], fin
+        [S]) device tensors."""
         tok, pos, active = st["tok"], st["pos"], st["active"]
         logits, _ = self.model._step_logits_paged(
             tok, st, pos, btab, write_mask=active,
             block_kernel=self._block_kernel,
             attn_unroll=self._attn_unroll)
-        logp = torch.log_softmax(logits.float(), dim=-1)
+        logits32 = logits.float()
+        logp = torch.log_softmax(logits32, dim=-1)
         nxt = torch.argmax(logp, dim=-1)
+        if sampled:
+            drawn = _sampling.sample(
+                logits32, st["temp"], st["topk"], st["topp"],
+                _sampling.step_keys(st["seed"], st["count"]))
+            nxt = torch.where(st["temp"] > 0.0, drawn, nxt)
         tok_logp = logp.gather(1, nxt[:, None])[:, 0]
         end = int(self.model.end_id)
         emit = torch.where(active, nxt, end)
@@ -350,36 +459,126 @@ class Engine:
         active.copy_(active & ~fin)
         return emit, fin
 
-    def _megastep_impl(self, st, btab, out):
+    def _megastep_impl(self, st, btab, out, sampled=False):
         """``out.shape[1]`` decode iterations over state ``st`` (the
         JAX package's ``lax.scan`` over ``_step_impl``), streaming each
         one's emits and retirement flags into ``out[0]`` and ``out[1]``
         ([K, S]). A slot that retires at step j goes inactive, so later
         steps emit end_id for it and write nothing; the host skips those
         rows. The host grows every live slot's table for all K write
-        positions first, so one table serves the whole dispatch."""
+        positions first, so one table serves the whole dispatch. A
+        sampled slot's counter rides ``count``, so K steps here draw
+        what K single steps draw."""
         for j in range(out.shape[1]):
-            emit, fin = self._step_impl(st, btab)
+            emit, fin = self._step_impl(st, btab, sampled)
             out[0, j].copy_(emit)
             out[1, j].copy_(fin)
 
-    def _capture(self):
-        """Capture the K-step graph over the engine's state, the block
-        tables and the emit buffer. The warm-up runs one step on copies
-        of the state, so live requests are left as they are."""
+    def _capture(self, sampled=False):
+        """Capture the K-step graph of one variant (greedy or sampled)
+        over the engine's state, the block tables and the emit buffer;
+        the sampled graph reads the sampling state at its fixed
+        addresses. The warm-up runs one step on copies of the state, so
+        live requests are left as they are."""
         graph = _graphs.StepGraph(
-            self.device, "Engine(megastep=%d) decode" % self._megastep)
+            self.device, "Engine(megastep=%d) %s decode" % (
+                self._megastep, "sampled" if sampled else "greedy"))
 
         def warmup():
             self._step_impl({n: t.clone() for n, t in self._state.items()},
-                            self._btab)
+                            self._btab, sampled)
 
         graph.capture(warmup, lambda: self._megastep_impl(
-            self._state, self._btab, self._mega_out))
-        self._graph = graph
+            self._state, self._btab, self._mega_out, sampled))
+        self._graphs[sampled] = graph
         self.stats["graph_captures"] += 1
 
-    def _activate(self, slot, tok, pos, max_new):
+    def _spec_step_impl(self, st, btab, dn, out, sampled=False):
+        """Speculative scoring and acceptance: one dispatch scores every
+        slot's current token and its drafts (``_spec_logits_paged``),
+        then accepts the longest prefix of drafts that matches the
+        model's own next tokens: the argmax for temperature-0 slots, the
+        counter-keyed draw at ``count + j`` for sampled slots (with
+        ``sampled``), as j single steps would draw. Emission stops at
+        EOS inside an accepted draft and at ``max_new``; the bonus token
+        the scoring logits buy rides every dispatch.
+
+        ``dn`` [S, gamma+1] packs each slot's draft count (column 0)
+        with its drafts. ``out`` [S, gamma+3] receives the emits (end_id
+        past each slot's count), the emit count (column gamma+1) and the
+        retirement flag (column gamma+2). ``score``, ``tok``, ``pos``,
+        ``count`` and ``active`` advance by the emit count, in place;
+        nothing is read back to the host."""
+        tok, pos, active, count = st["tok"], st["pos"], st["active"], \
+            st["count"]
+        c = dn.shape[1]
+        toks = torch.cat([tok[:, None], dn[:, 1:]], dim=1)
+        nd = torch.where(active, dn[:, 0], 0)
+        logits, _ = self.model._spec_logits_paged(
+            toks, st, pos, btab, nd, write_mask=active,
+            block_kernel=self._block_kernel,
+            attn_unroll=self._attn_unroll)
+        logits32 = logits.float()                        # [S, C, V]
+        logp = torch.log_softmax(logits32, dim=-1)
+        target = torch.argmax(logp, dim=-1)
+        jj = torch.arange(c, device=tok.device)[None]    # [1, C]
+        if sampled:
+            s = tok.shape[0]
+
+            def rep(a):
+                return a.repeat_interleave(c)
+            keys = _sampling.step_keys(
+                rep(st["seed"]), (count[:, None] + jj).reshape(-1))
+            drawn = _sampling.sample(
+                logits32.reshape(s * c, -1), rep(st["temp"]),
+                rep(st["topk"]), rep(st["topp"]), keys).reshape(s, c)
+            target = torch.where((st["temp"] > 0.0)[:, None], drawn,
+                                 target)
+        # accept-longest-prefix: draft j+1 must equal the model's own
+        # token at position j (the running product stops at the first
+        # mismatch)
+        match = (toks[:, 1:] == target[:, :-1]) & (jj[:, :-1] < nd[:, None])
+        m = torch.cumprod(match.long(), dim=1).sum(dim=1)
+        ncap = torch.minimum(m + 1, st["max_new"] - count)
+        end = int(self.model.end_id)
+        is_end = (target == end) & (jj < ncap[:, None])
+        end_pos = torch.where(is_end, jj, c).amin(dim=1)
+        n_emit = torch.where(active, torch.minimum(ncap, end_pos + 1), 0)
+        fin = active & ((end_pos < ncap) | (count + n_emit >= st["max_new"]))
+        emit_mask = jj < n_emit[:, None]
+        tok_logp = logp.gather(2, target[:, :, None])[:, :, 0]
+        st["score"] += torch.where(emit_mask, tok_logp, 0.0).sum(dim=1)
+        last = torch.clamp(n_emit - 1, min=0)
+        new_tok = target.gather(1, last[:, None])[:, 0]
+        tok.copy_(torch.where(active, new_tok, tok))
+        pos += n_emit
+        count += n_emit
+        active.copy_(active & ~fin)
+        out[:, :c].copy_(torch.where(emit_mask, target, end))
+        out[:, c].copy_(n_emit)
+        out[:, c + 1].copy_(fin)
+
+    def _draft_truncated_impl(self, st, btab, dn):
+        """The truncated drafter: gamma greedy decode steps through the
+        first ``spec_layers`` layers (same weights, same pool), writing
+        the drafts into ``dn[:, 1:]`` on the device, where the scoring
+        step reads them. Draft K/V lands only at the truncated layers of
+        positions the scoring dispatch rewrites at full depth; steps
+        past a slot's draft count ``dn[:, 0]`` write into the trash
+        block. Draft quality moves only the acceptance rate."""
+        active, nd = st["active"], dn[:, 0]
+        tok, pos = st["tok"], st["pos"]
+        for j in range(self._spec_gamma):
+            logits, _ = self.model._step_logits_paged(
+                tok, st, pos, btab, write_mask=active & (j <= nd),
+                n_layers=self._spec_layers,
+                block_kernel=self._block_kernel,
+                attn_unroll=self._attn_unroll)
+            tok = torch.argmax(logits, dim=-1)
+            dn[:, j + 1].copy_(tok)
+            pos = pos + 1
+
+    def _activate(self, slot, tok, pos, max_new, sp):
         st = self._state
         st["tok"][slot] = tok
         st["pos"][slot] = pos
@@ -387,6 +586,10 @@ class Engine:
         st["score"][slot] = 0.0
         st["count"][slot] = 0
         st["max_new"][slot] = max_new
+        st["temp"][slot] = sp.temperature
+        st["topk"][slot] = sp.top_k
+        st["topp"][slot] = sp.top_p
+        st["seed"][slot] = sp.seed
 
     def _copy_block(self, src, dst):
         """Copy-on-write: duplicate one physical block's K/V (every
@@ -435,12 +638,15 @@ class Engine:
             rec["refs"].append(b)
         return True
 
-    def _alloc_one(self, rec):
+    def _alloc_one(self, rec, preempt=True):
         """One block for ``rec``, or None when ``rec`` was preempted to
         make room: the pool cannot serve it without taking blocks from
         strictly higher-priority (earlier-admitted) requests, so it
         yields. With priorities kept across preemption this cannot
-        ping-pong; the oldest request always keeps its blocks."""
+        ping-pong; the oldest request always keeps its blocks.
+        ``preempt=False`` stops the ladder after prefix eviction and
+        returns None with ``rec`` untouched: optional draft positions
+        never take committed work's blocks."""
         while True:
             got = self._pool.alloc(1)
             if got is not None:
@@ -450,6 +656,8 @@ class Engine:
                 if freed:
                     self.stats["prefix_evictions"] += freed
                     continue
+            if not preempt:
+                return None
             victim = self._pick_victim()
             if victim is None or victim["seq"] <= rec["seq"]:
                 self._preempt(rec)
@@ -469,7 +677,9 @@ class Engine:
     def _preempt(self, rec):
         """Free a record's blocks and re-queue its request at the FRONT
         of the queue for re-prefill. Greedy decode is deterministic, so
-        the resumed output is identical; partial tokens are dropped."""
+        the resumed output is identical, and so is sampled decode: its
+        draws are keyed on (seed, tokens generated), which restart with
+        the request. Partial tokens are dropped."""
         slot = next(s for s, r in enumerate(self._recs) if r is rec)
         req = rec["req"]
         self._release_blocks(rec)
@@ -501,6 +711,21 @@ class Engine:
         rec["shared"] = bi             # shared copy; cache keeps its own
         self.stats["cow_copies"] += 1
         return True
+
+    def _grow_blocks_soft(self, rec, last_pos):
+        """Best-effort table growth for speculative write positions:
+        the allocation ladder without its preemption rung (drafts are
+        optional work). Returns the highest position the table now
+        covers; the caller shrinks the draft to fit."""
+        last_pos = min(int(last_pos), self.model.max_len - 1)
+        need = last_pos // self._block_size + 1 - len(rec["table"])
+        for _ in range(max(0, need)):
+            b = self._alloc_one(rec, preempt=False)
+            if b is None:
+                break
+            rec["table"].append(b)
+            rec["refs"].append(b)
+        return len(rec["table"]) * self._block_size - 1
 
     def _publish_prefix(self, rec, req):
         """Publish a slot's full prompt blocks to the prefix cache after
@@ -648,7 +873,8 @@ class Engine:
                 if bi < rec["shared"] and not self._cow(rec, bi):
                     continue
                 rec["next_pos"] = need
-                self._activate(slot, req.prompt[-1], need, req.max_new)
+                self._activate(slot, req.prompt[-1], need, req.max_new,
+                               req.sampling or _GREEDY)
                 rec["live"] = True
 
     def _choose_k(self):
@@ -665,6 +891,141 @@ class Engine:
             return 1
         return self._megastep
 
+    def _spec_cap(self, rec):
+        """How many draft tokens this live slot can use: bounded by
+        gamma, by its remaining ``max_new`` budget (n accepted drafts
+        emit n+1 tokens) and by ``max_len`` (the scoring dispatch writes
+        positions ``next_pos .. next_pos + n``)."""
+        req = rec["req"]
+        return min(self._spec_gamma,
+                   req.max_new - len(req.tokens) - 1,
+                   self.model.max_len - 1 - rec["next_pos"])
+
+    def _build_drafts(self):
+        """The drafting half of a speculative iteration: the draft count
+        per live slot (the ngram drafter's proposals, or the truncated
+        drafter's budget), then block coverage for the whole dispatch.
+        Every live slot writes its next position even with no draft (it
+        rides the scoring dispatch as a plain step), so that mandatory
+        coverage walks the full pressure ladder as the plain path does;
+        draft positions grow only best-effort (``_grow_blocks_soft``),
+        and a draft shrinks to what its table covers. Returns
+        ``(n_draft [S], drafts [S, gamma])`` int64 arrays (the truncated
+        drafter's drafts are made on the device later: zeros here), or
+        None when no slot drafted: the iteration then runs the plain or
+        megastep dispatch."""
+        nd = np.zeros((self.slots,), np.int64)
+        drafts = np.zeros((self.slots, self._spec_gamma), np.int64)
+        chains = None
+        for slot, rec in enumerate(self._recs):
+            if rec is None or not rec["live"]:
+                continue
+            cap = self._spec_cap(rec)
+            if cap <= 0:
+                continue
+            if self._spec_kind == "truncated":
+                nd[slot] = cap
+                continue
+            if chains is None:           # one trie walk per iteration
+                chains = (self._prefix.token_chains()
+                          if self._prefix is not None else ())
+            req = rec["req"]
+            prop = self._drafter.propose(req.prompt + req.tokens, cap,
+                                         extra_chains=chains)
+            drafts[slot, :len(prop)] = prop
+            nd[slot] = len(prop)
+        if not nd.any():
+            return None
+        # re-read each record per slot: an earlier slot's mandatory
+        # growth may have preempted this one
+        for slot in range(self.slots):
+            rec = self._recs[slot]
+            if rec is None or not rec["live"] \
+                    or not self._ensure_blocks(rec, rec["next_pos"]):
+                nd[slot] = 0
+                continue
+            if nd[slot]:
+                covered = self._grow_blocks_soft(
+                    rec, rec["next_pos"] + int(nd[slot]))
+                nd[slot] = max(0, min(int(nd[slot]),
+                                      covered - rec["next_pos"]))
+        for slot, rec in enumerate(self._recs):
+            # a later slot's mandatory growth may have preempted an
+            # earlier drafted one
+            if rec is None or not rec["live"]:
+                nd[slot] = 0
+        if not nd.any():
+            return None
+        return nd, drafts
+
+    def _sampled(self, live):
+        """Whether a live slot holds a sampled request: only then does a
+        dispatch run the sampled variant of its step."""
+        return any(self._recs[s]["req"].sampling is not None for s in live)
+
+    def _decode_spec(self, nd, drafts):
+        """One speculative scoring dispatch over the active batch: one
+        packed upload (``dn`` [S, gamma+1] into a fixed buffer), the
+        truncated drafter's steps when it drafts, the scoring step, one
+        packed fetch (``out`` [S, gamma+3]); then the accepted prefix
+        plus the bonus token are committed on the host. Counts as one
+        decode step. Returns [(request, score)]."""
+        live = [s for s, r in enumerate(self._recs)
+                if r is not None and r["live"]]
+        t0 = time.perf_counter()
+        self._set_btab(self._btab_all())
+        sampled = self._sampled(live)
+        self._spec_in.copy_(torch.from_numpy(
+            np.concatenate([nd[:, None], drafts], axis=1)))
+        if self._spec_kind == "truncated":
+            try:
+                self._draft_truncated_impl(self._state, self._btab,
+                                           self._spec_in)
+            except RuntimeError as e:
+                raise RuntimeError("speculative drafting dispatch failed "
+                                   "(no fallback): %s" % (e,)) from e
+            self.stats["spec_draft_steps"] += self._spec_gamma
+        try:
+            self._spec_step_impl(self._state, self._btab, self._spec_in,
+                                 self._spec_out, sampled)
+            out = self._spec_out.cpu().numpy()
+        except RuntimeError as e:
+            raise RuntimeError("speculative scoring dispatch failed (no "
+                               "fallback): %s" % (e,)) from e
+        self.stats["decode_seconds"] += time.perf_counter() - t0
+        g1 = self._spec_gamma + 1
+        emits, n_emit, fins = out[:, :g1], out[:, g1], out[:, g1 + 1]
+        emitted = accepted = 0
+        scores = None
+        finished = []
+        now = time.perf_counter()
+        for slot in live:
+            rec = self._recs[slot]
+            req = rec["req"]
+            ne = int(n_emit[slot])
+            req.tokens.extend(int(t) for t in emits[slot, :ne])
+            emitted += ne
+            accepted += max(0, ne - 1)
+            rec["next_pos"] += ne               # mirrors the device pos
+            self._publish_prefix(rec, req)
+            if ne and req.t_first_token is None:
+                req.t_first_token = now
+            if fins[slot]:
+                req.t_retire = now
+                if scores is None:              # one [S] fetch a dispatch
+                    scores = self._state["score"].cpu().numpy()
+                finished.append((req, float(scores[slot])))
+                self._release_blocks(rec)
+                self._recs[slot] = None
+        self.stats["spec_dispatches"] += 1
+        self.stats["spec_drafted"] += int(nd.sum())
+        self.stats["spec_accepted"] += accepted
+        self.stats["spec_emitted"] += emitted
+        self.stats["decode_steps"] += 1
+        self.stats["active_slot_steps"] += len(live)
+        self.stats["tokens"] += emitted
+        return finished
+
     def _decode(self, k=1):
         """One decode dispatch over the active batch: a single eager
         step (k=1), or K steps in one dispatch (the CUDA graph on the
@@ -672,7 +1033,14 @@ class Engine:
         positions it can consume in this dispatch (the pressure ladder
         may preempt here), then run, fetch the [K, S] emits and flags in
         one copy, and retire finished requests. A slot retired at step j
-        consumes no later rows. Returns [(request, score)]."""
+        consumes no later rows. A speculative engine drafts first: when
+        any live slot has a draft, one scoring dispatch
+        (``_decode_spec``) takes the iteration's place. Returns
+        [(request, score)]."""
+        if self._speculative:
+            got = self._build_drafts()
+            if got is not None:
+                return self._decode_spec(*got)
         for slot in range(self.slots):
             # re-read per slot: an earlier slot's allocation may have
             # preempted this one
@@ -688,14 +1056,15 @@ class Engine:
             return []
         t0 = time.perf_counter()
         self._set_btab(self._btab_all())
+        sampled = self._sampled(live)
         if k > 1 and self.device.type == "cuda":
-            if self._graph is None:
-                self._capture()
-            self._graph.replay()
+            if self._graphs[sampled] is None:
+                self._capture(sampled)
+            self._graphs[sampled].replay()
             self.stats["graph_replays"] += 1
         else:                   # the CPU, or one eager step on the card
             self._megastep_impl(self._state, self._btab,
-                                self._mega_out[:, :k])
+                                self._mega_out[:, :k], sampled)
         out = self._mega_out[:, :k].cpu().numpy()
         self.stats["megastep_dispatches"] += k > 1
         self.stats["decode_seconds"] += time.perf_counter() - t0

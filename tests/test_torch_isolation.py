@@ -47,7 +47,8 @@ def _imports(path):
 def test_scan_covers_the_port():
     srcs = _sources()
     assert os.path.join(ROOT, "chip_smoke.py") in srcs
-    for tail in (("serving", "engine.py"), ("core", "executor.py"),
+    for tail in (("serving", "engine.py"), ("serving", "spec.py"),
+                 ("serving", "sampling.py"), ("core", "executor.py"),
                  ("ops", "flash_attention.py"),
                  ("ops", "matmul_stats.py"), ("ops", "conv.py"),
                  ("models", "transformer.py"), ("models", "resnet.py")):

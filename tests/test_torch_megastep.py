@@ -18,9 +18,11 @@ the graph runs:
   * ``Engine(megastep=4)`` gives the tokens of ``megastep=1``, of
     ``sequential_generate`` and of the JAX package's megastep engine;
   * the masked pool write leaves masked entries bitwise unchanged;
-  * neither the engine's decode body nor a ``run_steps`` body reads a
-    device value back to the host (the calls that would are patched to
-    raise), so a capture on the card cannot fail for that.
+  * neither the engine's decode bodies (greedy and sampled, the
+    speculative scoring step, the truncated drafter) nor a ``run_steps``
+    body reads a device value back to the host (the calls that would
+    are patched to raise), so a capture on the card cannot fail for
+    that.
 """
 
 import threading
@@ -44,6 +46,7 @@ from paddle_tpu_torch.models import transformer as TT
 from paddle_tpu_torch.models.transformer_infer import TransformerLMInfer
 from paddle_tpu_torch.ops import matmul_stats as TMS
 from paddle_tpu_torch.ops import paged_attention as TPA
+from paddle_tpu_torch.serving.spec import NgramDrafter
 
 LM = dict(vocab_size=128, max_len=16, n_layer=2, n_head=2, d_model=64,
           d_inner=128)
@@ -529,6 +532,37 @@ def test_engine_decode_body_has_no_host_read(lms, no_host_reads):
     assert stats["megastep_dispatches"] > 0
     seq = serving.sequential_generate(tlm, reqs)
     assert [t for t, _ in out] == [t for t, _ in seq]
+
+
+@pytest.mark.parametrize("drafter", ["ngram", "truncated"])
+def test_engine_spec_and_sampled_bodies_have_no_host_read(lms, drafter,
+                                                          no_host_reads):
+    """The scoring step, the truncated drafter and the sampled decode
+    step (alone and inside a megastep) read nothing back to the host,
+    so a capture on the card cannot fail for that."""
+    _, tlm = lms
+    for name in ("_step_impl", "_megastep_impl", "_spec_step_impl",
+                 "_draft_truncated_impl"):
+        no_host_reads.setattr(serving.Engine, name,
+                              _body(getattr(serving.Engine, name)))
+    reqs = _requests(4, 4)
+    samp = [dict(temperature=0.8, top_k=5, seed=i) for i in range(4)]
+    with serving.Engine(tlm, slots=2, prefill_chunk=4, device="cpu",
+                        megastep=4, speculative=True, spec_gamma=3,
+                        spec_drafter=drafter) as eng:
+        if drafter == "ngram":
+            eng._drafter = NgramDrafter(max_n=3, min_n=1)
+        eng.warmup(sampled=True)
+        out = eng.generate_many([p for p, _ in reqs], [m for _, m in reqs])
+        hs = [eng.submit(p, m, sampling=sp)
+              for (p, m), sp in zip(reqs, samp)]
+        drawn = [h.result(timeout=60) for h in hs]
+        stats = dict(eng.stats)
+    assert stats["spec_dispatches"] > 0
+    assert (stats["spec_draft_steps"] > 0) == (drafter == "truncated")
+    seq = serving.sequential_generate(tlm, reqs)
+    assert [t for t, _ in out] == [t for t, _ in seq]
+    assert all(len(t) >= 1 for t, _ in drawn)
 
 
 @pytest.mark.parametrize("model", ["lm_adam", "cifar8_fused"])

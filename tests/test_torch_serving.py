@@ -186,31 +186,41 @@ def test_default_attention_path_selection(lms):
 
 
 def test_unported_options_raise(lms):
-    """Speculative decode, the dense layout and sampled requests still
-    raise; megastep is ported (tests/test_torch_megastep.py) and its
-    flag now configures the engine instead of refusing it."""
+    """The dense layout, artifact cold start and the telemetry still
+    raise, naming ROADMAP.md; megastep, speculative decode and sampled
+    requests are ported (tests/test_torch_megastep.py,
+    tests/test_torch_spec.py, tests/test_torch_sampling.py), and their
+    flags configure the engine instead of refusing it."""
     _, tlm = lms[VOCAB]
-    for kw in ({"speculative": True}, {"paged": False}):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            serving.Engine(tlm, slots=1, device="cpu", **kw)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        serving.Engine(tlm, slots=1, device="cpu", paged=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        serving.Engine("an/artifact/dir", slots=1, device="cpu")
     flags.set_flag("serving_megastep", 4)
     try:
         with serving.Engine(tlm, slots=1, device="cpu") as eng:
             assert eng._megastep == 4
     finally:
         flags.set_flag("serving_megastep", None)
-    # the flags (PADDLE_TPU_SERVING_* in the environment) refuse too
-    for name, value in (("serving_speculative", "1"),
-                        ("serving_paged", "off")):
+    flags.set_flag("serving_speculative", "1")
+    try:
+        with serving.Engine(tlm, slots=1, device="cpu") as eng:
+            assert eng._speculative
+    finally:
+        flags.set_flag("serving_speculative", None)
+    # the flags (PADDLE_TPU_* in the environment) refuse too
+    for name, value, err in (("serving_paged", "off", ValueError),
+                             ("monitor", "1", NotImplementedError)):
         flags.set_flag(name, value)
         try:
-            with pytest.raises(ValueError, match="ROADMAP"):
+            with pytest.raises(err, match="ROADMAP"):
                 serving.Engine(tlm, slots=1, device="cpu")
         finally:
             flags.set_flag(name, None)
     with serving.Engine(tlm, slots=1, device="cpu") as eng:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.submit([1, 5], 3, sampling={"temperature": 0.7})
+        toks, _ = eng.submit([1, 5], 3,
+                             sampling={"temperature": 0.7}).result(30)
+        assert len(toks) == 3
         toks, _ = eng.submit([1, 5], 3,
                              sampling={"temperature": 0.0}).result(30)
         assert len(toks) == 3

@@ -166,19 +166,46 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
      decode-heavy set timed over plain K=1, plain K=8, spec-ngram and
      spec-truncated in A/B/A/B order (3 rounds, medians: ms per decode
      dispatch, tokens/s) and traced once each for the device busy
-     share.
+     share;
+ 11. io      — persistence and the dense layout, at the flagship's
+     widths. (a) The packed LM with ``Adam(1e-3)``, batch 32 x 256, on
+     the flash kernels: 3 steps, ``io.save_checkpoint``,
+     ``io.load_checkpoint`` into a fresh scope on the card, 3 more steps,
+     bitwise equal (losses and every persistable) to 6 uninterrupted
+     steps from the same startup scope; a ``save_persistables``/
+     ``load_persistables`` round trip bitwise; the newest checkpoint's
+     blob corrupted, ``load_checkpoint`` falls back to the older step;
+     flash launches exactly n_layer per step. (b) ``save_lm_artifact(...,
+     specialize=False)`` of the LM's forward program from that trained
+     scope (targets: the logits; the training program would carry
+     Adam's moments into the artifact, as the JAX package's does);
+     the cold start ``Engine(<dir>)`` -> first token timed; on both
+     request sets the artifact engine's tokens and scores equal an
+     engine's over ``TransformerLMInfer.from_program`` on the live scope,
+     paged launches exactly n_layer x (decode steps run + prefill
+     chunks); a flipped byte in the params blob raises
+     ``ArtifactError``. (c) ``Engine(paged=False, slots=32,
+     prefill_chunk=16)`` at megastep 1 and 8 on both sets: K=1 and K=8
+     token-identical, 4 requests of the mixed set equal
+     ``sequential_generate``'s, tokens equal the paged engine's or part
+     at a near-tie diagnosed under phase 10's 1x rule (logged and
+     counted; anything else fails), zero paged launches; then dense
+     against paged at K=1 and K=8 timed A/B/A/B on the decode-heavy set
+     (3 rounds, medians) and each layout traced once at K=8 for the
+     device busy share.
 
 The last three lines of standard output are the kernels' JSON line, the
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device": ...}``.
 In the kernels' line ``launches`` sums the eager main path's run, the
-megastep graph's (counted through replays) and phase 10's speculative
-and plain runs; ``graph_launches`` gives the graph's alone and
-``spec_launches`` phase 10's. Paged attention's entry carries
-``scoring_shape``: its times and bound at (d), and its launches at the
-scoring shape among phase 10's: counted inside each scoring dispatch
-(the kernel's counter read before and after it, n_layer required) and
-each launch's query rows (C = 5 required). Every entry's ``ms`` and ``library_ms`` are device
-time alone, and each adds both read with the host's gaps
+megastep graph's (counted through replays), phase 10's speculative
+and plain runs and phase 11's; ``graph_launches`` gives the graph's
+alone, ``spec_launches`` phase 10's and ``io_launches`` phase 11's.
+Paged attention's entry carries ``scoring_shape``: its times and bound
+at (d), and its launches at the scoring shape among phase 10's: counted
+inside each scoring dispatch (the kernel's counter read before and after
+it, n_layer required) and each launch's query rows (C = 5 required).
+Every entry's ``ms`` and ``library_ms`` are device time alone, and each
+adds both read with the host's gaps
 (``ms_with_host_gaps``, ``library_ms_with_host_gaps``); paged
 attention's are at shape (a), and its ``launches`` count one per call.
 matmul_stats's times and bound are sums over the 36 launches of one
@@ -2005,12 +2032,14 @@ def mega_serve_phase(torch, smi):
     return graph_paged, timing, seqs
 
 
-def _interleaved_serve(torch, engines, reqs, title, smi):
+def _interleaved_serve(torch, engines, reqs, title, smi, traced=None):
     """Each engine of ``{label: engine}`` serves ``reqs`` in turn,
     MEGA_PAIRS rounds (A/B/A/B: the host varies from run to run), then
-    once traced. A decode dispatch is a plain step the device ran or a
-    scoring dispatch. Returns {label: (median ms per decode dispatch,
-    median tokens/s, busy share)}."""
+    once traced (only the labels in ``traced``, when given: a trace's
+    post-processing costs ~10 s of host time at these sizes). A decode
+    dispatch is a plain step the device ran or a scoring dispatch.
+    Returns {label: (median ms per decode dispatch, median tokens/s,
+    busy share or None)}."""
     walls = {k: [] for k in engines}
     rates = {k: [] for k in engines}
     steps = {k: [] for k in engines}
@@ -2021,9 +2050,11 @@ def _interleaved_serve(torch, engines, reqs, title, smi):
             rates[k].append(sum(len(t) for t, _ in out) / wall)
             steps[k].append(1e3 * d["decode_seconds"] / (
                 d["decode_steps_run"] + d["spec_dispatches"]))
-    busy = {}
+    busy = dict.fromkeys(engines)
     from torch.profiler import ProfilerActivity, profile
     for k, eng in engines.items():
+        if traced is not None and k not in traced:
+            continue
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             _, wall, _ = _serve_once(torch, eng, reqs)
         busy[k] = _report_profile(
@@ -2522,6 +2553,289 @@ def sampled_phase(torch, model, engines, heavy, heavy_greedy, near_ties):
         len(SAMPLED_SEEDS))
 
 
+# -- phase 11 ------------------------------------------------------------
+# io: a checkpoint resumes training, an artifact directory boots a
+# replica, and the dense paged=False layout serves
+IO_STEPS = 3
+
+
+def _io_lm(fluid, T, adam=True):
+    """The packed flagship LM, with Adam(1e-3) or as the forward alone
+    (the same variable names either way)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        avg_cost, logits = T.transformer_lm(
+            vocab_size=VOCAB, max_len=MAX_LEN, n_layer=N_LAYER,
+            n_head=N_HEAD, d_model=D_MODEL, d_inner=D_INNER, packed=True)
+        if adam:
+            fluid.optimizer.Adam(learning_rate=1e-3).minimize(avg_cost)
+    return main, startup, avg_cost, logits
+
+
+def io_resume_phase(torch, smi, tmp):
+    """(a) The packed LM with Adam(1e-3), batch 32 x 256, on the flash
+    kernels: IO_STEPS steps, ``save_checkpoint``, ``load_checkpoint`` into
+    a fresh scope on the card, IO_STEPS more, against 2 x IO_STEPS
+    uninterrupted steps from the same startup scope: losses and every
+    persistable bitwise equal. A ``save_persistables``/
+    ``load_persistables`` round trip is bitwise; with the newest
+    checkpoint's blob corrupted, ``load_checkpoint`` returns the older
+    step. Flash launches exactly n_layer per step. Returns (flash
+    launches, the resumed scope)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io as IO
+    from paddle_tpu_torch.models import transformer as T
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    main, startup, avg_cost, _ = _io_lm(fluid, T)
+    scope0 = fluid.Scope()
+    exe.run(startup, scope=scope0)
+    init = {n: scope0.get_numpy(n) for n in scope0.local_var_names()
+            if scope0.find_var(n) is not None}
+    names = [v.name for v in main.list_vars() if v.persistable]
+    batches = [T.make_lm_batch(np.random.RandomState(40 + i), TRAIN_BATCH,
+                               MAX_LEN, VOCAB) for i in range(2 * IO_STEPS)]
+    totals = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+
+    def steps(scope, bs):
+        """Train on ``bs``, the flash counts reset just before and read
+        just after."""
+        _reset_launches()
+        losses = [float(exe.run(main, feed=b, fetch_list=[avg_cost],
+                                scope=scope)[0]) for b in bs]
+        torch.cuda.synchronize()
+        got = _launches()
+        for k in totals:
+            n = got["flash_" + k]
+            check(n == N_LAYER * len(bs), "io-resume: flash %s launches %d "
+                  "!= n_layer x steps = %d", k, n, N_LAYER * len(bs))
+            totals[k] += n
+        return losses
+
+    whole = _scope_from(fluid, init, exe.device)
+    want = steps(whole, batches)
+    part = _scope_from(fluid, init, exe.device)
+    got = steps(part, batches[:IO_STEPS])
+    ck = os.path.join(tmp, "ckpt")
+    t0 = time.perf_counter()
+    IO.save_checkpoint(ck, IO_STEPS, main, scope=part)
+    t_save = time.perf_counter() - t0
+    resumed = fluid.Scope()
+    t0 = time.perf_counter()
+    step = IO.load_checkpoint(ck, main, scope=resumed, executor=exe)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    check(step == IO_STEPS, "io-resume: load_checkpoint gave step %r", step)
+    check(all(resumed.find_var(n).device.type == "cuda" for n in names),
+          "io-resume: the checkpoint did not load onto the card")
+    got += steps(resumed, batches[IO_STEPS:])
+    check(got == want, "io-resume: resumed losses %s differ from the "
+          "uninterrupted run's %s", got, want)
+    differ = [n for n in names
+              if not torch.equal(resumed.find_var(n), whole.find_var(n))]
+    check(not differ, "io-resume: %d persistables differ from the "
+          "uninterrupted run's (first %s)", len(differ), differ[:3])
+    nbytes = os.path.getsize(os.path.join(ck, "ckpt-%d.npz" % IO_STEPS))
+    log("io-resume: %d + %d Adam steps through save_checkpoint / "
+        "load_checkpoint (%d persistables, %.1f MB: save %.3f s, load onto "
+        "the card %.3f s) bitwise equal to %d uninterrupted steps in losses "
+        "%s and every persistable; flash launches %s; %s", IO_STEPS,
+        IO_STEPS, len(names), nbytes / 1e6, t_save, t_load, 2 * IO_STEPS,
+        " ".join("%.6f" % x for x in got), totals, smi)
+    pd = os.path.join(tmp, "persistables")
+    IO.save_persistables(exe, pd, main, scope=resumed)
+    back = fluid.Scope()
+    IO.load_persistables(exe, pd, main, scope=back)
+    differ = [n for n in names
+              if not torch.equal(back.find_var(n), resumed.find_var(n))]
+    check(not differ, "io-resume: save/load_persistables changed %s",
+          differ[:3])
+    IO.save_checkpoint(ck, 2 * IO_STEPS, main, scope=resumed)
+    blob = os.path.join(ck, "ckpt-%d.npz" % (2 * IO_STEPS))
+    with open(blob, "r+b") as f:
+        f.seek(os.path.getsize(blob) // 2)
+        f.write(b"\xde\xad\xbe\xef")
+    fallback = IO.load_checkpoint(ck, main, scope=fluid.Scope(),
+                                  executor=exe)
+    check(fallback == IO_STEPS, "io-resume: with the newest checkpoint "
+          "corrupted load_checkpoint gave %r, not %d", fallback, IO_STEPS)
+    log("io-resume: save/load_persistables round trip bitwise (%d vars); "
+        "newest checkpoint corrupted -> load_checkpoint fell back to step "
+        "%d", len(names), fallback)
+    return totals, resumed
+
+
+def _serve_counted(torch, eng, reqs):
+    """One run of ``reqs`` with the paged count reset just before and
+    read just after: (outputs, stats delta, paged launches, wall)."""
+    _reset_launches()
+    out, wall, d = _serve_once(torch, eng, reqs)
+    return out, d, _launches()["paged_attention"], wall
+
+
+def io_serve_phase(torch, smi, tmp, scope):
+    """(b) ``save_lm_artifact(specialize=False)`` of the LM's forward
+    program (targets: the logits) from the trained scope, then
+    ``Engine(model=<dir>)`` on both request sets: tokens identical to an engine over ``from_program`` on the live
+    scope; paged launches exactly n_layer x (decode steps run + prefill
+    chunks); a flipped byte in the params blob raises ``ArtifactError``;
+    the cold start (directory -> first token) timed. (c) The dense layout
+    ``Engine(paged=False)`` at megastep 1 and 8 on both sets: K=1 and K=8
+    token-identical, 4 requests of the mixed set equal to
+    ``sequential_generate``'s, equal to the paged engine's (a parting
+    passes only as a diagnosed 1x near-tie, counted), zero paged
+    launches; then dense against paged at K=1 and K=8 timed A/B/A/B on
+    the decode-heavy set, and each layout traced once at K=8 (at K=1 both
+    are host-bound: 6-8% busy on an H100). Returns (paged
+    launches, near-ties, timing, cold-start seconds)."""
+    import shutil
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.models.transformer_infer import TransformerLMInfer
+    from paddle_tpu_torch.serving import (
+        ArtifactError, Engine, model_from_artifact, save_lm_artifact,
+        sequential_generate)
+    t_start = time.perf_counter()
+    main, _, _, logits = _io_lm(fluid, T, adam=False)
+    art = os.path.join(tmp, "artifact")
+    save_lm_artifact(art, main, scope, [logits], N_LAYER, N_HEAD, D_MODEL,
+                     MAX_LEN, end_id=VOCAB, specialize=False)
+    sets = {"mixed": _requests(np.random.default_rng(0)),
+            "decode-heavy": _decode_heavy_requests(np.random.default_rng(1))}
+    # a first request that shares no block with the sets' prompts, so
+    # the prefix caches of the two engines compared below start alike
+    probe = ([1] + np.random.default_rng(5).integers(3, VOCAB, 40).tolist(),
+             8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cold = Engine(art, slots=32, prefill_chunk=16, block_size=16)
+    first = cold.submit(*probe)
+    while first.t_first_token is None and not first.done():
+        time.sleep(0.0005)
+    cold_s = (first.t_first_token or time.perf_counter()) - t0
+    probe_out = first.result(timeout=600)
+    check(cold.model.device.type == "cuda", "io-serve: the artifact "
+          "engine's model is not on the card")
+    log("io-serve: cold start Engine(<artifact dir>) -> first token of a "
+        "%d-token prompt %.3f s (artifact %.1f MB, no warmup); %s",
+        len(probe[0]), cold_s,
+        sum(os.path.getsize(os.path.join(art, f))
+            for f in os.listdir(art)) / 1e6, smi)
+    live_model = TransformerLMInfer.from_program(
+        main, scope, N_LAYER, N_HEAD, D_MODEL, MAX_LEN, end_id=VOCAB)
+    live = Engine(live_model, slots=32, prefill_chunk=16, block_size=16)
+    check(live.submit(*probe).result(timeout=600) == probe_out,
+          "io-serve: the probe request differs between the artifact "
+          "engine and the live scope's")
+    dense = {k: Engine(live_model, slots=32, prefill_chunk=16, paged=False,
+                       megastep=k) for k in (1, MEGA_SERVE_K)}
+    paged8 = Engine(live_model, slots=32, prefill_chunk=16, block_size=16,
+                    megastep=MEGA_SERVE_K)
+    engines = [cold, live, paged8] + list(dense.values())
+    total = 0
+    near_ties = []
+    try:
+        for eng in engines:
+            eng.warmup(sampled=False)
+        for set_name, reqs in sets.items():
+            outs = {}
+            for label, eng in (("artifact", cold), ("live", live)):
+                out, d, launches, wall = _serve_counted(torch, eng, reqs)
+                want = N_LAYER * (d["decode_steps_run"] + d["prefill_chunks"])
+                check(launches == want, "io-serve %s %s: paged launches %d "
+                      "!= n_layer x (decode steps run + prefill chunks) = "
+                      "%d", set_name, label, launches, want)
+                total += launches
+                outs[label] = out
+                log("io-serve %s (%s engine): %d requests, %d tokens in "
+                    "%.3f s; paged launches %d", set_name, label, len(out),
+                    sum(len(t) for t, _ in out), wall, launches)
+            check(outs["artifact"] == outs["live"], "io-serve %s: the "
+                  "artifact engine's tokens or scores differ from the live "
+                  "scope's", set_name)
+            for k, eng in dense.items():
+                out, d, launches, wall = _serve_counted(torch, eng, reqs)
+                check(launches == 0, "io-dense %s K=%d: %d paged launches",
+                      set_name, k, launches)
+                check(k == 1 or d["megastep_dispatches"] > 0,
+                      "io-dense %s: no megastep dispatch", set_name)
+                outs["dense K=%d" % k] = out
+                log("io-dense %s (K=%d): %d requests, %d tokens in %.3f s; "
+                    "decode steps run %d, megastep dispatches %d, graph "
+                    "replays %d; paged launches 0", set_name, k, len(out),
+                    sum(len(t) for t, _ in out), wall,
+                    d["decode_steps_run"], d["megastep_dispatches"],
+                    d["graph_replays"])
+            check(outs["dense K=1"] == outs["dense K=%d" % MEGA_SERVE_K],
+                  "io-dense %s: K=%d differs from K=1", set_name,
+                  MEGA_SERVE_K)
+            # the reference decode runs one row a step: 4 requests of
+            # the mixed set (long prompts, shared prefixes) hold it
+            seq = (sequential_generate(live_model, reqs[:4])
+                   if set_name == "mixed" else ())
+            for i, ((a, _), (b, _)) in enumerate(zip(outs["dense K=1"],
+                                                     seq)):
+                check(a == b, "io-dense %s request %d differs from "
+                      "sequential_generate", set_name, i)
+            parted = 0
+            for i, ((a, _), (b, _)) in enumerate(zip(outs["dense K=1"],
+                                                     outs["artifact"])):
+                what = "io-dense %s request %d (dense vs paged)" % (
+                    set_name, i)
+                parted += not _same_or_near_tie(torch, live_model, reqs[i],
+                                                a, b, what, near_ties)
+            log("io-dense %s: K=1 and K=%d token-identical (%d requests); "
+                "%d requests equal sequential_generate's; %d parted from "
+                "the paged engine at a diagnosed near-tie (%.1f s into "
+                "io-serve)", set_name, MEGA_SERVE_K, len(reqs), len(seq),
+                parted, time.perf_counter() - t_start)
+        flipped = os.path.join(tmp, "flipped")
+        shutil.copytree(art, flipped)
+        pf = os.path.join(flipped, "__params__.npz")
+        with open(pf, "r+b") as f:
+            f.seek(os.path.getsize(pf) // 2)
+            b = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([b[0] ^ 0x01]))
+        try:
+            model_from_artifact(flipped)
+        except ArtifactError as e:
+            log("io-serve: a flipped byte in the params blob -> "
+                "ArtifactError: %s", e)
+        else:
+            check(False, "io-serve: a flipped params byte booted a model")
+        t_timing = time.perf_counter()
+        timing = _interleaved_serve(
+            torch, {"dense K=1": dense[1], "paged K=1": live,
+                    "dense K=%d" % MEGA_SERVE_K: dense[MEGA_SERVE_K],
+                    "paged K=%d" % MEGA_SERVE_K: paged8},
+            sets["decode-heavy"], "io-dense decode-heavy", smi,
+            traced=("dense K=%d" % MEGA_SERVE_K,
+                    "paged K=%d" % MEGA_SERVE_K))
+        log("io-dense: timing and traces took %.1f s; %d near-tie(s) where "
+            "the dense engine parted from the paged one%s",
+            time.perf_counter() - t_timing, len(near_ties),
+            "".join("\n  " + t for t in near_ties))
+    finally:
+        for eng in engines:
+            eng.close()
+    return total, near_ties, timing, cold_s
+
+
+def io_phase(torch, smi):
+    """Phase 11: checkpoint resume, artifact cold start, the dense layout.
+    Returns ({kernel: launches}, timing)."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_io_") as tmp:
+        flash, scope = io_resume_phase(torch, smi, tmp)
+        t1 = time.perf_counter()
+        paged, _, timing, _ = io_serve_phase(torch, smi, tmp, scope)
+    log("io: phase 11 took %.1f s (resume %.1f s, serve %.1f s)",
+        time.perf_counter() - t0, t1 - t0, time.perf_counter() - t1)
+    return dict({"flash_" + k: n for k, n in flash.items()},
+                paged_attention=paged), timing
+
+
 def _report_profile(prof, wall, title, focus=None):
     """Device busy share of ``wall`` and the top kernels; with ``focus``,
     also the share of the kernels whose names hold it. Returns (busy
@@ -2591,6 +2905,7 @@ def main():
         spec_err, spec_times = spec_kernel_phase(torch)
         spec_launches, scoring_launches, _ = spec_serve_phase(torch, smi,
                                                               seqs)
+        io_launches, _ = io_phase(torch, smi)
     except SmokeFailure as e:
         print("chip_smoke: FAILED: %s" % e, file=sys.stderr)
         return 1
@@ -2602,8 +2917,10 @@ def main():
         "name": "paged_attention", "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/paged_attention.cu",
         "replaces": "paddle_tpu/ops/paged_attention.py:185",
-        "launches": launches + serve_launches + spec_launches,
+        "launches": (launches + serve_launches + spec_launches
+                     + io_launches["paged_attention"]),
         "graph_launches": serve_launches, "spec_launches": spec_launches,
+        "io_launches": io_launches["paged_attention"],
         "max_abs_err": max(max_err, spec_err),
         "scoring_shape": dict(spec_times, launches=scoring_launches)},
         **times)]
@@ -2612,8 +2929,10 @@ def main():
         kernels.append(dict({
             "name": name, "route": "cuda", "source": flash_src,
             "replaces": "paddle_tpu/ops/flash_attention.py:%d" % line,
-            "launches": flash_launches[name] + lm_counts[name],
+            "launches": (flash_launches[name] + lm_counts[name]
+                         + io_launches[name]),
             "graph_launches": lm_counts[name],
+            "io_launches": io_launches[name],
             "max_abs_err": flash_err[name]}, **flash_times[name]))
     kernels.append(dict({
         "name": "matmul_stats", "route": "cuda",

@@ -24,7 +24,10 @@ Ported so far:
     (``ops/csrc/matmul_stats.cu``);
   * megastep: ``Executor.run_steps`` and ``serving.Engine(megastep=K)``
     run K steps as one CUDA graph on the card (``core/graphs.py``), the
-    same step bodies in a loop on the CPU.
+    same step bodies in a loop on the CPU;
+  * persistence: ``io`` (vars, checkpoints and the CRC-manifested
+    inference artifact, in the JAX package's file formats), and serving
+    cold start from an artifact directory (``serving.Engine(<dir>)``).
 
 Used as ``import paddle_tpu_torch as fluid``, as scripts use
 ``paddle_tpu``.
@@ -35,6 +38,7 @@ from . import ops  # noqa: F401  (registers the lowerings)
 from . import layers  # noqa: F401
 from . import initializer  # noqa: F401
 from . import optimizer  # noqa: F401
+from . import io  # noqa: F401
 from .core import (  # noqa: F401
     CPUPlace, CUDAPlace, Executor, Program, Scope, TPUPlace,
     append_backward, default_main_program, default_startup_program,

@@ -2,19 +2,20 @@
 
 The counterpart of ``paddle_tpu/models/transformer_infer.py``, restricted
 to ``TransformerLMInfer``: the dense single-row step that
-``sequential_generate`` drives, and the paged-pool steps the serving
-engine drives (``_step_logits_paged`` for decode and the truncated
-drafter, ``_spec_logits_paged`` for speculative scoring,
-``_prefill_chunk_paged`` for chunked prefill), all writing through
-``_pool_write`` and attending through ``_mha_paged``.
+``sequential_generate`` drives, the dense per-slot steps of the engine's
+``paged=False`` layout (``_step_logits_slots``, ``_prefill_chunk_slot``),
+and the paged-pool steps the serving engine drives by default
+(``_step_logits_paged`` for decode and the truncated drafter,
+``_spec_logits_paged`` for speculative scoring, ``_prefill_chunk_paged``
+for chunked prefill), all writing through ``_pool_write`` and attending
+through ``_mha_paged``.
 
-Weights arrive as the parameter stream ``paddle_tpu``'s
-``extract_params(program, scope)`` yields, converted to numpy:
-``[(role, [ndarray, ...]), ...]`` in the builder's op order. The same
+Weights arrive as a parameter stream ``[(role, [ndarray, ...]), ...]``
+in the builder's op order: ``extract_params(program, scope)`` walks a
+trained Program and its scope (``from_program``), and ``init_stream``
+draws one from a seed with the builder's own initializers. The same
 role-checking cursor replays it, so a builder whose op order changes
-fails loudly instead of mis-wiring weights. ``init_stream`` makes that
-stream from a seed with the builder's own initializers, for runs with
-no JAX at hand.
+fails loudly instead of mis-wiring weights.
 
 PyTorch runs eagerly, so state dicts are updated IN PLACE (the pools,
 the dense caches) where the JAX package returned new arrays.
@@ -27,7 +28,8 @@ from torch import nn
 from .. import resolve_device
 from ..ops import paged_attention as _paged_ops
 
-__all__ = ["TransformerLMInfer", "params_from_stream", "init_stream"]
+__all__ = ["TransformerLMInfer", "extract_params", "params_from_stream",
+           "init_stream"]
 
 # every tensor a paged state dict may carry for the KV pool itself: codes
 # and, when quantized, the per-vector scales beside them
@@ -35,6 +37,67 @@ _POOL_KEYS = ("pool_k", "pool_v", "pool_ks", "pool_vs")
 _LAYER_KEYS = ("wq", "wk", "wv", "wo", "ln1_scale", "ln1_bias", "ffn_w1",
                "ffn_b1", "ffn_w2", "ffn_b2", "ln2_scale", "ln2_bias")
 _PER_LAYER = 10                    # stream entries one layer consumes
+
+# op type -> (stream role, input slot holding the parameter)
+_PARAM_OPS = {
+    "lookup_table": ("lookup", "W"),
+    "mul": ("mul", "Y"),
+    "matmul": ("mul", "Y"),
+    "elementwise_add": ("bias", "Y"),
+    "layer_norm": ("layer_norm", None),
+}
+
+
+def _numpy(value):
+    """A scope value as a numpy array; bfloat16 widens to float32
+    exactly (numpy has no bfloat16)."""
+    if isinstance(value, torch.Tensor):
+        if value.dtype == torch.bfloat16:
+            value = value.float()
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
+
+
+def extract_params(program, scope):
+    """Walk the program's ops in order and return ``[(role, [ndarray,
+    ...]), ...]`` for every op that consumes a persistable parameter:
+    the bridge from the Program IR to the decode model. A
+    ``fused_matmul_bias_act`` op (a specialized artifact of the JAX
+    package) gives its "mul" and "bias" roles at the stream position the
+    unfused chain gives them, so a fused artifact replays into the same
+    stream. A ``cast`` of a persistable (a ``bf16=True`` artifact casts
+    each weight before the op that reads it) stands for that persistable
+    here; the JAX package's ``extract_params`` stops at the cast, so its
+    engine does not boot such an LM artifact."""
+    gb = program.global_block()
+    persistable = {v.name: v.name for v in gb.vars.values()
+                   if v.persistable}
+    for op in gb.ops:
+        if op.type == "cast" and op.input("X")[0] in persistable:
+            persistable[op.output("Out")[0]] = op.input("X")[0]
+
+    def take(names):
+        return _numpy(scope.find_var(persistable.get(names[0], names[0])))
+
+    out = []
+    for op in gb.ops:
+        if op.type == "fused_matmul_bias_act":
+            for role, names in (("mul", op.input("Y")),
+                                ("bias", op.input("Bias"))):
+                if names and names[0] in persistable:
+                    out.append((role, [take(names)]))
+            continue
+        if op.type not in _PARAM_OPS:
+            continue
+        role, slot = _PARAM_OPS[op.type]
+        if role == "layer_norm":
+            out.append((role, [take(op.input("Scale")),
+                               take(op.input("Bias"))]))
+            continue
+        names = op.input(slot)
+        if names and names[0] in persistable:  # not residual adds etc.
+            out.append((role, [take(names)]))
+    return out
 
 
 class _Cursor:
@@ -198,6 +261,15 @@ class TransformerLMInfer(nn.Module):
                    d_model, max_len, bos_id=bos_id, end_id=end_id,
                    dtype=dtype, device=device)
 
+    @classmethod
+    def from_program(cls, program, scope, n_layer, n_head, d_model,
+                     max_len, bos_id=1, end_id=2, dtype=None, device=None):
+        """Build from a trained ``transformer_lm`` Program and its scope
+        (``extract_params``), the JAX package's constructor signature."""
+        return cls.from_stream(extract_params(program, scope), n_layer,
+                               n_head, d_model, max_len, bos_id=bos_id,
+                               end_id=end_id, dtype=dtype, device=device)
+
     @property
     def device(self):
         return self.word_emb.device
@@ -263,6 +335,57 @@ class TransformerLMInfer(nn.Module):
             v[:, :, t] = v_new[:, :, 0]
             x = self._block_tail(p, x, self._mha(p, x, k, v, bias))
         return x[:, 0, :] @ self.w_out, state
+
+    # -- dense per-slot cache (the engine's paged=False layout) ---------
+    def _step_logits_slots(self, tok, state, pos, write_mask=None):
+        """Per-slot decode step over the dense ``[S, H, max_len, dk]``
+        caches: tok/pos [S] int64, every slot reading and writing its
+        own cache position. ``write_mask`` [S] bool gates the writes:
+        an idle or prefilling slot writes back the value it reads (the
+        JAX package drops the write at index ``max_len``; torch would
+        fault on it), so nothing is read back to the host and a CUDA
+        graph can hold the step. Attention is ``_mha`` over all
+        ``max_len`` keys, as the JAX package's. Returns (logits [S, V],
+        state) with the caches updated in place."""
+        qpos = torch.clamp(pos, max=self.max_len - 1)
+        x = self._embed(tok, qpos)[:, None, :]           # [S, 1, D]
+        bias = self._bias(pos)[:, None, None, :]         # [S, 1, 1, L]
+        rows = torch.arange(tok.shape[0], device=tok.device)
+        for i, p in enumerate(self.layers):
+            k_new, v_new = self._kv(p, x)                # [S, H, 1, dk]
+            for name, new in (("k%d" % i, k_new), ("v%d" % i, v_new)):
+                cache, new = state[name], new[:, :, 0]
+                if write_mask is not None:
+                    new = torch.where(write_mask[:, None, None], new,
+                                      cache[rows, :, qpos])
+                cache[rows, :, qpos] = new
+            a = self._mha(p, x, state["k%d" % i], state["v%d" % i], bias)
+            x = self._block_tail(p, x, a)
+        return x[:, 0, :] @ self.w_out, state
+
+    def _prefill_chunk_slot(self, state, slot, toks, start, n_valid):
+        """Teacher-forced chunk prefill into slot ``slot``'s dense
+        cache: ``toks`` [C] int64 (a fixed-length chunk whose first
+        ``n_valid`` entries are real) written at cache positions
+        ``start..start+n_valid-1``. ``slot``/``start``/``n_valid`` are
+        host ints, so the padded tail is simply not written. No logits
+        are computed. Returns the state (caches updated in place)."""
+        c = toks.shape[0]
+        idx = torch.arange(c, device=self.device)
+        cpos = start + idx                               # [C]
+        gather_pos = torch.where(
+            idx < n_valid, torch.clamp(cpos, max=self.max_len - 1), 0)
+        x = self._embed(toks, gather_pos)[None]          # [1, C, D]
+        bias = self._bias(cpos)[None, None]              # [1, 1, C, L]
+        n = int(n_valid)
+        for i, p in enumerate(self.layers):
+            k_new, v_new = self._kv(p, x)                # [1, H, C, dk]
+            k, v = state["k%d" % i], state["v%d" % i]
+            k[slot, :, start:start + n] = k_new[0, :, :n]
+            v[slot, :, start:start + n] = v_new[0, :, :n]
+            a = self._mha(p, x, k[slot][None], v[slot][None], bias)
+            x = self._block_tail(p, x, a)
+        return state
 
     # -- paged KV pool (serving.kvpool block pool) ---------------------
     def _init_paged_state(self, num_blocks, block_size, kv_quant=None):

@@ -1,11 +1,11 @@
 """Continuous-batching decode engine: slot state + iteration scheduler.
 
-The counterpart of ``paddle_tpu/serving/engine.py`` in its default
-configuration: the paged KV pool with per-slot block tables, the radix
-prefix cache with copy-on-write, the allocation and preemption ladder,
-chunked prefill, greedy and sampled decode through the block-chain
-attention kernel (``ops/paged_attention``: the CUDA kernel on the card),
-megastep decode and speculative decode:
+The counterpart of ``paddle_tpu/serving/engine.py``: by default the
+paged KV pool with per-slot block tables, the radix prefix cache with
+copy-on-write, the allocation and preemption ladder, chunked prefill,
+greedy and sampled decode through the block-chain attention kernel
+(``ops/paged_attention``: the CUDA kernel on the card), megastep decode
+and speculative decode:
 
   * Sampled requests (``SamplingParams`` with temperature > 0) draw
     through ``sampling.sample``, keyed on (seed, tokens generated), in a
@@ -24,10 +24,17 @@ megastep decode and speculative decode:
     accepts the longest prefix that matches the model's own tokens, so
     the output is the non-speculative engine's. An iteration with no
     draft runs the plain or megastep dispatch.
+  * ``paged=False``: the dense layout, one ``[slots, H, max_len, dk]``
+    cache per layer for K and for V (``_step_logits_slots``,
+    ``_prefill_chunk_slot``): no pool, no prefix cache, no preemption,
+    plain attention over all ``max_len`` keys (the JAX package's dense
+    route runs no kernel either). Greedy, sampled and megastep decode
+    run over it; speculative decode and ``kv_quant`` need the pool.
+  * ``Engine(<artifact dir>)`` boots the model from a
+    ``save_lm_artifact`` directory (``serving/artifact.py``).
 
 Not ported yet, and refused naming ROADMAP.md when asked for: the
-dense ``paged=False`` layout (``ValueError``), artifact cold start and
-the telemetry (``NotImplementedError``).
+telemetry (flag ``monitor``, ``NotImplementedError``).
 
 Every piece of device state lives in one dict of tensors
 (``self._state``) that the scheduler thread updates in place, so a
@@ -47,6 +54,7 @@ import torch
 from .. import flags, resolve_device
 from ..core import graphs as _graphs
 from ..ops import paged_attention as _paged_ops
+from . import artifact as _artifact
 from . import kvpool as _kvpool
 from . import sampling as _sampling
 from . import spec as _spec
@@ -54,9 +62,8 @@ from .sampling import SamplingParams
 
 __all__ = ["Engine", "Request", "sequential_generate"]
 
-_NOT_PORTED = ("is not ported yet (see ROADMAP.md, queue 1 item 6: the "
-               "dense layout, artifact cold start and telemetry are "
-               "still to port)")
+_NOT_PORTED = ("is not ported yet (see ROADMAP.md, queue 1 items 6 and 10: "
+               "the serving telemetry is still to port)")
 
 # the per-slot sampling state a greedy request activates with
 _GREEDY = SamplingParams()
@@ -97,6 +104,38 @@ class Request:
         self.t_retire = None
         self.prefill_chunks = 0
 
+    @property
+    def queue_wait(self):
+        """Seconds from submit to decode-slot admission (None until
+        admitted)."""
+        if self.t_admit is None:
+            return None
+        return self.t_admit - self.t_enqueue
+
+    @property
+    def ttft(self):
+        """Time to first token: submit -> first decoded token."""
+        if self.t_first_token is None:
+            return None
+        return self.t_first_token - self.t_enqueue
+
+    @property
+    def tpot(self):
+        """Mean per-token decode latency after the first token; 0.0 for
+        single-token requests, None until retired."""
+        if self.t_first_token is None or self.t_retire is None:
+            return None
+        n = len(self.tokens)
+        if n <= 1:
+            return 0.0
+        return (self.t_retire - self.t_first_token) / (n - 1)
+
+    def latency(self):
+        """The request's lifecycle attribution as one JSON-able dict."""
+        return {"queue_wait": self.queue_wait, "ttft": self.ttft,
+                "tpot": self.tpot, "tokens": len(self.tokens),
+                "prefill_chunks": self.prefill_chunks}
+
     def _finish(self, score):
         self.score = score
         self._event.set()
@@ -121,10 +160,14 @@ class Request:
 class Engine:
     """Continuous-batching engine over ``TransformerLMInfer``.
 
-    ``slots`` is the fixed decode batch; ``prefill_chunk`` the prompt
-    tokens written per slot per iteration (flag
-    ``serving_prefill_chunk``); ``admission_wait`` an idle engine's
-    wait-for-batch window in seconds. The KV pool holds ``num_blocks``
+    ``model`` is a ``TransformerLMInfer`` or the path of a
+    ``save_lm_artifact`` directory, booted on ``device``
+    (``artifact.model_from_artifact``). ``slots`` is the fixed decode
+    batch; ``prefill_chunk`` the prompt tokens written per slot per
+    iteration (flag ``serving_prefill_chunk``); ``admission_wait`` an
+    idle engine's wait-for-batch window in seconds. ``paged`` (flag
+    ``serving_paged``, default on) selects the paged KV pool; off, the
+    dense layout (no pool options apply). The KV pool holds ``num_blocks``
     blocks of ``block_size`` positions (default ``slots *
     ceil(max_len / block_size)``); ``prefix_cache`` turns the radix
     prefix cache on (default). ``block_kernel`` selects the block-chain
@@ -150,14 +193,14 @@ class Engine:
                  spec_drafter=None, spec_layers=None):
         if slots < 1:
             raise ValueError("slots must be >= 1, got %r" % (slots,))
-        if isinstance(model, (str, bytes)) or hasattr(model, "__fspath__"):
-            raise NotImplementedError(
-                "Engine(<artifact dir>): artifact cold start %s"
-                % _NOT_PORTED)
         if flags.get_flag("monitor"):
             raise NotImplementedError("serving telemetry (flag monitor) %s"
                                       % _NOT_PORTED)
         dev = resolve_device(device)
+        if _artifact.is_artifact_path(model):
+            # serving cold start: the artifact directory in place of a
+            # live model object
+            model = _artifact.model_from_artifact(model, device=dev)
         mdev = model.device
         if dev.type != mdev.type or (dev.index is not None
                                      and dev.index != mdev.index):
@@ -166,10 +209,8 @@ class Engine:
         self._megastep = max(1, int(
             megastep if megastep is not None
             else flags.get_flag("serving_megastep")))
-        if not bool(paged if paged is not None
-                    else flags.get_flag("serving_paged")):
-            raise ValueError("paged=False: the dense KV layout %s"
-                             % _NOT_PORTED)
+        self._paged = bool(paged if paged is not None
+                           else flags.get_flag("serving_paged"))
         self.model = model
         self.device = mdev
         self.slots = int(slots)
@@ -180,6 +221,75 @@ class Engine:
         self._admission_wait = float(
             admission_wait if admission_wait is not None
             else flags.get_flag("serving_admission_wait"))
+        if self._paged:
+            self._init_pool(block_size, num_blocks, prefix_cache, kv_quant,
+                            block_kernel)
+        else:
+            if kv_quant:
+                raise ValueError(
+                    "kv_quant requires the paged KV layout (per-vector "
+                    "scales live beside the block pool); pass paged=True "
+                    "or drop kv_quant")
+            self._pool = self._prefix = None
+            self._block_kernel = False
+            self._attn_unroll = 1
+            self._kv_quant = None
+            self._block_bytes = 0
+        self._init_spec(speculative, spec_gamma, spec_drafter, spec_layers)
+        self._admit_seq = itertools.count()
+        self._cv = threading.Condition()
+        self._queue = collections.deque()
+        self._recs = [None] * self.slots   # loop-thread-only slot records
+        self._stop = False
+        self._error = None
+        with torch.no_grad():
+            self._state = self._init_state()
+            # the block tables every decode dispatch reads, copied in
+            # before it (a captured graph reads them at this address;
+            # None in the dense layout); [2, K, S]: the emits and
+            # retirement flags of up to K steps
+            self._btab = torch.zeros(
+                (self.slots, self._max_blocks), dtype=torch.int32,
+                device=self.device) if self._paged else None
+            self._mega_out = torch.zeros((2, self._megastep, self.slots),
+                                         dtype=torch.long,
+                                         device=self.device)
+            # a scoring dispatch's packed upload [S, gamma+1] (draft
+            # counts, then drafts) and packed fetch [S, gamma+3] (emits,
+            # emit count, retirement flag)
+            g = self._spec_gamma
+            self._spec_in = torch.zeros((self.slots, g + 1),
+                                        dtype=torch.long, device=self.device)
+            self._spec_out = torch.zeros((self.slots, g + 3),
+                                         dtype=torch.long,
+                                         device=self.device)
+        # the K-step CUDA graphs on the card, one per variant of the
+        # step (greedy, sampled)
+        self._graphs = {False: None, True: None}
+        # decode_steps counts the steps whose emits were consumed (a
+        # scoring dispatch is one); decode_steps_run the plain steps the
+        # device ran (a megastep that drains early runs more than it
+        # consumes); spec_draft_steps the truncated drafter's steps
+        self.stats = {"steps": 0, "decode_steps": 0, "decode_steps_run": 0,
+                      "tokens": 0, "admissions": 0, "retirements": 0,
+                      "active_slot_steps": 0, "prefill_chunks": 0,
+                      "prefix_hits": 0, "prefix_misses": 0,
+                      "prefix_hit_tokens": 0, "prefix_evictions": 0,
+                      "preemptions": 0, "cow_copies": 0,
+                      "kv_peak_blocks": 0, "decode_seconds": 0.0,
+                      "megastep_dispatches": 0, "graph_captures": 0,
+                      "graph_replays": 0, "spec_dispatches": 0,
+                      "spec_drafted": 0, "spec_accepted": 0,
+                      "spec_emitted": 0, "spec_draft_steps": 0}
+        self._ready = threading.Event()
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True, name="ptt-" + name)
+        self._thread.start()
+
+    def _init_pool(self, block_size, num_blocks, prefix_cache, kv_quant,
+                   block_kernel):
+        """The paged layout's settings (the JAX package's rules)."""
+        model = self.model
         bs = int(block_size if block_size is not None
                  else flags.get_flag("serving_block_size"))
         self._block_size = max(1, min(bs, model.max_len))
@@ -216,54 +326,6 @@ class Engine:
             model.n_layer, model.n_head, self._block_size,
             model.d_model // model.n_head,
             dtype_bytes=model.dtype.itemsize, kv_quant=self._kv_quant)
-        self._init_spec(speculative, spec_gamma, spec_drafter, spec_layers)
-        self._admit_seq = itertools.count()
-        self._cv = threading.Condition()
-        self._queue = collections.deque()
-        self._recs = [None] * self.slots   # loop-thread-only slot records
-        self._stop = False
-        self._error = None
-        with torch.no_grad():
-            self._state = self._init_state()
-            # the block tables every decode dispatch reads, copied in
-            # before it (a captured graph reads them at this address);
-            # [2, K, S]: the emits and retirement flags of up to K steps
-            self._btab = torch.zeros((self.slots, self._max_blocks),
-                                     dtype=torch.int32, device=self.device)
-            self._mega_out = torch.zeros((2, self._megastep, self.slots),
-                                         dtype=torch.long,
-                                         device=self.device)
-            # a scoring dispatch's packed upload [S, gamma+1] (draft
-            # counts, then drafts) and packed fetch [S, gamma+3] (emits,
-            # emit count, retirement flag)
-            g = self._spec_gamma
-            self._spec_in = torch.zeros((self.slots, g + 1),
-                                        dtype=torch.long, device=self.device)
-            self._spec_out = torch.zeros((self.slots, g + 3),
-                                         dtype=torch.long,
-                                         device=self.device)
-        # the K-step CUDA graphs on the card, one per variant of the
-        # step (greedy, sampled)
-        self._graphs = {False: None, True: None}
-        # decode_steps counts the steps whose emits were consumed (a
-        # scoring dispatch is one); decode_steps_run the plain steps the
-        # device ran (a megastep that drains early runs more than it
-        # consumes); spec_draft_steps the truncated drafter's steps
-        self.stats = {"steps": 0, "decode_steps": 0, "decode_steps_run": 0,
-                      "tokens": 0, "admissions": 0, "retirements": 0,
-                      "active_slot_steps": 0, "prefill_chunks": 0,
-                      "prefix_hits": 0, "prefix_misses": 0,
-                      "prefix_hit_tokens": 0, "prefix_evictions": 0,
-                      "preemptions": 0, "cow_copies": 0,
-                      "kv_peak_blocks": 0, "decode_seconds": 0.0,
-                      "megastep_dispatches": 0, "graph_captures": 0,
-                      "graph_replays": 0, "spec_dispatches": 0,
-                      "spec_drafted": 0, "spec_accepted": 0,
-                      "spec_emitted": 0, "spec_draft_steps": 0}
-        self._ready = threading.Event()
-        self._thread = threading.Thread(
-            target=self._loop, daemon=True, name="ptt-" + name)
-        self._thread.start()
 
     def _init_spec(self, speculative, gamma, drafter, layers):
         """Speculative decode's settings (the JAX package's rules):
@@ -280,6 +342,11 @@ class Engine:
         self._spec_layers = 0
         if not self._speculative:
             return
+        if not self._paged:
+            raise ValueError(
+                "speculative decode requires the paged KV layout (per-slot "
+                "ragged draft lengths ride the block tables); pass "
+                "paged=True or drop speculative")
         kind = str(drafter if drafter is not None
                    else flags.get_flag("serving_spec_drafter"))
         if kind not in ("ngram", "truncated"):
@@ -314,7 +381,8 @@ class Engine:
                 raise RuntimeError(
                     "warmup() must run before traffic is submitted")
             with torch.no_grad():
-                self._set_btab(self._btab_all())
+                if self._paged:
+                    self._set_btab(self._btab_all())
                 self._spec_in.zero_()
                 for variant in ((False, True) if sampled else (False,)):
                     self._step_impl(self._state, self._btab, variant)
@@ -403,9 +471,12 @@ class Engine:
 
     # -- device pieces (loop thread; warmup before it runs) ----------------
     def _init_state(self):
-        s = self.model._init_paged_state(self._pool.num_blocks,
-                                         self._block_size,
-                                         kv_quant=self._kv_quant)
+        if self._paged:
+            s = self.model._init_paged_state(self._pool.num_blocks,
+                                             self._block_size,
+                                             kv_quant=self._kv_quant)
+        else:
+            s = self.model._init_state(self.slots)
 
         def z(dt):
             return torch.zeros(self.slots, dtype=dt, device=self.device)
@@ -432,13 +503,18 @@ class Engine:
         retirements. Every state tensor is updated in place, and nothing
         is read back to the host, so a CUDA graph can hold the step.
         The sampled variant runs only while a sampled request is live,
-        so the all-greedy step stays as it was. Returns (emit [S], fin
-        [S]) device tensors."""
+        so the all-greedy step stays as it was. ``btab`` is the block
+        tables (paged) or None (dense). Returns (emit [S], fin [S])
+        device tensors."""
         tok, pos, active = st["tok"], st["pos"], st["active"]
-        logits, _ = self.model._step_logits_paged(
-            tok, st, pos, btab, write_mask=active,
-            block_kernel=self._block_kernel,
-            attn_unroll=self._attn_unroll)
+        if self._paged:
+            logits, _ = self.model._step_logits_paged(
+                tok, st, pos, btab, write_mask=active,
+                block_kernel=self._block_kernel,
+                attn_unroll=self._attn_unroll)
+        else:
+            logits, _ = self.model._step_logits_slots(
+                tok, st, pos, write_mask=active)
         logits32 = logits.float()
         logp = torch.log_softmax(logits32, dim=-1)
         nxt = torch.argmax(logp, dim=-1)
@@ -782,8 +858,9 @@ class Engine:
             self.stats["steps"] += 1
             self.stats["admissions"] += admitted
             self.stats["retirements"] += len(finished)
-            self.stats["kv_peak_blocks"] = max(
-                self.stats["kv_peak_blocks"], self._pool.used)
+            if self._paged:
+                self.stats["kv_peak_blocks"] = max(
+                    self.stats["kv_peak_blocks"], self._pool.used)
         finally:
             # resolve futures even if the iteration raised: a request
             # popped from its slot lives only in `finished` here
@@ -810,7 +887,8 @@ class Engine:
                         req._seq = next(self._admit_seq)
                     rec = {"req": req, "cursor": 0, "live": False,
                            "seq": req._seq}
-                    self._admit_paged(rec)
+                    if self._paged:
+                        self._admit_paged(rec)
                     self._recs[slot] = rec
                     admitted += 1
         return admitted
@@ -843,7 +921,8 @@ class Engine:
     def _advance_prefills(self):
         """One prompt chunk per prefilling slot per iteration. A slot
         whose prefix is fully written activates: its LAST prompt token
-        seeds the first decode step."""
+        seeds the first decode step. The paged layout grows the slot's
+        block table ahead of the chunk's writes (which may preempt)."""
         for slot, rec in enumerate(self._recs):
             if rec is None or rec["live"]:
                 continue
@@ -852,26 +931,32 @@ class Engine:
             cur = rec["cursor"]
             if cur < need:
                 toks = req.prompt[cur:min(cur + self._chunk, need)]
-                if not self._ensure_blocks(rec, cur + len(toks) - 1):
+                if self._paged and not self._ensure_blocks(
+                        rec, cur + len(toks) - 1):
                     continue               # rec preempted back to queue
                 chunk = np.zeros((self._chunk,), np.int64)
                 chunk[:len(toks)] = toks
-                self.model._prefill_chunk_paged(
-                    self._state, torch.from_numpy(chunk).to(self.device),
-                    cur, len(toks),
-                    self._btab_dev(self._btab_row(rec)),
-                    block_kernel=self._block_kernel,
-                    attn_unroll=self._attn_unroll)
+                chunk = torch.from_numpy(chunk).to(self.device)
+                if self._paged:
+                    self.model._prefill_chunk_paged(
+                        self._state, chunk, cur, len(toks),
+                        self._btab_dev(self._btab_row(rec)),
+                        block_kernel=self._block_kernel,
+                        attn_unroll=self._attn_unroll)
+                else:
+                    self.model._prefill_chunk_slot(self._state, slot, chunk,
+                                                   cur, len(toks))
                 rec["cursor"] = cur + len(toks)
                 req.prefill_chunks += 1
                 self.stats["prefill_chunks"] += 1
             if rec["cursor"] >= need:
-                # the first decode step writes position `need`
-                if not self._ensure_blocks(rec, need):
-                    continue
-                bi = need // self._block_size
-                if bi < rec["shared"] and not self._cow(rec, bi):
-                    continue
+                if self._paged:
+                    # the first decode step writes position `need`
+                    if not self._ensure_blocks(rec, need):
+                        continue
+                    bi = need // self._block_size
+                    if bi < rec["shared"] and not self._cow(rec, bi):
+                        continue
                 rec["next_pos"] = need
                 self._activate(slot, req.prompt[-1], need, req.max_new,
                                req.sampling or _GREEDY)
@@ -1045,7 +1130,7 @@ class Engine:
             # re-read per slot: an earlier slot's allocation may have
             # preempted this one
             rec = self._recs[slot]
-            if rec is not None and rec["live"]:
+            if self._paged and rec is not None and rec["live"]:
                 # a request with fewer tokens left than k must not walk
                 # the pressure ladder for positions it will never write
                 rem = max(1, rec["req"].max_new - len(rec["req"].tokens))
@@ -1055,7 +1140,8 @@ class Engine:
         if not live:
             return []
         t0 = time.perf_counter()
-        self._set_btab(self._btab_all())
+        if self._paged:
+            self._set_btab(self._btab_all())
         sampled = self._sampled(live)
         if k > 1 and self.device.type == "cuda":
             if self._graphs[sampled] is None:
@@ -1096,7 +1182,8 @@ class Engine:
                     finished.append((req, float(scores[slot])))
                     # retirement frees the request's refs; published
                     # prefix blocks survive on the cache's own refs
-                    self._release_blocks(rec)
+                    if self._paged:
+                        self._release_blocks(rec)
                     self._recs[slot] = None
                     live.remove(slot)
         return finished
@@ -1109,7 +1196,8 @@ class Engine:
             self._queue.clear()
             self._recs = [None] * self.slots
         for rec in slotted:                # pool accounting stays clean
-            self._release_blocks(rec)
+            if self._paged:
+                self._release_blocks(rec)
         for req in pending:
             if req.t_retire is None:
                 req.t_retire = time.perf_counter()

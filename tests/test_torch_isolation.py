@@ -51,7 +51,8 @@ def test_scan_covers_the_port():
                  ("serving", "sampling.py"), ("core", "executor.py"),
                  ("ops", "flash_attention.py"),
                  ("ops", "matmul_stats.py"), ("ops", "conv.py"),
-                 ("models", "transformer.py"), ("models", "resnet.py")):
+                 ("models", "transformer.py"), ("models", "resnet.py"),
+                 ("paddle_tpu_torch", "io.py"), ("serving", "artifact.py")):
         assert any(p.endswith(os.path.join(*tail)) for p in srcs), tail
 
 
@@ -75,7 +76,8 @@ def test_import_leaves_jax_unloaded():
     code = ("import sys, paddle_tpu_torch.serving, "
             "paddle_tpu_torch.models.transformer_infer, "
             "paddle_tpu_torch.models.transformer, "
-            "paddle_tpu_torch.models.resnet; "
+            "paddle_tpu_torch.models.resnet, paddle_tpu_torch.io, "
+            "paddle_tpu_torch.serving.artifact; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -18,11 +18,11 @@ the graph runs:
   * ``Engine(megastep=4)`` gives the tokens of ``megastep=1``, of
     ``sequential_generate`` and of the JAX package's megastep engine;
   * the masked pool write leaves masked entries bitwise unchanged;
-  * neither the engine's decode bodies (greedy and sampled, the
-    speculative scoring step, the truncated drafter) nor a ``run_steps``
-    body reads a device value back to the host (the calls that would
-    are patched to raise), so a capture on the card cannot fail for
-    that.
+  * neither the engine's decode bodies (greedy and sampled, paged and
+    dense, the speculative scoring step, the truncated drafter) nor a
+    ``run_steps`` body reads a device value back to the host (the calls
+    that would are patched to raise), so a capture on the card cannot
+    fail for that.
 """
 
 import threading
@@ -532,6 +532,29 @@ def test_engine_decode_body_has_no_host_read(lms, no_host_reads):
     assert stats["megastep_dispatches"] > 0
     seq = serving.sequential_generate(tlm, reqs)
     assert [t for t, _ in out] == [t for t, _ in seq]
+
+
+def test_engine_dense_bodies_have_no_host_read(lms, no_host_reads):
+    """The dense layout's decode step (greedy and sampled, alone and
+    inside a megastep) reads nothing back to the host: its masked cache
+    write is a blend, not a dropped index."""
+    _, tlm = lms
+    for name in ("_step_impl", "_megastep_impl"):
+        no_host_reads.setattr(serving.Engine, name,
+                              _body(getattr(serving.Engine, name)))
+    reqs = _requests(5, 4)
+    samp = [dict(temperature=0.8, top_k=5, seed=i) for i in range(4)]
+    with serving.Engine(tlm, slots=2, prefill_chunk=4, device="cpu",
+                        megastep=4, paged=False) as eng:
+        eng.warmup(sampled=True)
+        out = eng.generate_many([p for p, _ in reqs], [m for _, m in reqs])
+        hs = [eng.submit(p, m, sampling=sp)
+              for (p, m), sp in zip(reqs, samp)]
+        drawn = [h.result(timeout=60) for h in hs]
+        assert eng.stats["megastep_dispatches"] > 0
+    seq = serving.sequential_generate(tlm, reqs)
+    assert [t for t, _ in out] == [t for t, _ in seq]
+    assert all(len(t) >= 1 for t, _ in drawn)
 
 
 @pytest.mark.parametrize("drafter", ["ngram", "truncated"])

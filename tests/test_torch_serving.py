@@ -186,15 +186,18 @@ def test_default_attention_path_selection(lms):
 
 
 def test_unported_options_raise(lms):
-    """The dense layout, artifact cold start and the telemetry still
-    raise, naming ROADMAP.md; megastep, speculative decode and sampled
+    """The telemetry still raises, naming ROADMAP.md; the dense layout
+    (tests/test_torch_dense_serving.py) and artifact cold start
+    (tests/test_torch_artifact.py) are ported, so ``paged=False`` builds
+    a dense engine and a path that holds no artifact raises the
+    artifact's own error. Megastep, speculative decode and sampled
     requests are ported (tests/test_torch_megastep.py,
     tests/test_torch_spec.py, tests/test_torch_sampling.py), and their
     flags configure the engine instead of refusing it."""
     _, tlm = lms[VOCAB]
-    with pytest.raises(ValueError, match="ROADMAP"):
-        serving.Engine(tlm, slots=1, device="cpu", paged=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with serving.Engine(tlm, slots=1, device="cpu", paged=False) as eng:
+        assert not eng._paged and eng._pool is None
+    with pytest.raises(serving.ArtifactError, match="not a serving"):
         serving.Engine("an/artifact/dir", slots=1, device="cpu")
     flags.set_flag("serving_megastep", 4)
     try:
@@ -208,15 +211,13 @@ def test_unported_options_raise(lms):
             assert eng._speculative
     finally:
         flags.set_flag("serving_speculative", None)
-    # the flags (PADDLE_TPU_* in the environment) refuse too
-    for name, value, err in (("serving_paged", "off", ValueError),
-                             ("monitor", "1", NotImplementedError)):
-        flags.set_flag(name, value)
-        try:
-            with pytest.raises(err, match="ROADMAP"):
-                serving.Engine(tlm, slots=1, device="cpu")
-        finally:
-            flags.set_flag(name, None)
+    # the monitor flag (PADDLE_TPU_MONITOR in the environment) refuses
+    flags.set_flag("monitor", "1")
+    try:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            serving.Engine(tlm, slots=1, device="cpu")
+    finally:
+        flags.set_flag("monitor", None)
     with serving.Engine(tlm, slots=1, device="cpu") as eng:
         toks, _ = eng.submit([1, 5], 3,
                              sampling={"temperature": 0.7}).result(30)

@@ -234,8 +234,8 @@ def test_spec_megastep_composition(lms):
 
 def test_spec_gamma0_runs_the_existing_programs(lms):
     """gamma 0 turns speculation off: no scoring dispatch, no spec_*
-    count, the plain tokens; a bad drafter name and the dense layout
-    are refused."""
+    count, the plain tokens; a bad drafter name, and speculation over
+    the dense layout (as in the JAX package), are refused."""
     jlm, tlm = lms[VOCAB]
     reqs = _requests(13, 4)
     ref = jserving.sequential_generate(jlm, reqs)
@@ -248,7 +248,7 @@ def test_spec_gamma0_runs_the_existing_programs(lms):
     _assert_identical(ref, out)
     with pytest.raises(ValueError, match="drafter"):
         _engine(tlm, spec_drafter="nope")
-    with pytest.raises(ValueError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="requires the paged KV layout"):
         _engine(tlm, paged=False)
 
 

@@ -9,11 +9,13 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
   1. device — the card's name and power limit (``nvidia-smi``); TF32
      switched off for matmuls and cuDNN, so fp32 stays fp32;
   2. build  — ``ops/csrc/paged_attention.cu``,
-     ``ops/csrc/flash_attention.cu`` and ``ops/csrc/matmul_stats.cu``
-     compiled for sm_90a, one ``nvcc`` each, started together; ptxas
-     must report no spills in any of the 24 paged instantiations (4 pool
-     types x 3 widths x 2 row classes), the 18 flash ones (3 kernels x 2
-     dtypes x 3 widths) or the 6 matmul_stats ones (2 dtypes x 3 tiles);
+     ``ops/csrc/flash_attention.cu``, ``ops/csrc/matmul_stats.cu`` and
+     ``ops/csrc/dropout.cu`` compiled for sm_90a, one ``nvcc`` each,
+     started together; ptxas must report no spills in any of the 24
+     paged instantiations (4 pool types x 3 widths x 2 row classes), the
+     18 flash ones (3 kernels x 2 dtypes x 3 widths), the 6 matmul_stats
+     ones (2 dtypes x 3 tiles) or the 8 dropout ones (2 dtypes x upscale
+     x mask);
   3. kernel — the CUDA paged-attention kernel (each chain split across
      blocks, the splits merged in the same launch) held against its
      plain PyTorch version (``_attend_plain``) at rtol 1e-4 / atol 1e-5
@@ -192,14 +194,56 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
      counted; anything else fails), zero paged launches; then dense
      against paged at K=1 and K=8 timed A/B/A/B on the decode-heavy set
      (3 rounds, medians) and each layout traced once at K=8 for the
-     device busy share.
+     device busy share;
+ 12. options — the flagship's training options at full width, batch 32
+     x 256, Adam(1e-3), label smoothing 0.1. (a) Configuration A,
+     ``transformer_lm(packed=True, recompute=True,
+     label_smooth_eps=0.1)``: 3 steps with recompute and 3 without from
+     one startup scope, losses and every persistable bitwise equal;
+     flash launches exactly 2 x n_layer forward and n_layer of each
+     backward a step with recompute (the recompute runs the forward
+     kernel again), n_layer each without; peak device memory
+     (``max_memory_allocated`` after ``reset_peak_memory_stats``) lower
+     with recompute; step ms A/B/A/B (3 pairs, medians); 5 ``run()``
+     calls against one ``run_steps(K=5)`` dispatch bitwise; one
+     ``append_backward(checkpoint=True)`` step bitwise equal to the plain
+     step. (b) The dropout kernel against its plain version, Out and Mask
+     bitwise, with and without the upscale factor and the mask, at the
+     LM's two dropout shapes [32, 256, 512] and [32, 8, 256, 256], odd
+     sizes, bf16, p 0.1 and 0.5; two launches bitwise equal; timed at
+     [32, 8, 256, 256] f32 without the mask, device time alone and with
+     the host's gaps, against the plain version, the bytes bound and
+     ``F.dropout`` (a yardstick the port never calls: its masks differ).
+     (c) Configuration B, ``transformer_lm(packed=True,
+     dropout_rate=0.1, label_smooth_eps=0.1)``: 10 steps over two fixed
+     batches, losses finite and falling; dropout launches exactly 2 x
+     (1 + 3 x n_layer) a step (the backward draws each mask again), 3 x
+     n_layer more with recompute, no flash launch (attention dropout
+     takes the composed path, as in the JAX package); recompute against
+     no recompute bitwise (contract c); 5 ``run()`` calls against one
+     ``run_steps(K=5)`` dispatch bitwise (contract a); step ms eager and
+     under the graph A/B/A/B; a traced pass for the device busy share
+     and the kernel's share. (d) The optimizer family on a reduced LM (2
+     layers, d_model 128, T 64, batch 8): adagrad, adamax,
+     decayed_adagrad, adadelta, rmsprop, ftrl, proximal_gd,
+     proximal_adagrad, ModelAverage's average_accumulates, and the three
+     gradient clips with L2 decay, 2 steps on the card against the port's
+     CPU path from one startup scope, losses and persistables within
+     2e-4 of max(1, max|w|); ModelAverage's apply / restore round trip
+     bitwise.
 
 The last three lines of standard output are the kernels' JSON line, the
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device": ...}``.
 In the kernels' line ``launches`` sums the eager main path's run, the
 megastep graph's (counted through replays), phase 10's speculative
-and plain runs and phase 11's; ``graph_launches`` gives the graph's
-alone, ``spec_launches`` phase 10's and ``io_launches`` phase 11's.
+and plain runs, phase 11's and phase 12's; ``graph_launches`` gives the
+graph's alone, ``spec_launches`` phase 10's, ``io_launches`` phase 11's
+and ``options_launches`` phase 12's. The ``dropout`` entry
+(``"tpu_kernel": false``: the JAX package's dropout is no Pallas kernel)
+counts phase 12's configuration-B runs; its times and bound are at the
+attention-weight shape [32, 8, 256, 256] f32 and its ``max_abs_err``
+is the largest difference over its comparisons (0: they must be
+bitwise).
 Paged attention's entry carries ``scoring_shape``: its times and bound
 at (d), and its launches at the scoring shape among phase 10's: counted
 inside each scoring dispatch (the kernel's counter read before and after
@@ -309,7 +353,8 @@ def _ptxas_report(text):
 
 def build_phase():
     from paddle_tpu_torch.ops import _build
-    names = ("paged_attention", "flash_attention", "matmul_stats")
+    names = ("paged_attention", "flash_attention", "matmul_stats",
+             "dropout")
     t0 = time.perf_counter()
     _build.load_all(names)
     log("build: %s in %.2f s (one nvcc each, in parallel)",
@@ -321,19 +366,21 @@ def build_phase():
             log("  ptxas %s: %-36s %3d registers, spill stores %d bytes, "
                 "spill loads %d bytes", name, kernel, regs, st, ld)
             if kernel.startswith(("flash_", "matmul_stats_kernel",
-                                  "paged_")):
+                                  "paged_", "dropout_kernel")):
                 held[kernel] = st, ld
     counts = {p: sum(k.startswith(p) for k in held)
-              for p in ("flash_", "matmul_stats_kernel", "paged_")}
+              for p in ("flash_", "matmul_stats_kernel", "paged_",
+                        "dropout_kernel")}
     for prefix, want, what in (
             ("flash_", 18, "3 kernels x 2 dtypes x 3 widths"),
             ("matmul_stats_kernel", 6, "2 dtypes x 3 tiles"),
-            ("paged_", 24, "4 pool types x 3 widths x 2 row classes")):
+            ("paged_", 24, "4 pool types x 3 widths x 2 row classes"),
+            ("dropout_kernel", 8, "2 dtypes x upscale x mask")):
         check(counts[prefix] == want, "ptxas reported %d %s kernels, "
               "expected %d (%s)", counts[prefix], prefix, want, what)
     spilled = [k for k, (st, ld) in held.items() if st or ld]
-    check(not spilled, "ptxas spills in the paged, flash or matmul_stats "
-          "kernels: %s", spilled)
+    check(not spilled, "ptxas spills in the paged, flash, matmul_stats or "
+          "dropout kernels: %s", spilled)
 
 
 # -- phase 3 -------------------------------------------------------------
@@ -1622,6 +1669,7 @@ MEGA_TRAIN_K, MEGA_TRAIN_STEPS, MEGA_SERVE_K, MEGA_PAIRS = 5, 10, 8, 3
 
 
 def _reset_launches():
+    from paddle_tpu_torch.ops import dropout as D
     from paddle_tpu_torch.ops import flash_attention as F
     from paddle_tpu_torch.ops import matmul_stats as MS
     from paddle_tpu_torch.ops import paged_attention as P
@@ -1629,6 +1677,7 @@ def _reset_launches():
         F.flash_attention.launches[key] = 0
     MS.matmul_colstats.launches = 0
     P.paged_attention.launches = 0
+    D.dropout.launches = 0
 
 
 def _launches():
@@ -2836,6 +2885,581 @@ def io_phase(torch, smi):
                 paged_attention=paged), timing
 
 
+# -- phase 12 ------------------------------------------------------------
+OPTIONS_STEPS, OPTIONS_PAIRS, OPTIONS_EPS = 3, 3, 0.1
+DROPOUT_RATE, DROPOUT_TRAIN_STEPS = 0.1, 10
+# dropout launches per step of the dropout LM: the embedding's, then per
+# layer the attention weights' and two residual ones, in the forward and
+# again in the backward (which draws the mask again); with recompute
+# regions the 3 a layer run a third time, in the recompute
+DROPOUT_FWD = 1 + 3 * N_LAYER
+DROPOUT_PER_STEP = {False: 2 * DROPOUT_FWD,
+                    True: 2 * DROPOUT_FWD + 3 * N_LAYER}
+# the reduced LM of the optimizer family: 2 layers, d_model 128, T 64
+OPT_LM = dict(vocab_size=VOCAB, max_len=64, n_layer=2, n_head=N_HEAD,
+              d_model=128, d_inner=512)
+OPT_BATCH, OPT_STEPS, OPT_TOL = 8, 2, 2e-4
+
+
+def _options_lm(fluid, T, recompute=False, dropout=0.0, checkpoint=False,
+                cfg=None, make_opt=None):
+    """The packed flagship LM with label smoothing and the given options,
+    trained with Adam(1e-3) (``minimize``; with ``checkpoint``,
+    ``append_backward(checkpoint=True)`` and ``apply_gradients``, which
+    emit the same optimizer ops)."""
+    cfg = cfg or dict(vocab_size=VOCAB, max_len=MAX_LEN, n_layer=N_LAYER,
+                      n_head=N_HEAD, d_model=D_MODEL, d_inner=D_INNER)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        avg_cost, _ = T.transformer_lm(
+            packed=True, recompute=recompute, dropout_rate=dropout,
+            label_smooth_eps=OPTIONS_EPS, **cfg)
+        opt = (make_opt or (lambda f: f.optimizer.Adam(1e-3)))(fluid)
+        if checkpoint:
+            pg = fluid.append_backward(avg_cost, checkpoint=True)
+            opt.apply_gradients(sorted(pg, key=lambda x: x[0].name))
+        else:
+            opt.minimize(avg_cost)
+    return main, startup, avg_cost
+
+
+def _init_of(fluid, exe, startup):
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    return {n: scope.get_numpy(n) for n in scope.local_var_names()
+            if scope.find_var(n) is not None}
+
+
+def _counted_steps(torch, exe, prog, scope, batches):
+    """Eager steps with the launch counts reset just before and read just
+    after: (losses as floats, counts)."""
+    main, _, avg_cost = prog
+    _reset_launches()
+    losses = [float(exe.run(main, feed=b, fetch_list=[avg_cost],
+                            scope=scope)[0]) for b in batches]
+    torch.cuda.synchronize()
+    return losses, _launches()
+
+
+def _same_state(torch, a, b, names):
+    return [n for n in names if not torch.equal(a.find_var(n),
+                                                b.find_var(n))]
+
+
+def _graph_vs_eager(torch, fluid, prog, init, batches, what):
+    """K run() calls against one run_steps(K) dispatch from copies of
+    ``init``, each on a fresh executor (run seeds from counter 0; the
+    graph captured by a warm call first, its counter set back): losses
+    and every state tensor bitwise equal. Returns the dispatch's launch
+    counts through its replay."""
+    main, _, avg_cost = prog
+    k = len(batches)
+    eager = fluid.Executor(fluid.CUDAPlace(0))
+    graph = fluid.Executor(fluid.CUDAPlace(0))
+    t0 = time.perf_counter()
+    graph.run_steps(main, feeds=batches, fetch_list=[avg_cost],
+                    scope=_scope_from(fluid, init, graph.device))
+    torch.cuda.synchronize()
+    check(graph.stats["graph_captures"] == 1, "%s: no graph captured", what)
+    log("%s: K=%d graph captured (warm-up step, capture, first replay) in "
+        "%.3f s", what, k, time.perf_counter() - t0)
+    graph._rng_counter = 0
+    sa = _scope_from(fluid, init, eager.device)
+    le = [float(eager.run(main, feed=b, fetch_list=[avg_cost],
+                          scope=sa)[0]) for b in batches]
+    sb = _scope_from(fluid, init, graph.device)
+    _reset_launches()
+    out = graph.run_steps(main, feeds=batches, fetch_list=[avg_cost],
+                          scope=sb)
+    torch.cuda.synchronize()
+    counts = _launches()
+    lg = [float(o[0]) for o in out]
+    check(graph.stats["graph_replays"] == 2, "%s: %d replays for 2 "
+          "dispatches", what, graph.stats["graph_replays"])
+    differ = _same_state(torch, sa, sb, sorted(init))
+    check(lg == le and not differ, "%s: run_steps(K=%d) is not bitwise "
+          "equal to %d run() calls: losses %s vs %s, %d state tensors "
+          "differ (first %s)", what, k, k, lg, le, len(differ), differ[:1])
+    log("%s: %d run() calls vs one run_steps(K=%d) dispatch: losses %s "
+        "bitwise equal, every one of %d state tensors bitwise equal; "
+        "launches through the replay %s", what, k, k,
+        " ".join("%.6f" % x for x in le), len(init),
+        {n: c for n, c in counts.items() if c})
+    return counts, eager, graph, sa, sb
+
+
+def options_flash_phase(torch, smi):
+    """(a) Configuration A: transformer_lm(packed=True, recompute=True,
+    label_smooth_eps=0.1) with Adam(1e-3) at full width, against the same
+    model without recompute, from one startup scope."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer as T
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    progs = {rc: _options_lm(fluid, T, recompute=rc) for rc in (True, False)}
+    ops = progs[True][0].global_block().ops
+    check(sum(op.type == "recompute_block" for op in ops) == N_LAYER,
+          "the recompute program has no region per layer")
+    init = _init_of(fluid, exe, progs[True][1])
+    names = sorted(init)
+    batches = [T.make_lm_batch(np.random.RandomState(60 + i), TRAIN_BATCH,
+                               MAX_LEN, VOCAB) for i in range(5)]
+    runs, totals = {}, {}
+    for rc in (True, False):
+        scope = _scope_from(fluid, init, exe.device)
+        _gc_collect(torch)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        losses, counts = _counted_steps(torch, exe, progs[rc], scope,
+                                        batches[:OPTIONS_STEPS])
+        peak = torch.cuda.max_memory_allocated()
+        runs[rc] = (losses, scope, peak, base)
+        for key, per in (("flash_fwd", 2 if rc else 1),
+                         ("flash_bwd_dq", 1), ("flash_bwd_dkv", 1)):
+            want = per * N_LAYER * OPTIONS_STEPS
+            check(counts[key] == want, "options-flash (recompute=%s): %s "
+                  "launches %d != %d", rc, key, counts[key], want)
+            totals[key] = totals.get(key, 0) + counts[key]
+        check(all(np.isfinite(losses)), "options-flash: losses not finite")
+        log("options-flash (recompute=%s): %d Adam steps, losses %s; flash "
+            "launches %s; peak device memory %.1f MB (%.1f MB held before "
+            "the steps); %s", rc, OPTIONS_STEPS,
+            " ".join("%.6f" % x for x in losses),
+            {k: v for k, v in counts.items() if v}, peak / 1e6, base / 1e6,
+            smi)
+    differ = _same_state(torch, runs[True][1], runs[False][1], names)
+    check(runs[True][0] == runs[False][0] and not differ,
+          "options-flash: recompute is not bitwise equal to the plain run: "
+          "losses %s vs %s, %d persistables differ (first %s)",
+          runs[True][0], runs[False][0], len(differ), differ[:1])
+    # the steps' own peak: above what the card held before they began
+    # (the other run's scope among it)
+    above = {rc: runs[rc][2] - runs[rc][3] for rc in runs}
+    check(above[True] < above[False], "options-flash: recompute's peak "
+          "%d B above the held memory is not below the plain run's %d B",
+          above[True], above[False])
+    log("options-flash: recompute bitwise equal to the plain run (losses "
+        "and all %d persistables); peak device memory above what was held "
+        "before the steps %.1f MB with recompute vs %.1f MB without: %.1f "
+        "MB less", len(names), above[True] / 1e6, above[False] / 1e6,
+        (above[False] - above[True]) / 1e6)
+    # step ms, recompute / plain in A/B/A/B order
+    scopes = {rc: _scope_from(fluid, init, exe.device) for rc in (True,
+                                                                  False)}
+    ms = {True: [], False: []}
+    for _ in range(OPTIONS_PAIRS):
+        for rc in (True, False):
+            main, _, avg_cost = progs[rc]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in batches[:OPTIONS_STEPS]:
+                exe.run(main, feed=b, fetch_list=[avg_cost],
+                        scope=scopes[rc])
+            torch.cuda.synchronize()
+            ms[rc].append(1e3 * (time.perf_counter() - t0) / OPTIONS_STEPS)
+    step_ms = {rc: _median(ms[rc]) for rc in ms}
+    log("options-flash timing (%d pairs interleaved, %d steps each): step "
+        "ms with recompute %s (median %.3f), without %s (median %.3f); "
+        "recompute / plain %.3f; %s", OPTIONS_PAIRS, OPTIONS_STEPS,
+        " ".join("%.3f" % x for x in ms[True]), step_ms[True],
+        " ".join("%.3f" % x for x in ms[False]), step_ms[False],
+        step_ms[True] / step_ms[False], smi)
+    counts, _, gexe, _, gscope = _graph_vs_eager(
+        torch, fluid, progs[True], init, batches, "options-flash graph")
+    for key, per in (("flash_fwd", 2), ("flash_bwd_dq", 1),
+                     ("flash_bwd_dkv", 1)):
+        check(counts[key] == per * N_LAYER * len(batches), "options-flash "
+              "graph: %s launches %d through the replay != %d", key,
+              counts[key], per * N_LAYER * len(batches))
+        totals[key] += counts[key]
+    # the same A/B/A/B under the graphs: device time, the host's share
+    # removed (the plain program's graph captured by a first call)
+    scopes = {True: gscope, False: _scope_from(fluid, init, gexe.device)}
+    main, _, avg_cost = progs[False]
+    gexe.run_steps(main, feeds=batches, fetch_list=[avg_cost],
+                   scope=scopes[False])
+    gms = {True: [], False: []}
+    for _ in range(OPTIONS_PAIRS):
+        for rc in (True, False):
+            main, _, avg_cost = progs[rc]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gexe.run_steps(main, feeds=batches, fetch_list=[avg_cost],
+                           scope=scopes[rc])
+            torch.cuda.synchronize()
+            gms[rc].append(1e3 * (time.perf_counter() - t0) / len(batches))
+    graph_ms = {rc: _median(gms[rc]) for rc in gms}
+    log("options-flash timing under run_steps(K=%d) graphs (%d pairs "
+        "interleaved): step ms with recompute %s (median %.3f), without %s "
+        "(median %.3f); recompute / plain %.3f; %s", len(batches),
+        OPTIONS_PAIRS, " ".join("%.3f" % x for x in gms[True]),
+        graph_ms[True], " ".join("%.3f" % x for x in gms[False]),
+        graph_ms[False], graph_ms[True] / graph_ms[False], smi)
+    # one checkpoint=True step against the plain step
+    ckpt = _options_lm(fluid, T, checkpoint=True)
+    sa = _scope_from(fluid, init, exe.device)
+    sb = _scope_from(fluid, init, exe.device)
+    la, _ = _counted_steps(torch, exe, progs[False], sa, batches[:1])
+    lb, _ = _counted_steps(torch, exe, ckpt, sb, batches[:1])
+    differ = _same_state(torch, sa, sb, names)
+    check(la == lb and not differ, "options-flash: the checkpoint=True "
+          "step is not bitwise equal to the plain step: %s vs %s, %d "
+          "persistables differ", lb, la, len(differ))
+    log("options-flash: one append_backward(checkpoint=True) step bitwise "
+        "equal to the plain step (loss %.6f, %d persistables)", la[0],
+        len(names))
+    return totals, {"peak_mb": {"recompute": above[True] / 1e6,
+                                "plain": above[False] / 1e6},
+                    "step_ms": {"recompute": step_ms[True],
+                                "plain": step_ms[False]},
+                    "graph_step_ms": {"recompute": graph_ms[True],
+                                      "plain": graph_ms[False]}}
+
+
+def _gc_collect(torch):
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+
+
+DROPOUT_CASES = [((TRAIN_BATCH, MAX_LEN, D_MODEL), "float32", 0.1),
+                 ((TRAIN_BATCH, N_HEAD, MAX_LEN, MAX_LEN), "float32", 0.1),
+                 ((TRAIN_BATCH, N_HEAD, MAX_LEN, MAX_LEN), "float32", 0.5),
+                 ((1_000_003,), "float32", 0.1), ((4099,), "float32", 0.5),
+                 ((TRAIN_BATCH, MAX_LEN, D_MODEL), "bfloat16", 0.1),
+                 ((TRAIN_BATCH, N_HEAD, MAX_LEN, MAX_LEN), "bfloat16", 0.5)]
+
+
+def dropout_kernel_phase(torch):
+    """(b) The dropout kernel against its plain version, bit for bit on
+    Out and Mask, with and without the upscale factor and the mask, then
+    timed at the attention-weight shape [32, 8, 256, 256] f32 (the LM's
+    default downgrade_in_infer: no factor, no mask), device time alone
+    and with the host's gaps, against the plain version, the bytes bound
+    and torch.nn.functional.dropout (a yardstick the port never calls:
+    its masks differ)."""
+    from paddle_tpu_torch.ops import dropout as D
+    compared, err = 0, 0.0
+    for n, (shape, dtype, p) in enumerate(DROPOUT_CASES):
+        g = torch.Generator().manual_seed(300 + n)
+        x = torch.randn(shape, generator=g).to("cuda",
+                                               getattr(torch, dtype))
+        seed = torch.tensor(1000003 * 7 + n, device="cuda")
+        for scale in (False, True):
+            for want_mask in (False, True):
+                out, mask = D._dropout_cuda(x, seed, n, p, scale, want_mask)
+                pout, pmask = D._dropout_plain(x, seed, n, p, scale,
+                                               want_mask)
+                torch.cuda.synchronize()
+                err = max(err, float((out.float() - pout.float()).abs()
+                                     .max()))
+                check(torch.equal(out, pout), "dropout kernel Out differs "
+                      "from the plain version at %s %s p=%g scale=%s "
+                      "mask=%s (%d elements differ)", shape, dtype, p,
+                      scale, want_mask, int((out != pout).sum()))
+                if want_mask:
+                    check(torch.equal(mask, pmask), "dropout kernel Mask "
+                          "differs from the plain version at %s %s p=%g",
+                          shape, dtype, p)
+                compared += 1
+        keep = float(pmask.float().mean())
+        log("dropout kernel: %s %s p=%g: Out and Mask bitwise equal to the "
+            "plain version (4 variants); keep share %.5f", shape, dtype, p,
+            keep)
+    # two launches on the same inputs
+    x = torch.randn(TRAIN_BATCH, N_HEAD, MAX_LEN, MAX_LEN, device="cuda")
+    seed = torch.tensor(5, device="cuda")
+    a = D._dropout_cuda(x, seed, 3, DROPOUT_RATE, False, True)
+    b = D._dropout_cuda(x, seed, 3, DROPOUT_RATE, False, True)
+    check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+          "two dropout launches on the same inputs differ")
+    # timing at the attention-weight shape: four inputs rotate through the
+    # L2 (4 x 67 MB), as the layers of a step meet them
+    xs = [torch.randn(TRAIN_BATCH, N_HEAD, MAX_LEN, MAX_LEN, device="cuda")
+          for _ in range(4)]
+    fd = torch.nn.functional.dropout
+
+    def kern(i):
+        D._dropout_cuda(xs[i % 4], seed, 3, DROPOUT_RATE, False, False)
+
+    def lib(i):
+        fd(xs[i % 4], DROPOUT_RATE, training=True)
+
+    ms = _events_ms(torch, kern, 50, hide_host=True)
+    gaps = _events_ms(torch, kern, 50)
+    lib_ms = _events_ms(torch, lib, 50, hide_host=True)
+    lib_gaps = _events_ms(torch, lib, 50)
+    plain_ms = _events_ms(torch, lambda i: D._dropout_plain(
+        xs[i % 4], seed, 3, DROPOUT_RATE, False, False), 5, hide_host=True)
+    nbytes = 2 * xs[0].numel() * 4          # x read once, Out written once
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log("timing dropout ([32, 8, 256, 256] f32, p=%g, no mask), device time "
+        "alone: kernel_ms=%.5f bound_ms=%.5f (bytes: %d) plain_ms=%.5f "
+        "library_ms=%.5f (F.dropout); with the host's gaps: kernel_ms=%.5f "
+        "library_ms=%.5f; kernel / bound %.2f; %d comparisons bitwise",
+        DROPOUT_RATE, ms, bound, nbytes, plain_ms, lib_ms, gaps, lib_gaps,
+        ms / bound, compared)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": lib_ms,
+            "ms_with_host_gaps": gaps, "library_ms_with_host_gaps": lib_gaps,
+            "max_abs_err": err}
+
+
+def options_dropout_phase(torch, smi):
+    """(c) Configuration B: transformer_lm(packed=True, dropout_rate=0.1,
+    label_smooth_eps=0.1) with Adam(1e-3) at full width: 10 eager steps,
+    losses finite and falling; recompute against no recompute bitwise;
+    5 run() calls against one run_steps(K=5) dispatch bitwise; dropout
+    launches counted exactly; step ms eager and under the graph; one
+    traced pass."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer as T
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    progs = {rc: _options_lm(fluid, T, recompute=rc, dropout=DROPOUT_RATE)
+             for rc in (False, True)}
+    init = _init_of(fluid, exe, progs[False][1])
+    names = sorted(init)
+    fixed = [T.make_lm_batch(np.random.RandomState(seed), TRAIN_BATCH,
+                             MAX_LEN, VOCAB) for seed in (0, 1)]
+    total = 0
+    scope = _scope_from(fluid, init, exe.device)
+    losses, counts = _counted_steps(
+        torch, exe, progs[False], scope,
+        [fixed[i % 2] for i in range(DROPOUT_TRAIN_STEPS)])
+    want = DROPOUT_PER_STEP[False] * DROPOUT_TRAIN_STEPS
+    check(counts["dropout"] == want, "options-dropout: %d dropout launches "
+          "!= %d", counts["dropout"], want)
+    check(not any(counts[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                      "flash_bwd_dkv")),
+          "options-dropout: the dropout LM launched a flash kernel")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "options-dropout: losses not finite and falling: %s", losses)
+    total += counts["dropout"]
+    log("options-dropout: %d Adam steps over 2 fixed batches, losses %s; "
+        "dropout launches %d (%d a step); %s", DROPOUT_TRAIN_STEPS,
+        " ".join("%.4f" % x for x in losses), counts["dropout"],
+        DROPOUT_PER_STEP[False], smi)
+    batches = [T.make_lm_batch(np.random.RandomState(70 + i), TRAIN_BATCH,
+                               MAX_LEN, VOCAB) for i in range(MEGA_TRAIN_K)]
+    # contract (c): recompute against no recompute, fresh executors
+    runs = {}
+    for rc in (False, True):
+        ex = fluid.Executor(fluid.CUDAPlace(0))
+        scope = _scope_from(fluid, init, ex.device)
+        losses, counts = _counted_steps(torch, ex, progs[rc], scope,
+                                        batches[:OPTIONS_STEPS])
+        want = DROPOUT_PER_STEP[rc] * OPTIONS_STEPS
+        check(counts["dropout"] == want, "options-dropout (recompute=%s): "
+              "%d dropout launches != %d", rc, counts["dropout"], want)
+        total += counts["dropout"]
+        runs[rc] = (losses, scope)
+    differ = _same_state(torch, runs[True][1], runs[False][1], names)
+    check(runs[True][0] == runs[False][0] and not differ,
+          "options-dropout: recompute is not bitwise equal to no recompute:"
+          " losses %s vs %s, %d persistables differ (first %s)",
+          runs[True][0], runs[False][0], len(differ), differ[:1])
+    log("options-dropout: %d steps with recompute bitwise equal to %d "
+        "without (losses %s, all %d persistables); dropout launches %d and "
+        "%d a step", OPTIONS_STEPS, OPTIONS_STEPS,
+        " ".join("%.6f" % x for x in runs[True][0]), len(names),
+        DROPOUT_PER_STEP[True], DROPOUT_PER_STEP[False])
+    # contract (a): one run_steps(K=5) dispatch against 5 run() calls
+    counts, eager, graph, sa, sb = _graph_vs_eager(
+        torch, fluid, progs[False], init, batches, "options-dropout graph")
+    want = DROPOUT_PER_STEP[False] * len(batches)
+    check(counts["dropout"] == want, "options-dropout graph: %d dropout "
+          "launches through the replay != %d", counts["dropout"], want)
+    total += counts["dropout"]
+    # step ms eager and under the graph, A/B/A/B
+    main, _, avg_cost = progs[False]
+    ms = {"eager": [], "graph": []}
+    for _ in range(OPTIONS_PAIRS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            eager.run(main, feed=b, fetch_list=[avg_cost], scope=sa)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        graph.run_steps(main, feeds=batches, fetch_list=[avg_cost],
+                        scope=sb)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ms["eager"].append(1e3 * (t1 - t0) / len(batches))
+        ms["graph"].append(1e3 * (t2 - t1) / len(batches))
+    step_ms = {k: _median(v) for k, v in ms.items()}
+    log("options-dropout timing (%d pairs interleaved, %d steps each): step "
+        "ms eager %s (median %.3f), graph %s (median %.3f); graph / eager "
+        "%.3f; %s", OPTIONS_PAIRS, len(batches),
+        " ".join("%.3f" % x for x in ms["eager"]), step_ms["eager"],
+        " ".join("%.3f" % x for x in ms["graph"]), step_ms["graph"],
+        step_ms["graph"] / step_ms["eager"], smi)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[:OPTIONS_STEPS]:
+            eager.run(main, feed=b, fetch_list=[avg_cost], scope=sa)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, _ = _report_profile(prof, wall, "options-dropout profile (traced, "
+                              "%d eager steps)" % OPTIONS_STEPS,
+                              focus="dropout_kernel")
+    return total, {"step_ms": step_ms, "busy": busy}
+
+
+def _proximal_lm(fluid, T, op_type):
+    """The reduced LM trained by one proximal rule per parameter (the JAX
+    package has no class for these: its ops are appended as
+    tests/test_ops_sweep2.py drives them)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        avg_cost, _ = T.transformer_lm(packed=True, **OPT_LM)
+        pg = fluid.append_backward(avg_cost)
+        blk = main.global_block()
+        lr = fluid.layers.create_global_var([1], 0.05, "float32",
+                                            persistable=True, name="prox_lr")
+        for p, g in sorted(pg, key=lambda x: x[0].name):
+            inputs = {"Param": [p.name], "Grad": [g.name],
+                      "LearningRate": [lr.name]}
+            outputs = {"ParamOut": [p.name]}
+            if op_type == "proximal_adagrad":
+                m = fluid.layers.create_global_var(
+                    list(p.shape), 0.1, "float32", persistable=True,
+                    name=p.name + "_prox_moment")
+                inputs["Moment"] = [m.name]
+                outputs["MomentOut"] = [m.name]
+            blk.append_op(type=op_type, inputs=inputs, outputs=outputs,
+                          attrs={"l1": 1e-3, "l2": 1e-3})
+    return main, startup, avg_cost
+
+
+def options_optimizer_phase(torch):
+    """(d) The optimizer family on the reduced LM (2 layers, d_model 128,
+    T 64, batch 8, vocab 4096): each of the nine update rules and the
+    three gradient clips with L2 decay, 2 steps on the card against the
+    port's CPU path from the same startup values, losses and every
+    persistable within 2e-4 of max(1, max|w|); ModelAverage's apply /
+    restore round trip bitwise."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer as T
+    cuda = fluid.Executor(fluid.CUDAPlace(0))
+    cpu = fluid.Executor(fluid.CPUPlace())
+    batches = [T.make_lm_batch(np.random.RandomState(80 + i), OPT_BATCH,
+                               OPT_LM["max_len"], VOCAB)
+               for i in range(OPT_STEPS)]
+    l2 = lambda f: f.regularizer.L2Decay(1e-4)  # noqa: E731
+    cases = [
+        # the rules that divide by |g| (adagrad, decayed_adagrad, adamax)
+        # carry the card's and the CPU's gradient rounding (~1e-8 on
+        # weights whose gradient sums to near zero) into the weights
+        # times lr / epsilon; at lr / epsilon <= 1e4 that stays ~1e-4, so
+        # a 2e-4 gap is the rule's, not the summation order's (decayed
+        # adagrad at lr 0.05, epsilon 1e-6 parted by 5.4e-4 on an H100
+        # 80GB HBM3 at 700 W)
+        ("adagrad", lambda f: f.optimizer.Adagrad(0.01)),
+        # epsilon 1e-6, as the other rules' defaults: at Adamax's 1e-8 the
+        # first step moves every weight by lr x sign(g) once |g| > 1e-8,
+        # so a gradient that sums to within rounding of zero (its sign
+        # set by the summation order) moves its weight 2 lr apart between
+        # the card and the CPU (0.0104 of max(1, max|w|) on an H100 80GB
+        # HBM3 at 700 W)
+        ("adamax", lambda f: f.optimizer.Adamax(0.01, epsilon=1e-6)),
+        ("decayed_adagrad", lambda f: f.optimizer.DecayedAdagrad(0.01)),
+        ("adadelta", lambda f: f.optimizer.Adadelta(1.0)),
+        ("rmsprop", lambda f: f.optimizer.RMSProp(0.01, momentum=0.5)),
+        ("ftrl", lambda f: f.optimizer.Ftrl(0.05, l1=1e-3, l2=1e-3)),
+        ("proximal_gd", None), ("proximal_adagrad", None),
+        ("average_accumulates", lambda f: f.optimizer.SGD(0.1)),
+        ("clip_by_value+l2", lambda f: f.optimizer.SGD(
+            0.1, regularization=l2(f))),
+        ("clip_by_norm+l2", lambda f: f.optimizer.SGD(
+            0.1, regularization=l2(f))),
+        ("clip_by_global_norm+l2", lambda f: f.optimizer.SGD(
+            0.1, regularization=l2(f))),
+    ]
+    clips = {"clip_by_value+l2": lambda f: f.clip.GradientClipByValue(0.01),
+             "clip_by_norm+l2": lambda f: f.clip.GradientClipByNorm(0.05),
+             "clip_by_global_norm+l2":
+                 lambda f: f.clip.GradientClipByGlobalNorm(0.1)}
+    worst = 0.0
+    for name, make in cases:
+        average = None
+        if make is None:
+            prog = _proximal_lm(fluid, T, name)
+        else:
+            main, startup = fluid.Program(), fluid.Program()
+            with fluid.program_guard(main, startup), \
+                    fluid.unique_name.guard():
+                avg_cost, _ = T.transformer_lm(packed=True, **OPT_LM)
+                if name in clips:
+                    fluid.clip.set_gradient_clip(clips[name](fluid))
+                make(fluid).minimize(avg_cost)
+                if name == "average_accumulates":
+                    average = fluid.optimizer.ModelAverage(
+                        0.5, min_average_window=2, max_average_window=3)
+            prog = (main, startup, avg_cost)
+        op_type = name.split("+")[0]
+        types = {op.type for op in prog[0].global_block().ops}
+        want = {"clip_by_value": "clip", "clip_by_norm": "clip_by_norm",
+                "clip_by_global_norm": "elementwise_max"}.get(op_type,
+                                                              op_type)
+        check(want in types, "optimizer %s: no %s op in the program", name,
+              want)
+        init = _init_of(fluid, cpu, prog[1])
+        sg = _scope_from(fluid, init, cuda.device)
+        sc = _scope_from(fluid, init, cpu.device)
+        lg, _ = _counted_steps(torch, cuda, prog, sg, batches)
+        lc = [float(cpu.run(prog[0], feed=b, fetch_list=[prog[2]],
+                            scope=sc)[0]) for b in batches]
+        apart = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(lg, lc))
+        for n in init:
+            a, b = sg.get_numpy(n), sc.get_numpy(n)
+            if a.dtype.kind == "f":
+                apart = max(apart, float(np.abs(a - b).max())
+                            / max(1.0, float(np.abs(b).max())))
+            else:
+                check(np.array_equal(a, b), "optimizer %s: %s differs", name,
+                      n)
+        check(apart <= OPT_TOL, "optimizer %s: the card is %g apart from "
+              "the CPU path (limit %g)", name, apart, OPT_TOL)
+        worst = max(worst, apart)
+        msg = ""
+        if average is not None:
+            params = [p.name for p, _ in average.params_grads]
+            before = {n: sg.find_var(n).clone() for n in params}
+            held = {n: sg.find_var(n) for n in params}
+            average.apply(cuda, scope=sg)
+            gavg = {n: sg.get_numpy(n) for n in params}
+            average.restore(cuda)
+            average.apply(cpu, scope=sc)
+            for n in params:
+                b = sc.get_numpy(n)
+                check(float(np.abs(gavg[n] - b).max())
+                      <= OPT_TOL * max(1.0, float(np.abs(b).max())),
+                      "ModelAverage.apply: %s on the card differs from the "
+                      "CPU path", n)
+            average.restore(cpu)
+            check(all(sg.find_var(n) is held[n]
+                      and torch.equal(held[n], before[n]) for n in params),
+                  "ModelAverage.restore did not give back the parameters "
+                  "bitwise")
+            msg = "; ModelAverage apply/restore round trip bitwise (%d " \
+                "params)" % len(params)
+        log("optimizer %s: %d steps on the card, losses %s, within %.3g of "
+            "the CPU path (limit %g)%s", name, OPT_STEPS,
+            " ".join("%.6f" % x for x in lg), apart, OPT_TOL, msg)
+    return worst
+
+
+def options_phase(torch, smi):
+    """Phase 12: the flagship's training options. Returns (flash launches
+    of configuration A's counted runs, dropout launches of
+    configuration B's, the dropout kernel's times)."""
+    flash, _ = options_flash_phase(torch, smi)
+    times = dropout_kernel_phase(torch)
+    drops, _ = options_dropout_phase(torch, smi)
+    options_optimizer_phase(torch)
+    return flash, drops, times
+
+
 def _report_profile(prof, wall, title, focus=None):
     """Device busy share of ``wall`` and the top kernels; with ``focus``,
     also the share of the kernels whose names hold it. Returns (busy
@@ -2906,6 +3530,8 @@ def main():
         spec_launches, scoring_launches, _ = spec_serve_phase(torch, smi,
                                                               seqs)
         io_launches, _ = io_phase(torch, smi)
+        options_flash, options_dropout, dropout_times = options_phase(
+            torch, smi)
     except SmokeFailure as e:
         print("chip_smoke: FAILED: %s" % e, file=sys.stderr)
         return 1
@@ -2930,9 +3556,10 @@ def main():
             "name": name, "route": "cuda", "source": flash_src,
             "replaces": "paddle_tpu/ops/flash_attention.py:%d" % line,
             "launches": (flash_launches[name] + lm_counts[name]
-                         + io_launches[name]),
+                         + io_launches[name] + options_flash[name]),
             "graph_launches": lm_counts[name],
             "io_launches": io_launches[name],
+            "options_launches": options_flash[name],
             "max_abs_err": flash_err[name]}, **flash_times[name]))
     kernels.append(dict({
         "name": "matmul_stats", "route": "cuda",
@@ -2940,6 +3567,13 @@ def main():
         "replaces": "paddle_tpu/ops/matmul_stats.py:72",
         "launches": mm_launches + mm_graph, "graph_launches": mm_graph,
         "max_abs_err": mm_err}, **mm_times))
+    kernels.append(dict({
+        "name": "dropout", "route": "cuda", "tpu_kernel": False,
+        "source": "paddle_tpu_torch/ops/csrc/dropout.cu",
+        "replaces": "paddle_tpu/ops/nn.py:51 (jax.random.bernoulli, fused "
+                    "by XLA: no Pallas kernel)",
+        "launches": options_dropout, "options_launches": options_dropout},
+        **dropout_times))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -27,7 +27,14 @@ Ported so far:
     same step bodies in a loop on the CPU;
   * persistence: ``io`` (vars, checkpoints and the CRC-manifested
     inference artifact, in the JAX package's file formats), and serving
-    cold start from an artifact directory (``serving.Engine(<dir>)``).
+    cold start from an artifact directory (``serving.Engine(<dir>)``);
+  * training options: ``layers.recompute`` regions and
+    ``append_backward(checkpoint=True)`` (``torch.utils.checkpoint``),
+    ``calc_gradient``/``gradients``, label smoothing, dropout on the
+    hand-written CUDA dropout kernel (``ops/csrc/dropout.cu``, counter-
+    keyed Philox bits that a CUDA graph replays), the whole optimizer
+    family with ``ModelAverage``, the gradient clips and the L1/L2
+    regularizers.
 
 Used as ``import paddle_tpu_torch as fluid``, as scripts use
 ``paddle_tpu``.
@@ -38,11 +45,14 @@ from . import ops  # noqa: F401  (registers the lowerings)
 from . import layers  # noqa: F401
 from . import initializer  # noqa: F401
 from . import optimizer  # noqa: F401
+from . import regularizer  # noqa: F401
+from . import clip  # noqa: F401
 from . import io  # noqa: F401
 from .core import (  # noqa: F401
     CPUPlace, CUDAPlace, Executor, Program, Scope, TPUPlace,
-    append_backward, default_main_program, default_startup_program,
-    global_scope, load_numpy_state, program_guard, scope_guard,
-    unique_name,
+    append_backward, calc_gradient, default_main_program,
+    default_startup_program, global_scope, gradients, load_numpy_state,
+    program_guard, scope_guard, unique_name,
 )
+from .core import backward  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401

@@ -1,5 +1,5 @@
 from . import unique_name  # noqa: F401
-from .backward import append_backward  # noqa: F401
+from .backward import append_backward, calc_gradient, gradients  # noqa: F401
 from .executor import Executor, as_numpy  # noqa: F401
 from .places import CPUPlace, CUDAPlace, TPUPlace, resolve_device  # noqa: F401
 from .program import (  # noqa: F401

@@ -10,22 +10,33 @@ order ``_build`` traces them there, and one ``run`` is one step:
   * persistable variables of the program found in the scope are the step
     state; the values the step leaves under those names, and any new
     persistable value (startup initializers), are committed back;
-  * random ops draw from one ``torch.Generator`` per run, seeded with
-    ``program.random_seed * 1000003 + run counter`` (the JAX package's
-    per-run key derivation; the draws themselves differ from threefry's);
+  * each run has a seed, ``program.random_seed * 1000003 + run
+    counter`` (the JAX package's per-run key derivation). Dropout draws
+    counter-keyed Philox bits from it (an int64 device scalar) and its
+    op's key, the op's ordinal among the program's random ops
+    (``registry.random_op_keys``); the initializers draw from one
+    ``torch.Generator`` seeded with it. The draws differ from threefry's;
   * a ``backward_marker`` (``append_backward``) runs the forward segment
     under ``torch.autograd`` in place of ``jax.value_and_grad``, binds
-    every ``P@GRAD``, then runs the optimizer ops without autograd.
+    every ``P@GRAD``, then runs the optimizer ops without autograd. With
+    ``checkpoint=True`` the whole forward runs under
+    ``torch.utils.checkpoint`` (non-reentrant) and only the targets, the
+    persistables, the ``wrt`` values and what the optimizer ops read
+    survive it, as in the JAX package: fetching another forward
+    intermediate raises ``KeyError``. A ``calc_gradient_marker``
+    (``calc_gradient``) binds ``X@GRAD`` for its inputs, feeds included.
 
 ``run_steps`` (megastep) runs K steps as one dispatch: on the card the
 K step bodies are captured once into a CUDA graph (``core/graphs.py``)
-over static feed, state and fetch buffers and replayed; on the CPU the
-same bodies run in a loop over the same buffers.
+over static feed, state, seed and fetch buffers and replayed; on the CPU
+the same bodies run in a loop over the same buffers. The K run seeds are
+staged into a ``[K]`` buffer with one copy a dispatch, so dropout inside
+a graph draws what K ``run()`` calls draw.
 
-What the port leaves out raises, naming ROADMAP.md: host (IO) ops, the
-marker's ``checkpoint`` attribute, ``calc_gradient``, NaN guards, the
-transform pipeline, the monitor, LoD feeds, and random draws inside a
-``run_steps`` graph on the card. Gradient accumulation is a
+What the port leaves out raises, naming ROADMAP.md: host (IO) ops, NaN
+guards, the transform pipeline, the monitor, LoD feeds, and draws from a
+``torch.Generator`` (the initializers) inside a ``run_steps`` graph on
+the card. Gradient accumulation is a
 ``ParallelExecutor`` build option in the JAX package; that entry point
 is not ported, so nothing here can ask for it.
 """
@@ -35,6 +46,7 @@ import weakref
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as _checkpoint
 
 from .. import flags
 from . import graphs as _graphs
@@ -103,6 +115,9 @@ class Executor:
         self._rng_counter = 0
         self._megasteps = {}     # run_steps cache key -> _Megastep
         self._inflight = []      # un-fetched run_steps dispatches
+        # op -> {(shape, dtype): (values attr, tensor)}: the temporary
+        # constants (assign_value) made on this executor's device
+        self.constants = weakref.WeakKeyDictionary()
         self.stats = {"megastep_dispatches": 0, "graph_captures": 0,
                       "graph_replays": 0}
 
@@ -125,19 +140,34 @@ class Executor:
                 state[n] = to_tensor(v, self.device)
         step = self._build(program, tuple(sorted(feeds)), fetch_names,
                            tuple(sorted(state)))
+        seed = self._seed(program, self._rng_counter)
         gen = self._generator(program, self._rng_counter)
         self._rng_counter += 1
+        seed_t = []
+
+        def seed_fn():
+            # made at the first draw: a run without dropout makes none
+            if not seed_t:
+                seed_t.append(torch.full((), seed, dtype=torch.int64,
+                                         device=self.device))
+            return seed_t[0]
+
         with _tf32_off():
-            fetches, new_state = step(state, feeds, lambda: gen)
+            fetches, new_state = step(state, feeds, lambda: gen, seed_fn)
         for n, v in new_state.items():
             scope.set(n, v)
         if return_numpy:
             return [as_numpy(v) for v in fetches]
         return list(fetches)
 
+    @staticmethod
+    def _seed(program, counter):
+        """The run seed of the run at ``counter``."""
+        return program.random_seed * 1000003 + counter
+
     def _generator(self, program, counter):
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(program.random_seed * 1000003 + counter)
+        gen.manual_seed(self._seed(program, counter))
         return gen
 
     # -- megastep -------------------------------------------------------
@@ -165,9 +195,11 @@ class Executor:
         tensor replaced since is copied in before the replay), updated in
         place at the end of each step, and each step's fetches are
         copied out so that no later dispatch overwrites what a caller
-        holds. Refused: programs with host (IO) ops and steps that make
-        new persistables (startup programs: ``run()`` those), and, on
-        the card, random draws (ROADMAP.md, queue 1 item 3)."""
+        holds. The K run seeds go into a ``[K]`` buffer the same way, so
+        dropout draws what K ``run()`` calls draw. Refused: programs with
+        host (IO) ops, steps that make new persistables (startup
+        programs: ``run()`` those), and, on the card, draws from a
+        ``torch.Generator`` (the initializers)."""
         feeds, k = self._check_run_steps_args(feeds, k)
         program = program or default_main_program()
         scope = scope or global_scope()
@@ -209,7 +241,8 @@ class Executor:
             done = self._inflight.pop(0)
             if done is not None:
                 done.synchronize()
-        mega.stage(staged)
+        mega.stage(staged, [self._seed(program, base + i)
+                            for i in range(k)])
         mega.bind(scope)
         with _tf32_off():
             if self.device.type == "cuda":
@@ -259,11 +292,12 @@ class Executor:
 
     # ------------------------------------------------------------------
     def _build(self, program, feed_names, fetch_names, state_keys):
-        """The step function ``step(state, feeds, rng) -> (fetches,
-        new_state)`` for one program, as the JAX package's ``_build``
-        returns it (there it is traced and jitted; here it runs the
-        lowerings eagerly each call). ``rng()`` hands the random ops
-        the step's ``torch.Generator``."""
+        """The step function ``step(state, feeds, rng, seed) ->
+        (fetches, new_state)`` for one program, as the JAX package's
+        ``_build`` returns it (there it is traced and jitted; here it
+        runs the lowerings eagerly each call). ``rng()`` hands the
+        initializers the step's ``torch.Generator`` and ``seed()`` the
+        dropout draws the step's seed, an int64 device scalar."""
         block = program.global_block()
         ops = list(block.ops)
         for op in ops:
@@ -271,29 +305,27 @@ class Executor:
                 raise _left_out("host (IO) op %r" % op.type, "10")
         persistable_names = {v.name for v in block.vars.values()
                              if v.persistable}
-        read_names = {n for op in ops for n in op.input_names}
+        read_names = set()
+        for blk in program.blocks:
+            read_names.update(n for op in blk.ops for n in op.input_names)
         read_names.update(fetch_names)
         read_names.update(persistable_names)
+        rng_keys = registry.random_op_keys(block)
         bwd_idx = None
         for i, op in enumerate(ops):
-            if op.type == "calc_gradient_marker":
-                raise _left_out("calc_gradient", "3")
-            if op.type == "backward_marker":
-                if op.attr("checkpoint"):
-                    raise _left_out(
-                        "append_backward(checkpoint=True) "
-                        "rematerialization", "3")
+            if op.type in ("backward_marker", "calc_gradient_marker"):
                 bwd_idx = i
                 break
 
-        def step(state, feeds, rng):
+        def step(state, feeds, rng, seed):
             env = {}
             env.update(state)
             env.update(feeds)
             ctx = registry.LowerContext(env, rng, self.device,
                                         executor=self, block=block,
                                         fetch_names=fetch_names,
-                                        read_names=read_names)
+                                        read_names=read_names,
+                                        seed_fn=seed, rng_keys=rng_keys)
             if bwd_idx is None:
                 with torch.no_grad():
                     for op in ops:
@@ -312,36 +344,58 @@ class Executor:
         return step
 
     @staticmethod
+    def _parse_marker(marker):
+        """A grad marker's (wrt names, target names)."""
+        if marker.type == "backward_marker":
+            return (marker.attr("param_names") or [],
+                    [marker.attr("loss_name")])
+        return (marker.attr("input_names") or [],
+                marker.attr("target_names") or [])
+
+    @staticmethod
     def _lower_with_grad(ctx, ops, bwd_idx):
-        """Run the forward ops with autograd, bind ``P@GRAD``, then run
+        """Run the forward ops with autograd, bind ``X@GRAD``, then run
         the remaining (optimizer) ops without it.
 
-        The ``wrt`` parameters become fresh leaf tensors (detached views
-        of the state: the optimizer lowerings write new tensors, never
-        into these, so nothing the graph holds changes under it). The
-        objective is the sum of the targets, each summed when not a
+        The ``wrt`` values (parameters, or any input of a
+        ``calc_gradient``, feeds included) become fresh leaf tensors
+        (detached views: the optimizer lowerings write new tensors,
+        never into these, so nothing the graph holds changes under it).
+        The objective is the sum of the targets, each summed when not a
         scalar, as the JAX package's ``value_and_grad`` objective. A
-        parameter the loss does not reach gets zeros, as ``jax.grad``
-        gives; ``loss@GRAD`` is ones."""
+        value the targets do not reach gets zeros, as ``jax.grad``
+        gives; ``loss@GRAD`` is ones.
+
+        ``append_backward(..., checkpoint=True)`` runs the WHOLE forward
+        under a non-reentrant ``torch.utils.checkpoint``: only the step
+        inputs are saved and the forward runs again in the backward.
+        Only the targets, the persistables, the ``wrt`` values and what
+        the post-marker ops read leave it (the JAX package's rule), so
+        fetching another forward intermediate raises ``KeyError``."""
         marker = ops[bwd_idx]
-        wrt_names = marker.attr("param_names") or []
-        target_names = [marker.attr("loss_name")]
+        wrt_names, target_names = Executor._parse_marker(marker)
         leaves = {n: ctx.env[n].detach().requires_grad_(True)
                   for n in wrt_names if n in ctx.env}
         ctx.env.update(leaves)
+        names = list(leaves)
+        use_ckpt = marker.type == "backward_marker" and \
+            bool(marker.attr("checkpoint"))
         with torch.enable_grad():
-            for op in ops[:bwd_idx]:
-                _lower_op(ctx, op)
-            total = 0.0
-            for tn in target_names:
-                t = ctx.env[tn]
-                total = total + (t if t.dim() == 0 else t.sum())
-            names = list(leaves)
+            if use_ckpt:
+                total = Executor._checkpointed_forward(
+                    ctx, ops, bwd_idx, names, target_names,
+                    [leaves[n] for n in names])
+            else:
+                for op in ops[:bwd_idx]:
+                    _lower_op(ctx, op)
+                total = _objective(ctx.env, target_names)
             grads = torch.autograd.grad(
-                total, [leaves[n] for n in names], allow_unused=True)
-        loss_val = ctx.env[target_names[0]]
-        ctx.env[target_names[0] + "@GRAD"] = torch.ones_like(
-            loss_val.detach())
+                total, [leaves[n] for n in names],
+                allow_unused=True) if names else ()
+        if marker.type == "backward_marker":
+            loss_val = ctx.env[target_names[0]]
+            ctx.env[target_names[0] + "@GRAD"] = torch.ones_like(
+                loss_val.detach())
         for n, g in zip(names, grads):
             ctx.env[n + "@GRAD"] = torch.zeros_like(leaves[n]) \
                 if g is None else g
@@ -349,6 +403,41 @@ class Executor:
         with torch.no_grad():
             for op in ops[bwd_idx + 1:]:
                 _lower_op(ctx, op)
+
+    @staticmethod
+    def _checkpointed_forward(ctx, ops, bwd_idx, names, target_names,
+                              vals):
+        """The forward ops under one non-reentrant checkpoint: returns
+        the objective and leaves in ``ctx.env`` only what survives."""
+        block = ctx.block
+        keep = {v.name for v in block.vars.values() if v.persistable}
+        keep.update(target_names)
+        keep.update(names)
+        keep.update(n for op in ops[bwd_idx + 1:] for n in op.input_names)
+        base_env = dict(ctx.env)
+
+        def forward(*leaf_vals):
+            env = dict(base_env)
+            env.update(zip(names, leaf_vals))
+            fctx = ctx.sub_context(env, block)
+            for op in ops[:bwd_idx]:
+                _lower_op(fctx, op)
+            return (_objective(env, target_names),
+                    {n: v for n, v in env.items() if n in keep})
+
+        total, kept = _checkpoint.checkpoint(
+            forward, *vals, use_reentrant=False, preserve_rng_state=False)
+        ctx.env.update(kept)
+        return total
+
+
+def _objective(env, target_names):
+    """The sum of the targets, each summed when not a scalar."""
+    total = 0.0
+    for tn in target_names:
+        t = env[tn]
+        total = total + (t if t.dim() == 0 else t.sum())
+    return total
 
 
 @contextlib.contextmanager
@@ -419,10 +508,11 @@ def _stack_feeds(feeds, k):
 
 def _no_draws():
     raise NotImplementedError(
-        "a random op inside an Executor.run_steps step on the card: the "
-        "CUDA graph would replay one draw K times. Draws equal to K run() "
-        "calls are not ported yet (ROADMAP.md, queue 1 item 3); use run() "
-        "per step")
+        "a random op drawing from a torch.Generator (uniform_random, "
+        "gaussian_random, truncated_gaussian_random) inside an "
+        "Executor.run_steps step on the card: the CUDA graph would replay "
+        "one draw K times (dropout's counter-keyed draws are not affected; "
+        "ROADMAP.md, queue 1 item 2); run() the initializers")
 
 
 class _Megastep:
@@ -442,20 +532,27 @@ class _Megastep:
                       for n, shape, dt in feed_sig}
         self.state = {n: torch.empty(shape, dtype=dt, device=device)
                       for n, shape, dt in state_sig}
+        # the K steps' run seeds; step i's draws read row i
+        self.seeds = torch.empty((k,), dtype=torch.int64, device=device)
         self.fetches = None      # made at the first step, from its fetches
         self.graph = None
         self._owner = None       # weakref to the scope holding the state
 
-    def stage(self, stacked):
-        """One copy per feed into its ``[K, ...]`` buffer (narrowed on the
-        host, then through pinned memory without a wait, on the card)."""
+    def stage(self, stacked, seeds):
+        """One copy per feed into its ``[K, ...]`` buffer, and one of the
+        K run seeds into theirs."""
         for name, src in stacked.items():
-            buf = self.feeds[name]
-            if src.device.type == "cpu":
-                src = src.to(buf.dtype)
-                if self.device.type == "cuda":
-                    src = src.pin_memory()
-            buf.copy_(src, non_blocking=True)
+            self._copy_in(self.feeds[name], src)
+        self._copy_in(self.seeds, torch.tensor(seeds, dtype=torch.int64))
+
+    def _copy_in(self, buf, src):
+        """Narrowed on the host, then through pinned memory without a
+        wait, on the card."""
+        if src.device.type == "cpu":
+            src = src.to(buf.dtype)
+            if self.device.type == "cuda":
+                src = src.pin_memory()
+        buf.copy_(src, non_blocking=True)
 
     def bind(self, scope):
         """Lend the state tensors to ``scope``: a scope value that is not
@@ -501,8 +598,10 @@ class _Megastep:
     def _body(self, state, i, rng):
         """Step ``i``: read feed row i, write fetch row i, update
         ``state`` in place."""
+        seed = self.seeds[i]
         fetches, new = self.step(
-            state, {n: b[i] for n, b in self.feeds.items()}, rng)
+            state, {n: b[i] for n, b in self.feeds.items()}, rng,
+            lambda: seed)
         extra = sorted(set(new) - set(state))
         if extra:
             raise ValueError(
@@ -542,6 +641,12 @@ def _commit(state, new):
         t.copy_(v)
 
 
+# errors a lowering passes on as they are: its own, and the checkpoint's
+# signal that a recompute has rebuilt every tensor the backward needs
+_PASS_THROUGH = (EnforceError, NotImplementedError,
+                 _checkpoint._StopRecomputationError)
+
+
 def _lower_op(ctx, op):
     if op.type in ("feed", "fetch"):
         _lower_feed_fetch(ctx, op)
@@ -554,7 +659,7 @@ def _lower_op(ctx, op):
             % (op.type, len(registry.registered_ops())))
     try:
         info.lower(ctx, op)
-    except (EnforceError, NotImplementedError):
+    except _PASS_THROUGH:
         raise
     except Exception as e:  # annotate with op context (enforce.h:203 parity)
         raise op_error(op, ctx.env, e) from e

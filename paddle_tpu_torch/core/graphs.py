@@ -27,28 +27,31 @@ __all__ = ["StepGraph", "launch_counts"]
 
 
 def _kernel_modules():
-    from ..ops import flash_attention, matmul_stats, paged_attention
-    return flash_attention, matmul_stats, paged_attention
+    from ..ops import dropout, flash_attention, matmul_stats, paged_attention
+    return flash_attention, matmul_stats, paged_attention, dropout
 
 
 def launch_counts():
     """{kernel: launches so far} over the port's kernel wrappers:
-    ``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``, ``matmul_stats``
-    and ``paged_attention``."""
-    fa, ms, pa = _kernel_modules()
+    ``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``, ``matmul_stats``,
+    ``paged_attention`` and ``dropout``."""
+    fa, ms, pa, do = _kernel_modules()
     out = {"flash_" + k: n for k, n in fa.flash_attention.launches.items()}
     out["matmul_stats"] = ms.matmul_colstats.launches
     out["paged_attention"] = pa.paged_attention.launches
+    out["dropout"] = do.dropout.launches
     return out
 
 
 def _add_launches(delta):
-    fa, ms, pa = _kernel_modules()
+    fa, ms, pa, do = _kernel_modules()
     for name, n in delta.items():
         if name.startswith("flash_"):
             fa.flash_attention.launches[name[len("flash_"):]] += n
         elif name == "matmul_stats":
             ms.matmul_colstats.launches += n
+        elif name == "dropout":
+            do.dropout.launches += n
         else:
             pa.paged_attention.launches += n
 
@@ -75,7 +78,7 @@ class StepGraph:
         warm-up made is dropped, so the capture allocates its own in the
         graph's pool (its arrival counters zero-filled at every replay's
         start); the graph keeps it, and its stream, alive."""
-        _, _, pa = _kernel_modules()
+        pa = _kernel_modules()[2]
         dev = self.device
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))

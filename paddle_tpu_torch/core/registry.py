@@ -5,24 +5,32 @@ registers a lowering rule, a function ``(ctx, op) -> None`` that reads
 its inputs from ``ctx.env`` and writes its outputs there. The JAX package
 traces these rules into one XLA computation; the port's Executor calls
 them eagerly on torch tensors, in program order. Hand-written kernels sit
-inside lowering bodies (``sp_attention`` -> ``ops/flash_attention``).
+inside lowering bodies (``sp_attention`` -> ``ops/flash_attention``,
+``dropout`` -> ``ops/dropout``).
+
+An op registered with ``stateful_rng=True`` draws random numbers. The
+initializers (``uniform_random``, ``gaussian_random``, ...) draw from the
+run's ``torch.Generator`` (``ctx.rng()``); dropout draws counter-keyed
+Philox bits (``ctx.draw_key(op)``): the run's seed, a device scalar, and
+the op's ordinal among the program's random ops (``random_op_keys``).
 """
 
 
 class OpInfo:
-    def __init__(self, type, lower, infer_shape=None):
+    def __init__(self, type, lower, infer_shape=None, stateful_rng=False):
         self.type = type
         self.lower = lower            # fn(ctx, op) -> None (writes ctx env)
         self.infer_shape = infer_shape
+        self.stateful_rng = stateful_rng  # draws random numbers
 
 
 _REGISTRY = {}
 
 
-def register(type, lower=None, infer_shape=None):
+def register(type, lower=None, infer_shape=None, stateful_rng=False):
     """Register an op lowering. Usable as decorator or direct call."""
     def deco(fn):
-        _REGISTRY[type] = OpInfo(type, fn, infer_shape)
+        _REGISTRY[type] = OpInfo(type, fn, infer_shape, stateful_rng)
         return fn
     if lower is not None:
         return deco(lower)
@@ -37,6 +45,38 @@ def registered_ops():
     return sorted(_REGISTRY)
 
 
+def sub_blocks(op):
+    """The sub-blocks an op carries in its attributes (a
+    ``recompute_block``'s region)."""
+    out = []
+    for a in op.attrs.values():
+        for b in (a if isinstance(a, (list, tuple)) else [a]):
+            if hasattr(b, "ops"):
+                out.append(b)
+    return out
+
+
+def random_op_keys(block):
+    """{id(op): ordinal} over the random (``stateful_rng``) ops of
+    ``block`` in program order, descending into each sub-block where its
+    op stands. An op's key depends neither on whether it sits in a
+    recompute region nor on its variables' names, so a region's
+    recompute replays the forward's draws, and a model with regions
+    draws what the same model without them draws."""
+    keys = {}
+
+    def walk(blk):
+        for op in blk.ops:
+            info = _REGISTRY.get(op.type)
+            if info is not None and info.stateful_rng:
+                keys[id(op)] = len(keys)
+            for sub in sub_blocks(op):
+                walk(sub)
+
+    walk(block)
+    return keys
+
+
 class LowerContext:
     """Environment handed to lowering rules.
 
@@ -44,14 +84,19 @@ class LowerContext:
     tensors live (lowerings that create tensors put them there);
     ``rng()`` hands out the run's ``torch.Generator`` on that device, so
     every random op of one run draws from one seeded stream in program
-    order. ``mesh`` is always None in the port: no op runs across cards
-    yet.
+    order. ``seed_fn()`` hands out the run's seed (an int64 device
+    scalar) and ``rng_keys`` the program's ``random_op_keys``: together
+    they key the counter-based draws (``draw_key``). ``mesh`` is always
+    None in the port: no op runs across cards yet.
     """
 
     def __init__(self, env, rng_fn, device, is_test=False, executor=None,
-                 block=None, mesh=None, fetch_names=(), read_names=None):
+                 block=None, mesh=None, fetch_names=(), read_names=None,
+                 seed_fn=None, rng_keys=None):
         self.env = env
         self._rng_fn = rng_fn      # () -> the run's torch.Generator
+        self._seed_fn = seed_fn    # () -> the run's seed, int64 [] tensor
+        self.rng_keys = rng_keys if rng_keys is not None else {}
         self.device = device
         self.is_test = is_test
         self.executor = executor
@@ -100,3 +145,23 @@ class LowerContext:
 
     def rng(self):
         return self._rng_fn()
+
+    def draw_key(self, op):
+        """(the run's seed as an int64 device scalar, the op's key) for a
+        counter-keyed draw of random op ``op``."""
+        if self._seed_fn is None or id(op) not in self.rng_keys:
+            raise RuntimeError(
+                "random op %r has no draw key: it must run through an "
+                "Executor, whose step keys every random op of the "
+                "program" % op.type)
+        return self._seed_fn(), self.rng_keys[id(op)]
+
+    def sub_context(self, env, block):
+        """A context for the ops of sub-block ``block`` over ``env``,
+        drawing as this one does."""
+        return LowerContext(env, self._rng_fn, self.device,
+                            is_test=self.is_test, executor=self.executor,
+                            block=block, mesh=self.mesh,
+                            fetch_names=self.fetch_names,
+                            read_names=self._read_names,
+                            seed_fn=self._seed_fn, rng_keys=self.rng_keys)

@@ -1,11 +1,11 @@
 """Parameter initializers.
 
 The counterpart of ``paddle_tpu/initializer.py`` (Constant, Uniform,
-Normal, Xavier, MSRA, Bilinear, NumpyArray). Each appends an init op to
-the *startup program*; running the startup program materializes the
-parameters into the Scope. The port draws from torch generators, so its
-values differ from the JAX package's draw for draw; they agree in
-distribution. ``TruncatedNormal`` waits for its lowering (ROADMAP.md).
+Normal, TruncatedNormal, Xavier, MSRA, Bilinear, NumpyArray). Each
+appends an init op to the *startup program*; running the startup program
+materializes the parameters into the Scope. The port draws from torch
+generators, so its values differ from the JAX package's draw for draw;
+they agree in distribution.
 """
 
 import math
@@ -54,6 +54,17 @@ class NormalInitializer(Initializer):
                    "mean": float(self.loc), "std": float(self.scale),
                    "seed": self.seed})
 
+
+class TruncatedNormalInitializer(Initializer):
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        block.append_op(
+            type="truncated_gaussian_random", outputs={"Out": var},
+            attrs={"shape": list(var.shape), "dtype": var.dtype,
+                   "mean": float(self.loc), "std": float(self.scale),
+                   "seed": self.seed})
 
 
 def _fan_in_out(var):
@@ -139,6 +150,7 @@ class NumpyArrayInitializer(Initializer):
 Constant = ConstantInitializer
 Uniform = UniformInitializer
 Normal = NormalInitializer
+TruncatedNormal = TruncatedNormalInitializer
 Xavier = XavierInitializer
 MSRA = MSRAInitializer
 Bilinear = BilinearInitializer

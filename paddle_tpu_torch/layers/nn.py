@@ -3,7 +3,8 @@
 The counterpart of ``paddle_tpu/layers/nn.py``, holding the layers whose
 ops the port lowers (the flagship LM's and the ResNet models'): fc,
 embedding, softmax, cross_entropy, softmax_with_cross_entropy, mean,
-accuracy, batch_norm, layer_norm, matmul, topk and reduce_sum. Each
+accuracy, batch_norm, layer_norm, dropout, matmul, topk, clip,
+clip_by_norm, label_smooth, one_hot and reduce_sum. Each
 builds ops through LayerHelper exactly as the JAX package's does, so the
 two packages emit the same Program. The rest of the JAX package's layers
 come with their lowerings (ROADMAP.md, queue 1 item 7).
@@ -217,6 +218,21 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
     return helper.append_activation(out)
 
 
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
+    mask = helper.create_variable_for_type_inference(
+        x.dtype, shape=x.shape, stop_gradient=True)
+    helper.append_op(
+        type="dropout", inputs={"X": [x]},
+        outputs={"Out": [out], "Mask": [mask]},
+        attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+               "seed": seed if seed is not None else 0,
+               "dropout_implementation": dropout_implementation})
+    return out
+
+
 def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
     helper = LayerHelper("matmul", name=name)
     xs = list(x.shape) if x.shape else None
@@ -244,6 +260,46 @@ def topk(input, k, name=None):
                      outputs={"Out": [values], "Indices": [indices]},
                      attrs={"k": k})
     return values, indices
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
+    helper.append_op(type="clip", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"min": min, "max": max})
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
+    helper.append_op(type="clip_by_norm", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"max_norm": max_norm})
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    helper = LayerHelper("label_smooth", name=name)
+    out = helper.create_variable_for_type_inference(dtype, shape=label.shape)
+    inputs = {"X": [label]}
+    if prior_dist is not None:
+        inputs["PriorDist"] = [prior_dist]
+    helper.append_op(type="label_smooth", inputs=inputs,
+                     outputs={"Out": [out]}, attrs={"epsilon": epsilon})
+    return out
+
+
+def one_hot(input, depth, name=None):
+    helper = LayerHelper("one_hot", name=name)
+    shape = input.shape
+    if shape and shape[-1] == 1:
+        shape = shape[:-1]
+    out = helper.create_variable_for_type_inference(
+        "float32", shape=tuple(shape or ()) + (depth,))
+    helper.append_op(type="one_hot", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"depth": depth})
+    return out
 
 
 def reduce_op_layer(op_type):

@@ -7,7 +7,7 @@ Only the types the port lowers are generated here.
 
 from .layer_helper import LayerHelper
 
-_UNARY_OPS = ["relu"]
+_UNARY_OPS = ["relu", "sqrt", "square", "sign"]
 
 
 def _make_layer(op_type):
@@ -44,6 +44,8 @@ def elementwise_layer(op_type):
     return layer
 
 
-for _op in ["elementwise_add", "elementwise_mul", "elementwise_div"]:
+for _op in ["elementwise_add", "elementwise_sub", "elementwise_mul",
+            "elementwise_div", "elementwise_max", "elementwise_min",
+            "elementwise_pow"]:
     _g[_op] = elementwise_layer(_op)
     __all__.append(_op)

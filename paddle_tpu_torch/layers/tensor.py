@@ -1,9 +1,9 @@
 """Tensor layers.
 
 The counterpart of ``paddle_tpu/layers/tensor.py``, holding the layers
-the flagship LM and the optimizers use: create_global_var, cast, assign,
-fill_constant, reshape, transpose and expand, plus ``cast`` for
-``Variable.astype`` (its op's lowering is not ported yet, so it is not
+the flagship LM, the optimizers and the gradient clips use:
+create_global_var, sums, assign, fill_constant, reshape, transpose and
+expand, plus ``cast`` for ``Variable.astype`` (its op's lowering is not ported yet, so it is not
 exported from ``layers``).
 """
 
@@ -29,6 +29,16 @@ def cast(x, dtype):
     out = helper.create_variable_for_type_inference(dtype, shape=x.shape)
     helper.append_op(type="cast", inputs={"X": [x]}, outputs={"Out": [out]},
                      attrs={"in_dtype": x.dtype, "out_dtype": dtype})
+    return out
+
+
+def sums(input, out=None):
+    helper = LayerHelper("sum")
+    if out is None:
+        out = helper.create_variable_for_type_inference(
+            input[0].dtype, shape=input[0].shape)
+    helper.append_op(type="sum", inputs={"X": list(input)},
+                     outputs={"Out": [out]})
     return out
 
 

@@ -11,22 +11,22 @@ package (``Program.to_json`` is identical under ``unique_name.guard()``).
 With ``packed=True`` self-attention is one ``sp_attention`` op: the CUDA
 flash-attention kernels on the card. ``packed=False`` is the composed
 matmul/softmax form with an additive mask — the kernel-free twin of the
-same model. Not ported yet (each raises NotImplementedError naming
-ROADMAP.md): ``recompute=True``, ``dropout_rate > 0`` and
-``label_smooth_eps > 0``; the encoder-decoder ``transformer`` and
-``transformer_lm_parallel``.
+same model. The options: ``recompute=True`` wraps each decoder layer in a
+``layers.recompute()`` region (the flash forward then runs twice a step:
+in the forward and in the recompute); ``dropout_rate > 0`` adds the
+embedding dropout, the attention-weight dropout (which takes the composed
+path, as in the JAX package) and two residual dropouts a layer, all on
+the CUDA dropout kernel; ``label_smooth_eps > 0`` trains on soft labels,
+``label_smooth(one_hot(label))``. Not ported yet: the encoder-decoder
+``transformer`` and ``transformer_lm_parallel`` (ROADMAP.md, queue 1).
 """
+
+import contextlib
 
 import numpy as np
 
 from .. import initializer, layers
 from ..param_attr import ParamAttr
-
-
-def _not_ported(what):
-    return NotImplementedError(
-        "%s is not ported to paddle_tpu_torch yet (ROADMAP.md, queue 1)"
-        % what)
 
 
 def position_encoding_init(n_position, d_model):
@@ -96,7 +96,7 @@ def multi_head_attention(queries, keys, values, attn_bias, d_key, d_value,
             product = layers.elementwise_add(product, attn_bias)
         weights = layers.softmax(product)
         if dropout_rate:
-            raise _not_ported("dropout")
+            weights = layers.dropout(weights, dropout_prob=dropout_rate)
         ctx = layers.matmul(weights, v)                   # [B, H, Tq, dv]
     ctx = layers.transpose(ctx, perm=[0, 2, 1, 3])
     b, t = ctx.shape[0], ctx.shape[1]
@@ -120,7 +120,7 @@ def pre_post_process_layer(prev, out, process_cmd, dropout_rate=0.0):
             out = layers.layer_norm(out, begin_norm_axis=len(out.shape) - 1)
         elif cmd == "d":
             if dropout_rate:
-                raise _not_ported("dropout")
+                out = layers.dropout(out, dropout_prob=dropout_rate)
     return out
 
 
@@ -184,16 +184,10 @@ def transformer_lm(vocab_size=4096, max_len=256, n_layer=4, n_head=8,
     packed=True assumes full-length (packed) sequences — the standard LM
     pretraining layout — and drops the padding half of the attention bias
     so self-attention runs through the fused flash path; `mask` still
-    weights the loss. recompute=True (layers.recompute() regions),
-    dropout_rate > 0 and label_smooth_eps > 0 raise: their layers are
-    not ported yet."""
-    if recompute:
-        raise _not_ported("transformer_lm(recompute=True) "
-                          "(layers.recompute)")
-    if dropout_rate:
-        raise _not_ported("dropout")
-    if label_smooth_eps:
-        raise _not_ported("label smoothing (one_hot, label_smooth)")
+    weights the loss. recompute=True wraps each decoder layer in a
+    layers.recompute() region: layer activations are recomputed in the
+    backward pass, trading ~1/3 extra forward work for activation
+    memory — the long-context lever."""
     d_key = d_value = d_model // n_head
     src = layers.data("src", [max_len], dtype="int64")
     pos = layers.data("pos", [max_len], dtype="int64")
@@ -201,16 +195,26 @@ def transformer_lm(vocab_size=4096, max_len=256, n_layer=4, n_head=8,
     label = layers.data("label", [max_len], dtype="int64")
 
     x = _embed(src, vocab_size, d_model, max_len, pos, "lm")
+    if dropout_rate:
+        x = layers.dropout(x, dropout_prob=dropout_rate)
     bias = None if packed else make_attn_bias(mask, n_head, causal=True)
     for _ in range(n_layer):
-        x = decoder_layer(x, None, bias, None, n_head, d_key, d_value,
-                          d_model, d_inner, dropout_rate, causal=packed)
+        with layers.recompute() if recompute else contextlib.nullcontext():
+            x = decoder_layer(x, None, bias, None, n_head, d_key, d_value,
+                              d_model, d_inner, dropout_rate,
+                              causal=packed)
     logits = layers.fc(x, vocab_size, num_flatten_dims=2, bias_attr=False)
 
     b, t = logits.shape[0], logits.shape[1]
     flat_logits = layers.reshape(logits, [-1, vocab_size])
     flat_label = layers.reshape(label, [-1, 1])
-    cost = layers.softmax_with_cross_entropy(flat_logits, flat_label)
+    if label_smooth_eps:
+        smooth = layers.label_smooth(
+            layers.one_hot(flat_label, vocab_size), epsilon=label_smooth_eps)
+        cost = layers.softmax_with_cross_entropy(flat_logits, smooth,
+                                                 soft_label=True)
+    else:
+        cost = layers.softmax_with_cross_entropy(flat_logits, flat_label)
     flat_mask = layers.reshape(mask, [-1, 1])
     masked = layers.elementwise_mul(cost, flat_mask)
     avg_cost = layers.reduce_sum(masked) / layers.reduce_sum(flat_mask)

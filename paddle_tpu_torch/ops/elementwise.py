@@ -1,4 +1,5 @@
-"""Elementwise binary ops: add, mul, div.
+"""Elementwise binary ops: add, sub, mul, div, max, min, pow, mod,
+floordiv.
 
 The counterpart of ``paddle_tpu/ops/elementwise.py``, with its broadcast
 rule: Y's dims align to X starting at ``axis`` (elementwise_op_function.h),
@@ -23,8 +24,14 @@ def _broadcast_y(x, y, axis):
 
 _BINARY = {
     "elementwise_add": torch.add,
+    "elementwise_sub": torch.sub,
     "elementwise_mul": torch.mul,
     "elementwise_div": torch.div,
+    "elementwise_max": torch.maximum,
+    "elementwise_min": torch.minimum,
+    "elementwise_pow": torch.pow,
+    "elementwise_mod": torch.remainder,        # jnp.mod: floor modulo
+    "elementwise_floordiv": torch.floor_divide,
 }
 
 

@@ -1,4 +1,5 @@
-"""Core math ops: mul, matmul, mean, scale, reduce_sum, top_k.
+"""Core math ops: mul, matmul, sum, mean, scale, clip, clip_by_norm,
+reduce_sum, top_k.
 
 The counterpart of ``paddle_tpu/ops/math.py`` for the types the flagship
 LM and the ResNet models use. The products are plain ``torch.matmul``
@@ -52,6 +53,16 @@ def _matmul(ctx, op):
     ctx.set_out(op, "Out", out)
 
 
+@register("sum")
+def _sum(ctx, op):
+    """The elementwise sum of the X list, added left to right."""
+    xs = ctx.in_list(op, "X")
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    ctx.set_out(op, "Out", out)
+
+
 @register("mean")
 def _mean(ctx, op):
     """Mean over every element (LoD feeds, whose padded rows the JAX
@@ -69,6 +80,23 @@ def _scale(ctx, op):
     else:
         out = (x + bias) * scale
     ctx.set_out(op, "Out", out)
+
+
+@register("clip")
+def _clip(ctx, op):
+    x = ctx.in1(op, "X")
+    ctx.set_out(op, "Out", torch.clamp(x, op.attr("min", -1.0),
+                                       op.attr("max", 1.0)))
+
+
+@register("clip_by_norm")
+def _clip_by_norm(ctx, op):
+    """X scaled by max_norm / ||X||_2 where its norm exceeds max_norm."""
+    x = ctx.in1(op, "X")
+    max_norm = op.attr("max_norm", 1.0)
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    ctx.set_out(op, "Out", torch.where(norm > max_norm,
+                                       x * (max_norm / norm), x))
 
 
 @register("reduce_sum")

@@ -1,9 +1,40 @@
-"""NN ops: softmax, batch_norm, layer_norm (the counterpart of
+"""NN ops: dropout, softmax, batch_norm, layer_norm (the counterpart of
 ``paddle_tpu/ops/nn.py`` for the flagship LM and the ResNet models)."""
 
 import torch
 
 from ..core.registry import register
+from . import dropout as _dropout_kernel
+
+
+@register("dropout", stateful_rng=True)
+def _dropout(ctx, op):
+    """operators/dropout_op.cc, as the JAX package lowers it: with
+    ``is_test`` (or p = 0) Out is x, times 1 - p for
+    ``downgrade_in_infer``; in training Out = x * mask, times the f32
+    reciprocal of 1 - p for ``upscale_in_train``. The mask is the port's counter-keyed draw
+    (``ops/dropout.py``: the CUDA kernel on the card), keyed by the run's
+    seed and the op's key; Mask is made only when something reads it."""
+    x = ctx.in1(op, "X")
+    p = op.attr("dropout_prob", 0.5)
+    is_test = op.attr("is_test", False) or ctx.is_test
+    impl = op.attr("dropout_implementation", "downgrade_in_infer")
+    mask_name = ctx.out_name(op, "Mask")
+    if is_test or p == 0.0:
+        # downgrade_in_infer scales at inference time (reference default)
+        out = x * (1.0 - p) if (impl == "downgrade_in_infer" and p > 0.0) \
+            else x
+        ctx.set_out(op, "Out", out)
+        if ctx.is_read(mask_name):
+            ctx.set(mask_name, torch.ones_like(x))
+        return
+    seed, key = ctx.draw_key(op)
+    out, mask = _dropout_kernel.dropout(
+        x, seed, key, p, scale=impl == "upscale_in_train",
+        want_mask=ctx.is_read(mask_name))
+    ctx.set_out(op, "Out", out)
+    if mask is not None:
+        ctx.set(mask_name, mask)
 
 
 @register("batch_norm")

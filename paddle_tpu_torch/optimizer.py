@@ -2,12 +2,15 @@
 
 The counterpart of ``paddle_tpu/optimizer.py``: the base class creates a
 learning-rate variable and per-parameter accumulators, and ``minimize``
-= append_backward + (regularize, clip) + per-param optimize ops. SGD,
-Momentum (with or without Nesterov) and Adam run in the port
-(ops/optimizer_ops.py); the other classes build the same Programs as in
-the JAX package, whose optimize ops are not lowered yet (ROADMAP.md,
-queue 1 item 3).
+= append_backward + (regularize, clip) + per-param optimize ops. Every
+class builds the same Program as in the JAX package and runs in the port
+(ops/optimizer_ops.py): SGD, Momentum (with or without Nesterov),
+Adagrad, Adam, Adamax, DecayedAdagrad, Adadelta, RMSProp, Ftrl, and
+ModelAverage's windowed parameter sums.
 """
+
+import torch
+
 
 from .core import unique_name
 from .core.backward import append_backward
@@ -350,6 +353,95 @@ class FtrlOptimizer(Optimizer):
             attrs={"l1": self._l1, "l2": self._l2,
                    "lr_power": self._lr_power})
 
+
+
+class ModelAverage(Optimizer):
+    """Maintains a sliding-window average of parameters for evaluation
+    (reference optimizer.py:812). apply()/restore() swap averaged weights in
+    and out of the scope."""
+
+    def __init__(self, average_window_rate, min_average_window=10000,
+                 max_average_window=10000, **kw):
+        super().__init__(0.0, **kw)
+        self.average_window = average_window_rate
+        self.min_average_window = min_average_window
+        self.max_average_window = max_average_window
+        self.params_grads = []
+        prog = default_main_program()
+        for param in prog.global_block().all_parameters():
+            if getattr(param, "do_model_average", None) is not False:
+                self.params_grads.append((param, None))
+        self.helper = LayerHelper("model_average")
+        self._create_accumulators(prog.global_block(),
+                                  [p for p, _ in self.params_grads])
+        for p, _ in self.params_grads:
+            self._append_average_accumulate_op(p)
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("sum_1", p)
+            self._add_accumulator("sum_2", p)
+            self._add_accumulator("sum_3", p)
+            self._add_accumulator("num_accumulates", p, dtype="int64",
+                                  shape=[1])
+            self._add_accumulator("old_num_accumulates", p, dtype="int64",
+                                  shape=[1])
+            self._add_accumulator("num_updates", p, dtype="int64", shape=[1])
+
+    def _append_average_accumulate_op(self, param):
+        s1 = self._get_accumulator("sum_1", param)
+        s2 = self._get_accumulator("sum_2", param)
+        s3 = self._get_accumulator("sum_3", param)
+        na = self._get_accumulator("num_accumulates", param)
+        ona = self._get_accumulator("old_num_accumulates", param)
+        nu = self._get_accumulator("num_updates", param)
+        default_main_program().global_block().append_op(
+            type="average_accumulates",
+            inputs={"param": [param], "in_sum_1": [s1], "in_sum_2": [s2],
+                    "in_sum_3": [s3], "in_num_accumulates": [na],
+                    "in_old_num_accumulates": [ona], "in_num_updates": [nu]},
+            outputs={"out_sum_1": [s1], "out_sum_2": [s2], "out_sum_3": [s3],
+                     "out_num_accumulates": [na],
+                     "out_old_num_accumulates": [ona],
+                     "out_num_updates": [nu]},
+            attrs={"average_window": self.average_window,
+                   "min_average_window": self.min_average_window,
+                   "max_average_window": self.max_average_window})
+
+    def apply(self, executor, need_restore=True, scope=None):
+        """Swap the averaged values, (sum_1 + sum_2 + sum_3) /
+        (num_accumulates + old_num_accumulates), into ``scope`` (the
+        global scope by default) where the counts are positive, keeping
+        the replaced tensors for ``restore``. The averages are computed
+        on the tensors' device."""
+        from .core.scope import global_scope
+        scope = scope or global_scope()
+        self._scope = scope
+        self._backup = {}
+
+        def value(name):
+            return torch.as_tensor(
+                scope.find_var(self._get_accumulator(name, p).name))
+
+        for p, _ in self.params_grads:
+            total = int(value("num_accumulates").reshape(-1)[0]) + \
+                int(value("old_num_accumulates").reshape(-1)[0])
+            if total <= 0:
+                continue
+            old = torch.as_tensor(scope.find_var(p.name))
+            sums = value("sum_1") + value("sum_2") + value("sum_3")
+            # a 0-dim tensor divisor: true division on the CPU and the card
+            avg = sums / torch.full((), float(total), dtype=sums.dtype,
+                                    device=sums.device)
+            self._backup[p.name] = old
+            scope.set(p.name, avg.to(old.dtype))
+
+    def restore(self, executor=None):
+        """Put back the tensors ``apply`` replaced."""
+        scope = getattr(self, "_scope", None)
+        for name, val in getattr(self, "_backup", {}).items():
+            scope.set(name, val)
+        self._backup = {}
 
 
 # fluid-compatible aliases

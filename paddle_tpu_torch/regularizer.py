@@ -1,6 +1,6 @@
 """Weight-decay regularizers appended as grad-modifying ops (a copy of
-``paddle_tpu/regularizer.py``). L2Decay's ops (scale, elementwise_add)
-are lowered in the port; L1Decay's ``sign`` is not yet.
+``paddle_tpu/regularizer.py``): L2Decay emits scale and elementwise_add,
+L1Decay sign, scale and elementwise_add.
 """
 
 from .layers.layer_helper import LayerHelper

@@ -14,7 +14,8 @@ tensor functions the engine's decode step calls on the device.
     kept; top-p is taken over the top-k-filtered softmax, a token kept
     where the mass before it is < top_p, the top-1 always kept.
   * The random bits are the port's own: Philox4x32-10 (the generator
-    cuRAND and PyTorch use) written with integer tensor ops, keyed on
+    cuRAND and PyTorch use; ``core/philox.py``, which dropout shares)
+    written with integer tensor ops, keyed on
     the request's ``seed`` with the count of tokens generated so far as
     its counter. It holds no ``torch.Generator`` state, so the same
     (seed, counter) gives the same bits on the CPU and on the card, a
@@ -28,6 +29,8 @@ tensor functions the engine's decode step calls on the device.
 """
 
 import torch
+
+from ..core.philox import MASK32 as _MASK, philox4x32
 
 __all__ = ["SamplingParams", "step_keys", "philox4x32", "uniform",
            "filter_logits", "sample"]
@@ -92,41 +95,6 @@ class SamplingParams:
         return ("SamplingParams(temperature=%g, top_k=%d, top_p=%g, "
                 "seed=%d)" % (self.temperature, self.top_k, self.top_p,
                               self.seed))
-
-
-# -- Philox4x32-10 on int64 tensors -----------------------------------------
-_MASK = 0xFFFFFFFF
-_M0, _M1 = 0xD2511F53, 0xCD9E8D57          # round multipliers
-_W0, _W1 = 0x9E3779B9, 0xBB67AE85          # Weyl key increments
-
-
-def _mulhilo(a, m):
-    """(high, low) 32-bit words of ``a * m`` for int64 tensors ``a`` <
-    2**32 and a 32-bit constant ``m``. The full product would overflow
-    int64, so ``m`` is split into 16-bit halves: both partial products
-    stay under 2**48."""
-    p0 = a * (m & 0xFFFF)
-    p1 = a * (m >> 16)
-    t = p0 + ((p1 & 0xFFFF) << 16)
-    return (t >> 32) + (p1 >> 16), t & _MASK
-
-
-def philox4x32(counter, key, rounds=10):
-    """Philox4x32-``rounds`` (Salmon et al., SC'11; the generator of
-    cuRAND and PyTorch): ``counter`` is four int64 tensors of 32-bit
-    words, ``key`` two; returns the four 32-bit output words as int64
-    tensors. Integer ops only, so the CPU and the card give the same
-    bits."""
-    c0, c1, c2, c3 = counter
-    k0, k1 = key
-    for r in range(rounds):
-        if r:
-            k0 = (k0 + _W0) & _MASK
-            k1 = (k1 + _W1) & _MASK
-        hi0, lo0 = _mulhilo(c0, _M0)
-        hi1, lo1 = _mulhilo(c2, _M1)
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-    return c0, c1, c2, c3
 
 
 def step_keys(seeds, counts):

@@ -245,12 +245,16 @@ def test_left_out_features_raise():
     with pytest.raises(NotImplementedError, match="LoD feed.*ROADMAP"):
         exe.run_steps(main, feeds=[lod, lod], fetch_list=[avg],
                       scope=scope)
-    with pytest.raises(NotImplementedError, match="recompute.*ROADMAP"):
-        TT.transformer_lm(recompute=True, **SMALL)
-    with pytest.raises(NotImplementedError, match="dropout.*ROADMAP"):
-        TT.transformer_lm(dropout_rate=0.1, **SMALL)
-    with pytest.raises(NotImplementedError, match="label smooth.*ROADMAP"):
-        TT.transformer_lm(label_smooth_eps=0.1, **SMALL)
+    # the LM's three training options are ported now: each builds the
+    # op it stands for (tests/test_torch_recompute.py and
+    # tests/test_torch_dropout.py run them)
+    for kw, op_type in ((dict(recompute=True), "recompute_block"),
+                        (dict(dropout_rate=0.1), "dropout"),
+                        (dict(label_smooth_eps=0.1), "label_smooth")):
+        prog, start = tfluid.Program(), tfluid.Program()
+        with tfluid.program_guard(prog, start):
+            TT.transformer_lm(**dict(SMALL, **kw))
+        assert op_type in {op.type for op in prog.global_block().ops}
 
 
 def test_host_ops_and_markers_raise():
@@ -259,18 +263,27 @@ def test_host_ops_and_markers_raise():
     prog.global_block().append_op(type="send", inputs={}, outputs={})
     with pytest.raises(NotImplementedError, match="'send'.*ROADMAP"):
         exe.run(prog, scope=tfluid.Scope())
-    main, startup = tfluid.Program(), tfluid.Program()
-    with tfluid.program_guard(main, startup), tfluid.unique_name.guard():
-        x = tfluid.layers.data("x", [4])
-        loss = tfluid.layers.reduce_sum(tfluid.layers.fc(x, 2))
-        tfluid.append_backward(loss, checkpoint=True)
-    with pytest.raises(NotImplementedError, match="checkpoint.*ROADMAP"):
-        exe.run(main, feed={"x": np.ones((1, 4), np.float32)},
-                scope=tfluid.Scope())
+    # the grad markers' rematerialization and calc_gradient are ported
+    # now: checkpoint=True gives the plain gradients, and a bare
+    # calc_gradient_marker (no targets, no inputs) runs and binds nothing
+    grads = {}
+    for ckpt in (False, True):
+        main, startup = tfluid.Program(), tfluid.Program()
+        with tfluid.program_guard(main, startup), \
+                tfluid.unique_name.guard():
+            x = tfluid.layers.data("x", [4])
+            loss = tfluid.layers.reduce_sum(tfluid.layers.fc(x, 2))
+            pg = tfluid.append_backward(loss, checkpoint=ckpt)
+        scope = tfluid.Scope()
+        exe.run(startup, scope=scope)
+        scope.set("fc_0.w_0", torch.ones(4, 2))
+        grads[ckpt] = exe.run(main, feed={"x": np.ones((1, 4), np.float32)},
+                              fetch_list=[g for _, g in pg], scope=scope)
+    for a, b in zip(grads[True], grads[False]):
+        np.testing.assert_array_equal(a, b)
     marker = tfluid.Program()
     marker.global_block().append_op(type="calc_gradient_marker")
-    with pytest.raises(NotImplementedError, match="calc_gradient"):
-        exe.run(marker, scope=tfluid.Scope())
+    assert exe.run(marker, scope=tfluid.Scope()) == []
 
 
 def test_sp_attention_on_a_mesh_raises():

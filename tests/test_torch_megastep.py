@@ -54,10 +54,14 @@ STEPS = 4
 
 
 def _lm(fluid, T, opt):
+    """The packed LM with ``opt`` ("sgd", "adam", or "options": Adam over
+    recompute regions, dropout 0.1 and label smoothing 0.1)."""
+    options = dict(recompute=True, dropout_rate=0.1, label_smooth_eps=0.1)
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
-        avg, _ = T.transformer_lm(packed=True, **LM)
-        if opt == "adam":
+        avg, _ = T.transformer_lm(packed=True, **LM,
+                                  **(options if opt == "options" else {}))
+        if opt in ("adam", "options"):
             fluid.optimizer.Adam(learning_rate=1e-3).minimize(avg)
         else:
             fluid.optimizer.SGD(learning_rate=0.1).minimize(avg)
@@ -588,7 +592,8 @@ def test_engine_spec_and_sampled_bodies_have_no_host_read(lms, drafter,
     assert all(len(t) >= 1 for t, _ in drawn)
 
 
-@pytest.mark.parametrize("model", ["lm_adam", "cifar8_fused"])
+@pytest.mark.parametrize("model", ["lm_adam", "cifar8_fused",
+                                   "lm_options"])
 def test_run_steps_body_has_no_host_read(model, fused, no_host_reads):
     (main, startup, fetch, feeds), _ = _programs(model)
     exe = tfluid.Executor(tfluid.CPUPlace())
@@ -599,7 +604,11 @@ def test_run_steps_body_has_no_host_read(model, fused, no_host_reads):
                           _body(texecutor._Megastep._body))
     got = exe.run_steps(main, feeds=feeds[:2], fetch_list=fetch,
                         scope=scope)
+    # a fresh executor: its run seeds start where exe's did, so the
+    # dropout program draws the same masks
+    ref_exe = tfluid.Executor(tfluid.CPUPlace())
+    ref_exe._rng_counter = 1
     ref_scope = _port_scope(init)
-    ref = [exe.run(main, feed=f, fetch_list=fetch, scope=ref_scope)
+    ref = [ref_exe.run(main, feed=f, fetch_list=fetch, scope=ref_scope)
            for f in feeds[:2]]
     np.testing.assert_array_equal([g[0] for g in got], [r[0] for r in ref])

@@ -230,17 +230,56 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
      gradient clips with L2 decay, 2 steps on the card against the port's
      CPU path from one startup scope, losses and persistables within
      2e-4 of max(1, max|w|); ModelAverage's apply / restore round trip
-     bitwise.
+     bitwise;
+ 13. mt      — the encoder-decoder MT transformer, beam search and the
+     decode graphs, the mnist models and VGG-16. (a)
+     ``transformer(packed=True)`` at its own widths (vocab 4096/4096,
+     max_len 64, 2 layers, 8 heads, d_model 256, d_inner 1024, fp32) with
+     ``Adam(1e-3)``, batch 64 x 64 full-length sentences of a copy task:
+     10 eager steps, losses falling, each flash kernel launched exactly 2
+     x steps (the decoder's causal self-attention; the encoder and the
+     cross-attention stay composed); 3 steps against the
+     ``packed=False`` twin (zero biases on full-length masks) held by
+     phase 6's Adam limit and its two controls (plain attention; dK
+     zeroed, which must exceed it); 5 ``run()`` calls against one
+     ``run_steps(K=5)`` dispatch bitwise; step ms, tokens/s and the
+     busy share eager and under the graph. (b) The three flash kernels
+     at the MT decoder's shape [64, 8, 64, 32] (D = 32 in the kernels'
+     DC = 64 instantiation), causal, fp32 and bf16, against their plain
+     versions at phase 5's tolerances, then timed there as phase 5 times
+     them (kernel, plain, SDPA, bound). (c) From (a)'s trained scope,
+     ``TransformerInfer.translate`` (beam 4) and ``translate_greedy`` on
+     16 sentences (half padded), max_out_len 64, fp32 then bf16, end_id a
+     token the greedy run emits: each decode one CUDA graph, bitwise
+     equal to the eager loop (``decoding.beam_search`` /
+     ``greedy_search`` called directly) over two replays; every returned
+     score equal to its sentence's teacher-forced sum of log-probs within
+     1e-4 of max(1, |score|); greedy tokens equal to the argmax of their
+     teacher-forced logits or parting at a near-tie (the gap within what
+     the batch and single-row dispatches of the row disagree by); ms per
+     translate and tokens/s eager and graph. (d) The flagship LM (phase
+     4's weights) ``generate`` beam 4 and greedy, 8 rows x 128 tokens:
+     graph bitwise equal to the eager loop; greedy rows equal to
+     ``sequential_generate``'s tokens or parting at a diagnosed
+     near-tie; timings. (e) ``mlp``, ``cnn`` and VGG-16 (3 x 32 x 32, 10
+     classes) with Adam, batch 64, 5 eager steps each, losses falling, ms
+     per step; VGG with its dropouts, 5 ``run()`` calls against one
+     ``run_steps(K=5)`` dispatch bitwise (under
+     ``cudnn.deterministic``); ``cnn_infer`` on a uint8 batch against the
+     port's CPU path at 1e-5.
 
 The last three lines of standard output are the kernels' JSON line, the
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device": ...}``.
 In the kernels' line ``launches`` sums the eager main path's run, the
 megastep graph's (counted through replays), phase 10's speculative
 and plain runs, phase 11's and phase 12's; ``graph_launches`` gives the
-graph's alone, ``spec_launches`` phase 10's, ``io_launches`` phase 11's
-and ``options_launches`` phase 12's. The ``dropout`` entry
+graph's alone, ``spec_launches`` phase 10's, ``io_launches`` phase 11's,
+``options_launches`` phase 12's and ``mt_launches`` phase 13's eager MT
+training run. The flash entries carry ``mt_shape``: their times and
+bound at the MT decoder's shape [64, 8, 64, 32]. The ``dropout`` entry
 (``"tpu_kernel": false``: the JAX package's dropout is no Pallas kernel)
-counts phase 12's configuration-B runs; its times and bound are at the
+counts phase 12's configuration-B runs and phase 13's eager VGG steps
+(``zoo_launches``); its times and bound are at the
 attention-weight shape [32, 8, 256, 256] f32 and its ``max_abs_err``
 is the largest difference over its comparisons (0: they must be
 bitwise).
@@ -891,13 +930,13 @@ def _events_ms(torch, fn, reps, prep=None, hide_host=False):
     return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
-def flash_timing_phase(torch):
-    """The training shape: B=32, H=8, T=256, D=64, causal, fp32. Four
-    input sets (4 x 67 MB) rotate through the 50 MB L2, as the layers of
-    a training step meet them."""
+def flash_timing_phase(torch, b=32, h=8, t=MAX_LEN, d=64):
+    """The LM's training shape by default: B=32, H=8, T=256, D=64,
+    causal, fp32. Four input sets (4 x 67 MB there) rotate through the
+    50 MB L2, as the layers of a training step meet them."""
     from paddle_tpu_torch.ops import flash_attention as F
-    b, h, t, d = 32, 8, 256, 64
     scale = d ** -0.5
+    shape = "B=%d H=%d T=%d D=%d causal fp32" % (b, h, t, d)
     sets = []
     for i in range(4):
         g = torch.Generator().manual_seed(100 + i)
@@ -1002,12 +1041,12 @@ def flash_timing_phase(torch):
             "ms_with_host_gaps": gaps[name],
             "library_ms_with_host_gaps": (lib_fwd_gaps if fwd_side else
                                           whole["library", False])}
-        log("timing %s (B=32 H=8 T=256 D=64 causal fp32), device time "
+        log("timing %s (%s), device time "
             "alone: kernel_ms=%.5f bound_ms=%.5f (%s; operations %.5f ms "
             "at %g TFLOP/s, bytes %.5f ms: %d flops, %d bytes; fp32-SIMT "
             "operations bound %.5f ms) plain_ms=%.5f library_ms=%.5f; with "
             "the host's gaps: kernel_ms=%.5f library_ms=%.5f%s", name,
-            times[name], out[name]["bound_ms"], out[name]["bound_by"],
+            shape, times[name], out[name]["bound_ms"], out[name]["bound_by"],
             ops_ms, peak / 1e12, bytes_ms, flops, nbytes,
             flops / FP32_FLOPS * 1e3, out[name]["plain_ms"],
             out[name]["library_ms"], gaps[name],
@@ -1017,11 +1056,11 @@ def flash_timing_phase(torch):
                       (False, "with the host's gaps")):
         kern = whole["kernels", hide]
         libs = whole["library", hide], whole["library again", hide]
-        log("timing: whole backward through autograd (B=32 H=8 T=256 D=64 "
-            "causal fp32), %s: kernel route %.5f ms (dq %.5f + dkv %.5f "
+        log("timing: whole backward through autograd (%s), %s: kernel "
+            "route %.5f ms (dq %.5f + dkv %.5f "
             "timed alone), library (scaled_dot_product_attention) %.5f / "
             "%.5f ms (before and after), plain %.5f ms; kernel route / "
-            "library %.3f", how, kern, times["flash_bwd_dq"],
+            "library %.3f", shape, how, kern, times["flash_bwd_dq"],
             times["flash_bwd_dkv"], libs[0], libs[1], whole["plain", hide],
             kern / min(libs))
     _library_backward_kernels(torch, backward, graph(lib))
@@ -1206,39 +1245,63 @@ def parity_phase(torch, fluid, T, exe, packed, unpacked, init, batches):
                                PARITY_STEPS)
         return losses, {n: sc.get_numpy(n) for n in start}
 
-    for opt, progs, start in (("sgd", sgd, sgd_init),
-                              ("adam", (packed, unpacked), init)):
-        (lp, wp), (lu, wu) = run(progs[0], start), run(progs[1], start)
-        for i, (a, b) in enumerate(zip(lp, lu)):
-            check(abs(a - b) <= 1e-4 * abs(b), "%s step %d loss packed %r "
-                  "vs unpacked %r", opt, i + 1, a, b)
-        graft, worst, norm = _apart(wp, wu)
-        if opt == "sgd":
-            check(graft <= 2e-4, "sgd weights diverge after %d steps: %s "
-                  "%g", PARITY_STEPS, worst, graft)
-        else:
-            check(norm <= ADAM_NORM_TOL, "adam weights diverge after %d "
-                  "steps: relative norm %g", PARITY_STEPS, norm)
-        log("train parity (%s, %d steps): losses packed %s vs unpacked %s; "
-            "weights: largest |diff| / max(1, max|w|) %.3g (%s), relative "
-            "norm of the whole difference %.3g", opt, PARITY_STEPS,
-            ["%.6f" % x for x in lp], ["%.6f" % x for x in lu], graft,
-            worst, norm)
+    (lp, wp), (lu, wu) = run(sgd[0], sgd_init), run(sgd[1], sgd_init)
+    for i, (a, b) in enumerate(zip(lp, lu)):
+        check(abs(a - b) <= 1e-4 * abs(b), "sgd step %d loss packed %r vs "
+              "unpacked %r", i + 1, a, b)
+    graft, worst, norm = _apart(wp, wu)
+    check(graft <= 2e-4, "sgd weights diverge after %d steps: %s %g",
+          PARITY_STEPS, worst, graft)
+    log("train parity (sgd, %d steps): losses packed %s vs unpacked %s; "
+        "weights: largest |diff| / max(1, max|w|) %.3g (%s), relative "
+        "norm of the whole difference %.3g", PARITY_STEPS,
+        ["%.6f" % x for x in lp], ["%.6f" % x for x in lu], graft, worst,
+        norm)
+    _adam_parity(torch, fluid, exe, packed, unpacked, init, batches,
+                 "train")
+
+
+def _adam_parity(torch, fluid, exe, packed, unpacked, init, batches,
+                 what):
+    """PARITY_STEPS Adam steps of ``packed`` (the flash kernels) against
+    ``unpacked`` (composed) from one startup scope: losses at rtol 1e-4
+    and the relative norm of the whole weight difference within
+    ADAM_NORM_TOL; then the two controls that place that limit (see
+    ``parity_phase``): plain attention, and dK zeroed, which must land
+    above it."""
     from paddle_tpu_torch.ops import flash_attention as F
+
+    def run(prog):
+        losses, _, sc = _train(torch, fluid, exe, prog, init, batches,
+                               PARITY_STEPS)
+        return losses, {n: sc.get_numpy(n) for n in init}
+
+    (lp, wp), (lu, wu) = run(packed), run(unpacked)
+    for i, (a, b) in enumerate(zip(lp, lu)):
+        check(abs(a - b) <= 1e-4 * abs(b), "%s: adam step %d loss packed "
+              "%r vs unpacked %r", what, i + 1, a, b)
+    graft, worst, norm = _apart(wp, wu)
+    check(norm <= ADAM_NORM_TOL, "%s: adam weights diverge after %d "
+          "steps: relative norm %g", what, PARITY_STEPS, norm)
+    log("%s parity (adam, %d steps): losses packed %s vs unpacked %s; "
+        "weights: largest |diff| / max(1, max|w|) %.3g (%s), relative "
+        "norm of the whole difference %.3g", what, PARITY_STEPS,
+        ["%.6f" % x for x in lp], ["%.6f" % x for x in lu], graft, worst,
+        norm)
     controls = {}
     for name, attr, wrap in (("plain attention", "_route", _plain_route),
                              ("dK zeroed", "_bwd_dkv_cuda", _zero_dk)):
         with _patched(F, attr, wrap):
-            lc, wc = run(packed, init)
+            lc, wc = run(packed)
         graft, worst, norm = _apart(wc, wu)
         controls[name] = norm
-        log("train parity control (adam, packed with %s vs unpacked): "
+        log("%s parity control (adam, packed with %s vs unpacked): "
             "losses %s; largest |diff| / max(1, max|w|) %.3g (%s), relative "
-            "norm %.3g (limit %g)", name, ["%.6f" % x for x in lc], graft,
-            worst, norm, ADAM_NORM_TOL)
-    check(controls["dK zeroed"] > ADAM_NORM_TOL, "the Adam parity limit "
-          "%g does not catch a zeroed dK (relative norm %g)", ADAM_NORM_TOL,
-          controls["dK zeroed"])
+            "norm %.3g (limit %g)", what, name, ["%.6f" % x for x in lc],
+            graft, worst, norm, ADAM_NORM_TOL)
+    check(controls["dK zeroed"] > ADAM_NORM_TOL, "%s: the Adam parity limit "
+          "%g does not catch a zeroed dK (relative norm %g)", what,
+          ADAM_NORM_TOL, controls["dK zeroed"])
 
 
 def train_profile(torch, fluid, exe, prog, init, batches,
@@ -3460,6 +3523,556 @@ def options_phase(torch, smi):
     return flash, drops, times
 
 
+# -- phase 13 ------------------------------------------------------------
+# the machine-translation transformer at transformer()'s own defaults
+# (models/transformer.py), beam search and the decode graphs, the flagship
+# LM's generate, the mnist models and VGG-16
+MT = dict(src_vocab_size=4096, trg_vocab_size=4096, max_len=64, n_layer=2,
+          n_head=8, d_model=256, d_inner=1024)
+MT_BATCH, MT_STEPS, MT_K = 64, 10, 5
+MT_SHAPE = (MT_BATCH, MT["n_head"], MT["max_len"],
+            MT["d_model"] // MT["n_head"])          # [64, 8, 64, 32]
+MT_SRC, MT_BEAM = 16, 4
+SCORE_TOL = 1e-4          # a returned score vs its teacher-forced sum
+GEN_BATCH, GEN_BEAM, GEN_LEN = 8, 4, 128
+ZOO_BATCH, ZOO_STEPS = 64, 5
+DECODE_PAIRS = 3
+
+
+def _mt_program(fluid, T, packed):
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        avg_cost, _ = T.transformer(packed=packed, **MT)
+        fluid.optimizer.Adam(learning_rate=1e-3).minimize(avg_cost)
+    return main, startup, avg_cost
+
+
+def _mt_batch(seed, batch=MT_BATCH):
+    """A copy task at full length: the target is the source behind BOS
+    (1), the labels the source; every mask is ones (packed sentences)."""
+    rng = np.random.RandomState(seed)
+    t, v = MT["max_len"], MT["src_vocab_size"]
+    src = rng.randint(3, v, (batch, t)).astype(np.int64)
+    pos = np.tile(np.arange(t, dtype=np.int64), (batch, 1))
+    ones = np.ones((batch, t), np.float32)
+    trg = np.concatenate([np.ones((batch, 1), np.int64), src[:, :-1]], 1)
+    return {"src_word": src, "src_pos": pos, "src_mask": ones,
+            "trg_word": trg, "trg_pos": pos, "trg_mask": ones,
+            "lbl_word": src}
+
+
+def mt_train_phase(torch, smi):
+    """(a) transformer(packed=True) at its own widths with Adam(1e-3),
+    batch 64 x 64: 10 eager steps (losses fall; each flash kernel
+    launched exactly n_layer times a step, the decoder's self-attention);
+    3 steps against the packed=False twin from one startup scope, held
+    by phase 6's Adam limit with its two controls; 5 run() calls against
+    one run_steps(K=5) dispatch, bitwise; step ms eager and under the
+    graph. Returns (the eager run's launch counts, its trained scope, the
+    program)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer as T
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    packed, unpacked = _mt_program(fluid, T, True), \
+        _mt_program(fluid, T, False)
+    ops = [op.type for op in packed[0].global_block().ops]
+    check(ops.count("sp_attention") == MT["n_layer"],
+          "the packed MT program has %d sp_attention ops, not n_layer = %d",
+          ops.count("sp_attention"), MT["n_layer"])
+    init = _init_of(fluid, exe, packed[1])
+    batches = [_mt_batch(seed) for seed in range(MT_STEPS)]
+    _reset_launches()
+    losses, wall, scope = _train(torch, fluid, exe, packed, init, batches,
+                                 MT_STEPS)
+    counts = _launches()
+    tokens = MT_BATCH * MT["max_len"]
+    log("mt train (packed, Adam, batch %d x %d): %d steps, losses %s; "
+        "%.1f tokens/s, mean step %.3f ms (steps 2..%d); launches %s; %s",
+        MT_BATCH, MT["max_len"], MT_STEPS,
+        " ".join("%.4f" % x for x in losses),
+        tokens * (MT_STEPS - 1) / wall, 1e3 * wall / (MT_STEPS - 1),
+        MT_STEPS, {k: n for k, n in counts.items() if n}, smi)
+    check(all(np.isfinite(losses)), "mt losses not finite: %r", losses)
+    check(losses[-1] < losses[0], "mt loss did not fall: %r", losses)
+    want = MT["n_layer"] * MT_STEPS
+    for key, n in counts.items():
+        check(n == (want if key.startswith("flash_") else 0),
+              "mt: %s launches %d (want %d: n_layer decoder "
+              "self-attentions a step)", key, n,
+              want if key.startswith("flash_") else 0)
+    # the unpacked twin: zero biases on full-length masks, composed
+    _adam_parity(torch, fluid, exe, packed, unpacked, init,
+                 batches[:PARITY_STEPS], "mt")
+    graph = _graph_vs_eager(torch, fluid, packed, init, batches[:MT_K],
+                            "mt run_steps")[0]
+    for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(graph[key] == MT["n_layer"] * MT_K, "mt graph: %s launches "
+              "%d through the replay, want %d", key, graph[key],
+              MT["n_layer"] * MT_K)
+    _interleaved_train(torch, fluid, exe, packed, init, batches, "mt",
+                       "tokens/s", tokens, smi)
+    return counts, scope, packed
+
+
+def mt_flash_phase(torch):
+    """(b) The three flash kernels at the MT decoder's shape [64, 8, 64,
+    32], causal, fp32 and bf16, against their plain versions at phase
+    5's tolerances; then timed there as phase 5 times them. Returns (the
+    largest fp32 errors, the times)."""
+    from paddle_tpu_torch.ops import flash_attention as F
+    b, h, t, d = MT_SHAPE
+    worst = {}
+    for i, dtype in enumerate((torch.float32, torch.bfloat16)):
+        e = _flash_case(torch, F, True, t, d, b, h, dtype, seed=1300 + i)
+        log("mt flash: %-8s causal=True T=%d D=%d B=%d H=%d max_abs_err o "
+            "%.2e lse %.2e | scaled dq %.2e dk %.2e dv %.2e  ok",
+            str(dtype).replace("torch.", ""), t, d, b, h, e["o"][0],
+            e["lse"][0], e["dq"][1], e["dk"][1], e["dv"][1])
+        if dtype == torch.float32:
+            worst = {"flash_fwd": max(e["o"][0], e["lse"][0]),
+                     "flash_bwd_dq": e["dq"][0],
+                     "flash_bwd_dkv": max(e["dk"][0], e["dv"][0])}
+    return worst, flash_timing_phase(torch, b, h, t, d)
+
+
+def _mt_sources(torch):
+    """MT_SRC held-out sentences on the card; every other one padded from
+    position 48 on (the cross bias masks the padding)."""
+    src = _mt_batch(900, MT_SRC)
+    tok = torch.from_numpy(src["src_word"]).cuda()
+    mask = torch.ones(tok.shape, dtype=torch.float32, device="cuda")
+    mask[::2, 48:] = 0.0
+    tok[::2, 48:] = 0
+    return tok, mask
+
+
+def _teacher_forced(torch, model, src, mask, sents):
+    """Each sentence of ``sents`` [B, W, T] fed back through the decoder
+    behind BOS: (the sum of each one's token log-probs up to and with its
+    first end_id [B, W], the teacher-forced logits [B*W, T, V] f32)."""
+    b, w, t = sents.shape
+    rows = b * w
+    flat = sents.reshape(rows, t).long()
+    with torch.no_grad():
+        state = model._init_decode_state(model.encode(src, mask), mask,
+                                         rows)
+        tok = torch.full((rows,), model.bos_id, dtype=torch.long,
+                         device=src.device)
+        total = torch.zeros(rows, dtype=torch.float32, device=src.device)
+        alive = torch.ones(rows, dtype=torch.bool, device=src.device)
+        logits_all = []
+        for i in range(t):
+            logits, state = model._step_logits(tok, state, i)
+            logp = torch.log_softmax(logits.float(), -1)
+            total += torch.where(alive, logp.gather(1, flat[:, i:i + 1])[:, 0],
+                                 0.0)
+            logits_all.append(logits.float())
+            alive = alive & (flat[:, i] != model.end_id)
+            tok = flat[:, i]
+    return total.reshape(b, w), torch.stack(logits_all, 1)
+
+
+def _greedy_partings(torch, model, src, mask, toks, logits, what):
+    """Greedy tokens [B, T] against the argmax of their teacher-forced
+    logits [B, T, V], up to each row's first end_id. A parting is a
+    near-tie when the two tokens' logits lie no further apart than the
+    row's fp32 rounding, taken (as phase 10's rule takes it) as the
+    largest difference between two correct dispatches of that row: the
+    batch's and the row teacher-forced alone. Returns the near-ties."""
+    near = []
+    top = logits.argmax(-1)
+    for r in range(toks.shape[0]):
+        row = toks[r].tolist()
+        end = row.index(model.end_id) + 1 if model.end_id in row \
+            else len(row)
+        differ = [i for i in range(end) if row[i] != int(top[r, i])]
+        if not differ:
+            continue
+        i = differ[0]
+        _, alone = _teacher_forced(torch, model, src[r:r + 1],
+                                   mask[r:r + 1], toks[r:r + 1, None, :i + 1])
+        eps = float((alone[0, i] - logits[r, i]).abs().max())
+        gap = abs(float(logits[r, i, row[i]] - logits[r, i, top[r, i]]))
+        msg = ("%s row %d token %d: greedy %d, teacher-forced argmax %d, "
+               "logit gap %.3g, the row's rounding (batch vs alone) %.3g"
+               % (what, r, i, row[i], int(top[r, i]), gap, eps))
+        log("%s: tokens part: %s: %s", what, "a near-tie" if gap <= eps
+            else "NOT a near-tie", msg)
+        check(gap <= eps, "%s", msg)
+        near.append(msg)
+    return near
+
+
+def _pick_end_id(toks):
+    """A token the greedy run emits in its first row, at the first
+    position from 8 on whose token did not come earlier: as end_id it
+    ends that sentence inside the decode."""
+    row = toks[0].tolist()
+    for i in range(8, len(row)):
+        if row[i] not in row[:i]:
+            return row[i]
+    return row[len(row) // 2]
+
+
+def _ab_timing(torch, fns, pairs=DECODE_PAIRS):
+    """{name: [wall ms, ...]} over ``pairs`` rounds of every fn in turn
+    (A/B/A/B: the host varies from run to run)."""
+    walls = {name: [] for name in fns}
+    for _ in range(pairs):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[name].append(1e3 * (time.perf_counter() - t0))
+    return walls
+
+
+def _traced(torch, fn, title):
+    """One traced call of ``fn``: the device busy share of its wall time
+    and the kernels that take the most of it."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _report_profile(prof, wall, title)
+
+
+def _graph_entry(model):
+    """The decode graph a call just used (the newest)."""
+    return list(model._decode_graphs.values())[-1][0]
+
+
+def mt_translate_phase(torch, smi, prog, scope):
+    """(c) translate (beam 4) and translate_greedy from the scope (a)
+    trained, 16 sentences, max_out_len 64, fp32 then bf16: the decode
+    graph bitwise equal to the eager loop (decoding.beam_search /
+    greedy_search called directly); every returned beam's score equal to
+    its teacher-forced sum of log-probs within SCORE_TOL; greedy tokens
+    equal to the argmax of their teacher-forced logits or parting at a
+    near-tie; ms per translate and tokens/s eager and graph."""
+    from paddle_tpu_torch.models import decoding
+    from paddle_tpu_torch.models.transformer_infer import TransformerInfer
+    src, mask = _mt_sources(torch)
+    dims = dict(n_layer=MT["n_layer"], n_head=MT["n_head"],
+                d_model=MT["d_model"], max_len=MT["max_len"])
+    max_out = MT["max_len"]
+    near = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        probe = TransformerInfer.from_program(prog[0], scope, dtype=dtype,
+                                              device="cuda", **dims)
+        end_id = _pick_end_id(probe.translate_greedy(src, mask, max_out)[0])
+        model = TransformerInfer.from_program(
+            prog[0], scope, dtype=dtype, device="cuda", end_id=end_id,
+            **dims)
+
+        def eager_beam():
+            with torch.no_grad():
+                state = model._init_decode_state(
+                    model.encode(src, mask), mask, MT_SRC * MT_BEAM)
+                return decoding.beam_search(
+                    model._step_logits, state, model.bos_id, end_id,
+                    max_out, MT_SRC, MT_BEAM)
+
+        def eager_greedy():
+            with torch.no_grad():
+                state = model._init_decode_state(
+                    model.encode(src, mask), mask, MT_SRC)
+                return decoding.greedy_search(
+                    model._step_logits, state, model.bos_id, end_id,
+                    max_out, MT_SRC)
+
+        runs = {
+            "beam": (lambda: model.translate(src, mask, beam_size=MT_BEAM,
+                                             max_out_len=max_out),
+                     eager_beam),
+            "greedy": (lambda: model.translate_greedy(src, mask, max_out),
+                       eager_greedy)}
+        for how, (graph_fn, eager_fn) in runs.items():
+            what = "mt translate %s %s" % (how, name)
+            t0 = time.perf_counter()
+            g1 = graph_fn()
+            torch.cuda.synchronize()
+            capture_s = time.perf_counter() - t0
+            g2 = graph_fn()
+            e = eager_fn()
+            torch.cuda.synchronize()
+            entry = _graph_entry(model)
+            check(entry.replays == 2, "%s: %d replays for 2 calls", what,
+                  entry.replays)
+            same = [torch.equal(a, b) for a, b in zip(g1, e)] + \
+                [torch.equal(a, b) for a, b in zip(g2, e)]
+            check(all(same), "%s: the decode graph is not bitwise equal to "
+                  "the eager loop (tokens, scores; two replays): %s", what,
+                  same)
+            sents, scores = g1
+            if how == "greedy":
+                sents, scores = sents[:, None, :], scores[:, None]
+            check(bool(torch.isfinite(scores).all()) and
+                  bool((scores[:, 1:] <= scores[:, :-1]).all()),
+                  "%s: scores not finite or not sorted best first", what)
+            forced, logits = _teacher_forced(torch, model, src, mask, sents)
+            diff = (forced - scores).abs()
+            bad = diff > SCORE_TOL * scores.abs().clamp_min(1.0)
+            check(not bool(bad.any()), "%s: a returned score is not its "
+                  "sentence's teacher-forced sum of log-probs: largest "
+                  "difference %g", what, float(diff.max()))
+            if how == "greedy":
+                near += _greedy_partings(torch, model, src, mask,
+                                         sents[:, 0], logits.reshape(
+                                             MT_SRC, max_out, -1), what)
+            ended = int((sents == end_id).any(-1).sum())
+            walls = _ab_timing(torch, {"eager": eager_fn,
+                                       "graph": graph_fn})
+            if dtype == torch.float32:
+                _traced(torch, graph_fn, "%s profile (traced, one graph "
+                        "replay)" % what)
+            toks = MT_SRC * max_out
+            log("%s: graph captured in %.3f s (warm-up, capture, first "
+                "replay); graph == eager loop bitwise (two replays); %d of "
+                "%d sentences end at end_id %d; scores vs teacher-forced "
+                "sums: largest difference %.3g (limit %g of max(1, "
+                "|score|))", what, capture_s, ended, sents.shape[0] *
+                sents.shape[1], end_id, float(diff.max()), SCORE_TOL)
+            for mode in ("eager", "graph"):
+                ms = walls[mode]
+                log("%s timing (%s, %d rounds eager/graph in turn): ms per "
+                    "translate %s (median %.3f); %.1f tokens/s (median; %d "
+                    "sentences x %d output tokens); %s", what, mode,
+                    DECODE_PAIRS, " ".join("%.3f" % x for x in ms),
+                    _median(ms), toks / _median(ms) * 1e3, MT_SRC, max_out,
+                    smi)
+    log("mt translate: near-ties among greedy partings: %d", len(near))
+    return near
+
+
+def lm_generate_phase(torch, smi):
+    """(d) TransformerLMInfer.generate on the flagship LM (phase 4's
+    weights, init_stream(seed=0), all 4 layers): beam 4 and greedy, 8
+    rows, 128 tokens: the decode graph bitwise equal to the eager loop;
+    greedy rows all equal (every row starts from BOS) and equal to
+    sequential_generate's tokens, or parting at a near-tie (the two
+    tokens' logits no further apart than the batch and single-row
+    dispatches of the row disagree)."""
+    from paddle_tpu_torch.models import decoding
+    from paddle_tpu_torch.models.transformer_infer import (
+        TransformerLMInfer, init_stream)
+    from paddle_tpu_torch.serving import sequential_generate
+    model = TransformerLMInfer.from_stream(
+        init_stream(VOCAB, MAX_LEN, N_LAYER, N_HEAD, D_MODEL, D_INNER,
+                    seed=0), N_LAYER, N_HEAD, D_MODEL, MAX_LEN,
+        device="cuda")
+    near = []
+
+    def eager(beam):
+        with torch.no_grad():
+            if beam > 1:
+                return decoding.beam_search(
+                    model._step_logits, model._init_state(GEN_BATCH * beam),
+                    model.bos_id, model.end_id, GEN_LEN, GEN_BATCH, beam)
+            return decoding.greedy_search(
+                model._step_logits, model._init_state(GEN_BATCH),
+                model.bos_id, model.end_id, GEN_LEN, GEN_BATCH)
+
+    for beam in (GEN_BEAM, 1):
+        what = "lm generate %s" % ("beam %d" % beam if beam > 1
+                                   else "greedy")
+        t0 = time.perf_counter()
+        g1 = model.generate(GEN_BATCH, GEN_LEN, beam_size=beam)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        g2 = model.generate(GEN_BATCH, GEN_LEN, beam_size=beam)
+        e = eager(beam)
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(g1, e)] + \
+            [torch.equal(a, b) for a, b in zip(g2, e)]
+        check(all(same), "%s: the decode graph is not bitwise equal to the "
+              "eager loop: %s", what, same)
+        check(_graph_entry(model).replays == 2, "%s: replays %d for 2 "
+              "calls", what, _graph_entry(model).replays)
+        if beam == 1:
+            toks = g1[0]
+            check(bool((toks == toks[:1]).all()), "%s: rows from the same "
+                  "BOS differ", what)
+            seq, _ = sequential_generate(model, [([model.bos_id],
+                                                  GEN_LEN)])[0]
+            row = toks[0].tolist()[:len(seq)]
+            if row != seq:
+                near.append(_lm_parting(torch, model, row, seq, what))
+        walls = _ab_timing(torch, {
+            "eager": lambda: eager(beam),
+            "graph": lambda: model.generate(GEN_BATCH, GEN_LEN,
+                                            beam_size=beam)})
+        _traced(torch, lambda: model.generate(GEN_BATCH, GEN_LEN,
+                                              beam_size=beam),
+                "%s profile (traced, one graph replay)" % what)
+        log("%s (%d rows x %d tokens, beam %d, flagship widths, 4 layers): "
+            "graph captured in %.3f s; graph == eager loop bitwise (two "
+            "replays)%s", what, GEN_BATCH, GEN_LEN, beam, capture_s,
+            "; greedy equals sequential_generate's %d tokens" % len(seq)
+            if beam == 1 and not near else "")
+        for mode in ("eager", "graph"):
+            ms = walls[mode]
+            log("%s timing (%s, %d rounds eager/graph in turn): ms per "
+                "generate %s (median %.3f); %.1f tokens/s (median; %d rows "
+                "x %d tokens); %s", what, mode, DECODE_PAIRS,
+                " ".join("%.3f" % x for x in ms), _median(ms),
+                GEN_BATCH * GEN_LEN / _median(ms) * 1e3, GEN_BATCH,
+                GEN_LEN, smi)
+    return near
+
+
+def _lm_parting(torch, model, row, seq, what):
+    """Diagnose the first token where generate's greedy row and
+    sequential_generate's part: the logits of that position under the
+    batch dispatch (GEN_BATCH rows) and the single-row one; a near-tie
+    when the two tokens' logits lie no further apart than the two
+    dispatches disagree."""
+    i = next(j for j, (a, b) in enumerate(zip(row, seq)) if a != b)
+    prefix = [model.bos_id] + row[:i]
+    out = []
+    for rows in (GEN_BATCH, 1):
+        state = model._init_state(rows)
+        with torch.no_grad():
+            for t, tk in enumerate(prefix):
+                logits, state = model._step_logits(
+                    torch.full((rows,), tk, dtype=torch.long,
+                               device=model.device), state, t)
+        out.append(logits[0].float())
+    eps = float((out[0] - out[1]).abs().max())
+    gap = abs(float(out[1][row[i]] - out[1][seq[i]]))
+    msg = ("%s token %d: generate %d, sequential_generate %d; logit gap "
+           "%.3g under the single-row step, the two dispatches differ by "
+           "up to %.3g" % (what, i, row[i], seq[i], gap, eps))
+    log("%s: tokens part: %s: %s", what, "a near-tie" if gap <= eps
+        else "NOT a near-tie", msg)
+    check(gap <= eps, "%s", msg)
+    return msg
+
+
+def _zoo_programs(fluid):
+    from paddle_tpu_torch.models import mlp as M
+    from paddle_tpu_torch.models import vgg as V
+    progs = {}
+    for name, shape in (("mlp", [784]), ("cnn", [1, 28, 28]),
+                        ("vgg", [3, 32, 32])):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            if name == "vgg":
+                _, _, avg_cost, _ = V.build_train_net(image_shape=shape)
+            else:
+                img = fluid.layers.data("img", shape)
+                label = fluid.layers.data("label", [1], dtype="int64")
+                net = M.mlp if name == "mlp" else M.cnn
+                _, avg_cost, _ = net(img, label)
+                fluid.optimizer.Adam(learning_rate=1e-3).minimize(avg_cost)
+        progs[name] = (main, startup, avg_cost, shape)
+    return progs
+
+
+def _zoo_batch(shape, name):
+    """One batch of ZOO_BATCH images whose class shows in their mean
+    brightness (label / 10 added to noise in [0, 0.5)), so 5 steps can
+    learn it."""
+    rng = np.random.RandomState(13)
+    label = rng.randint(0, 10, (ZOO_BATCH, 1)).astype(np.int64)
+    img = 0.5 * rng.rand(ZOO_BATCH, *shape) + label.reshape(
+        (ZOO_BATCH,) + (1,) * len(shape)) / 10.0
+    return {name: img.astype(np.float32), "label": label}
+
+
+def zoo_phase(torch, smi):
+    """(e) mlp, cnn and VGG-16 (3 x 32 x 32, 10 classes) with Adam, batch
+    64: 5 eager steps each on one fixed batch (``_zoo_batch``), losses
+    finite and falling; VGG's dropout launches exactly 2 x 10 a step,
+    ms per step; VGG with its dropouts: 5 run() calls against one
+    run_steps(K=5) dispatch, bitwise (under cudnn.deterministic: cuDNN's
+    default backward algorithms part run to run); cnn_infer's forward on
+    a uint8 batch, against the port's CPU path on the same weights.
+    Returns the dropout launches of VGG's eager steps."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import mlp as M
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    drops = 0
+    for name, (main, startup, avg_cost, shape) in _zoo_programs(
+            fluid).items():
+        feed = _zoo_batch(shape, "data" if name == "vgg" else "img")
+        init = _init_of(fluid, exe, startup)
+        prog = (main, startup, avg_cost)
+        _reset_launches()
+        losses, wall, _ = _train(torch, fluid, exe, prog, init, [feed],
+                                 ZOO_STEPS)
+        counts = _launches()
+        log("zoo %s (Adam, batch %d): %d steps on one batch, losses %s; "
+            "mean step %.3f ms (steps 2..%d); launches %s; %s", name,
+            ZOO_BATCH, ZOO_STEPS, " ".join("%.4f" % x for x in losses),
+            1e3 * wall / (ZOO_STEPS - 1), ZOO_STEPS,
+            {k: n for k, n in counts.items() if n}, smi)
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              "zoo %s: losses not finite or not falling: %r", name, losses)
+        if name == "vgg":
+            n_drop = sum(op.type == "dropout"
+                         for op in main.global_block().ops)
+            drops = counts["dropout"]
+            check(drops == 2 * n_drop * ZOO_STEPS, "vgg: %d dropout "
+                  "launches, want 2 (the backward draws each mask again) x "
+                  "%d dropout ops x %d steps", drops, n_drop, ZOO_STEPS)
+            det = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+            try:
+                _graph_vs_eager(torch, fluid, prog, init, [feed] * ZOO_STEPS,
+                                "vgg run_steps")
+            finally:
+                torch.backends.cudnn.deterministic = det
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        build, feeds = M.zoo_spec_cnn_infer()
+        pred, = build()
+    init = _init_of(fluid, exe, startup)
+    rng = np.random.RandomState(14)
+    feed = {"img": rng.randint(0, 256, (ZOO_BATCH, 1, 28, 28)).astype(
+        np.uint8)}
+    got, = exe.run(main, feed=feed, fetch_list=[pred],
+                   scope=_scope_from(fluid, init, exe.device))
+    cpu = fluid.Executor(fluid.CPUPlace())
+    ref, = cpu.run(main, feed=feed, fetch_list=[pred],
+                   scope=_scope_from(fluid, init, "cpu"))
+    err = float(np.abs(got - ref).max())
+    check(got.shape == (ZOO_BATCH, 10) and bool(np.isfinite(got).all())
+          and np.allclose(got.sum(1), 1.0, atol=1e-5) and err <= 1e-5,
+          "cnn_infer on a uint8 batch: shape %s, card vs CPU max_abs_err %g",
+          got.shape, err)
+    log("zoo cnn_infer: uint8 batch [%d, 1, 28, 28] through cast/scale/"
+        "conv/pool/transposes/reshapes/fc softmax on the card, card vs CPU "
+        "max_abs_err %.3g  ok", ZOO_BATCH, err)
+    return drops
+
+
+def mt_phase(torch, smi):
+    """Phase 13. Returns (flash launches of (a)'s eager run, the flash
+    kernels' largest fp32 errors and times at the MT shape, VGG's
+    dropout launches)."""
+    t0 = time.perf_counter()
+    counts, scope, prog = mt_train_phase(torch, smi)
+    t1 = time.perf_counter()
+    err, times = mt_flash_phase(torch)
+    t2 = time.perf_counter()
+    near = mt_translate_phase(torch, smi, prog, scope)
+    t3 = time.perf_counter()
+    near += lm_generate_phase(torch, smi)
+    t4 = time.perf_counter()
+    drops = zoo_phase(torch, smi)
+    t5 = time.perf_counter()
+    log("mt: phase 13 took %.1f s (train %.1f s, flash %.1f s, translate "
+        "%.1f s, generate %.1f s, zoo %.1f s); near-ties %d", t5 - t0,
+        t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4, len(near))
+    return counts, err, times, drops
+
+
 def _report_profile(prof, wall, title, focus=None):
     """Device busy share of ``wall`` and the top kernels; with ``focus``,
     also the share of the kernels whose names hold it. Returns (busy
@@ -3532,6 +4145,7 @@ def main():
         io_launches, _ = io_phase(torch, smi)
         options_flash, options_dropout, dropout_times = options_phase(
             torch, smi)
+        mt_launches, mt_err, mt_times, zoo_drops = mt_phase(torch, smi)
     except SmokeFailure as e:
         print("chip_smoke: FAILED: %s" % e, file=sys.stderr)
         return 1
@@ -3556,11 +4170,14 @@ def main():
             "name": name, "route": "cuda", "source": flash_src,
             "replaces": "paddle_tpu/ops/flash_attention.py:%d" % line,
             "launches": (flash_launches[name] + lm_counts[name]
-                         + io_launches[name] + options_flash[name]),
+                         + io_launches[name] + options_flash[name]
+                         + mt_launches[name]),
             "graph_launches": lm_counts[name],
             "io_launches": io_launches[name],
             "options_launches": options_flash[name],
-            "max_abs_err": flash_err[name]}, **flash_times[name]))
+            "mt_launches": mt_launches[name],
+            "max_abs_err": max(flash_err[name], mt_err[name]),
+            "mt_shape": mt_times[name]}, **flash_times[name]))
     kernels.append(dict({
         "name": "matmul_stats", "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/matmul_stats.cu",
@@ -3572,7 +4189,8 @@ def main():
         "source": "paddle_tpu_torch/ops/csrc/dropout.cu",
         "replaces": "paddle_tpu/ops/nn.py:51 (jax.random.bernoulli, fused "
                     "by XLA: no Pallas kernel)",
-        "launches": options_dropout, "options_launches": options_dropout},
+        "launches": options_dropout + zoo_drops,
+        "options_launches": options_dropout, "zoo_launches": zoo_drops},
         **dropout_times))
     print(json.dumps({"kernels": kernels}))
     print(smi)

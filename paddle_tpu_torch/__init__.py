@@ -34,7 +34,16 @@ Ported so far:
     hand-written CUDA dropout kernel (``ops/csrc/dropout.cu``, counter-
     keyed Philox bits that a CUDA graph replays), the whole optimizer
     family with ``ModelAverage``, the gradient clips and the L1/L2
-    regularizers.
+    regularizers;
+  * the zoo and decoding: ``nets``, ``models.mlp`` (mlp, cnn and the
+    uint8 ``cnn_infer`` pipeline), ``models.vgg``,
+    ``models.transformer.transformer`` (the encoder-decoder MT model;
+    its decoder's causal self-attention on the flash kernels when
+    packed), ``models.TRANSFORM_ZOO``, beam search
+    (``ops/beam_search.py``, ``layers.beam_search``/
+    ``beam_search_decode``, ``models/decoding.py``) and the decode models'
+    whole decodes, ``TransformerInfer.translate``/``translate_greedy``
+    and ``TransformerLMInfer.generate``, each one CUDA graph on the card.
 
 Used as ``import paddle_tpu_torch as fluid``, as scripts use
 ``paddle_tpu``.
@@ -48,6 +57,7 @@ from . import optimizer  # noqa: F401
 from . import regularizer  # noqa: F401
 from . import clip  # noqa: F401
 from . import io  # noqa: F401
+from . import nets  # noqa: F401
 from .core import (  # noqa: F401
     CPUPlace, CUDAPlace, Executor, Program, Scope, TPUPlace,
     append_backward, calc_gradient, default_main_program,

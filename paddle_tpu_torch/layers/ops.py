@@ -7,7 +7,7 @@ Only the types the port lowers are generated here.
 
 from .layer_helper import LayerHelper
 
-_UNARY_OPS = ["relu", "sqrt", "square", "sign"]
+_UNARY_OPS = ["sigmoid", "relu", "sqrt", "square", "sign"]
 
 
 def _make_layer(op_type):

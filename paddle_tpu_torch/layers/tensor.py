@@ -1,10 +1,9 @@
 """Tensor layers.
 
 The counterpart of ``paddle_tpu/layers/tensor.py``, holding the layers
-the flagship LM, the optimizers and the gradient clips use:
-create_global_var, sums, assign, fill_constant, reshape, transpose and
-expand, plus ``cast`` for ``Variable.astype`` (its op's lowering is not ported yet, so it is not
-exported from ``layers``).
+the flagship LM, the optimizers, the gradient clips, the mnist models and
+``nets.glu`` use: create_global_var, cast, sums, assign, fill_constant,
+reshape, transpose, expand and split.
 """
 
 import numpy as np
@@ -30,6 +29,35 @@ def cast(x, dtype):
     helper.append_op(type="cast", inputs={"X": [x]}, outputs={"Out": [out]},
                      attrs={"in_dtype": x.dtype, "out_dtype": dtype})
     return out
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", name=name)
+    in_shape = input.shape
+    ax = dim % len(in_shape) if in_shape is not None else dim
+    if isinstance(num_or_sections, int):
+        num = num_or_sections
+        sections = None
+        sizes = ([in_shape[ax] // num] * num
+                 if in_shape is not None and in_shape[ax] > 0 else None)
+    else:
+        sections = list(num_or_sections)
+        num = 0
+        sizes = sections
+    outs = []
+    for i in range(len(sizes) if sizes else num):
+        shape = None
+        if in_shape is not None and sizes:
+            s = list(in_shape)
+            s[ax] = sizes[i]
+            shape = tuple(s)
+        outs.append(helper.create_variable_for_type_inference(
+            input.dtype, shape=shape))
+    helper.append_op(type="split", inputs={"X": [input]},
+                     outputs={"Out": outs},
+                     attrs={"axis": dim, "num": num,
+                            "sections": sections or []})
+    return outs
 
 
 def sums(input, out=None):

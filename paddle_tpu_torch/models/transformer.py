@@ -1,31 +1,37 @@
-"""The flagship decoder-only transformer LM.
+"""The transformer models: the flagship decoder-only LM and the
+encoder-decoder MT model.
 
 The counterpart of ``paddle_tpu/models/transformer.py`` for
-``transformer_lm`` and the pieces it is built from
-(``position_encoding_init``, ``multi_head_attention``,
+``transformer_lm``, ``transformer`` (machine translation) and the pieces
+they are built from (``position_encoding_init``, ``multi_head_attention``,
 ``positionwise_feed_forward``, ``pre_post_process_layer``,
-``decoder_layer``, ``_embed``, ``make_attn_bias``) plus ``make_lm_batch``.
-Built through the port's ``layers``, it emits the same Program as the JAX
-package (``Program.to_json`` is identical under ``unique_name.guard()``).
+``encoder_layer``, ``decoder_layer``, ``_embed``, ``make_attn_bias``),
+with ``make_lm_batch`` and the zoo entries ``zoo_spec`` and
+``zoo_spec_mt``. Built through the port's ``layers``, each emits the same
+Program as the JAX package (``Program.to_json`` is identical under
+``unique_name.guard()``).
 
-With ``packed=True`` self-attention is one ``sp_attention`` op: the CUDA
-flash-attention kernels on the card. ``packed=False`` is the composed
-matmul/softmax form with an additive mask — the kernel-free twin of the
-same model. The options: ``recompute=True`` wraps each decoder layer in a
-``layers.recompute()`` region (the flash forward then runs twice a step:
-in the forward and in the recompute); ``dropout_rate > 0`` adds the
-embedding dropout, the attention-weight dropout (which takes the composed
-path, as in the JAX package) and two residual dropouts a layer, all on
-the CUDA dropout kernel; ``label_smooth_eps > 0`` trains on soft labels,
-``label_smooth(one_hot(label))``. Not ported yet: the encoder-decoder
-``transformer`` and ``transformer_lm_parallel`` (ROADMAP.md, queue 1).
+With ``packed=True`` causal self-attention is one ``sp_attention`` op:
+the CUDA flash-attention kernels on the card (the LM's every layer, the
+MT decoder's every layer; the MT encoder and cross-attention stay
+composed). ``packed=False`` is the composed matmul/softmax form with an
+additive mask, the kernel-free twin of the same model. The options:
+``recompute=True`` (LM) wraps each decoder layer in a
+``layers.recompute()`` region (the flash forward then runs twice a
+step: in the forward and in the recompute); ``dropout_rate > 0`` adds
+the embedding dropout (LM), the attention-weight dropout (which takes the
+composed path, as in the JAX package) and two residual dropouts a
+layer, all on the CUDA dropout kernel; ``label_smooth_eps > 0`` trains
+on soft labels, ``label_smooth(one_hot(label))``. Not ported yet:
+``transformer_lm_parallel`` and the MoE zoo entry (ROADMAP.md, queue 1
+item 9).
 """
 
 import contextlib
 
 import numpy as np
 
-from .. import initializer, layers
+from .. import initializer, layers, optimizer
 from ..param_attr import ParamAttr
 
 
@@ -124,6 +130,15 @@ def pre_post_process_layer(prev, out, process_cmd, dropout_rate=0.0):
     return out
 
 
+def encoder_layer(x, attn_bias, n_head, d_key, d_value, d_model, d_inner,
+                  dropout_rate=0.0):
+    attn = multi_head_attention(x, x, x, attn_bias, d_key, d_value, d_model,
+                                n_head, dropout_rate)
+    attn_out = pre_post_process_layer(x, attn, "dan", dropout_rate)
+    ffn = positionwise_feed_forward(attn_out, d_inner, d_model)
+    return pre_post_process_layer(attn_out, ffn, "dan", dropout_rate)
+
+
 def decoder_layer(x, enc_output, slf_attn_bias, dec_enc_attn_bias, n_head,
                   d_key, d_value, d_model, d_inner, dropout_rate=0.0,
                   causal=False):
@@ -219,6 +234,112 @@ def transformer_lm(vocab_size=4096, max_len=256, n_layer=4, n_head=8,
     masked = layers.elementwise_mul(cost, flat_mask)
     avg_cost = layers.reduce_sum(masked) / layers.reduce_sum(flat_mask)
     return avg_cost, logits
+
+
+def transformer(src_vocab_size=4096, trg_vocab_size=4096, max_len=64,
+                n_layer=2, n_head=8, d_model=256, d_inner=1024,
+                dropout_rate=0.0, label_smooth_eps=0.0, packed=False):
+    """Encoder-decoder MT model (machine_translation benchmark parity).
+    Feeds: src_word, src_pos, src_mask, trg_word, trg_pos, trg_mask,
+    lbl_word, all [B, T]. Returns (avg_cost, predictions).
+
+    packed=True assumes full-length (packed) sequences: padding biases are
+    dropped and decoder self-attention takes the fused flash path
+    (causal in the kernel); `trg_mask` still weights the loss."""
+    d_key = d_value = d_model // n_head
+    src_word = layers.data("src_word", [max_len], dtype="int64")
+    src_pos = layers.data("src_pos", [max_len], dtype="int64")
+    src_mask = layers.data("src_mask", [max_len], dtype="float32")
+    trg_word = layers.data("trg_word", [max_len], dtype="int64")
+    trg_pos = layers.data("trg_pos", [max_len], dtype="int64")
+    trg_mask = layers.data("trg_mask", [max_len], dtype="float32")
+    lbl_word = layers.data("lbl_word", [max_len], dtype="int64")
+
+    enc_in = _embed(src_word, src_vocab_size, d_model, max_len, src_pos,
+                    "src")
+    enc_bias = None if packed else make_attn_bias(src_mask, n_head)
+    enc = enc_in
+    for _ in range(n_layer):
+        enc = encoder_layer(enc, enc_bias, n_head, d_key, d_value, d_model,
+                            d_inner, dropout_rate)
+
+    dec_in = _embed(trg_word, trg_vocab_size, d_model, max_len, trg_pos,
+                    "trg")
+    slf_bias = None if packed else make_attn_bias(trg_mask, n_head,
+                                                  causal=True)
+    # cross bias: queries are target positions, keys source positions
+    # (Tq == Tk == max_len, so the key-padding bias applies as it is)
+    cross_bias = None if packed else make_attn_bias(src_mask, n_head)
+    dec = dec_in
+    for _ in range(n_layer):
+        dec = decoder_layer(dec, enc, slf_bias, cross_bias, n_head, d_key,
+                            d_value, d_model, d_inner, dropout_rate,
+                            causal=packed)
+
+    logits = layers.fc(dec, trg_vocab_size, num_flatten_dims=2,
+                       bias_attr=False)
+    flat_logits = layers.reshape(logits, [-1, trg_vocab_size])
+    flat_label = layers.reshape(lbl_word, [-1, 1])
+    if label_smooth_eps:
+        smooth = layers.label_smooth(
+            layers.one_hot(flat_label, trg_vocab_size),
+            epsilon=label_smooth_eps)
+        cost = layers.softmax_with_cross_entropy(flat_logits, smooth,
+                                                 soft_label=True)
+    else:
+        cost = layers.softmax_with_cross_entropy(flat_logits, flat_label)
+    flat_mask = layers.reshape(trg_mask, [-1, 1])
+    masked = layers.elementwise_mul(cost, flat_mask)
+    avg_cost = layers.reduce_sum(masked) / layers.reduce_sum(flat_mask)
+    return avg_cost, logits
+
+
+def zoo_spec():
+    """(build_fn, feed_fn): flagship decoder-only LM, SGD train step."""
+    vocab, max_len = 256, 32
+
+    def build():
+        avg_cost, _ = transformer_lm(vocab_size=vocab, max_len=max_len,
+                                     n_layer=2, n_head=4, d_model=64,
+                                     d_inner=128)
+        optimizer.SGD(learning_rate=1e-3).minimize(avg_cost)
+        return (avg_cost,)
+
+    def feeds(rng):
+        return make_lm_batch(rng, 4, max_len, vocab)
+
+    return build, feeds
+
+
+def zoo_spec_mt():
+    """(build_fn, feed_fn): encoder-decoder MT model, SGD train step. The
+    encoder's self-attention bias and the decoder's cross-attention bias
+    are both derived from ``src_mask`` through identical chains."""
+    vocab, max_len = 64, 16
+
+    def build():
+        avg_cost, _ = transformer(
+            src_vocab_size=vocab, trg_vocab_size=vocab,
+            max_len=max_len, n_layer=1, n_head=2, d_model=32,
+            d_inner=64)
+        optimizer.SGD(learning_rate=1e-3).minimize(avg_cost)
+        return (avg_cost,)
+
+    def feeds(rng):
+        return mt_feeds(make_lm_batch(rng, 2, max_len, vocab),
+                        make_lm_batch(rng, 2, max_len, vocab))
+
+    return build, feeds
+
+
+def mt_feeds(src, trg):
+    """The MT model's feed from two ``make_lm_batch`` batches: ``src``'s
+    tokens, positions and mask on the source side, ``trg``'s on the
+    target side with its labels."""
+    return {"src_word": src["src"], "src_pos": src["pos"],
+            "src_mask": src["mask"], "trg_word": trg["src"],
+            "trg_pos": trg["pos"], "trg_mask": trg["mask"],
+            "lbl_word": trg["label"]}
 
 
 def make_lm_batch(rng, batch, max_len, vocab_size):

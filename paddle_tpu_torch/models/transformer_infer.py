@@ -1,19 +1,31 @@
-"""KV-cached incremental decode of the flagship decoder-only LM.
+"""KV-cached incremental decode: the MT decoder and the flagship LM.
 
-The counterpart of ``paddle_tpu/models/transformer_infer.py``, restricted
-to ``TransformerLMInfer``: the dense single-row step that
-``sequential_generate`` drives, the dense per-slot steps of the engine's
-``paged=False`` layout (``_step_logits_slots``, ``_prefill_chunk_slot``),
-and the paged-pool steps the serving engine drives by default
-(``_step_logits_paged`` for decode and the truncated drafter,
-``_spec_logits_paged`` for speculative scoring, ``_prefill_chunk_paged``
-for chunked prefill), all writing through ``_pool_write`` and attending
-through ``_mha_paged``.
+The counterpart of ``paddle_tpu/models/transformer_infer.py``:
+
+* ``TransformerInfer`` replays ``models.transformer.transformer`` (the
+  encoder-decoder MT model): ``encode``, the beam-tiled cross K/V of
+  ``_init_decode_state``, the dense per-row step ``_step_logits`` and the
+  whole decodes ``translate`` (beam search) and ``translate_greedy``. Its
+  attention is the plain ``_mha``, no kernel, as in the JAX package.
+* ``TransformerLMInfer`` replays ``transformer_lm``: the dense single-row
+  step that ``sequential_generate`` and ``generate`` drive, the dense
+  per-slot steps of the engine's ``paged=False`` layout
+  (``_step_logits_slots``, ``_prefill_chunk_slot``), and the paged-pool
+  steps the serving engine drives by default (``_step_logits_paged`` for
+  decode and the truncated drafter, ``_spec_logits_paged`` for
+  speculative scoring, ``_prefill_chunk_paged`` for chunked prefill), all
+  writing through ``_pool_write`` and attending through ``_mha_paged``.
+
+A whole decode (``translate``, ``translate_greedy``, ``generate``) runs
+``models/decoding``'s loops: eagerly on the CPU, and on the card as one
+CUDA graph per shape (``core/graphs.StepGraph``) holding all its steps,
+the encoder, the top-k, the cache reorder and the backtrack, captured at
+the first call and replayed after (``_decode``).
 
 Weights arrive as a parameter stream ``[(role, [ndarray, ...]), ...]``
 in the builder's op order: ``extract_params(program, scope)`` walks a
 trained Program and its scope (``from_program``), and ``init_stream``
-draws one from a seed with the builder's own initializers. The same
+draws an LM's from a seed with the builder's own initializers. A
 role-checking cursor replays it, so a builder whose op order changes
 fails loudly instead of mis-wiring weights.
 
@@ -25,17 +37,17 @@ import numpy as np
 import torch
 from torch import nn
 
+from . import decoding
 from .. import resolve_device
+from ..core.graphs import StepGraph
 from ..ops import paged_attention as _paged_ops
 
-__all__ = ["TransformerLMInfer", "extract_params", "params_from_stream",
-           "init_stream"]
+__all__ = ["TransformerInfer", "TransformerLMInfer", "extract_params",
+           "params_from_stream", "mt_params_from_stream", "init_stream"]
 
 # every tensor a paged state dict may carry for the KV pool itself: codes
 # and, when quantized, the per-vector scales beside them
 _POOL_KEYS = ("pool_k", "pool_v", "pool_ks", "pool_vs")
-_LAYER_KEYS = ("wq", "wk", "wv", "wo", "ln1_scale", "ln1_bias", "ffn_w1",
-               "ffn_b1", "ffn_w2", "ffn_b2", "ln2_scale", "ln2_bias")
 _PER_LAYER = 10                    # stream entries one layer consumes
 
 # op type -> (stream role, input slot holding the parameter)
@@ -124,26 +136,66 @@ class _Cursor:
                                  % (self._i, len(self._items)))
 
 
+def _take_mha(cur):
+    return {"wq": cur.take("mul"), "wk": cur.take("mul"),
+            "wv": cur.take("mul"), "wo": cur.take("mul")}
+
+
+def _take_attn_ffn(cur):
+    """An LM layer's (or an MT encoder layer's) stream: the attention's
+    four matmuls, a layer norm, the FFN, a layer norm."""
+    p = _take_mha(cur)
+    p["ln1_scale"], p["ln1_bias"] = cur.take("layer_norm")
+    p["ffn_w1"], p["ffn_b1"] = cur.take("mul"), cur.take("bias")
+    p["ffn_w2"], p["ffn_b2"] = cur.take("mul"), cur.take("bias")
+    p["ln2_scale"], p["ln2_bias"] = cur.take("layer_norm")
+    return p
+
+
+def _take_dec_layer(cur):
+    """An MT decoder layer's stream: self-attention, a layer norm,
+    cross-attention, a layer norm, the FFN, a layer norm."""
+    p = {"self_attn": _take_mha(cur)}
+    p["ln1_scale"], p["ln1_bias"] = cur.take("layer_norm")
+    p["cross"] = _take_mha(cur)
+    p["ln2_scale"], p["ln2_bias"] = cur.take("layer_norm")
+    p["ffn_w1"], p["ffn_b1"] = cur.take("mul"), cur.take("bias")
+    p["ffn_w2"], p["ffn_b2"] = cur.take("mul"), cur.take("bias")
+    p["ln3_scale"], p["ln3_bias"] = cur.take("layer_norm")
+    return p
+
+
+def _cursor(stream):
+    return _Cursor([(role, [np.array(a, dtype=np.float32) for a in arrays])
+                    for role, arrays in stream])
+
+
 def params_from_stream(stream, n_layer=None):
-    """Replay a parameter stream into ``{"word_emb", "pos_emb", "w_out",
-    "layers": [{wq, wk, wv, wo, ln1_*, ffn_*, ln2_*}, ...]}`` of float32
-    numpy arrays. ``n_layer`` defaults to what the stream's length
-    implies; the cursor's role checks hold either way."""
-    items = [(role, [np.array(a, dtype=np.float32) for a in arrays])
-             for role, arrays in stream]
+    """Replay a ``transformer_lm`` parameter stream into ``{"word_emb",
+    "pos_emb", "w_out", "layers": [{wq, wk, wv, wo, ln1_*, ffn_*, ln2_*},
+    ...]}`` of float32 numpy arrays. ``n_layer`` defaults to what the
+    stream's length implies; the cursor's role checks hold either way."""
     if n_layer is None:
-        n_layer = (len(items) - 3) // _PER_LAYER
-    cur = _Cursor(items)
-    out = {"word_emb": cur.take("lookup"), "pos_emb": cur.take("lookup"),
-           "layers": []}
-    for _ in range(n_layer):
-        p = {"wq": cur.take("mul"), "wk": cur.take("mul"),
-             "wv": cur.take("mul"), "wo": cur.take("mul")}
-        p["ln1_scale"], p["ln1_bias"] = cur.take("layer_norm")
-        p["ffn_w1"], p["ffn_b1"] = cur.take("mul"), cur.take("bias")
-        p["ffn_w2"], p["ffn_b2"] = cur.take("mul"), cur.take("bias")
-        p["ln2_scale"], p["ln2_bias"] = cur.take("layer_norm")
-        out["layers"].append(p)
+        n_layer = (len(stream) - 3) // _PER_LAYER
+    cur = _cursor(stream)
+    out = {"word_emb": cur.take("lookup"), "pos_emb": cur.take("lookup")}
+    out["layers"] = [_take_attn_ffn(cur) for _ in range(n_layer)]
+    out["w_out"] = cur.take("mul")
+    cur.done()
+    return out
+
+
+def mt_params_from_stream(stream, n_layer):
+    """Replay a ``transformer`` (MT) parameter stream in the builder's
+    order: the source embeddings, ``n_layer`` encoder layers, the target
+    embeddings, ``n_layer`` decoder layers, the output projection."""
+    cur = _cursor(stream)
+    out = {"src_word_emb": cur.take("lookup"),
+           "src_pos_emb": cur.take("lookup")}
+    out["enc_layers"] = [_take_attn_ffn(cur) for _ in range(n_layer)]
+    out["trg_word_emb"] = cur.take("lookup")
+    out["trg_pos_emb"] = cur.take("lookup")
+    out["dec_layers"] = [_take_dec_layer(cur) for _ in range(n_layer)]
     out["w_out"] = cur.take("mul")
     cur.done()
     return out
@@ -209,89 +261,59 @@ def _ln(x, scale, bias, eps=1e-5):
 
 
 class _Layer(nn.Module):
-    """One decoder layer's weights (attention, layer norms, FFN)."""
+    """One layer's weights: each array of ``arrays`` a frozen parameter,
+    each dict a sub-layer (an MT decoder layer's two attentions)."""
 
     def __init__(self, arrays, dtype, device):
         super().__init__()
-        for name in _LAYER_KEYS:
-            setattr(self, name, nn.Parameter(
-                torch.as_tensor(arrays[name]).to(device=device,
-                                                 dtype=dtype),
-                requires_grad=False))
+        for name, a in arrays.items():
+            setattr(self, name, _Layer(a, dtype, device)
+                    if isinstance(a, dict) else _param(a, dtype, device))
 
 
-class TransformerLMInfer(nn.Module):
-    """KV-cached incremental decode for ``transformer_lm`` weights.
+def _param(a, dtype, device):
+    return nn.Parameter(torch.as_tensor(a).to(device=device, dtype=dtype),
+                        requires_grad=False)
 
-    ``dtype`` is float32 (default) or bfloat16: bf16 casts weights and
-    KV caches, with scores, softmax and layer-norm statistics in f32.
-    ``device`` defaults to the CUDA card (raising without one)."""
 
-    def __init__(self, params, n_layer, n_head, d_model, max_len,
-                 bos_id=1, end_id=2, dtype=None, device=None):
+def _infer_dtype(dtype):
+    dtype = torch.float32 if dtype is None else dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        # _ln's f32 statistics and the f32 scores are built for bf16;
+        # fp16's 5-bit exponent would degrade the LN statistics
+        raise ValueError("infer dtype must be bfloat16 or float32; got %r"
+                         % (dtype,))
+    return dtype
+
+
+class _Decoder(nn.Module):
+    """What the two decode models share: the attention, FFN and cache
+    helpers, the output-length check and the decode graphs."""
+
+    def __init__(self, n_layer, n_head, d_model, max_len, bos_id, end_id):
         super().__init__()
-        dtype = torch.float32 if dtype is None else dtype
-        if dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError("infer dtype must be bfloat16 or float32; "
-                             "got %r" % (dtype,))
-        dev = resolve_device(device)
-        if len(params["layers"]) != n_layer:
-            raise ValueError("params hold %d layers, n_layer is %d"
-                             % (len(params["layers"]), n_layer))
         self.n_layer, self.n_head = n_layer, n_head
         self.d_model, self.max_len = d_model, max_len
         self.bos_id, self.end_id = bos_id, end_id
-
-        def param(a):
-            return nn.Parameter(torch.as_tensor(a).to(device=dev,
-                                                      dtype=dtype),
-                                requires_grad=False)
-
-        self.word_emb = param(params["word_emb"])
-        self.pos_emb = param(params["pos_emb"])
-        self.layers = nn.ModuleList(
-            _Layer(p, dtype, dev) for p in params["layers"])
-        self.w_out = param(params["w_out"])
-
-    @classmethod
-    def from_stream(cls, stream, n_layer, n_head, d_model, max_len,
-                    bos_id=1, end_id=2, dtype=None, device=None):
-        """Build from a parameter stream (``params_from_stream``)."""
-        return cls(params_from_stream(stream, n_layer), n_layer, n_head,
-                   d_model, max_len, bos_id=bos_id, end_id=end_id,
-                   dtype=dtype, device=device)
-
-    @classmethod
-    def from_program(cls, program, scope, n_layer, n_head, d_model,
-                     max_len, bos_id=1, end_id=2, dtype=None, device=None):
-        """Build from a trained ``transformer_lm`` Program and its scope
-        (``extract_params``), the JAX package's constructor signature."""
-        return cls.from_stream(extract_params(program, scope), n_layer,
-                               n_head, d_model, max_len, bos_id=bos_id,
-                               end_id=end_id, dtype=dtype, device=device)
+        self._decode_graphs = {}
 
     @property
     def device(self):
-        return self.word_emb.device
+        return self.w_out.device
 
     @property
     def dtype(self):
-        return self.word_emb.dtype
+        return self.w_out.dtype
 
-    # ------------------------------------------------------------------
-    def _embed(self, tok, pos):
-        return self.word_emb[tok] * (self.d_model ** 0.5) \
-            + self.pos_emb[pos]
-
-    def _bias(self, qpos):
-        """Additive causal bias: 0 where key position <= ``qpos``, -1e9
-        elsewhere; ``qpos`` [..., Tq] -> [..., Tq, max_len]."""
-        ar = torch.arange(self.max_len, device=qpos.device)
-        return torch.where(ar <= qpos[..., None], 0.0, -1e9)
+    def _causal(self, t):
+        """Self-attention bias of the dense step at host position ``t``:
+        0 on cache positions <= t, -1e9 after; [max_len]."""
+        ar = torch.arange(self.max_len, device=self.device)
+        return torch.where(ar <= t, 0.0, -1e9)
 
     def _mha(self, p, q_in, kv_k, kv_v, bias):
         """q_in [rows, Tq, D]; kv_k/v [rows, H, Tk, dk]; bias
-        broadcastable to [rows, H, Tq, Tk]."""
+        broadcastable to [rows, H, Tq, Tk]. Scores and softmax in f32."""
         q = _split_heads(q_in @ p.wq, self.n_head)
         dk = q.shape[-1]
         s = torch.einsum("rhqd,rhkd->rhqk", (q * (dk ** -0.5)).float(),
@@ -311,23 +333,239 @@ class TransformerLMInfer(nn.Module):
         hdn = torch.relu(x @ p.ffn_w1 + p.ffn_b1)
         return hdn @ p.ffn_w2 + p.ffn_b2
 
-    def _block_tail(self, p, x, a):
-        x = _ln(x + a, p.ln1_scale, p.ln1_bias)
-        return _ln(x + self._ffn(p, x), p.ln2_scale, p.ln2_bias)
-
-    # -- dense cache (sequential baseline) -----------------------------
     def _init_state(self, rows):
+        """Dense self-attention caches k<i>/v<i> [rows, H, max_len, dk],
+        zeroed."""
         dk = self.d_model // self.n_head
         shape = (rows, self.n_head, self.max_len, dk)
         return {("k%d" % i if half == 0 else "v%d" % i):
                 torch.zeros(shape, dtype=self.dtype, device=self.device)
                 for i in range(self.n_layer) for half in (0, 1)}
 
+    def _check_out_len(self, max_out_len):
+        max_out = max_out_len or self.max_len
+        if max_out > self.max_len:
+            # beyond max_len the position lookup and the cache writes
+            # would run off the tables: fail loudly instead
+            raise ValueError("max_out_len %d exceeds the model's max_len %d"
+                             % (max_out, self.max_len))
+        return max_out
+
+    def _input(self, value, dtype):
+        return torch.as_tensor(value).to(device=self.device, dtype=dtype)
+
+    def _decode(self, key, fn, *inputs):
+        """``fn(*inputs)``, a whole decode returning a tuple of tensors.
+        On the CPU it runs eagerly. On the card it runs as one CUDA graph
+        per ``key``, dtype, BOS and end ids and input shape: captured at
+        the first call (after an eager warm-up), then replayed with the
+        inputs copied into its static buffers; the outputs are copied out
+        of the graph's own."""
+        if self.device.type != "cuda":
+            return fn(*inputs)
+        key = (key, self.dtype, self.bos_id, self.end_id) + tuple(
+            (tuple(x.shape), x.dtype) for x in inputs)
+        entry = self._decode_graphs.get(key)
+        if entry is None:
+            static = [x.clone() for x in inputs]
+            out = []
+            graph = StepGraph(self.device, "the decode %r" % (key,))
+            graph.capture(lambda: fn(*static),
+                          lambda: out.append(fn(*static)))
+            entry = self._decode_graphs[key] = (graph, static, out)
+        graph, static, out = entry
+        for buf, x in zip(static, inputs):
+            buf.copy_(x)
+        graph.replay()
+        return tuple(r.clone() for r in out[0])
+
+
+class TransformerInfer(_Decoder):
+    """KV-cached decode of ``transformer`` (MT) weights: the encoder once,
+    then one decoder step a token over dense per-row self-attention
+    caches and the cross K/V precomputed from the encoder's output.
+
+    ``dtype`` is float32 (default) or bfloat16: bf16 casts weights and
+    caches, with scores, softmax, layer-norm statistics and log-probs in
+    f32. ``device`` defaults to the CUDA card (raising without one)."""
+
+    def __init__(self, params, n_layer, n_head, d_model, max_len,
+                 bos_id=1, end_id=2, dtype=None, device=None):
+        super().__init__(n_layer, n_head, d_model, max_len, bos_id, end_id)
+        dtype = _infer_dtype(dtype)
+        dev = resolve_device(device)
+        for name in ("src_word_emb", "src_pos_emb", "trg_word_emb",
+                     "trg_pos_emb", "w_out"):
+            setattr(self, name, _param(params[name], dtype, dev))
+        self.enc_layers = nn.ModuleList(
+            _Layer(p, dtype, dev) for p in params["enc_layers"])
+        self.dec_layers = nn.ModuleList(
+            _Layer(p, dtype, dev) for p in params["dec_layers"])
+
+    @classmethod
+    def from_stream(cls, stream, n_layer, n_head, d_model, max_len,
+                    bos_id=1, end_id=2, dtype=None, device=None):
+        """Build from a parameter stream (``mt_params_from_stream``)."""
+        return cls(mt_params_from_stream(stream, n_layer), n_layer, n_head,
+                   d_model, max_len, bos_id=bos_id, end_id=end_id,
+                   dtype=dtype, device=device)
+
+    @classmethod
+    def from_program(cls, program, scope, n_layer, n_head, d_model,
+                     max_len, bos_id=1, end_id=2, dtype=None, device=None):
+        """Build from a trained ``transformer`` Program and its scope
+        (``extract_params``), the JAX package's constructor signature."""
+        return cls.from_stream(extract_params(program, scope), n_layer,
+                               n_head, d_model, max_len, bos_id=bos_id,
+                               end_id=end_id, dtype=dtype, device=device)
+
+    def encode(self, src_tokens, src_mask):
+        """src_tokens [B, T] int, src_mask [B, T] float -> [B, T, D]."""
+        t = src_tokens.shape[1]
+        x = self.src_word_emb[src_tokens.long()] * (self.d_model ** 0.5) \
+            + self.src_pos_emb[:t][None]
+        bias = (src_mask[:, None, None, :].float() - 1.0) * 1e9
+        for p in self.enc_layers:
+            k, v = self._kv(p, x)
+            x = _ln(x + self._mha(p, x, k, v, bias), p.ln1_scale,
+                    p.ln1_bias)
+            x = _ln(x + self._ffn(p, x), p.ln2_scale, p.ln2_bias)
+        return x
+
+    def _init_decode_state(self, enc_out, src_mask, rows):
+        """The cross K/V of every decoder layer and the cross bias, each
+        source's repeated for its ``rows // B`` beams, and zeroed
+        self-attention caches of ``rows`` rows."""
+        def tile(x):
+            # each source's row ``rows // B`` times in a row, as
+            # jnp.repeat (an expand: nothing read back to the host)
+            b = x.shape[0]
+            return x[:, None].expand(b, rows // b, *x.shape[1:]).reshape(
+                rows, *x.shape[1:])
+        enc_out, src_mask = tile(enc_out), tile(src_mask)
+        state = {"cross_bias":
+                 (src_mask[:, None, None, :].float() - 1.0) * 1e9}
+        for i, p in enumerate(self.dec_layers):
+            state["cross_k%d" % i], state["cross_v%d" % i] = \
+                self._kv(p.cross, enc_out)
+        state.update(self._init_state(rows))
+        return state
+
+    def _step_logits(self, tok, state, t):
+        """One decoder step at host position ``t``: tok [rows] int ->
+        (logits [rows, V], state with this token's K/V written at cache
+        position ``t`` in place)."""
+        x = (self.trg_word_emb[tok.long()] * (self.d_model ** 0.5)
+             + self.trg_pos_emb[t])[:, None, :]           # [rows, 1, D]
+        bias = self._causal(t)
+        for i, p in enumerate(self.dec_layers):
+            k_new, v_new = self._kv(p.self_attn, x)       # [rows, H, 1, dk]
+            k, v = state["k%d" % i], state["v%d" % i]
+            k[:, :, t] = k_new[:, :, 0]
+            v[:, :, t] = v_new[:, :, 0]
+            a = self._mha(p.self_attn, x, k, v, bias)
+            x = _ln(x + a, p.ln1_scale, p.ln1_bias)
+            c = self._mha(p.cross, x, state["cross_k%d" % i],
+                          state["cross_v%d" % i], state["cross_bias"])
+            x = _ln(x + c, p.ln2_scale, p.ln2_bias)
+            x = _ln(x + self._ffn(p, x), p.ln3_scale, p.ln3_bias)
+        return x[:, 0, :] @ self.w_out, state
+
+    def translate(self, src_tokens, src_mask, beam_size=4, max_out_len=None,
+                  length_penalty=0.0):
+        """Beam-search translate. Returns (sentences [B, beam, T] int32,
+        best first, scores [B, beam])."""
+        max_out = self._check_out_len(max_out_len)
+
+        def run(src, mask):
+            batch = src.shape[0]
+            state = self._init_decode_state(self.encode(src, mask), mask,
+                                            batch * beam_size)
+            return decoding.beam_search(
+                self._step_logits, state, self.bos_id, self.end_id,
+                max_out, batch, beam_size, length_penalty)
+
+        return self._decode(("translate", beam_size, max_out,
+                             length_penalty), run,
+                            self._input(src_tokens, torch.int32),
+                            self._input(src_mask, torch.float32))
+
+    def translate_greedy(self, src_tokens, src_mask, max_out_len=None):
+        """Greedy translate. Returns (tokens [B, T] int32, scores [B])."""
+        max_out = self._check_out_len(max_out_len)
+
+        def run(src, mask):
+            batch = src.shape[0]
+            state = self._init_decode_state(self.encode(src, mask), mask,
+                                            batch)
+            return decoding.greedy_search(
+                self._step_logits, state, self.bos_id, self.end_id,
+                max_out, batch)
+
+        return self._decode(("translate_greedy", max_out), run,
+                            self._input(src_tokens, torch.int32),
+                            self._input(src_mask, torch.float32))
+
+
+class TransformerLMInfer(_Decoder):
+    """KV-cached incremental decode for ``transformer_lm`` weights.
+
+    ``dtype`` is float32 (default) or bfloat16: bf16 casts weights and
+    KV caches, with scores, softmax and layer-norm statistics in f32.
+    ``device`` defaults to the CUDA card (raising without one)."""
+
+    def __init__(self, params, n_layer, n_head, d_model, max_len,
+                 bos_id=1, end_id=2, dtype=None, device=None):
+        super().__init__(n_layer, n_head, d_model, max_len, bos_id, end_id)
+        dtype = _infer_dtype(dtype)
+        dev = resolve_device(device)
+        if len(params["layers"]) != n_layer:
+            raise ValueError("params hold %d layers, n_layer is %d"
+                             % (len(params["layers"]), n_layer))
+        self.word_emb = _param(params["word_emb"], dtype, dev)
+        self.pos_emb = _param(params["pos_emb"], dtype, dev)
+        self.layers = nn.ModuleList(
+            _Layer(p, dtype, dev) for p in params["layers"])
+        self.w_out = _param(params["w_out"], dtype, dev)
+
+    @classmethod
+    def from_stream(cls, stream, n_layer, n_head, d_model, max_len,
+                    bos_id=1, end_id=2, dtype=None, device=None):
+        """Build from a parameter stream (``params_from_stream``)."""
+        return cls(params_from_stream(stream, n_layer), n_layer, n_head,
+                   d_model, max_len, bos_id=bos_id, end_id=end_id,
+                   dtype=dtype, device=device)
+
+    @classmethod
+    def from_program(cls, program, scope, n_layer, n_head, d_model,
+                     max_len, bos_id=1, end_id=2, dtype=None, device=None):
+        """Build from a trained ``transformer_lm`` Program and its scope
+        (``extract_params``), the JAX package's constructor signature."""
+        return cls.from_stream(extract_params(program, scope), n_layer,
+                               n_head, d_model, max_len, bos_id=bos_id,
+                               end_id=end_id, dtype=dtype, device=device)
+
+    # ------------------------------------------------------------------
+    def _embed(self, tok, pos):
+        return self.word_emb[tok] * (self.d_model ** 0.5) \
+            + self.pos_emb[pos]
+
+    def _bias(self, qpos):
+        """Additive causal bias: 0 where key position <= ``qpos``, -1e9
+        elsewhere; ``qpos`` [..., Tq] -> [..., Tq, max_len]."""
+        ar = torch.arange(self.max_len, device=qpos.device)
+        return torch.where(ar <= qpos[..., None], 0.0, -1e9)
+
+    def _block_tail(self, p, x, a):
+        x = _ln(x + a, p.ln1_scale, p.ln1_bias)
+        return _ln(x + self._ffn(p, x), p.ln2_scale, p.ln2_bias)
+
+    # -- dense cache (sequential baseline) -----------------------------
     def _step_logits(self, tok, state, t):
         """One incremental step: tok [rows] int64 -> (logits [rows, V],
         state with this token's K/V written at cache slot ``t``)."""
         x = self._embed(tok, t)[:, None, :]
-        bias = self._bias(torch.tensor(t, device=self.device))
+        bias = self._causal(t)
         for i, p in enumerate(self.layers):
             k_new, v_new = self._kv(p, x)
             k, v = state["k%d" % i], state["v%d" % i]
@@ -335,6 +573,26 @@ class TransformerLMInfer(nn.Module):
             v[:, :, t] = v_new[:, :, 0]
             x = self._block_tail(p, x, self._mha(p, x, k, v, bias))
         return x[:, 0, :] @ self.w_out, state
+
+    def generate(self, batch, max_out_len=None, beam_size=1,
+                 length_penalty=0.0):
+        """Generate from BOS. beam_size 1: greedy, (tokens [B, T] int32,
+        scores [B]); beam_size > 1: beam search, (tokens [B, beam, T],
+        scores [B, beam]), best first."""
+        max_out = self._check_out_len(max_out_len)
+        if beam_size > 1:
+            def run():
+                return decoding.beam_search(
+                    self._step_logits, self._init_state(batch * beam_size),
+                    self.bos_id, self.end_id, max_out, batch, beam_size,
+                    length_penalty)
+        else:
+            def run():
+                return decoding.greedy_search(
+                    self._step_logits, self._init_state(batch),
+                    self.bos_id, self.end_id, max_out, batch)
+        return self._decode(("generate", batch, beam_size, max_out,
+                             length_penalty), run)
 
     # -- dense per-slot cache (the engine's paged=False layout) ---------
     def _step_logits_slots(self, tok, state, pos, write_mask=None):

@@ -2,6 +2,7 @@
 every lowering (as ``paddle_tpu/ops/__init__.py`` does)."""
 
 from . import activations  # noqa: F401
+from . import beam_search  # noqa: F401
 from . import control_flow  # noqa: F401
 from . import conv  # noqa: F401
 from . import elementwise  # noqa: F401

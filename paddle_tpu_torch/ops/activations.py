@@ -1,6 +1,6 @@
-"""Activation ops: relu, sqrt, square, sign (the counterpart of
-``paddle_tpu/ops/activations.py`` for the flagship LM's FFN, the
-gradient clips and the weight-decay regularizers)."""
+"""Activation ops: relu, sigmoid, sqrt, square, sign (the counterpart of
+``paddle_tpu/ops/activations.py`` for the flagship LM's FFN, ``nets.glu``,
+the gradient clips and the weight-decay regularizers)."""
 
 import torch
 
@@ -8,6 +8,7 @@ from ..core.registry import register
 
 _SIMPLE = {
     "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
     "sqrt": torch.sqrt,
     "square": torch.square,
     "sign": torch.sign,

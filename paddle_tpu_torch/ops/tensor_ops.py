@@ -1,9 +1,10 @@
 """Tensor manipulation and creation ops.
 
 The counterpart of ``paddle_tpu/ops/tensor_ops.py`` for the types the
-flagship LM's programs use: fill_constant, assign_value, reshape,
-transpose, expand, one_hot, label_smooth, uniform_random,
-gaussian_random, truncated_gaussian_random and lookup_table.
+flagship LM's, the mnist models' and VGG's programs use: fill_constant,
+assign_value, cast, split, reshape, transpose, expand, one_hot,
+label_smooth, uniform_random, gaussian_random, truncated_gaussian_random
+and lookup_table.
 
 Random ops (``stateful_rng``) draw from the run's ``torch.Generator``
 (``ctx.rng()``), in program order. Index tensors arrive as int32 (64-bit feeds are narrowed
@@ -59,6 +60,30 @@ def _assign_value(ctx, op):
         hit = made[key] = (values, torch.from_numpy(
             np.ascontiguousarray(arr.reshape(shape))).to(ctx.device))
     ctx.set_out(op, "Out", hit[1])
+
+
+@register("cast")
+def _cast(ctx, op):
+    """X as ``out_dtype`` (64-bit narrowed, as every runtime dtype). A
+    uint8 feed stays uint8 up to here (``to_tensor``), as in the JAX
+    package; float to integer truncates toward zero in both."""
+    x = ctx.in1(op, "X")
+    ctx.set_out(op, "Out", x.to(torch_dtype(op.attr("out_dtype"))))
+
+
+@register("split")
+def _split(ctx, op):
+    """X cut along ``axis`` into ``sections`` sizes, or ``num`` equal
+    parts."""
+    x = ctx.in1(op, "X")
+    axis = op.attr("axis", 0)
+    sections = op.attr("sections")
+    if sections:
+        outs = torch.split(x, list(sections), dim=axis)
+    else:
+        outs = torch.chunk(x, op.attr("num", 0), dim=axis)
+    for name, val in zip(op.output("Out"), outs):
+        ctx.env[name] = val
 
 
 @register("reshape")

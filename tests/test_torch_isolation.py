@@ -55,7 +55,11 @@ def test_scan_covers_the_port():
                  ("paddle_tpu_torch", "io.py"), ("serving", "artifact.py"),
                  ("core", "philox.py"), ("ops", "dropout.py"),
                  ("ops", "control_flow.py"), ("layers", "control_flow.py"),
-                 ("paddle_tpu_torch", "clip.py")):
+                 ("paddle_tpu_torch", "clip.py"),
+                 ("paddle_tpu_torch", "nets.py"), ("models", "mlp.py"),
+                 ("models", "vgg.py"), ("models", "harness.py"),
+                 ("models", "decoding.py"), ("ops", "beam_search.py"),
+                 ("layers", "compat.py"), ("models", "__init__.py")):
         assert any(p.endswith(os.path.join(*tail)) for p in srcs), tail
 
 
@@ -80,7 +84,9 @@ def test_import_leaves_jax_unloaded():
             "paddle_tpu_torch.models.transformer_infer, "
             "paddle_tpu_torch.models.transformer, "
             "paddle_tpu_torch.models.resnet, paddle_tpu_torch.io, "
-            "paddle_tpu_torch.serving.artifact; "
+            "paddle_tpu_torch.serving.artifact, paddle_tpu_torch.nets, "
+            "paddle_tpu_torch.models.decoding, paddle_tpu_torch.models.mlp, "
+            "paddle_tpu_torch.models.vgg, paddle_tpu_torch.ops.beam_search; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

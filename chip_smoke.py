@@ -267,6 +267,24 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
      ``run_steps(K=5)`` dispatch bitwise (under
      ``cudnn.deterministic``); ``cnn_infer`` on a uint8 batch against the
      port's CPU path at 1e-5.
+ 14. deepfm  — DeepFM, SelectedRows and the op library (no kernel of the
+     port runs here). (a) ``models.deepfm.build_train_net(num_fields=8,
+     vocab_size=20000, embed_dim=16)``, dnn (32, 32), Adam 1e-2, batch
+     1024 on tests/test_deepfm.py's click rule: the card's first 3
+     steps within 2e-4 of max(1, max|w|) of the port's CPU path from one
+     startup scope; 20 eager steps, losses finite and falling, no kernel
+     launched; 5 ``run()`` calls against one ``run_steps(K=5)`` dispatch
+     bitwise (the shared tables' gradients sum repeated ids); step ms
+     eager and under the graph A/B/A/B, examples/s, the busy share of a
+     traced pass of each. (b) The sparse branches on a 20000 x 16
+     table: 3 SelectedRows gradients of 8192 ids each (repeats among
+     them) through ``merge_selected_rows``, then ``sgd`` or lazy
+     ``adam``, on the card and on the CPU from one state: the touched
+     rows within rtol 1e-6 / atol 1e-7, every untouched row of the table and
+     both moments bitwise as it was, ``run_steps`` refusing the
+     program. (c) ``tools/op_sweep.py``: each of the 112 op types the
+     slice added, forward and (where the CPU sweep checks one) backward,
+     on the card against the CPU at the CPU sweep's tolerances.
 
 The last three lines of standard output are the kernels' JSON line, the
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device": ...}``.
@@ -4073,6 +4091,214 @@ def mt_phase(torch, smi):
     return counts, err, times, drops
 
 
+# -- phase 14 ------------------------------------------------------------
+# DeepFM at the repo's widest configuration (bench.py's F8 D16 V20k):
+# build_train_net(num_fields=8, vocab_size=20000, embed_dim=16), dnn
+# (32, 32), Adam 1e-2, batch 1024, on tests/test_deepfm.py's click rule
+DFM = dict(num_fields=8, vocab_size=20000, embed_dim=16, learning_rate=1e-2)
+DFM_BATCH, DFM_STEPS, DFM_K, DFM_TOL = 1024, 20, 5, 2e-4
+SPARSE_ROWS, SPARSE_NNZ = 8192, 3
+
+
+def _dfm_batch(seed, batch=DFM_BATCH):
+    """Ids uniform in the vocabulary; a click iff field 0's id is even
+    and field 1's id lies in the lower half."""
+    rng = np.random.RandomState(seed)
+    v = DFM["vocab_size"]
+    ids = rng.randint(0, v, (batch, DFM["num_fields"])).astype(np.int64)
+    click = (ids[:, 0] % 2 == 0) & (ids[:, 1] < v // 2)
+    feed = {"field_%d" % i: ids[:, i:i + 1]
+            for i in range(DFM["num_fields"])}
+    feed["click"] = click.astype(np.float32).reshape(-1, 1)
+    return feed
+
+
+def deepfm_train_phase(torch, smi):
+    """(a) DeepFM training: 20 eager steps with losses falling; the
+    card's first 3 steps within DFM_TOL of max(1, max|w|) of the port's
+    CPU path from one startup scope (losses at rtol DFM_TOL); 5 run()
+    calls against one run_steps(K=5) dispatch, bitwise (the shared
+    tables' gradients sum repeated ids: every batch repeats them); step
+    ms eager and under the graph, examples/s and the busy share of a
+    traced pass of each. No kernel of the port runs here: every launch
+    count must stay 0."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import deepfm as D
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, _, _, loss = D.build_train_net(**DFM)
+    prog = (main, startup, loss)
+    init = _init_of(fluid, exe, startup)
+    batches = [_dfm_batch(300 + i) for i in range(DFM_STEPS)]
+    # the card against the port's CPU path, 3 steps from one scope
+    cpu = fluid.Executor(fluid.CPUPlace())
+    sc, sp = _scope_from(fluid, init, exe.device), \
+        _scope_from(fluid, init, "cpu")
+    for i, b in enumerate(batches[:3]):
+        lc, = exe.run(main, feed=b, fetch_list=[loss], scope=sc)
+        lp, = cpu.run(main, feed=b, fetch_list=[loss], scope=sp)
+        check(abs(float(lc) - float(lp)) <= DFM_TOL * abs(float(lp)),
+              "deepfm step %d: loss on the card %r, on the CPU %r", i + 1,
+              float(lc), float(lp))
+    graft, worst, norm = _apart({n: sc.get_numpy(n) for n in init},
+                                {n: sp.get_numpy(n) for n in init})
+    check(graft <= DFM_TOL, "deepfm: after 3 steps %s is %g of max(1, "
+          "max|w|) from the CPU path (limit %g)", worst, graft, DFM_TOL)
+    log("deepfm card vs CPU (Adam, 3 steps, batch %d): largest |diff| / "
+        "max(1, max|w|) %.3g (%s), relative norm %.3g; limit %g", DFM_BATCH,
+        graft, worst, norm, DFM_TOL)
+    _reset_launches()
+    losses, wall, _ = _train(torch, fluid, exe, prog, init, batches,
+                             DFM_STEPS)
+    counts = _launches()
+    log("deepfm train (F%d D%d V%d, dnn (32, 32), Adam 1e-2, batch %d): "
+        "%d steps, losses %s; %.1f examples/s, mean step %.3f ms (steps "
+        "2..%d); %s", DFM["num_fields"], DFM["embed_dim"],
+        DFM["vocab_size"], DFM_BATCH, DFM_STEPS,
+        " ".join("%.4f" % x for x in losses),
+        DFM_BATCH * (DFM_STEPS - 1) / wall, 1e3 * wall / (DFM_STEPS - 1),
+        DFM_STEPS, smi)
+    check(all(np.isfinite(losses)), "deepfm losses not finite: %r", losses)
+    check(np.mean(losses[-5:]) < losses[0] - 0.02, "deepfm loss did not "
+          "fall: %r", losses)
+    check(not any(counts.values()), "deepfm launched the port's kernels: "
+          "%s", counts)
+    _graph_vs_eager(torch, fluid, prog, init, batches[:DFM_K],
+                    "deepfm run_steps")
+    out = _interleaved_train(torch, fluid, exe, prog, init,
+                             batches[:2 * DFM_K], "deepfm", "examples/s",
+                             DFM_BATCH, smi)
+    return out
+
+
+def _sparse_program(fluid, kind):
+    """merge_selected_rows on a SelectedRows gradient, then sgd or lazy
+    adam on a VOCAB x D table."""
+    prog = fluid.Program()
+    blk = prog.global_block()
+    state = ["p", "lr"] + (["m1", "m2", "b1p", "b2p"] if kind == "adam"
+                           else [])
+    for n in state:
+        blk.create_var(name=n, persistable=True)
+    blk.create_var(name="g", persistable=True, type="selected_rows")
+    blk.create_var(name="gm")
+    blk.append_op("merge_selected_rows", {"X": ["g"]}, {"Out": ["gm"]}, {})
+    if kind == "sgd":
+        blk.append_op("sgd", {"Param": ["p"], "Grad": ["gm"],
+                              "LearningRate": ["lr"]},
+                      {"ParamOut": ["p"]}, {})
+    else:
+        blk.append_op(
+            "adam", {"Param": ["p"], "Grad": ["gm"], "LearningRate": ["lr"],
+                     "Moment1": ["m1"], "Moment2": ["m2"],
+                     "Beta1Pow": ["b1p"], "Beta2Pow": ["b2p"]},
+            {"ParamOut": ["p"], "Moment1Out": ["m1"], "Moment2Out": ["m2"],
+             "Beta1PowOut": ["b1p"], "Beta2PowOut": ["b2p"]},
+            {"update_beta_pow": True})
+    return prog
+
+
+def deepfm_sparse_phase(torch, smi):
+    """(b) The sparse branches on a 20000 x 16 table: SPARSE_NNZ steps,
+    each a SelectedRows gradient of SPARSE_ROWS ids (repeats among them)
+    merged by merge_selected_rows, then sgd or lazy adam, on the card
+    and on the CPU from the same state: touched rows within rtol 1e-6 /
+    atol 1e-7 of the CPU's, every untouched row of the table and both
+    moments bitwise as it was; run_steps refuses the program."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+    v, d = DFM["vocab_size"], DFM["embed_dim"]
+    rng = np.random.RandomState(41)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    cpu = fluid.Executor(fluid.CPUPlace())
+    for kind in ("sgd", "adam"):
+        prog = _sparse_program(fluid, kind)
+        state = {"p": rng.randn(v, d).astype(np.float32),
+                 "lr": np.array([0.05], np.float32)}
+        if kind == "adam":
+            state.update(m1=0.1 * rng.randn(v, d).astype(np.float32),
+                         m2=0.01 * np.abs(rng.randn(v, d)).astype(
+                             np.float32),
+                         b1p=np.array([0.9], np.float32),
+                         b2p=np.array([0.999], np.float32))
+        sc, sp = _scope_from(fluid, state, exe.device), \
+            _scope_from(fluid, state, "cpu")
+        touched = np.zeros(v, bool)
+        ms = []
+        for _ in range(SPARSE_NNZ):
+            rows = rng.randint(0, v, SPARSE_ROWS)
+            touched[rows] = True
+            value = rng.randn(SPARSE_ROWS, d).astype(np.float32)
+            sc.set("g", SelectedRows(rows, value, v))
+            sp.set("g", SelectedRows(rows, value, v))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            exe.run(prog, feed={}, fetch_list=[], scope=sc)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            cpu.run(prog, feed={}, fetch_list=[], scope=sp)
+        worst = 0.0
+        for n in ("p", "m1", "m2") if kind == "adam" else ("p",):
+            got, want = sc.get_numpy(n), sp.get_numpy(n)
+            err = float(np.max(np.abs(got[touched] - want[touched])))
+            close = np.allclose(got[touched], want[touched], rtol=1e-6,
+                                atol=1e-7)
+            check(close, "sparse %s: %s on the touched rows differs from "
+                  "the CPU beyond rtol 1e-6 / atol 1e-7 (largest "
+                  "|difference| %g)", kind, n, err)
+            check(np.array_equal(got[~touched], state[n][~touched]),
+                  "sparse %s: an untouched row of %s changed", kind, n)
+            check(not np.array_equal(got[touched], state[n][touched]),
+                  "sparse %s: %s did not move", kind, n)
+            worst = max(worst, err)
+        try:
+            exe.run_steps(prog, feeds=[{}, {}], scope=sc)
+        except NotImplementedError as e:
+            check("host (IO) ops" in str(e), "sparse %s: run_steps raised "
+                  "%s", kind, e)
+        else:
+            raise SmokeFailure("sparse %s: run_steps took a program with a "
+                               "host op" % kind)
+        log("deepfm sparse %s (table %d x %d, %d steps of %d ids, %d rows "
+            "touched): card vs CPU on touched rows within rtol 1e-6 / atol "
+            "1e-7, largest |difference| %.3g; %d untouched rows bitwise "
+            "(table and moments); run_steps refused; "
+            "ms a step (merge + update, host reads included) %s; %s", kind,
+            v, d, SPARSE_NNZ, SPARSE_ROWS, int(touched.sum()), worst,
+            int((~touched).sum()), " ".join("%.3f" % x for x in ms), smi)
+
+
+def op_sweep_phase(torch):
+    """(c) The op library on the card against the CPU
+    (``paddle_tpu_torch/tools/op_sweep.py``): every op type the slice
+    added, forward, and backward where the CPU sweep checks a
+    gradient."""
+    from paddle_tpu_torch.tools import op_sweep
+    held, worst = op_sweep.run("cuda")
+    check(len(held) == 112, "op sweep held %d op types, want 112",
+          len(held))
+    log("op sweep: %d op types held on the card against the CPU "
+        "(forward rtol %g / atol %g, gradients rtol %g / atol %g); "
+        "largest forward |difference| %.3g", len(held), op_sweep.FWD_RTOL,
+        op_sweep.FWD_ATOL, op_sweep.GRAD_RTOL, op_sweep.GRAD_ATOL, worst)
+    return len(held)
+
+
+def deepfm_phase(torch, smi):
+    """Phase 14."""
+    t0 = time.perf_counter()
+    deepfm_train_phase(torch, smi)
+    t1 = time.perf_counter()
+    deepfm_sparse_phase(torch, smi)
+    t2 = time.perf_counter()
+    n = op_sweep_phase(torch)
+    t3 = time.perf_counter()
+    log("deepfm: phase 14 took %.1f s (train %.1f s, sparse %.1f s, op "
+        "sweep %.1f s); %d op types held", t3 - t0, t1 - t0, t2 - t1,
+        t3 - t2, n)
+
+
 def _report_profile(prof, wall, title, focus=None):
     """Device busy share of ``wall`` and the top kernels; with ``focus``,
     also the share of the kernels whose names hold it. Returns (busy
@@ -4146,6 +4372,7 @@ def main():
         options_flash, options_dropout, dropout_times = options_phase(
             torch, smi)
         mt_launches, mt_err, mt_times, zoo_drops = mt_phase(torch, smi)
+        deepfm_phase(torch, smi)
     except SmokeFailure as e:
         print("chip_smoke: FAILED: %s" % e, file=sys.stderr)
         return 1

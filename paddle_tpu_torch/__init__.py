@@ -51,6 +51,7 @@ Used as ``import paddle_tpu_torch as fluid``, as scripts use
 
 from .core.places import resolve_device  # noqa: F401
 from . import ops  # noqa: F401  (registers the lowerings)
+from . import distributed  # noqa: F401  (registers the host ops)
 from . import layers  # noqa: F401
 from . import initializer  # noqa: F401
 from . import optimizer  # noqa: F401

@@ -33,7 +33,8 @@ the same bodies run in a loop over the same buffers. The K run seeds are
 staged into a ``[K]`` buffer with one copy a dispatch, so dropout inside
 a graph draws what K ``run()`` calls draw.
 
-What the port leaves out raises, naming ROADMAP.md: host (IO) ops, NaN
+What the port leaves out raises, naming ROADMAP.md: the wire's host (IO)
+ops (the SelectedRows host ops run, in ``run`` only), NaN
 guards, the transform pipeline, the monitor, LoD feeds, and draws from a
 ``torch.Generator`` (the initializers) inside a ``run_steps`` graph on
 the card. Gradient accumulation is a
@@ -55,16 +56,20 @@ from .enforce import EnforceError, op_error
 from .places import CUDAPlace, Place
 from .program import Variable, default_main_program
 from .scope import global_scope, to_tensor, torch_dtype
+from .selected_rows import SelectedRows
 
 __all__ = ["Executor", "as_numpy"]
 
-# the JAX package's host (IO) ops: distributed send/recv/prefetch and the
-# control-flow tensor arrays, which run outside its jitted step
+# the JAX package's host (IO) ops the port does not lower: distributed
+# send/recv/prefetch (the wire) and the control-flow tensor arrays. The
+# SelectedRows host ops are registered (``distributed/ops.py``).
 _HOST_OPS = frozenset([
     "write_to_array", "read_from_array", "lod_array_length", "send",
-    "send_barrier", "send_sparse", "recv", "prefetch", "listen_and_serv",
-    "split_ids", "split_selected_rows", "merge_selected_rows",
-    "lookup_sparse_table"])
+    "send_barrier", "send_sparse", "recv", "prefetch", "listen_and_serv"])
+
+
+def _is_host_op(type):
+    return type in _HOST_OPS or registry.is_host_op(type)
 
 # flags that switch on a JAX-package feature this slice does not port
 # (flag name: what it switches on, ROADMAP.md queue 1 item)
@@ -89,7 +94,10 @@ def _refuse_left_out_flags():
 
 
 def as_numpy(value):
-    """A fetched value as a numpy array."""
+    """A fetched value as a numpy array; a SelectedRows passes through,
+    as in the JAX package."""
+    if isinstance(value, SelectedRows):
+        return value
     if isinstance(value, (list, tuple)):
         return [as_numpy(v) for v in value]
     if isinstance(value, torch.Tensor):
@@ -206,11 +214,13 @@ class Executor:
         fetch_names = tuple(
             f.name if isinstance(f, Variable) else str(f)
             for f in (fetch_list or []))
-        if any(op.type in _HOST_OPS for op in program.global_block().ops):
+        if any(_is_host_op(op.type) for op in program.global_block().ops):
+            # the JAX package's message; a SelectedRows op's row count
+            # changes from step to step, which a CUDA graph cannot hold
             raise NotImplementedError(
-                "run_steps cannot fuse programs with host (IO) ops: "
-                "send/recv/prefetch must hit the wire once per step; use "
-                "run() per step")
+                "run_steps cannot fuse programs with host (IO) ops — "
+                "send/recv/prefetch must hit the wire once per step; "
+                "use run() per step")
         _refuse_left_out_flags()
         staged, feed_sig = _stack_feeds(feeds, k)
         state_sig = []

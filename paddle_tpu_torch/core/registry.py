@@ -8,6 +8,10 @@ them eagerly on torch tensors, in program order. Hand-written kernels sit
 inside lowering bodies (``sp_attention`` -> ``ops/flash_attention``,
 ``dropout`` -> ``ops/dropout``).
 
+An op registered with ``host=True`` runs on the host's view of its
+values (the SelectedRows ops of ``distributed/ops.py``); a program that
+holds one runs op by op through ``Executor.run`` only.
+
 An op registered with ``stateful_rng=True`` draws random numbers. The
 initializers (``uniform_random``, ``gaussian_random``, ...) draw from the
 run's ``torch.Generator`` (``ctx.rng()``); dropout draws counter-keyed
@@ -17,20 +21,23 @@ the op's ordinal among the program's random ops (``random_op_keys``).
 
 
 class OpInfo:
-    def __init__(self, type, lower, infer_shape=None, stateful_rng=False):
+    def __init__(self, type, lower, infer_shape=None, stateful_rng=False,
+                 host=False):
         self.type = type
         self.lower = lower            # fn(ctx, op) -> None (writes ctx env)
         self.infer_shape = infer_shape
         self.stateful_rng = stateful_rng  # draws random numbers
+        self.host = host  # reads the host: never inside a CUDA graph
 
 
 _REGISTRY = {}
 
 
-def register(type, lower=None, infer_shape=None, stateful_rng=False):
+def register(type, lower=None, infer_shape=None, stateful_rng=False,
+             host=False):
     """Register an op lowering. Usable as decorator or direct call."""
     def deco(fn):
-        _REGISTRY[type] = OpInfo(type, fn, infer_shape, stateful_rng)
+        _REGISTRY[type] = OpInfo(type, fn, infer_shape, stateful_rng, host)
         return fn
     if lower is not None:
         return deco(lower)
@@ -39,6 +46,13 @@ def register(type, lower=None, infer_shape=None, stateful_rng=False):
 
 def lookup(type):
     return _REGISTRY.get(type)
+
+
+def is_host_op(type):
+    """Whether op ``type`` is registered as a host op (the SelectedRows
+    ops: their row counts are data, read on the host)."""
+    info = _REGISTRY.get(type)
+    return bool(info and info.host)
 
 
 def registered_ops():

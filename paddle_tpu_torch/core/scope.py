@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .program import runtime_dtype
+from .selected_rows import as_selected_rows
 
 __all__ = ["Scope", "global_scope", "scope_guard", "load_numpy_state",
            "to_tensor"]
@@ -100,7 +101,13 @@ def torch_dtype(dtype):
 
 def to_tensor(value, device):
     """A numpy array, scalar or tensor as a torch tensor on ``device``,
-    64-bit types narrowed to 32-bit (what the JAX package holds)."""
+    64-bit types narrowed to 32-bit (what the JAX package holds). A
+    SelectedRows (the port's or the JAX package's) becomes the port's on
+    ``device``, its value narrowed the same way and its rows int64."""
+    if hasattr(value, "rows") and hasattr(value, "height"):
+        sr = as_selected_rows(value, device)
+        sr.value = sr.value.to(torch_dtype(sr.value.dtype))
+        return sr
     if isinstance(value, torch.Tensor):
         t = value
     else:

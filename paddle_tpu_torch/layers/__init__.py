@@ -1,24 +1,32 @@
 """fluid.layers-compatible DSL surface: the layers whose ops the port
-lowers. The others (the other convs and pools, sequence, RNN, the rest of
-control flow, ...) come with their lowerings (ROADMAP.md, queue 1)."""
+lowers. The others (sequence, RNN, detection, the rest of control flow,
+...) come with their lowerings (ROADMAP.md, queue 1)."""
 
-from .compat import beam_search, beam_search_decode  # noqa: F401
+from . import ops  # noqa: F401
+from .compat import *  # noqa: F401,F403
 from .control_flow import recompute  # noqa: F401
-from .conv_layers import conv2d, pool2d  # noqa: F401
+from .conv_layers import (  # noqa: F401
+    conv2d, conv2d_transpose, conv3d, conv3d_transpose, pool2d, pool3d,
+    roi_pool, row_conv, spp,
+)
 from .io_ops import data  # noqa: F401
+from . import learning_rate_scheduler  # noqa: F401
+from .learning_rate_scheduler import (  # noqa: F401
+    exponential_decay, inverse_time_decay, natural_exp_decay, noam_decay,
+    piecewise_decay, polynomial_decay,
+)
 from .math_ops import scale  # noqa: F401
 from .nn import (  # noqa: F401
-    accuracy, batch_norm, clip, clip_by_norm, cross_entropy, dropout,
-    embedding, fc, label_smooth, layer_norm, matmul, mean, one_hot,
-    reduce_sum, softmax, softmax_with_cross_entropy, topk,
+    accuracy, auc, batch_norm, clip, clip_by_norm, cos_sim, cross_entropy,
+    dropout, embedding, fc, l2_normalize, label_smooth, layer_norm,
+    matmul, mean, one_hot, reduce_max, reduce_mean, reduce_min,
+    reduce_prod, reduce_sum, sigmoid_cross_entropy_with_logits, softmax,
+    softmax_with_cross_entropy, square_error_cost, topk,
 )
-from .ops import (  # noqa: F401
-    elementwise_add, elementwise_div, elementwise_max, elementwise_min,
-    elementwise_mul, elementwise_pow, elementwise_sub, relu, sigmoid, sign,
-    sqrt, square,
-)
+from .ops import *  # noqa: F401,F403
 from .parallel_layers import sequence_parallel_attention  # noqa: F401
 from .tensor import (  # noqa: F401
-    assign, cast, create_global_var, expand, fill_constant, reshape, split,
-    sums, transpose,
+    argmax, argmin, assign, cast, concat, create_global_var, create_tensor,
+    expand, fill_constant, fill_constant_batch_size_like, gather, increment,
+    ones, reshape, scatter, slice, split, sums, transpose, zeros,
 )

@@ -1,11 +1,10 @@
-"""Convolution / pooling layer functions: conv2d and pool2d.
+"""Convolution / pooling layer functions: conv2d, conv3d,
+conv2d_transpose, conv3d_transpose, pool2d, pool3d, roi_pool, row_conv
+and spp.
 
-The counterpart of ``paddle_tpu/layers/conv_layers.py`` for the layers
-whose ops the port lowers; each builds its op through LayerHelper exactly
-as the JAX package's does, so the two packages emit the same Program. The
-other layers of that module (conv3d, the transposed convs, pool3d,
-adaptive pooling, roi_pool, row_conv, spp, im2sequence) come with their
-lowerings (ROADMAP.md, queue 1 item 7).
+The counterpart of ``paddle_tpu/layers/conv_layers.py`` (a copy); each
+builds its op through LayerHelper exactly as the JAX package's does, so
+the two packages emit the same Program.
 """
 
 import numpy as np
@@ -69,6 +68,79 @@ def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
                           bias_attr, act, name)
 
 
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None):
+    return _conv_nd_layer(3, "conv3d", input, num_filters, filter_size,
+                          stride, padding, dilation, groups, param_attr,
+                          bias_attr, act, name)
+
+
+def _conv_transpose(nd, op_type, input, num_filters, output_size=None,
+                    filter_size=None, padding=0, stride=1, dilation=1,
+                    groups=None, param_attr=None, bias_attr=None,
+                    use_cudnn=True, act=None, name=None):
+    helper = LayerHelper(op_type, param_attr=param_attr, bias_attr=bias_attr,
+                         act=act, name=name)
+    dtype = input.dtype
+    groups = groups or 1
+    num_channels = input.shape[1]
+    padding = _pair(padding, nd)
+    stride = _pair(stride, nd)
+    dilation = _pair(dilation, nd)
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError("output_size must be set when filter_size is None")
+        output_size = _pair(output_size, nd)
+        filter_size = [
+            (output_size[i] - (input.shape[2 + i] - 1) * stride[i]
+             + 2 * padding[i] - 1) // dilation[i] + 1 for i in range(nd)]
+    else:
+        filter_size = _pair(filter_size, nd)
+    filter_shape = [num_channels, num_filters // groups] + filter_size
+    img_filter = helper.create_parameter(
+        attr=helper.param_attr, shape=filter_shape, dtype=dtype)
+    if output_size is not None:
+        out_sp = tuple(_pair(output_size, nd))
+    else:
+        out_sp = tuple(
+            -1 if input.shape[2 + i] in (None, -1) else
+            (input.shape[2 + i] - 1) * stride[i] - 2 * padding[i]
+            + dilation[i] * (filter_size[i] - 1) + 1 for i in range(nd))
+    pre_bias = helper.create_variable_for_type_inference(
+        dtype, shape=(input.shape[0], num_filters) + out_sp)
+    attrs = {"strides": stride, "paddings": padding, "dilations": dilation,
+             "groups": groups}
+    if output_size is not None:
+        attrs["output_size"] = _pair(output_size, nd)
+    helper.append_op(
+        type=op_type,
+        inputs={"Input": [input], "Filter": [img_filter]},
+        outputs={"Output": [pre_bias]}, attrs=attrs)
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=None,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    return _conv_transpose(2, "conv2d_transpose", input, num_filters,
+                           output_size, filter_size, padding, stride,
+                           dilation, groups, param_attr, bias_attr,
+                           use_cudnn, act, name)
+
+
+def conv3d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=None,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    return _conv_transpose(3, "conv3d_transpose", input, num_filters,
+                           output_size, filter_size, padding, stride,
+                           dilation, groups, param_attr, bias_attr,
+                           use_cudnn, act, name)
+
+
 def _pool(nd, op_type, input, pool_size, pool_type, pool_stride, pool_padding,
           global_pooling, use_cudnn, ceil_mode, name, exclusive=True):
     if pool_type not in ("max", "avg"):
@@ -111,3 +183,50 @@ def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
     return _pool(2, "pool2d", input, pool_size, pool_type, pool_stride,
                  pool_padding, global_pooling, use_cudnn, ceil_mode, name,
                  exclusive)
+
+
+def pool3d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, exclusive=True):
+    if pool_size == -1:
+        global_pooling = True
+        pool_size = 1
+    return _pool(3, "pool3d", input, pool_size, pool_type, pool_stride,
+                 pool_padding, global_pooling, use_cudnn, ceil_mode, name,
+                 exclusive)
+
+
+def roi_pool(input, rois, pooled_height=1, pooled_width=1, spatial_scale=1.0):
+    helper = LayerHelper("roi_pool")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="roi_pool", inputs={"X": [input], "ROIs": [rois]},
+        outputs={"Out": [out]},
+        attrs={"pooled_height": pooled_height, "pooled_width": pooled_width,
+               "spatial_scale": spatial_scale})
+    return out
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None):
+    helper = LayerHelper("row_conv", param_attr=param_attr, act=act)
+    filter_shape = [future_context_size + 1, input.shape[-1]]
+    filter_param = helper.create_parameter(
+        attr=helper.param_attr, shape=filter_shape, dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype,
+                                                    shape=input.shape)
+    helper.append_op(
+        type="row_conv", inputs={"X": [input], "Filter": [filter_param]},
+        outputs={"Out": [out]})
+    return helper.append_activation(out)
+
+
+def spp(input, pyramid_height=1, pool_type="max", name=None):
+    helper = LayerHelper("spp", name=name)
+    c = input.shape[1]
+    width = c * sum(4 ** lvl for lvl in range(pyramid_height))
+    out = helper.create_variable_for_type_inference(
+        input.dtype, shape=(input.shape[0], width))
+    helper.append_op(
+        type="spp", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"pyramid_height": pyramid_height, "pooling_type": pool_type})
+    return out

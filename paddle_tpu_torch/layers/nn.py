@@ -3,11 +3,12 @@
 The counterpart of ``paddle_tpu/layers/nn.py``, holding the layers whose
 ops the port lowers (the flagship LM's and the ResNet models'): fc,
 embedding, softmax, cross_entropy, softmax_with_cross_entropy, mean,
-accuracy, batch_norm, layer_norm, dropout, matmul, topk, clip,
-clip_by_norm, label_smooth, one_hot and reduce_sum. Each
-builds ops through LayerHelper exactly as the JAX package's does, so the
-two packages emit the same Program. The rest of the JAX package's layers
-come with their lowerings (ROADMAP.md, queue 1 item 7).
+sigmoid_cross_entropy_with_logits, square_error_cost, accuracy, auc,
+batch_norm, layer_norm, l2_normalize, dropout, matmul, topk, clip,
+clip_by_norm, label_smooth, one_hot, the five reductions and cos_sim.
+Each builds ops through LayerHelper exactly as the JAX package's does,
+so the two packages emit the same Program. The CRF layers come with
+their lowerings (ROADMAP.md, queue 1 item 7).
 """
 
 from .layer_helper import LayerHelper
@@ -109,6 +110,29 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     if return_softmax:
         return loss, sm
     return loss
+
+
+def sigmoid_cross_entropy_with_logits(x, label, name=None):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
+    helper.append_op(type="sigmoid_cross_entropy_with_logits",
+                     inputs={"X": [x], "Label": [label]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper("square_error_cost")
+    minus = helper.create_variable_for_type_inference(input.dtype,
+                                                      shape=input.shape)
+    helper.append_op(type="elementwise_sub",
+                     inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [minus]})
+    out = helper.create_variable_for_type_inference(input.dtype,
+                                                    shape=input.shape)
+    helper.append_op(type="square", inputs={"X": [minus]},
+                     outputs={"Out": [out]})
+    return out
 
 
 def mean(x, name=None):
@@ -218,6 +242,17 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
     return helper.append_activation(out)
 
 
+def auc(input, label, curve="ROC", num_thresholds=200, topk=1):
+    helper = LayerHelper("auc")
+    out = helper.create_variable_for_type_inference("float32", shape=(1,))
+    helper.append_op(type="auc",
+                     inputs={"Out": [input], "Label": [label]},
+                     outputs={"AUC": [out]},
+                     attrs={"curve": curve,
+                            "num_thresholds": num_thresholds})
+    return out
+
+
 def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
             dropout_implementation="downgrade_in_infer"):
     helper = LayerHelper("dropout", name=name)
@@ -230,6 +265,17 @@ def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
         attrs={"dropout_prob": dropout_prob, "is_test": is_test,
                "seed": seed if seed is not None else 0,
                "dropout_implementation": dropout_implementation})
+    return out
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper("l2_normalize", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
+    norm = helper.create_variable_for_type_inference(x.dtype, shape=x.shape)
+    helper.append_op(type="norm", inputs={"X": [x]},
+                     outputs={"Out": [out], "Norm": [norm]},
+                     attrs={"axis": 1 if axis is None else axis,
+                            "epsilon": epsilon})
     return out
 
 
@@ -334,3 +380,19 @@ def reduce_op_layer(op_type):
 
 
 reduce_sum = reduce_op_layer("reduce_sum")
+reduce_mean = reduce_op_layer("reduce_mean")
+reduce_max = reduce_op_layer("reduce_max")
+reduce_min = reduce_op_layer("reduce_min")
+reduce_prod = reduce_op_layer("reduce_prod")
+
+
+def cos_sim(X, Y, name=None):
+    """Row-wise cosine similarity (operators/cos_sim_op.cc)."""
+    helper = LayerHelper("cos_sim", name=name)
+    out = helper.create_variable_for_type_inference(
+        X.dtype, shape=(X.shape[0] if X.shape else -1, 1))
+    xn = helper.create_variable_for_type_inference(X.dtype)
+    yn = helper.create_variable_for_type_inference(X.dtype)
+    helper.append_op(type="cos_sim", inputs={"X": [X], "Y": [Y]},
+                     outputs={"Out": [out], "XNorm": [xn], "YNorm": [yn]})
+    return out

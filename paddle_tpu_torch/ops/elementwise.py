@@ -1,5 +1,6 @@
-"""Elementwise binary ops: add, sub, mul, div, max, min, pow, mod,
-floordiv.
+"""Elementwise binary ops (add, sub, mul, div, max, min, pow, mod,
+floordiv), the comparisons (compare_op.cc) and the logical ops
+(logical_op.cc).
 
 The counterpart of ``paddle_tpu/ops/elementwise.py``, with its broadcast
 rule: Y's dims align to X starting at ``axis`` (elementwise_op_function.h),
@@ -48,5 +49,26 @@ def _make_binary(fn):
     return lower
 
 
-for _name, _fn in _BINARY.items():
-    register(_name, _make_binary(_fn))
+_COMPARE = {
+    "less_than": torch.lt,
+    "less_equal": torch.le,
+    "greater_than": torch.gt,
+    "greater_equal": torch.ge,
+    "equal": torch.eq,
+    "not_equal": torch.ne,
+}
+
+_LOGICAL_BIN = {
+    "logical_and": torch.logical_and,
+    "logical_or": torch.logical_or,
+    "logical_xor": torch.logical_xor,
+}
+
+for _table in (_BINARY, _COMPARE, _LOGICAL_BIN):
+    for _name, _fn in _table.items():
+        register(_name, _make_binary(_fn))
+
+
+@register("logical_not")
+def _logical_not(ctx, op):
+    ctx.set_out(op, "Out", torch.logical_not(ctx.in1(op, "X")))

@@ -1,6 +1,9 @@
-"""Loss ops: cross_entropy and softmax_with_cross_entropy (the
-counterpart of ``paddle_tpu/ops/loss.py`` for the flagship LM and the
-ResNet models)."""
+"""Loss ops: cross_entropy, softmax_with_cross_entropy,
+sigmoid_cross_entropy_with_logits, hinge, huber, log, smooth_l1, rank,
+margin_rank and modified_huber losses, and nce (the counterpart of
+``paddle_tpu/ops/loss.py``, in its numerically stable forms)."""
+
+import math
 
 import torch
 
@@ -58,3 +61,131 @@ def _softmax_xent(ctx, op):
         # probabilities are made only when some op or fetch reads them
         ctx.set(sm_name, torch.exp(log_sm))
     ctx.set_out(op, "Loss", loss)
+
+
+def _bce_with_logits(x, z):
+    """max(x, 0) - x z + log(1 + exp(-|x|)): the stable sigmoid cross
+    entropy of logits x against labels z."""
+    return torch.clamp_min(x, 0) - x * z + \
+        torch.log1p(torch.exp(-torch.abs(x)))
+
+
+@register("sigmoid_cross_entropy_with_logits")
+def _sigmoid_xent(ctx, op):
+    ctx.set_out(op, "Out", _bce_with_logits(ctx.in1(op, "X"),
+                                            ctx.in1(op, "Label")))
+
+
+@register("hinge_loss")
+def _hinge_loss(ctx, op):
+    logits = ctx.in1(op, "Logits")
+    labels = ctx.in1(op, "Labels")
+    ctx.set_out(op, "Loss", torch.relu(1.0 - (2.0 * labels - 1.0) * logits))
+
+
+@register("huber_loss")
+def _huber_loss(ctx, op):
+    x = ctx.in1(op, "X")
+    y = ctx.in1(op, "Y")
+    delta = op.attr("delta", 1.0)
+    r = y - x
+    ar = torch.abs(r)
+    ctx.set_out(op, "Residual", r)
+    ctx.set_out(op, "Out", torch.where(ar <= delta, 0.5 * r * r,
+                                       delta * (ar - 0.5 * delta)))
+
+
+@register("log_loss")
+def _log_loss(ctx, op):
+    p = ctx.in1(op, "Predicted")
+    label = ctx.in1(op, "Labels")
+    eps = op.attr("epsilon", 1e-4)
+    ctx.set_out(op, "Loss", -label * torch.log(p + eps)
+                - (1 - label) * torch.log(1 - p + eps))
+
+
+@register("smooth_l1_loss")
+def _smooth_l1(ctx, op):
+    """Per row, the sum of 0.5 s^2 d^2 where |d| < 1/s^2, else
+    |d| - 0.5/s^2, for d = (X - Y) * InsideWeight, each term times
+    OutsideWeight; Out is [N, 1]."""
+    x = ctx.in1(op, "X")
+    d = x - ctx.in1(op, "Y")
+    in_w = ctx.in1(op, "InsideWeight")
+    out_w = ctx.in1(op, "OutsideWeight")
+    if in_w is not None:
+        d = d * in_w
+    sigma = op.attr("sigma", 1.0)
+    s2 = sigma * sigma
+    ad = torch.abs(d)
+    elem = torch.where(ad < 1.0 / s2, 0.5 * s2 * d * d, ad - 0.5 / s2)
+    if out_w is not None:
+        elem = elem * out_w
+    ctx.set_out(op, "Diff", d)
+    ctx.set_out(op, "Out", torch.sum(
+        elem, dim=tuple(range(1, elem.dim())), keepdim=True).reshape(
+        x.shape[0], 1))
+
+
+@register("rank_loss")
+def _rank_loss(ctx, op):
+    d = ctx.in1(op, "Left") - ctx.in1(op, "Right")
+    ctx.set_out(op, "Out", _bce_with_logits(d, ctx.in1(op, "Label")))
+
+
+@register("margin_rank_loss")
+def _margin_rank_loss(ctx, op):
+    x1 = ctx.in1(op, "X1")
+    out = torch.relu(-ctx.in1(op, "Label") * (x1 - ctx.in1(op, "X2"))
+                     + op.attr("margin", 0.0))
+    ctx.set_out(op, "Out", out)
+    ctx.set_out(op, "Activated", (out > 0).to(x1.dtype))
+
+
+@register("modified_huber_loss")
+def _modified_huber_loss(ctx, op):
+    x = ctx.in1(op, "X")
+    z = (2.0 * ctx.in1(op, "Y") - 1.0) * x
+    ctx.set_out(op, "IntermediateVal", z)
+    ctx.set_out(op, "Out", torch.where(
+        z < -1.0, -4.0 * z, torch.square(torch.clamp_min(1.0 - z, 0.0))))
+
+
+@register("nce", stateful_rng=True)   # draws its negatives
+def _nce(ctx, op):
+    """Noise-contrastive estimation (operators/nce_op.cc), as the JAX
+    package lowers it: ``num_neg_samples`` negatives per row drawn
+    uniformly from the run's generator, logits of the true and sampled
+    classes shifted by log(num_total_classes) (the uniform noise), and
+    per row the sum of their sigmoid cross entropies, times
+    SampleWeight. The draws differ from threefry's; SampleLabels holds
+    them."""
+    x = ctx.in1(op, "Input")            # [B, D]
+    label = ctx.in1(op, "Label")        # [B, T]
+    w = ctx.in1(op, "Weight")           # [C, D]
+    b = ctx.in1(op, "Bias")             # [C]
+    num_neg = op.attr("num_neg_samples", 10)
+    num_classes = op.attr("num_total_classes", w.shape[0])
+    batch = x.shape[0]
+    if label.dim() == 1:
+        label = label[:, None]
+    num_true = label.shape[1]
+    neg = torch.randint(0, num_classes, (batch, num_neg),
+                        generator=ctx.rng(), device=ctx.device)
+    samples = torch.cat([label.to(torch.int32), neg.to(torch.int32)], dim=1)
+    idx = samples.long()
+    logits = torch.einsum("bd,bkd->bk", x, w[idx])
+    if b is not None:
+        logits = logits + b[idx]
+    labels01 = torch.cat([torch.ones((batch, num_true), device=x.device),
+                          torch.zeros((batch, num_neg), device=x.device)],
+                         dim=1)
+    logits = logits - math.log(float(num_classes))
+    cost = torch.sum(_bce_with_logits(logits, labels01), dim=1,
+                     keepdim=True)
+    if op.input("SampleWeight"):
+        cost = cost * ctx.in1(op, "SampleWeight").reshape(batch, 1).to(
+            cost.dtype)
+    ctx.set_out(op, "Cost", cost)
+    ctx.set_out(op, "SampleLogits", logits)
+    ctx.set_out(op, "SampleLabels", samples)

@@ -1,8 +1,9 @@
-"""Core math ops: mul, matmul, sum, mean, scale, clip, clip_by_norm,
-reduce_sum, top_k.
+"""Core math ops: mul, matmul, sum, mean, scale, clip, clip_by_norm, the
+reductions (sum, mean, max, min, prod), cumsum, the norms and distances,
+cos_sim, bilinear_tensor_product, top_k, arg_max, arg_min, minus and
+conv_shift.
 
-The counterpart of ``paddle_tpu/ops/math.py`` for the types the flagship
-LM and the ResNet models use. The products are plain ``torch.matmul``
+The counterpart of ``paddle_tpu/ops/math.py``. The products are plain ``torch.matmul``
 (cuBLAS on the card), as the JAX package leaves them to XLA; fp32 stays
 fp32 as long as TF32 is off (``torch.backends.cuda.matmul.allow_tf32``,
 False by default).
@@ -99,18 +100,127 @@ def _clip_by_norm(ctx, op):
                                        x * (max_norm / norm), x))
 
 
-@register("reduce_sum")
-def _reduce_sum(ctx, op):
-    x = ctx.in1(op, "X")
+def _axes(op, x):
+    """The reduced axes of a reduce op (None: all of them)."""
     if op.attr("reduce_all", False):
-        axes = tuple(range(x.dim()))
+        return None
+    dim = op.attr("dim", [0])
+    if isinstance(dim, int):
+        dim = [dim]
+    return tuple(d % x.dim() for d in dim)
+
+
+def _prod(x, dim=None, keepdim=False):
+    """torch.prod over several axes, one at a time from the last."""
+    if dim is None:
+        out = torch.prod(x)
+        return out.reshape((1,) * x.dim()) if keepdim else out
+    for a in sorted(dim, reverse=True):
+        x = torch.prod(x, dim=a, keepdim=keepdim)
+    return x
+
+
+def _all_axes(fn):
+    """``fn`` over ``dim``, or over every axis when it is None."""
+    def reduce(x, dim=None, keepdim=False):
+        return fn(x, dim=tuple(range(x.dim())) if dim is None else dim,
+                  keepdim=keepdim)
+    return reduce
+
+
+def _mean(x, dim, keepdim):
+    """jnp.mean: an integer input averages as float32."""
+    return torch.mean(x if x.is_floating_point() else x.float(), dim=dim,
+                      keepdim=keepdim)
+
+
+def _reduce(fn):
+    """A reduce op over ``dim`` (or every axis with ``reduce_all``),
+    keeping the reduced axes with ``keep_dim``, in X's dtype (the mean
+    of integers is float32). LoD inputs, whose pad
+    rows the JAX package neutralizes here, raise in the Executor."""
+    def lower(ctx, op):
+        x = ctx.in1(op, "X")
+        out = fn(x, dim=_axes(op, x), keepdim=op.attr("keep_dim", False))
+        if out.is_floating_point() == x.is_floating_point():
+            out = out.to(x.dtype)        # an integer sum stays int32
+        ctx.set_out(op, "Out", out)
+    return lower
+
+
+register("reduce_sum", _reduce(_all_axes(torch.sum)))
+register("reduce_mean", _reduce(_all_axes(_mean)))
+register("reduce_max", _reduce(_all_axes(torch.amax)))
+register("reduce_min", _reduce(_all_axes(torch.amin)))
+register("reduce_prod", _reduce(_prod))
+
+
+@register("cumsum")
+def _cumsum(ctx, op):
+    """Inclusive prefix sums along ``axis``; ``reverse`` sums from the
+    end; ``exclusive`` then takes X off (the JAX package's order)."""
+    x = ctx.in1(op, "X")
+    axis = op.attr("axis", -1)
+    if op.attr("reverse", False):
+        out = torch.flip(torch.cumsum(torch.flip(x, (axis,)), dim=axis),
+                         (axis,))
     else:
-        dim = op.attr("dim", [0])
-        if isinstance(dim, int):
-            dim = [dim]
-        axes = tuple(d % x.dim() for d in dim)
-    ctx.set_out(op, "Out", torch.sum(x, dim=axes,
-                                     keepdim=op.attr("keep_dim", False)))
+        out = torch.cumsum(x, dim=axis)
+    if op.attr("exclusive", False):
+        out = out - x
+    ctx.set_out(op, "Out", out)
+
+
+@register("l1_norm")
+def _l1_norm(ctx, op):
+    ctx.set_out(op, "Out", torch.sum(torch.abs(ctx.in1(op, "X"))))
+
+
+@register("squared_l2_norm")
+def _squared_l2_norm(ctx, op):
+    ctx.set_out(op, "Out", torch.sum(torch.square(ctx.in1(op, "X"))))
+
+
+@register("squared_l2_distance")
+def _squared_l2_distance(ctx, op):
+    d = ctx.in1(op, "X") - ctx.in1(op, "Y")
+    ctx.set_out(op, "sub_result", d)
+    ctx.set_out(op, "Out", torch.sum(torch.square(d), dim=-1, keepdim=True))
+
+
+@register("norm")
+def _norm(ctx, op):
+    """X over its L2 norm along ``axis``, eps inside the square root."""
+    x = ctx.in1(op, "X")
+    norm = torch.sqrt(torch.sum(torch.square(x), dim=op.attr("axis", 1),
+                                keepdim=True) + op.attr("epsilon", 1e-10))
+    ctx.set_out(op, "Norm", norm)
+    ctx.set_out(op, "Out", x / norm)
+
+
+@register("cos_sim")
+def _cos_sim(ctx, op):
+    x = ctx.in1(op, "X")
+    y = ctx.in1(op, "Y")
+    xn = torch.sqrt(torch.sum(torch.square(x), dim=-1, keepdim=True))
+    yn = torch.sqrt(torch.sum(torch.square(y), dim=-1, keepdim=True))
+    out = torch.sum(x * y, dim=-1, keepdim=True) / (xn * yn + 1e-12)
+    ctx.set_out(op, "Out", out)
+    ctx.set_out(op, "XNorm", xn)
+    ctx.set_out(op, "YNorm", yn)
+
+
+@register("bilinear_tensor_product")
+def _bilinear(ctx, op):
+    """out[b, o] = x[b] W[o] y[b] (+ Bias)."""
+    x = ctx.in1(op, "X")          # [B, M]
+    y = ctx.in1(op, "Y")          # [B, N]
+    w = ctx.in1(op, "Weight")     # [O, M, N]
+    out = torch.einsum("bm,omn,bn->bo", x, w, y)
+    b = ctx.in1(op, "Bias")
+    if b is not None:
+        out = out + b
+    ctx.set_out(op, "Out", out)
 
 
 @register("top_k")
@@ -120,3 +230,35 @@ def _top_k(ctx, op):
     vals, idx = torch.topk(ctx.in1(op, "X"), op.attr("k", 1), dim=-1)
     ctx.set_out(op, "Out", vals)
     ctx.set_out(op, "Indices", idx.to(torch_dtype("int64")))
+
+
+def _arg(fn):
+    """arg_max / arg_min along ``axis``: the first index on a tie (as
+    jnp.argmax and torch.argmax), int64 narrowed to int32."""
+    def lower(ctx, op):
+        ctx.set_out(op, "Out", fn(ctx.in1(op, "X"),
+                                  dim=op.attr("axis", -1)).to(
+            torch_dtype("int64")))
+    return lower
+
+
+register("arg_max", _arg(torch.argmax))
+register("arg_min", _arg(torch.argmin))
+
+
+@register("minus")
+def _minus(ctx, op):
+    ctx.set_out(op, "Out", ctx.in1(op, "X") - ctx.in1(op, "Y"))
+
+
+@register("conv_shift")
+def _conv_shift(ctx, op):
+    """Circular correlation (operators/conv_shift_op.cc): out[b, m] =
+    sum_n x[b, (m + n - N//2) mod M] y[b, n]."""
+    x = ctx.in1(op, "X")          # [B, M]
+    y = ctx.in1(op, "Y")          # [B, N], N odd, N <= M
+    m = x.shape[1]
+    half = y.shape[1] // 2
+    idx = (torch.arange(m, device=x.device)[:, None]
+           + torch.arange(-half, half + 1, device=x.device)[None, :]) % m
+    ctx.set_out(op, "Out", torch.einsum("bmn,bn->bm", x[:, idx], y))

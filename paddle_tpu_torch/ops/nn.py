@@ -1,5 +1,6 @@
-"""NN ops: dropout, softmax, batch_norm, layer_norm (the counterpart of
-``paddle_tpu/ops/nn.py`` for the flagship LM and the ResNet models)."""
+"""NN ops: dropout, softmax, log_softmax, batch_norm, layer_norm, lrn and
+maxout (the counterpart of ``paddle_tpu/ops/nn.py``; its LoD ops,
+sequence_softmax and im2sequence, wait for ROADMAP.md queue 1 item 7)."""
 
 import torch
 
@@ -128,3 +129,38 @@ def _layer_norm(ctx, op):
     ctx.set_out(op, "Y", out.to(x.dtype))
     ctx.set_out(op, "Mean", mean.reshape(x.shape[:begin]))
     ctx.set_out(op, "Variance", var.reshape(x.shape[:begin]))
+
+
+@register("log_softmax")
+def _log_softmax(ctx, op):
+    ctx.set_out(op, "Out", torch.log_softmax(ctx.in1(op, "X"), dim=-1))
+
+
+@register("lrn")
+def _lrn(ctx, op):
+    """Local response normalization across channels (NCHW): MidOut = k +
+    alpha * (the sum of x^2 over the n channels centred on each), with
+    alpha NOT divided by n (the JAX package's rule), and Out = x /
+    MidOut^beta."""
+    x = ctx.in1(op, "X")
+    n = op.attr("n", 5)
+    half = n // 2
+    sq = torch.nn.functional.pad(torch.square(x),
+                                 (0, 0, 0, 0, half, half))
+    c = x.shape[1]
+    acc = sq[:, 0:c]
+    for i in range(1, n):
+        acc = acc + sq[:, i:i + c]
+    mid = op.attr("k", 2.0) + op.attr("alpha", 1e-4) * acc
+    ctx.set_out(op, "MidOut", mid)
+    ctx.set_out(op, "Out", x / torch.pow(mid, op.attr("beta", 0.75)))
+
+
+@register("maxout")
+def _maxout(ctx, op):
+    """The max over each run of ``groups`` consecutive channels."""
+    x = ctx.in1(op, "X")                 # [N, C, H, W]
+    groups = op.attr("groups")
+    n, c, h, w = x.shape
+    ctx.set_out(op, "Out", torch.amax(
+        x.reshape(n, c // groups, groups, h, w), dim=2))

@@ -7,13 +7,21 @@ writes the updated value back into the env under the *input* var's name
 as well as its output slot, so the Executor commits it to the scope.
 Updates are functional — new tensors, as in the JAX package — never in
 place: the old values may still be held by the step's autograd leaves.
-SelectedRows (sparse) gradients are not ported yet (ROADMAP.md, queue 1
-item 7).
+
+A SelectedRows gradient takes the sparse branches of ``sgd`` and ``adam``
+(sgd_op.cc and adam_op's lazy SelectedRows branch): only the rows it
+holds change in the param and the moments; the others keep their bits.
+``index_put`` adds (with accumulation: ``.at[rows].add``) or sets
+(``.at[rows].set``) those rows in a new tensor. A gradient whose rows
+repeat is summed row by row in ``sgd``; in lazy ``adam`` the moments of
+a repeated row are set once per occurrence, in an order neither package
+fixes, so such a gradient goes through ``merge_selected_rows`` first.
 """
 
 import torch
 
 from ..core.registry import register
+from ..core.selected_rows import SelectedRows
 
 
 def _upd(ctx, op, slot_in, slot_out, value):
@@ -25,11 +33,26 @@ def _upd(ctx, op, slot_in, slot_out, value):
         ctx.env[out[0]] = value
 
 
+def _sparse(g, p):
+    """(rows as int64, values shaped [n, *p.shape[1:]]) of a SelectedRows
+    gradient, else None."""
+    if not isinstance(g, SelectedRows):
+        return None
+    rows = g.rows.to(p.device).reshape(-1)
+    return rows, g.value.reshape((rows.shape[0],) + tuple(p.shape[1:]))
+
+
 @register("sgd")
 def _sgd(ctx, op):
     p = ctx.in1(op, "Param")
     g = ctx.in1(op, "Grad")
     lr = ctx.in1(op, "LearningRate")
+    sp = _sparse(g, p)
+    if sp is not None:
+        rows, vals = sp
+        _upd(ctx, op, "Param", "ParamOut",
+             p.index_put((rows,), -lr * vals, accumulate=True))
+        return
     _upd(ctx, op, "Param", "ParamOut", p - lr * g)
 
 
@@ -67,10 +90,21 @@ def _adam(ctx, op):
     b1 = op.attr("beta1", 0.9)
     b2 = op.attr("beta2", 0.999)
     eps = op.attr("epsilon", 1e-8)
-    m1n = b1 * m1 + (1 - b1) * g
-    m2n = b2 * m2 + (1 - b2) * g * g
     lr_t = lr * torch.sqrt(1 - b2p) / (1 - b1p)
-    p_new = p - lr_t * m1n / (torch.sqrt(m2n) + eps)
+    sp = _sparse(g, p)
+    if sp is not None:
+        # lazy Adam: the moments and the param of the touched rows only
+        rows, gv = sp
+        m1r = b1 * m1[rows] + (1 - b1) * gv
+        m2r = b2 * m2[rows] + (1 - b2) * gv * gv
+        p_new = p.index_put((rows,), -lr_t * m1r / (torch.sqrt(m2r) + eps),
+                            accumulate=True)
+        m1n = m1.index_put((rows,), m1r)
+        m2n = m2.index_put((rows,), m2r)
+    else:
+        m1n = b1 * m1 + (1 - b1) * g
+        m2n = b2 * m2 + (1 - b2) * g * g
+        p_new = p - lr_t * m1n / (torch.sqrt(m2n) + eps)
     _upd(ctx, op, "Moment1", "Moment1Out", m1n)
     _upd(ctx, op, "Moment2", "Moment2Out", m2n)
     _upd(ctx, op, "Param", "ParamOut", p_new)

@@ -1,10 +1,18 @@
 """Tensor manipulation and creation ops.
 
-The counterpart of ``paddle_tpu/ops/tensor_ops.py`` for the types the
-flagship LM's, the mnist models' and VGG's programs use: fill_constant,
-assign_value, cast, split, reshape, transpose, expand, one_hot,
-label_smooth, uniform_random, gaussian_random, truncated_gaussian_random
-and lookup_table.
+The counterpart of ``paddle_tpu/ops/tensor_ops.py``, every type of it:
+the fills, assign and assign_value, cast, concat, split, reshape,
+squeeze, unsqueeze, transpose, expand, stack, unstack, gather, scatter,
+one_hot, the random draws (also ``*_batch_size_like``), lookup_table,
+pad, pad_constant_like, crop, slice, shape, increment, multiplex,
+label_smooth, is_empty, range, linspace, sequence_mask, delete_var and
+print.
+
+``shape`` and ``is_empty`` depend only on shapes: like ``assign_value``'s
+temporaries, their values are made on the device once per op and shape
+and kept by the executor, so a CUDA graph holds no host-to-device copy.
+``range`` and ``print`` read the host, and raise inside a CUDA graph
+capture (``Executor.run_steps`` on the card).
 
 Random ops (``stateful_rng``) draw from the run's ``torch.Generator``
 (``ctx.rng()``), in program order. Index tensors arrive as int32 (64-bit feeds are narrowed
@@ -60,6 +68,52 @@ def _assign_value(ctx, op):
         hit = made[key] = (values, torch.from_numpy(
             np.ascontiguousarray(arr.reshape(shape))).to(ctx.device))
     ctx.set_out(op, "Out", hit[1])
+
+
+@register("fill_constant_batch_size_like")
+def _fill_cbsl(ctx, op):
+    ctx.set_out(op, "Out", torch.full(
+        _batch_shape(ctx, op), op.attr("value", 0.0),
+        dtype=torch_dtype(op.attr("dtype", "float32")), device=ctx.device))
+
+
+@register("fill_zeros_like")
+def _fill_zeros_like(ctx, op):
+    ctx.set_out(op, "Out", torch.zeros_like(ctx.in1(op, "X")))
+
+
+@register("fill_any_like")
+def _fill_any_like(ctx, op):
+    ctx.set_out(op, "Out", torch.full_like(ctx.in1(op, "X"),
+                                           op.attr("value", 0.0)))
+
+
+@register("assign")
+def _assign(ctx, op):
+    ctx.set_out(op, "Out", ctx.in1(op, "X"))
+
+
+def _kept(ctx, op, value, dtype):
+    """``value`` (host numbers) as a device tensor of ``dtype``, made
+    once per op and value and kept by the executor (``assign_value``'s
+    rule for temporaries)."""
+    kept = getattr(ctx.executor, "constants", None)
+    made = kept.setdefault(op, {}) if kept is not None else {}
+    key = (tuple(np.asarray(value).reshape(-1).tolist()),
+           np.shape(value), str(dtype))
+    t = made.get(key)
+    if t is None:
+        t = made[key] = torch.as_tensor(np.asarray(value), dtype=dtype) \
+            .to(ctx.device)
+    return t
+
+
+def _refuse_in_capture(what):
+    if torch.cuda.is_available() and \
+            torch.cuda.is_current_stream_capturing():
+        raise NotImplementedError(
+            "%s reads the host and cannot run inside a CUDA graph "
+            "(Executor.run_steps on the card); use run() per step" % what)
 
 
 @register("cast")
@@ -138,9 +192,22 @@ def _label_smooth(ctx, op):
     ctx.set_out(op, "Out", out)
 
 
+def _batch_shape(ctx, op):
+    """The op's ``shape``, with ``output_dim_idx`` taken from the
+    ``Input`` reference's ``input_dim_idx`` where there is one (the
+    ``*_batch_size_like`` forms)."""
+    shape = list(op.attr("shape"))
+    ref = ctx.maybe_get(op.input("Input")[0]) if op.input("Input") else None
+    if ref is not None:
+        shape[op.attr("output_dim_idx", 0)] = \
+            ref.shape[op.attr("input_dim_idx", 0)]
+    return tuple(shape)
+
+
 @register("uniform_random", stateful_rng=True)
+@register("uniform_random_batch_size_like", stateful_rng=True)
 def _uniform_random(ctx, op):
-    shape = tuple(op.attr("shape"))
+    shape = _batch_shape(ctx, op)
     dtype = torch_dtype(op.attr("dtype", "float32"))
     lo = op.attr("min", -1.0)
     hi = op.attr("max", 1.0)
@@ -150,8 +217,9 @@ def _uniform_random(ctx, op):
 
 
 @register("gaussian_random", stateful_rng=True)
+@register("gaussian_random_batch_size_like", stateful_rng=True)
 def _gaussian_random(ctx, op):
-    shape = tuple(op.attr("shape"))
+    shape = _batch_shape(ctx, op)
     dtype = torch_dtype(op.attr("dtype", "float32"))
     mean = op.attr("mean", 0.0)
     std = op.attr("std", 1.0)
@@ -193,3 +261,183 @@ def _lookup_table(ctx, op):
     if padding_idx is not None and padding_idx >= 0:
         out = out * (ids != padding_idx)[..., None].to(out.dtype)
     ctx.set_out(op, "Out", out)
+
+
+@register("concat")
+def _concat(ctx, op):
+    ctx.set_out(op, "Out", torch.cat(ctx.in_list(op, "X"),
+                                     dim=op.attr("axis", 0)))
+
+
+@register("squeeze")
+def _squeeze(ctx, op):
+    x = ctx.in1(op, "X")
+    axes = op.attr("axes", [])
+    if axes:
+        for a in axes:
+            if x.shape[a] != 1:
+                raise ValueError(
+                    "squeeze: axis %d of a %s input is not 1"
+                    % (a, tuple(x.shape)))
+        ctx.set_out(op, "Out", torch.squeeze(x, dim=tuple(axes)))
+    else:
+        ctx.set_out(op, "Out", torch.squeeze(x))
+
+
+@register("unsqueeze")
+def _unsqueeze(ctx, op):
+    x = ctx.in1(op, "X")
+    for a in sorted(op.attr("axes", [])):
+        x = torch.unsqueeze(x, a)
+    ctx.set_out(op, "Out", x)
+
+
+@register("stack")
+def _stack(ctx, op):
+    ctx.set_out(op, "Y", torch.stack(ctx.in_list(op, "X"),
+                                     dim=op.attr("axis", 0)))
+
+
+@register("unstack")
+def _unstack(ctx, op):
+    outs = torch.unbind(ctx.in1(op, "X"), dim=op.attr("axis", 0))
+    for name, val in zip(op.output("Y"), outs):
+        ctx.env[name] = val
+
+
+@register("gather")
+def _gather(ctx, op):
+    """Rows of X at Index (axis 0)."""
+    x = ctx.in1(op, "X")
+    ctx.set_out(op, "Out", x[ctx.in1(op, "Index").long()])
+
+
+@register("scatter")
+def _scatter(ctx, op):
+    """X with the rows at Ids set to Updates (``overwrite``) or added
+    to them; a new tensor, as ``.at[].set/add``."""
+    x = ctx.in1(op, "X")
+    idx = ctx.in1(op, "Ids").long()
+    upd = ctx.in1(op, "Updates")
+    ctx.set_out(op, "Out", x.index_put(
+        (idx,), upd, accumulate=not op.attr("overwrite", True)))
+
+
+@register("pad")
+def _pad(ctx, op):
+    """X padded by ``paddings`` = [before0, after0, before1, ...] with
+    ``pad_value``."""
+    x = ctx.in1(op, "X")
+    p = op.attr("paddings")
+    flat = []
+    for i in reversed(range(x.dim())):       # F.pad: last axis first
+        flat += [int(p[2 * i]), int(p[2 * i + 1])]
+    ctx.set_out(op, "Out", torch.nn.functional.pad(
+        x, flat, value=op.attr("pad_value", 0.0)))
+
+
+@register("pad_constant_like")
+def _pad_constant_like(ctx, op):
+    """Y padded at the end of each axis to X's shape."""
+    x = ctx.in1(op, "X")
+    y = ctx.in1(op, "Y")
+    flat = []
+    for i in reversed(range(y.dim())):
+        flat += [0, int(x.shape[i] - y.shape[i])]
+    ctx.set_out(op, "Out", torch.nn.functional.pad(
+        y, flat, value=op.attr("pad_value", 0.0)))
+
+
+@register("crop")
+def _crop(ctx, op):
+    x = ctx.in1(op, "X")
+    slices = tuple(slice(o, o + s) for o, s in
+                   zip(op.attr("offsets"), op.attr("shape")))
+    ctx.set_out(op, "Out", x[slices])
+
+
+@register("slice")
+def _slice(ctx, op):
+    x = ctx.in1(op, "Input")
+    slices = [slice(None)] * x.dim()
+    for a, s, e in zip(op.attr("axes"), op.attr("starts"), op.attr("ends")):
+        slices[a] = slice(s, e)
+    ctx.set_out(op, "Out", x[tuple(slices)])
+
+
+@register("shape")
+def _shape(ctx, op):
+    x = ctx.in1(op, "Input")
+    ctx.set_out(op, "Out", _kept(ctx, op, list(x.shape),
+                                 torch_dtype("int64")))
+
+
+@register("increment")
+def _increment(ctx, op):
+    """X + step in X's dtype (an integer counter stays integer)."""
+    x = ctx.in1(op, "X")
+    step = op.attr("step", 1.0)
+    ctx.set_out(op, "Out", x + (step if x.is_floating_point()
+                                else int(step)))
+
+
+@register("multiplex")
+def _multiplex(ctx, op):
+    """Row b of the output is row b of X[Ids[b]]."""
+    ids = ctx.in1(op, "Ids").long().reshape(-1)
+    xs = torch.stack(ctx.in_list(op, "X"), dim=0)   # [K, B, ...]
+    ctx.set_out(op, "Out", xs[ids, torch.arange(xs.shape[1],
+                                                device=xs.device)])
+
+
+@register("is_empty")
+def _is_empty(ctx, op):
+    ctx.set_out(op, "Out", _kept(ctx, op, ctx.in1(op, "X").numel() == 0,
+                                 torch.bool))
+
+
+@register("range")
+def _range(ctx, op):
+    """float32 arange(Start, End, Step): the three are read on the host
+    (the JAX package needs them as trace-time constants too)."""
+    _refuse_in_capture("the range op")
+    start, end, step = (float(ctx.in1(op, s).reshape(-1)[0])
+                        for s in ("Start", "End", "Step"))
+    ctx.set_out(op, "Out", torch.arange(start, end, step,
+                                        dtype=torch.float32,
+                                        device=ctx.device))
+
+
+@register("linspace")
+def _linspace(ctx, op):
+    ctx.set_out(op, "Out", torch.linspace(
+        op.attr("start"), op.attr("stop"), op.attr("num"),
+        dtype=torch.float32, device=ctx.device))
+
+
+@register("sequence_mask")
+def _sequence_mask(ctx, op):
+    """Y[..., j] = j < X[...], for j < ``maxlen`` (or ``static_maxlen``)."""
+    x = ctx.in1(op, "X")
+    maxlen = op.attr("maxlen", -1)
+    if maxlen is None or maxlen < 0:
+        maxlen = op.attr("static_maxlen")
+    dtype = torch_dtype(op.attr("out_dtype", "float32"))
+    mask = (torch.arange(maxlen, device=x.device)[None, :]
+            < x.reshape(-1, 1)).to(dtype)
+    ctx.set_out(op, "Y", mask.reshape(tuple(x.shape) + (maxlen,)))
+
+
+@register("delete_var")
+def _delete_var(ctx, op):
+    for n in op.input("X"):
+        ctx.env.pop(n, None)
+
+
+@register("print")
+def _print(ctx, op):
+    """Prints ``message`` and In on the host; Out is In."""
+    _refuse_in_capture("the print op")
+    x = ctx.in1(op, "In")
+    print(op.attr("message", "") + " " + str(x.detach().cpu().numpy()))
+    ctx.set_out(op, "Out", x)

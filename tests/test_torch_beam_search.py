@@ -264,7 +264,10 @@ def test_beam_search_ops_in_program_match_jax():
 
     def program(pkg):
         prog = pkg.Program()
-        with pkg.program_guard(prog, pkg.Program()):
+        # under the guard, so that layer names do not depend on what
+        # else this process has built in either package
+        with pkg.program_guard(prog, pkg.Program()), \
+                pkg.unique_name.guard():
             pi = pkg.layers.data("pre_ids", [1], dtype="int64")
             ps = pkg.layers.data("pre_scores", [1])
             sc = pkg.layers.data("scores", [vocab])

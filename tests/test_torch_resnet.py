@@ -241,11 +241,13 @@ def test_momentum_matches_jax(nesterov):
 
 
 def test_unported_vision_ops_raise():
-    """Adaptive pooling, and the ops of the conv module not ported yet,
-    raise NotImplementedError naming ROADMAP.md."""
+    """The vision ops of the JAX package not ported yet (im2sequence,
+    prior_box: ROADMAP.md, queue 1 item 7) raise NotImplementedError
+    naming ROADMAP.md. Adaptive pooling and pool3d, which raised here
+    before, are ported (tests/test_torch_ops_sweep3.py)."""
     x = {"X": _rand(16, 1, 2, 4, 4)}
-    for op_type, attrs in (("pool2d", {"adaptive": True, "ksize": [2, 2]}),
-                           ("pool3d", {"ksize": [1, 1, 1]})):
+    for op_type, attrs in (("im2sequence", {"kernels": [2, 2]}),
+                           ("prior_box", {"min_sizes": [2.0]})):
         prog = _program(tfluid, [(op_type, {"X": ["x"]},
                                   {"Out": ["out"]}, attrs)],
                         {"x": x["X"]}, ["out"])
@@ -253,6 +255,15 @@ def test_unported_vision_ops_raise():
             tfluid.Executor(tfluid.CPUPlace()).run(
                 prog, feed={"x": x["X"]}, fetch_list=["out"],
                 scope=tfluid.Scope())
+    for op_type, attrs, v in (
+            ("pool2d", {"adaptive": True, "ksize": [2, 2]}, x["X"]),
+            ("pool3d", {"ksize": [1, 1, 1]}, _rand(17, 1, 2, 3, 4, 4))):
+        prog = _program(tfluid, [(op_type, {"X": ["x"]},
+                                  {"Out": ["out"]}, attrs)],
+                        {"x": v}, ["out"])
+        out, = tfluid.Executor(tfluid.CPUPlace()).run(
+            prog, feed={"x": v}, fetch_list=["out"], scope=tfluid.Scope())
+        assert np.isfinite(out).all()
 
 
 # --------------------------------------------------------------------------

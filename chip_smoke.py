@@ -9,13 +9,14 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
   1. device — the card's name and power limit (``nvidia-smi``); TF32
      switched off for matmuls and cuDNN, so fp32 stays fp32;
   2. build  — ``ops/csrc/paged_attention.cu``,
-     ``ops/csrc/flash_attention.cu``, ``ops/csrc/matmul_stats.cu`` and
-     ``ops/csrc/dropout.cu`` compiled for sm_90a, one ``nvcc`` each,
-     started together; ptxas must report no spills in any of the 24
-     paged instantiations (4 pool types x 3 widths x 2 row classes), the
-     18 flash ones (3 kernels x 2 dtypes x 3 widths), the 6 matmul_stats
-     ones (2 dtypes x 3 tiles) or the 8 dropout ones (2 dtypes x upscale
-     x mask);
+     ``ops/csrc/flash_attention.cu``, ``ops/csrc/matmul_stats.cu``,
+     ``ops/csrc/dropout.cu`` and ``ops/csrc/lstm_cell.cu`` compiled for
+     sm_90a, one ``nvcc`` each, started together; ptxas must report no
+     spills in any of the 24 paged instantiations (4 pool types x 3
+     widths x 2 row classes), the 18 flash ones (3 kernels x 2 dtypes x
+     3 widths), the 6 matmul_stats ones (2 dtypes x 3 tiles), the 8
+     dropout ones (2 dtypes x upscale x mask) or the 2 lstm_cell ones
+     (forward, backward);
   3. kernel — the CUDA paged-attention kernel (each chain split across
      blocks, the splits merged in the same launch) held against its
      plain PyTorch version (``_attend_plain``) at rtol 1e-4 / atol 1e-5
@@ -285,6 +286,37 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
      program. (c) ``tools/op_sweep.py``: each of the 112 op types the
      slice added, forward and (where the CPU sweep checks one) backward,
      on the card against the CPU at the CPU sweep's tolerances.
+ 15. lstm    — LoD sequences, the RNN ops and the rest of control flow,
+     with the fused LSTM cell (``ops/csrc/lstm_cell.cu``). (a) The
+     kernel against its plain version (``_lstm_cell_plain``) at B 64 D
+     512 and B 5 D 48, with and without peepholes, two activation sets,
+     dead rows at the step: H, C, Out and every input's gradient at rtol
+     1e-5 / atol 1e-6 of the largest value; two launches bitwise; a
+     reverse peephole ``lstm`` (B 64, D 512, lengths 1..16) through the
+     lowering, kernel route against the plain route at rtol 1e-4 / atol
+     1e-5; then timed at B 64 D 512 with the benchmark's lengths over
+     the 128 steps of a layer's scan (forward and backward, device time
+     alone and with the host's gaps) against the plain chain, the bound
+     from those lengths and ATen's fused cell ``_thnn_fused_lstm_cell``
+     (no peepholes and no mask: a yardstick the port never calls) where
+     PyTorch exposes it. (b) benchmarks/stacked_dynamic_lstm.py at its own
+     widths (vocab 5000, hidden 512, 3 layers, batch 64, lengths
+     ``RandomState(0).randint(40, 81)``: 3,823 tokens in a bucket of
+     4,096, @MAXLEN 128) with Adam 1e-3: the card's first step against
+     the port's CPU path from one startup scope, the loss and the norm
+     of the weights' difference within 4 x the gap of the control (the
+     plain cell on the card); 20 eager steps on the fixed batch, losses
+     falling, lstm_cell launches exactly 3 x 128 x 2 a step and no other
+     kernel of the port; 5 ``run()`` calls against one ``run_steps(K=5)``
+     dispatch bitwise; ms per batch eager and under the graph A/B/A/B (3
+     pairs after a warm window on each scope, medians), tokens/s and the
+     busy share; the device kernels of one step through the kernel and
+     through the plain route, from traced passes; the book GRU
+     encoder-decoder (dict 100, emb 32, hidden 64, batch 16, its cost
+     sum-pooled: segment sums) with 5 ``run()`` calls against one
+     ``run_steps(K=5)`` dispatch bitwise. (c) ``tools/op_sweep.py``'s LoD part: each of the 32
+     op types the slice added (the sequence, RNN and control-flow ops)
+     on the card against the CPU.
 
 The last three lines of standard output are the kernels' JSON line, the
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device": ...}``.
@@ -301,6 +333,15 @@ counts phase 12's configuration-B runs and phase 13's eager VGG steps
 attention-weight shape [32, 8, 256, 256] f32 and its ``max_abs_err``
 is the largest difference over its comparisons (0: they must be
 bitwise).
+The ``lstm_cell`` entry (``"tpu_kernel": false``: the JAX package's
+LSTM step is a ``lax.scan`` body XLA fuses) counts phase 15's 20 eager
+steps (``graph_launches``: its K=5 dispatch); its times and bound are
+the forward's at B 64 D 512 with the benchmark's lengths, a call's mean
+over the 128 steps of one layer's scan, and it adds the backward's
+(``bwd_ms``, ``bwd_plain_ms``, ``bwd_bound_ms``, ``bwd_bound_by``,
+``bwd_ms_with_host_gaps``);
+``library_ms`` is ATen's ``_thnn_fused_lstm_cell``'s (null where PyTorch
+lacks it).
 Paged attention's entry carries ``scoring_shape``: its times and bound
 at (d), and its launches at the scoring shape among phase 10's: counted
 inside each scoring dispatch (the kernel's counter read before and after
@@ -411,7 +452,7 @@ def _ptxas_report(text):
 def build_phase():
     from paddle_tpu_torch.ops import _build
     names = ("paged_attention", "flash_attention", "matmul_stats",
-             "dropout")
+             "dropout", "lstm_cell")
     t0 = time.perf_counter()
     _build.load_all(names)
     log("build: %s in %.2f s (one nvcc each, in parallel)",
@@ -423,21 +464,22 @@ def build_phase():
             log("  ptxas %s: %-36s %3d registers, spill stores %d bytes, "
                 "spill loads %d bytes", name, kernel, regs, st, ld)
             if kernel.startswith(("flash_", "matmul_stats_kernel",
-                                  "paged_", "dropout_kernel")):
+                                  "paged_", "dropout_kernel", "lstm_cell_")):
                 held[kernel] = st, ld
     counts = {p: sum(k.startswith(p) for k in held)
               for p in ("flash_", "matmul_stats_kernel", "paged_",
-                        "dropout_kernel")}
+                        "dropout_kernel", "lstm_cell_")}
     for prefix, want, what in (
             ("flash_", 18, "3 kernels x 2 dtypes x 3 widths"),
             ("matmul_stats_kernel", 6, "2 dtypes x 3 tiles"),
             ("paged_", 24, "4 pool types x 3 widths x 2 row classes"),
-            ("dropout_kernel", 8, "2 dtypes x upscale x mask")):
+            ("dropout_kernel", 8, "2 dtypes x upscale x mask"),
+            ("lstm_cell_", 2, "forward and backward")):
         check(counts[prefix] == want, "ptxas reported %d %s kernels, "
               "expected %d (%s)", counts[prefix], prefix, want, what)
     spilled = [k for k, (st, ld) in held.items() if st or ld]
-    check(not spilled, "ptxas spills in the paged, flash, matmul_stats or "
-          "dropout kernels: %s", spilled)
+    check(not spilled, "ptxas spills in the paged, flash, matmul_stats, "
+          "dropout or lstm_cell kernels: %s", spilled)
 
 
 # -- phase 3 -------------------------------------------------------------
@@ -1752,6 +1794,7 @@ MEGA_TRAIN_K, MEGA_TRAIN_STEPS, MEGA_SERVE_K, MEGA_PAIRS = 5, 10, 8, 3
 def _reset_launches():
     from paddle_tpu_torch.ops import dropout as D
     from paddle_tpu_torch.ops import flash_attention as F
+    from paddle_tpu_torch.ops import lstm_cell as LC
     from paddle_tpu_torch.ops import matmul_stats as MS
     from paddle_tpu_torch.ops import paged_attention as P
     for key in F.flash_attention.launches:
@@ -1759,6 +1802,7 @@ def _reset_launches():
     MS.matmul_colstats.launches = 0
     P.paged_attention.launches = 0
     D.dropout.launches = 0
+    LC.lstm_cell.launches = 0
 
 
 def _launches():
@@ -1911,18 +1955,48 @@ def _timed_train(torch, exe, prog, scope, batches, graph):
     return time.perf_counter() - t0
 
 
+@contextlib.contextmanager
+def _gc_pauses():
+    """Seconds the host spent in Python's garbage collector inside the
+    block, in ``out[0]``."""
+    import gc
+    out, began = [0.0], [0.0]
+
+    def watch(phase, _info):
+        if phase == "start":
+            began[0] = time.perf_counter()
+        else:
+            out[0] += time.perf_counter() - began[0]
+
+    gc.callbacks.append(watch)
+    try:
+        yield out
+    finally:
+        gc.callbacks.remove(watch)
+
+
 def _interleaved_train(torch, fluid, exe, prog, init, batches, what,
-                       unit, per_step, smi):
+                       unit, per_step, smi, warm=False):
     """Eager and graph steps in A/B/A/B order, MEGA_PAIRS pairs (the host
     varies from run to run), each over the MEGA_TRAIN_STEPS batches on a
-    scope of its own; then one traced pass of each. Returns the medians
-    and busy shares."""
+    scope of its own; then one traced pass of each. With ``warm``, one
+    untimed window on each scope first (the graph bound to its scope).
+    Logs each timed window's graph captures and garbage-collector pauses.
+    Returns the medians and busy shares."""
     scopes = {g: _scope_from(fluid, init, exe.device) for g in (0, 1)}
+    if warm:
+        for g in (0, 1):
+            _timed_train(torch, exe, prog, scopes[g], batches, g)
     walls = {0: [], 1: []}
+    captures, pauses = {0: [], 1: []}, {0: [], 1: []}
     for _ in range(MEGA_PAIRS):
         for g in (0, 1):
-            walls[g].append(_timed_train(torch, exe, prog, scopes[g],
-                                         batches, g))
+            before = exe.stats["graph_captures"]
+            with _gc_pauses() as gc_s:
+                walls[g].append(_timed_train(torch, exe, prog, scopes[g],
+                                             batches, g))
+            captures[g].append(exe.stats["graph_captures"] - before)
+            pauses[g].append(gc_s[0])
     busy = {}
     for g in (0, 1):
         _timed_train(torch, exe, prog, scopes[g], batches[:MEGA_TRAIN_K], g)
@@ -1940,12 +2014,14 @@ def _interleaved_train(torch, fluid, exe, prog, init, batches, what,
         ms = [1e3 * w / n for w in walls[g]]
         rate = [per_step * n / w for w in walls[g]]
         out[name] = (_median(ms), _median(rate), busy[g])
-        log("%s timing (%s, %d pairs interleaved eager/graph): step ms %s "
-            "(median %.3f); %s %s (median %.1f); device busy %s; %s", what,
-            name, MEGA_PAIRS, " ".join("%.3f" % x for x in ms), out[name][0],
+        log("%s timing (%s, %d pairs interleaved eager/graph%s): step ms "
+            "%s (median %.3f); %s %s (median %.1f); device busy %s; graph "
+            "captures in each window %s, garbage-collector pauses s %s; %s",
+            what, name, MEGA_PAIRS, ", a warm window on each scope first"
+            if warm else "", " ".join("%.3f" % x for x in ms), out[name][0],
             unit, " ".join("%.1f" % x for x in rate), out[name][1],
             "not measured" if busy[g] is None else "%.1f%%" % (100 * busy[g]),
-            smi)
+            captures[g], " ".join("%.4f" % x for x in pauses[g]), smi)
     log("%s timing: graph / eager step ms (medians) %.3f; %s", what,
         out["graph"][0] / out["eager"][0], smi)
     return out
@@ -4299,6 +4375,457 @@ def deepfm_phase(torch, smi):
         t3 - t2, n)
 
 
+# -- phase 15 ------------------------------------------------------------
+# benchmarks/stacked_dynamic_lstm.py at its own widths (the reference's
+# benchmark/fluid/stacked_dynamic_lstm.py: vocab 5000, hidden 512, 3
+# layers, batch 64, lengths RandomState(0).randint(40, 81))
+LSTM = dict(vocab=5000, hidden=512, stacked=3, batch=64)
+LSTM_STEPS, LSTM_K = 20, 5
+LSTM_CELL_CASES = [(64, 512), (5, 48)]
+LSTM_ACTS = [(1, 2, 2), (1, 3, 0)]      # sigmoid/tanh/tanh, sigmoid/relu/id
+LSTM_RTOL, LSTM_ATOL = 1e-5, 1e-6       # a few f32 ulp at O(1) values
+LSTM_OP_RTOL, LSTM_OP_ATOL = 1e-4, 1e-5  # 16 steps through the lowering
+LSTM_CONTROL = 4.0                      # limit: 4 x the plain cell's gap
+GRU_BOOK = dict(dict_size=100, emb=32, hidden=64, batch=16, lengths=(10, 33))
+
+
+def _lstm_program(fluid):
+    """The benchmark's Program in the port's layers (tests/test_torch_rnn
+    .py builds the same and holds its JSON to the benchmark's):
+    embedding, 3 x (fc to 4 hidden, dynamic_lstm without peepholes), max
+    sequence pool, fc softmax, cross-entropy, Adam 1e-3."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        L = fluid.layers
+        words = L.data("words", [1], dtype="int64", lod_level=1)
+        label = L.data("label", [1], dtype="int64")
+        x = L.embedding(words, size=[LSTM["vocab"], LSTM["hidden"]])
+        for _ in range(LSTM["stacked"]):
+            proj = L.fc(x, 4 * LSTM["hidden"])
+            x, _ = L.dynamic_lstm(proj, size=4 * LSTM["hidden"],
+                                  use_peepholes=False)
+        pred = L.fc(L.sequence_pool(x, "max"), 2, act="softmax")
+        loss = L.mean(L.cross_entropy(pred, label))
+        fluid.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    return main, startup, loss
+
+
+def _lstm_lengths(rng):
+    return rng.randint(40, 81, size=LSTM["batch"]).tolist()
+
+
+def _lstm_batch(fluid):
+    """The benchmark's batch: lengths, ids and labels from one
+    RandomState(0) stream."""
+    rng = np.random.RandomState(0)
+    lens = _lstm_lengths(rng)
+    ids = rng.randint(0, LSTM["vocab"], (sum(lens), 1)).astype(np.int64)
+    ys = rng.randint(0, 2, (LSTM["batch"], 1)).astype(np.int64)
+    return {"words": fluid.create_lod_tensor(ids, [lens]), "label": ys}, lens
+
+
+def _cell_inputs(torch, b, d, seed, peep):
+    g = torch.Generator().manual_seed(seed)
+    t = [torch.randn(b, 4 * d, generator=g), torch.randn(b, 4 * d,
+                                                         generator=g),
+         torch.randn(b, d, generator=g), torch.randn(b, d, generator=g),
+         torch.randn(3 * d, generator=g) if peep else None]
+    lens = torch.randint(0, 9, (b,), generator=g, dtype=torch.int32)
+    cot = [torch.randn(b, d, generator=g) for _ in range(3)]
+    cuda = [None if x is None else x.cuda() for x in t]
+    return cuda, lens.cuda(), [c.cuda() for c in cot]
+
+
+def _cell_pass(torch, fn, ins, lens, t, acts, cot):
+    """(outputs, gradients of sum(out * cot) in every input) of one call
+    of ``fn`` (the kernel's autograd Function or the plain version)."""
+    leaves = [None if x is None else x.clone().requires_grad_(True)
+              for x in ins]
+    outs = fn(*leaves, lens, t, acts)
+    total = sum(torch.sum(o * w) for o, w in zip(outs, cot))
+    grads = torch.autograd.grad(total, [x for x in leaves if x is not None])
+    return [o.detach() for o in outs], list(grads)
+
+
+def _close_err(torch, got, want, rtol, atol):
+    """(within rtol / atol of the largest |want|, largest |diff|)."""
+    diff = float((got - want).abs().max())
+    scale = max(1.0, float(want.abs().max()))
+    return bool(torch.allclose(got, want, rtol=rtol, atol=atol * scale)), \
+        diff
+
+
+def lstm_kernel_phase(torch):
+    """(a) The fused LSTM cell against its plain version on the card:
+    forward (H, C, Out) and backward (every input's gradient through the
+    autograd Function) at B 64 D 512 and B 5 D 48, with and without
+    peepholes, two activation sets, ragged lengths (dead rows at the
+    step) at rtol 1e-5 / atol 1e-6 of the largest value; two launches
+    bitwise; then a reverse LSTM with peepholes through the ``lstm``
+    lowering, kernel route against the plain route on the card (Hidden,
+    Cell and the gradients of Input, Weight and Bias at rtol 1e-4 / atol
+    1e-5). Then timed at the main path's shape and lengths."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import lstm_cell as LC, rnn_ops
+    from paddle_tpu_torch.tools import op_sweep
+    compared, err = 0, 0.0
+    for n, (b, d) in enumerate(LSTM_CELL_CASES):
+        for peep in (False, True):
+            for acts in LSTM_ACTS:
+                for t in (0, 5):
+                    ins, lens, cot = _cell_inputs(torch, b, d, 500 + n, peep)
+                    ko, kg = _cell_pass(torch, LC._lstm_cell_cuda, ins, lens,
+                                        t, acts, cot)
+                    po, pg = _cell_pass(torch, LC._lstm_cell_plain, ins,
+                                        lens, t, acts, cot)
+                    torch.cuda.synchronize()
+                    names = ["H", "C", "Out", "dxt", "dhw", "dc_prev",
+                             "dh_prev", "dpeep"]
+                    for name, a, w in zip(names, ko + kg, po + pg):
+                        ok, e = _close_err(torch, a, w, LSTM_RTOL, LSTM_ATOL)
+                        err = max(err, e)
+                        check(ok, "lstm_cell kernel %s differs from the "
+                              "plain version at B %d D %d peep %s acts %s "
+                              "t %d: largest |diff| %g", name, b, d, peep,
+                              acts, t, e)
+                    compared += 1
+        log("lstm_cell kernel: B %d D %d: forward and backward within rtol "
+            "%g / atol %g of the plain version (peepholes on/off, acts %s, "
+            "t 0 and 5, dead rows among the live)", b, d, LSTM_RTOL,
+            LSTM_ATOL, LSTM_ACTS)
+    ins, lens, cot = _cell_inputs(torch, 64, 512, 599, True)
+    a = LC._fwd_cuda(*ins, lens, 3, (1, 2, 2))
+    b2 = LC._fwd_cuda(*ins, lens, 3, (1, 2, 2))
+    ga = LC._bwd_cuda(ins[0], ins[1], ins[2], ins[4], lens, 3, (1, 2, 2),
+                      *cot)
+    gb = LC._bwd_cuda(ins[0], ins[1], ins[2], ins[4], lens, 3, (1, 2, 2),
+                      *cot)
+    check(all(torch.equal(x, y) for x, y in zip(a + ga, b2 + gb)),
+          "two lstm_cell launches on the same inputs differ")
+    # a reverse LSTM with peepholes through the lowering (16 steps)
+    b, d = 64, 512
+    rng = np.random.RandomState(77)
+    lens = rng.randint(1, 17, size=b).tolist()
+    lens[0] = 16
+    inputs = {"Input": op_sweep.Seq(0.5 * rng.randn(sum(lens), 4 * d)
+                                    .astype(np.float32), lens),
+              "Weight": (0.05 * rng.randn(d, 4 * d)).astype(np.float32),
+              "Bias": (0.1 * rng.randn(1, 7 * d)).astype(np.float32)}
+    prog, feed, fetch = op_sweep.one_op_program(
+        fluid, "lstm", inputs, {"use_peepholes": True, "is_reverse": True},
+        ["Hidden", "Cell"], ["Input", "Weight", "Bias"])
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    got = exe.run(prog, feed=feed, fetch_list=fetch, scope=fluid.Scope())
+    with _patched(rnn_ops, "lstm_cell", lambda real: LC._lstm_cell_plain):
+        want = exe.run(prog, feed=feed, fetch_list=fetch,
+                       scope=fluid.Scope())
+    for name, g, w in zip(fetch, got, want):
+        ok, e = _close_err(torch, torch.from_numpy(g), torch.from_numpy(w),
+                           LSTM_OP_RTOL, LSTM_OP_ATOL)
+        check(ok, "reverse peephole lstm (B %d, D %d, 16 steps): %s differs "
+              "between the kernel and the plain route by %g", b, d, name, e)
+    log("lstm_cell kernel: reverse peephole lstm through the lowering (B "
+        "%d, D %d, lengths 1..16): Hidden, Cell and the gradients of Input, "
+        "Weight and Bias within rtol %g / atol %g of the plain route; %d "
+        "cell comparisons; two launches bitwise; largest |diff| %.3g", b, d,
+        LSTM_OP_RTOL, LSTM_OP_ATOL, compared, err)
+    return dict(_lstm_timing(torch, LC), max_abs_err=err)
+
+
+def _lstm_timing(torch, LC):
+    """Forward and backward at the main path's shape and live share: B
+    64, D 512, no peepholes, the benchmark's lengths (40..80, @MAXLEN
+    128), the timed calls sweeping the steps t = 0..127 of one layer's
+    scan as the main path does (every row live for t < 40, 46.7% of the
+    (row, step) cells live in all). Device time alone and with the host's
+    gaps, the plain chain (forward; autograd backward) over the same
+    sweep, the bound from the sweep's lengths, and ATen's fused cell
+    (``_thnn_fused_lstm_cell``, as ``torch`` or ``torch.ops.aten``
+    exposes it: no peepholes, no mask) as the library time where PyTorch
+    has it."""
+    b, d = LSTM["batch"], LSTM["hidden"]
+    acts = (1, 2, 2)
+    ins, _, cot = _cell_inputs(torch, b, d, 600, False)
+    xt, hw, c, h, _ = ins
+    lengths = _lstm_lengths(np.random.RandomState(0))
+    maxlen = 1 << (max(lengths) - 1).bit_length()
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    sweep = 2 * maxlen                  # each timed loop: whole sweeps
+    fwd = lambda i: LC._fwd_cuda(xt, hw, c, h, None, lens, i % maxlen, acts)
+    bwd = lambda i: LC._bwd_cuda(xt, hw, c, None, lens, i % maxlen, acts,
+                                 *cot)
+    ms = _events_ms(torch, fwd, sweep, hide_host=True)
+    gaps = _events_ms(torch, fwd, sweep)
+    bwd_ms = _events_ms(torch, bwd, sweep, hide_host=True)
+    bwd_gaps = _events_ms(torch, bwd, sweep)
+    with torch.no_grad():
+        plain_ms = _events_ms(torch, lambda i: LC._lstm_cell_plain(
+            xt, hw, c, h, None, lens, i % maxlen, acts), maxlen,
+            hide_host=True)
+    graph = {}
+
+    def prep(i):
+        leaves = [x.clone().requires_grad_(True) for x in (xt, hw, c, h)]
+        outs = LC._lstm_cell_plain(*leaves, None, lens, i % maxlen, acts)
+        graph["total"] = sum(torch.sum(o * w) for o, w in zip(outs, cot))
+        graph["leaves"] = leaves
+
+    plain_bwd_ms = _events_ms(torch, lambda i: torch.autograd.grad(
+        graph["total"], graph["leaves"]), maxlen, prep=prep, hide_host=True)
+    lib_ms = lib_gaps = None
+    fused = getattr(torch, "_thnn_fused_lstm_cell", None) or getattr(
+        torch.ops.aten, "_thnn_fused_lstm_cell", None)
+    if fused is not None:
+        with torch.no_grad():
+            lib_ms = _events_ms(torch, lambda i: fused(xt, hw, c), sweep,
+                                hide_host=True)
+            lib_gaps = _events_ms(torch, lambda i: fused(xt, hw, c), sweep)
+    # What one call must move, per (row, element) in f32 words: a live
+    # row reads x_t, hW (4 each) and c_prev and writes h, c and the output
+    # (12) forward; reads x_t, hW, c_prev and the three incoming
+    # gradients and writes d(gates) (4), dc_prev and dh_prev (18)
+    # backward. A dead row reads c_prev and h_prev and writes h, c and
+    # the output (5) forward; reads dh and dc and writes d(gates), dc_prev
+    # and dh_prev (8) backward. Plus the lengths. Operations, one per
+    # add, multiply, divide, exp or tanh, for a live element: 22 forward
+    # (the gate sums 4, three sigmoids 12, two tanh 2, c 3, h 1) and 44
+    # backward (the forward recomputed, then the gradients); a dead one
+    # does none. Averaged over the sweep's steps.
+    live = [sum(n > t for n in lengths) for t in range(maxlen)]
+    f32 = 4
+
+    def mean_bound(live_words, dead_words, live_ops):
+        nbytes = np.mean([f32 * d * (live_words * k + dead_words * (b - k))
+                          + 4 * b for k in live])
+        ops = np.mean([live_ops * d * k for k in live])
+        return (float(nbytes), float(ops),
+                max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS) * 1e3,
+                "bytes" if nbytes / HBM_BYTES_PER_S >= ops / FP32_FLOPS
+                else "operations")
+
+    nbytes, flops, bound, bound_by = mean_bound(12, 5, 22)
+    bwd_bytes, bwd_flops, bwd_bound, bwd_by = mean_bound(18, 8, 44)
+    log("timing lstm_cell (B %d, D %d, f32, no peepholes, the benchmark's "
+        "lengths, steps 0..%d swept: %.1f%% of the (row, step) cells "
+        "live), device time alone: forward kernel_ms=%.5f bound_ms=%.5f "
+        "by %s (bytes: %.0f, operations: %.0f) plain_ms=%.5f library_ms=%s "
+        "(_thnn_fused_lstm_cell); backward kernel_ms=%.5f bound_ms=%.5f by "
+        "%s (bytes: %.0f, operations: %.0f) plain_ms=%.5f (autograd through "
+        "the plain chain); with the host's gaps: forward kernel_ms=%.5f "
+        "library_ms=%s, backward kernel_ms=%.5f; kernel / bound %.1f "
+        "forward, %.1f backward", b, d, maxlen - 1,
+        100.0 * sum(live) / (b * maxlen), ms, bound, bound_by, nbytes,
+        flops, plain_ms, "none" if lib_ms is None else "%.5f" % lib_ms,
+        bwd_ms, bwd_bound, bwd_by, bwd_bytes, bwd_flops, plain_bwd_ms, gaps,
+        "none" if lib_gaps is None else "%.5f" % lib_gaps, bwd_gaps,
+        ms / bound, bwd_ms / bwd_bound)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": lib_ms,
+            "ms_with_host_gaps": gaps, "library_ms_with_host_gaps": lib_gaps,
+            "bwd_ms": bwd_ms, "bwd_plain_ms": plain_bwd_ms,
+            "bwd_bound_ms": bwd_bound, "bwd_bound_by": bwd_by,
+            "bwd_ms_with_host_gaps": bwd_gaps}
+
+
+def _traced_launches(torch, fn, title):
+    """Device kernels one call of ``fn`` launches, from a traced pass
+    (None when the profiler saw no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = [ev.count for ev in prof.key_averages()
+              if getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0)) > 0]
+    if not counts:
+        log("%s: the profiler reported no device time (not measured)", title)
+        return None
+    return sum(counts)
+
+
+def lstm_train_phase(torch, smi):
+    """(b) The stacked LSTM at full width: the card's first step against
+    the port's CPU path from one startup scope, at LSTM_CONTROL times the
+    gap of the control (the plain cell on the card) in the loss and in
+    the norm of the weights' difference; LSTM_STEPS eager steps on the
+    fixed batch with losses falling and lstm_cell launches exactly 3
+    layers x @MAXLEN steps x 2 (forward, backward) a step (reset just
+    before, read just after); 5 run() calls against one run_steps(K=5)
+    dispatch bitwise; eager and graph ms per batch A/B/A/B, tokens/s and
+    the busy share; the device kernels of one step through the kernel
+    and through the plain route, from traced passes."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import lstm_cell as LC, rnn_ops
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    main, startup, loss = _lstm_program(fluid)
+    prog = (main, startup, loss)
+    init = _init_of(fluid, exe, startup)
+    batch, lens = _lstm_batch(fluid)
+    tokens = sum(lens)
+    maxlen = 1 << (max(lens) - 1).bit_length()
+    per_step = 2 * LSTM["stacked"] * maxlen
+    names = sorted(init)
+
+    def first_step(executor, plain=False):
+        scope = _scope_from(fluid, init, executor.device)
+        if plain:
+            with _patched(rnn_ops, "lstm_cell",
+                          lambda real: LC._lstm_cell_plain):
+                lv, = executor.run(main, feed=batch, fetch_list=[loss],
+                                   scope=scope)
+        else:
+            lv, = executor.run(main, feed=batch, fetch_list=[loss],
+                               scope=scope)
+        return float(lv), {n: scope.get_numpy(n) for n in names}
+
+    t0 = time.perf_counter()
+    cpu_loss, cpu_w = first_step(fluid.Executor(fluid.CPUPlace()))
+    cpu_s = time.perf_counter() - t0
+    k_loss, k_w = first_step(exe)
+    p_loss, p_w = first_step(exe, plain=True)
+    k_gap = abs(k_loss - cpu_loss) / abs(cpu_loss)
+    p_gap = abs(p_loss - cpu_loss) / abs(cpu_loss)
+    k_norm = _apart(k_w, cpu_w)[2]
+    p_norm = _apart(p_w, cpu_w)[2]
+    kp_norm = _apart(k_w, p_w)[2]
+    log("lstm first step (vocab %d, hidden %d, %d layers, batch %d, %d "
+        "tokens in a bucket of %d, @MAXLEN %d): loss card kernel %.7f, card "
+        "plain cell %.7f, CPU %.7f; loss gap to the CPU %.3g (control: the "
+        "plain cell %.3g); weights' difference norm / weights' norm to the "
+        "CPU %.3g (control %.3g), kernel to plain cell %.3g; limit %g x the "
+        "control; the CPU step took %.1f s", LSTM["vocab"], LSTM["hidden"],
+        LSTM["stacked"], LSTM["batch"], tokens,
+        1 << (tokens - 1).bit_length(), maxlen, k_loss, p_loss, cpu_loss,
+        k_gap, p_gap, k_norm, p_norm, kp_norm, LSTM_CONTROL, cpu_s)
+    check(k_gap <= max(LSTM_CONTROL * p_gap, 1e-6), "lstm first step: the "
+          "kernel's loss is %g from the CPU's, the plain cell's %g", k_gap,
+          p_gap)
+    check(k_norm <= max(LSTM_CONTROL * p_norm, 1e-6), "lstm first step: the "
+          "kernel's weights are %g from the CPU's, the plain cell's %g",
+          k_norm, p_norm)
+    _reset_launches()
+    losses, wall, _ = _train(torch, fluid, exe, prog, init, [batch],
+                             LSTM_STEPS)
+    counts = _launches()
+    log("lstm train (Adam 1e-3, the benchmark's fixed batch): %d steps, "
+        "losses %s; %.1f tokens/s, mean step %.3f ms (steps 2..%d); "
+        "lstm_cell launches %d (%d a step); %s", LSTM_STEPS,
+        " ".join("%.4f" % x for x in losses),
+        tokens * (LSTM_STEPS - 1) / wall, 1e3 * wall / (LSTM_STEPS - 1),
+        LSTM_STEPS, counts["lstm_cell"], counts["lstm_cell"] // LSTM_STEPS,
+        smi)
+    check(all(np.isfinite(losses)), "lstm losses not finite: %r", losses)
+    check(np.mean(losses[-5:]) < losses[0] - 0.01, "lstm loss did not "
+          "fall: %r", losses)
+    check(counts["lstm_cell"] == per_step * LSTM_STEPS, "lstm_cell launched "
+          "%d times in %d steps, want %d (3 layers x %d steps x 2)",
+          counts["lstm_cell"], LSTM_STEPS, per_step * LSTM_STEPS, maxlen)
+    others = {k: v for k, v in counts.items() if k != "lstm_cell" and v}
+    check(not others, "the lstm step launched other kernels: %s", others)
+    graph_counts = _graph_vs_eager(torch, fluid, prog, init,
+                                   [batch] * LSTM_K, "lstm run_steps")[0]
+    check(graph_counts["lstm_cell"] == per_step * LSTM_K,
+          "lstm run_steps(K=%d): %d lstm_cell launches through the replay, "
+          "want %d", LSTM_K, graph_counts["lstm_cell"], per_step * LSTM_K)
+    _capture_warm(torch, fluid, exe, prog, init, [batch] * MEGA_TRAIN_K,
+                  "lstm")
+    timing = _interleaved_train(torch, fluid, exe, prog, init,
+                                [batch] * MEGA_TRAIN_STEPS, "lstm",
+                                "tokens/s", tokens, smi, warm=True)
+    scope = _scope_from(fluid, init, exe.device)
+
+    def step():
+        exe.run(main, feed=batch, fetch_list=[loss], scope=scope)
+
+    step()
+    kernel_route = _traced_launches(torch, step, "lstm traced step")
+    with _patched(rnn_ops, "lstm_cell", lambda real: LC._lstm_cell_plain):
+        step()
+        plain_route = _traced_launches(torch, step, "lstm plain traced step")
+    log("lstm device kernels in one step (traced): %s through the kernel "
+        "route (%d of them lstm_cell), %s through the plain route; %s",
+        kernel_route, per_step, plain_route, smi)
+    return counts["lstm_cell"], graph_counts["lstm_cell"], {
+        "first_step_gap": k_gap, "control_gap": p_gap,
+        "kernels_a_step": kernel_route, "plain_kernels_a_step": plain_route,
+        "timing": timing}
+
+
+def _gru_book_program(fluid):
+    """tests/book/test_rnn_encoder_decoder.py's GRU encoder-decoder at
+    GRU_BOOK's small widths; its cost is sum-pooled per sequence
+    (``sequence_pool`` "sum": segment sums)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        L = fluid.layers
+        v, emb, hid = GRU_BOOK["dict_size"], GRU_BOOK["emb"], \
+            GRU_BOOK["hidden"]
+        src = L.data("src_word_id", [1], dtype="int64", lod_level=1)
+        trg = L.data("target_language_word", [1], dtype="int64",
+                     lod_level=1)
+        label = L.data("target_language_next_word", [1], dtype="int64",
+                       lod_level=1)
+        enc = L.dynamic_gru(L.fc(L.embedding(src, size=[v, emb]), hid * 3),
+                            size=hid)
+        dec = L.dynamic_gru(L.fc(L.embedding(trg, size=[v, emb]), hid * 3),
+                            size=hid, h_0=L.sequence_last_step(enc))
+        pred = L.fc(dec, v, act="softmax")
+        loss = L.mean(L.sequence_pool(L.cross_entropy(pred, label), "sum"))
+        fluid.optimizer.Adam(learning_rate=0.005).minimize(loss)
+    return main, startup, loss
+
+
+def gru_book_phase(torch):
+    """The book GRU encoder-decoder (sum-pooled cost): LSTM_K run()
+    calls against one run_steps(K=LSTM_K) dispatch bitwise, over LSTM_K
+    batches of one step signature (the same lengths, fresh words)."""
+    import paddle_tpu_torch as fluid
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    prog = _gru_book_program(fluid)
+    init = _init_of(fluid, exe, prog[1])
+    rng = np.random.RandomState(5)
+    b, v = GRU_BOOK["batch"], GRU_BOOK["dict_size"]
+    slen = rng.randint(*GRU_BOOK["lengths"], size=b).tolist()
+    tlen = rng.randint(*GRU_BOOK["lengths"], size=b).tolist()
+
+    def words(lens):
+        return fluid.create_lod_tensor(
+            rng.randint(0, v, (sum(lens), 1)).astype(np.int64), [lens])
+
+    batches = [{"src_word_id": words(slen),
+                "target_language_word": words(tlen),
+                "target_language_next_word": words(tlen)}
+               for _ in range(LSTM_K)]
+    _graph_vs_eager(torch, fluid, prog, init, batches,
+                    "book gru encoder-decoder (dict %d, emb %d, hidden %d, "
+                    "batch %d, %d + %d tokens)" % (
+                        v, GRU_BOOK["emb"], GRU_BOOK["hidden"], b,
+                        sum(slen), sum(tlen)))
+
+
+def lstm_phase(torch, smi):
+    """Phase 15."""
+    t0 = time.perf_counter()
+    cell = lstm_kernel_phase(torch)
+    t1 = time.perf_counter()
+    launches, graph_launches, train = lstm_train_phase(torch, smi)
+    gru_book_phase(torch)
+    t2 = time.perf_counter()
+    from paddle_tpu_torch.tools import op_sweep
+    held, worst = op_sweep.run("cuda", part="lod")
+    check(len(held) == 32, "lod op sweep held %d op types, want 32",
+          len(held))
+    t3 = time.perf_counter()
+    log("lod op sweep: %d op types held on the card against the CPU "
+        "(forward rtol %g / atol %g, gradients rtol %g / atol %g); largest "
+        "forward |difference| %.3g", len(held), op_sweep.FWD_RTOL,
+        op_sweep.FWD_ATOL, op_sweep.GRAD_RTOL, op_sweep.GRAD_ATOL, worst)
+    log("lstm: phase 15 took %.1f s (kernel %.1f s, train and book gru "
+        "%.1f s, op sweep "
+        "%.1f s)", t3 - t0, t1 - t0, t2 - t1, t3 - t2)
+    return launches, graph_launches, cell, train
+
+
 def _report_profile(prof, wall, title, focus=None):
     """Device busy share of ``wall`` and the top kernels; with ``focus``,
     also the share of the kernels whose names hold it. Returns (busy
@@ -4373,6 +4900,7 @@ def main():
             torch, smi)
         mt_launches, mt_err, mt_times, zoo_drops = mt_phase(torch, smi)
         deepfm_phase(torch, smi)
+        lstm_launches, lstm_graph, lstm_cell, _ = lstm_phase(torch, smi)
     except SmokeFailure as e:
         print("chip_smoke: FAILED: %s" % e, file=sys.stderr)
         return 1
@@ -4419,6 +4947,13 @@ def main():
         "launches": options_dropout + zoo_drops,
         "options_launches": options_dropout, "zoo_launches": zoo_drops},
         **dropout_times))
+    kernels.append(dict({
+        "name": "lstm_cell", "route": "cuda", "tpu_kernel": False,
+        "source": "paddle_tpu_torch/ops/csrc/lstm_cell.cu",
+        "replaces": "paddle_tpu/ops/rnn_ops.py:111-131 (lax.scan body, "
+                    "fused by XLA: no Pallas kernel)",
+        "launches": lstm_launches, "graph_launches": lstm_graph},
+        **lstm_cell))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -60,8 +60,8 @@ from . import clip  # noqa: F401
 from . import io  # noqa: F401
 from . import nets  # noqa: F401
 from .core import (  # noqa: F401
-    CPUPlace, CUDAPlace, Executor, Program, Scope, TPUPlace,
-    append_backward, calc_gradient, default_main_program,
+    CPUPlace, CUDAPlace, Executor, LoDTensor, Program, Scope, TPUPlace,
+    append_backward, calc_gradient, create_lod_tensor, default_main_program,
     default_startup_program, global_scope, gradients, load_numpy_state,
     program_guard, scope_guard, unique_name,
 )

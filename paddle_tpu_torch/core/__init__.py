@@ -1,6 +1,7 @@
 from . import unique_name  # noqa: F401
 from .backward import append_backward, calc_gradient, gradients  # noqa: F401
 from .executor import Executor, as_numpy  # noqa: F401
+from .lod import LoDTensor, create_lod_tensor  # noqa: F401
 from .places import CPUPlace, CUDAPlace, TPUPlace, resolve_device  # noqa: F401
 from .program import (  # noqa: F401
     Block, Operator, Parameter, Program, Variable,

@@ -26,6 +26,17 @@ order ``_build`` traces them there, and one ``run`` is one step:
     intermediate raises ``KeyError``. A ``calc_gradient_marker``
     (``calc_gradient``) binds ``X@GRAD`` for its inputs, feeds included.
 
+LoD feeds (``LoDTensor``) become flat row buffers zero-padded at the
+tail to the next power of two (flag ``lod_bucketing``, on by default),
+with ``<name>@LOD``, the sequence lengths as an int32 tensor on the
+device, beside them, and ``<name>@MAXLEN``, the next power of two of the
+longest length, a host int in the run's static table
+(``LowerContext.static_info``), which bounds the RNN scans. Lengths and
+the bound flow from an op's LoD input to each output with the same
+leading dim (``_propagate_lod``), and a fetched LoD value is trimmed to
+its real total. Every reduction drops the pad rows
+(``ops/common.lod_valid_mask``).
+
 ``run_steps`` (megastep) runs K steps as one dispatch: on the card the
 K step bodies are captured once into a CUDA graph (``core/graphs.py``)
 over static feed, state, seed and fetch buffers and replayed; on the CPU
@@ -34,12 +45,12 @@ staged into a ``[K]`` buffer with one copy a dispatch, so dropout inside
 a graph draws what K ``run()`` calls draw.
 
 What the port leaves out raises, naming ROADMAP.md: the wire's host (IO)
-ops (the SelectedRows host ops run, in ``run`` only), NaN
-guards, the transform pipeline, the monitor, LoD feeds, and draws from a
+ops (the SelectedRows and tensor-array host ops run, in ``run`` only),
+NaN guards, the transform pipeline, the monitor, and draws from a
 ``torch.Generator`` (the initializers) inside a ``run_steps`` graph on
-the card. Gradient accumulation is a
-``ParallelExecutor`` build option in the JAX package; that entry point
-is not ported, so nothing here can ask for it.
+the card. Gradient accumulation is a ``ParallelExecutor`` build option
+in the JAX package and the feed-plan cache a serving-path speed cache;
+neither is ported, so nothing here can ask for them.
 """
 
 import contextlib
@@ -53,6 +64,7 @@ from .. import flags
 from . import graphs as _graphs
 from . import registry
 from .enforce import EnforceError, op_error
+from .lod import LoDTensor
 from .places import CUDAPlace, Place
 from .program import Variable, default_main_program
 from .scope import global_scope, to_tensor, torch_dtype
@@ -61,11 +73,12 @@ from .selected_rows import SelectedRows
 __all__ = ["Executor", "as_numpy"]
 
 # the JAX package's host (IO) ops the port does not lower: distributed
-# send/recv/prefetch (the wire) and the control-flow tensor arrays. The
-# SelectedRows host ops are registered (``distributed/ops.py``).
+# send/recv/prefetch (the wire). The SelectedRows host ops
+# (``distributed/ops.py``) and the tensor arrays (``ops/control_flow.py``)
+# are registered.
 _HOST_OPS = frozenset([
-    "write_to_array", "read_from_array", "lod_array_length", "send",
-    "send_barrier", "send_sparse", "recv", "prefetch", "listen_and_serv"])
+    "send", "send_barrier", "send_sparse", "recv", "prefetch",
+    "listen_and_serv"])
 
 
 def _is_host_op(type):
@@ -105,6 +118,56 @@ def as_numpy(value):
     return np.asarray(value)
 
 
+def _is_lod(value):
+    """A LoDTensor, the port's or the JAX package's."""
+    return isinstance(value, LoDTensor) or \
+        hasattr(value, "recursive_sequence_lengths")
+
+
+def _normalize_feeds(feed):
+    """Feeds as host values -> (``{name: array or tensor}``, static_info),
+    the JAX package's ``_normalize_feeds``: a LoDTensor with a LoD
+    becomes its flat rows, zero-padded at the tail to the next power of
+    two under the ``lod_bucketing`` flag, and ``<name>@LOD``, its
+    innermost lengths (int32); static_info gets ``<name>@MAXLEN``, the
+    next power of two of the longest length. A LoDTensor without a LoD
+    is its data."""
+    bucket_on = bool(flags.get_flag("lod_bucketing"))
+    arrays, static_info = {}, {}
+    for name, v in feed.items():
+        if not _is_lod(v):
+            arrays[name] = v
+            continue
+        arr = np.asarray(v.data)
+        if v.lod:
+            lengths = np.asarray(v.recursive_sequence_lengths()[-1],
+                                 np.int32)
+            mx = max(1, int(lengths.max(initial=1)))
+            static_info[name + "@MAXLEN"] = 1 << (mx - 1).bit_length()
+            total = int(arr.shape[0])
+            bucket = 1 << max(0, (total - 1).bit_length())
+            if bucket_on and bucket > total:
+                arr = np.concatenate([arr, np.zeros(
+                    (bucket - total,) + arr.shape[1:], arr.dtype)])
+            arrays[name + "@LOD"] = lengths
+        arrays[name] = arr
+    return arrays, static_info
+
+
+def _trim_fetches(fetch_names, fetches, fetch_lods):
+    """Fetched LoD values cut to their real total, the sum of their
+    lengths (read on the host): the bucket's pad rows go."""
+    out = []
+    for n, v in zip(fetch_names, fetches):
+        lod = fetch_lods.get(n)
+        if lod is not None and v.dim() >= 1:
+            total = int(lod.sum())
+            if v.shape[0] > total:
+                v = v[:total]
+        out.append(v)
+    return out
+
+
 class Executor:
     """Single-device executor: one CUDA card, or the CPU when asked.
 
@@ -138,7 +201,8 @@ class Executor:
             f.name if isinstance(f, Variable) else str(f)
             for f in (fetch_list or []))
         _refuse_left_out_flags()
-        feeds = {k: self._feed_tensor(k, v) for k, v in (feed or {}).items()}
+        arrays, static_info = _normalize_feeds(feed or {})
+        feeds = {k: self._feed_tensor(k, v) for k, v in arrays.items()}
         persistable = [v.name for v in program.global_block().vars.values()
                        if v.persistable]
         state = {}
@@ -147,7 +211,7 @@ class Executor:
             if v is not None:
                 state[n] = to_tensor(v, self.device)
         step = self._build(program, tuple(sorted(feeds)), fetch_names,
-                           tuple(sorted(state)))
+                           tuple(sorted(state)), static_info)
         seed = self._seed(program, self._rng_counter)
         gen = self._generator(program, self._rng_counter)
         self._rng_counter += 1
@@ -161,9 +225,11 @@ class Executor:
             return seed_t[0]
 
         with _tf32_off():
-            fetches, new_state = step(state, feeds, lambda: gen, seed_fn)
+            fetches, new_state, fetch_lods = step(state, feeds, lambda: gen,
+                                                  seed_fn)
         for n, v in new_state.items():
             scope.set(n, v)
+        fetches = _trim_fetches(fetch_names, fetches, fetch_lods)
         if return_numpy:
             return [as_numpy(v) for v in fetches]
         return list(fetches)
@@ -187,8 +253,10 @@ class Executor:
         K sequential ``run()`` calls on the same feeds, with the RNG
         counter advanced by K.
 
-        ``feeds``: a LIST of K per-step feed dicts (one signature), or
-        ONE pre-stacked ``[k, ...]`` dict together with ``k``. Returns K
+        ``feeds``: a LIST of K per-step feed dicts (one signature: LoD
+        feeds must agree in bucketed total, sequence count and
+        ``@MAXLEN``), or ONE pre-stacked ``[k, ...]`` dict together with
+        ``k`` (dense feeds only). Returns K
         per-step fetch lists. With ``return_numpy=False`` the fetches
         are device tensors and nothing waits for the card; at most
         ``megastep_inflight`` (flag, default 2) such dispatches are in
@@ -214,7 +282,8 @@ class Executor:
         fetch_names = tuple(
             f.name if isinstance(f, Variable) else str(f)
             for f in (fetch_list or []))
-        if any(_is_host_op(op.type) for op in program.global_block().ops):
+        if any(_is_host_op(op.type) for blk in program.blocks
+               for op in blk.ops):
             # the JAX package's message; a SelectedRows op's row count
             # changes from step to step, which a CUDA graph cannot hold
             raise NotImplementedError(
@@ -222,7 +291,7 @@ class Executor:
                 "send/recv/prefetch must hit the wire once per step; "
                 "use run() per step")
         _refuse_left_out_flags()
-        staged, feed_sig = _stack_feeds(feeds, k)
+        staged, feed_sig, static_info = _stack_feeds(feeds, k)
         state_sig = []
         for v in program.global_block().vars.values():
             value = scope.find_var(v.name) if v.persistable else None
@@ -231,7 +300,8 @@ class Executor:
         state_sig = tuple(sorted(state_sig))
         # what picks the kernels a capture holds is part of the key too:
         # the conv fusion flag and cuDNN's algorithm switches
-        key = (program, program._version, feed_sig, fetch_names,
+        key = (program, program._version, feed_sig,
+               tuple(sorted(static_info.items())), fetch_names,
                state_sig, k, bool(flags.get_flag("fuse_conv_bn")),
                torch.backends.cudnn.deterministic,
                torch.backends.cudnn.benchmark)
@@ -239,7 +309,7 @@ class Executor:
         if mega is None:
             step = self._build(program, tuple(n for n, _, _ in feed_sig),
                                fetch_names, tuple(n for n, _, _ in
-                                                  state_sig))
+                                                  state_sig), static_info)
             mega = _Megastep(self.device, step, feed_sig, state_sig, k,
                              "Executor.run_steps(k=%d)" % k)
             if use_program_cache:
@@ -265,16 +335,24 @@ class Executor:
                 mega.run(lambda i: self._generator(program, base + i))
         self.stats["megastep_dispatches"] += 1
         outs = [b.clone() for b in mega.fetches]
+        if mega.fetch_lods:
+            # each step's LoD fetches cut to that step's real total (a
+            # host read, as run() makes)
+            steps = [_trim_fetches(fetch_names, [o[i] for o in outs],
+                                   {n: b[i] for n, b in
+                                    mega.fetch_lods.items()})
+                     for i in range(k)]
+        else:
+            steps = [[o[i] for o in outs] for i in range(k)]
         if return_numpy:
-            arrays = [as_numpy(o) for o in outs]
-            return [[np.asarray(a[i]) for a in arrays] for i in range(k)]
+            return [[as_numpy(v) for v in step] for step in steps]
         if self.device.type == "cuda":
             event = torch.cuda.Event()
             event.record()
             self._inflight.append(event)
         else:
             self._inflight.append(None)     # the CPU has finished already
-        return [[o[i] for o in outs] for i in range(k)]
+        return steps
 
     @staticmethod
     def _check_run_steps_args(feeds, k):
@@ -296,18 +374,24 @@ class Executor:
         return feeds, k
 
     def _feed_tensor(self, name, value):
-        if hasattr(value, "recursive_sequence_lengths"):
-            raise _left_out("LoD feed %r" % name, "7")
+        """A normalized feed (``_normalize_feeds``) as the step sees it:
+        a tensor on the executor's device, 64-bit types narrowed."""
         return to_tensor(value, self.device)
 
     # ------------------------------------------------------------------
-    def _build(self, program, feed_names, fetch_names, state_keys):
+    def _build(self, program, feed_names, fetch_names, state_keys,
+               static_info=None):
         """The step function ``step(state, feeds, rng, seed) ->
-        (fetches, new_state)`` for one program, as the JAX package's
-        ``_build`` returns it (there it is traced and jitted; here it
-        runs the lowerings eagerly each call). ``rng()`` hands the
-        initializers the step's ``torch.Generator`` and ``seed()`` the
-        dropout draws the step's seed, an int64 device scalar."""
+        (fetches, new_state, fetch_lods)`` for one program, as the JAX
+        package's ``_build`` returns it (there it is traced and jitted;
+        here it runs the lowerings eagerly each call). ``rng()`` hands
+        the initializers the step's ``torch.Generator`` and ``seed()``
+        the dropout draws the step's seed, an int64 device scalar.
+        ``static_info`` is the feeds' static table (``@MAXLEN``); each
+        step works on a copy, which the lowerings extend.
+        ``fetch_lods`` holds the lengths of each fetch that carries
+        them."""
+        static_info = dict(static_info or {})
         block = program.global_block()
         ops = list(block.ops)
         for op in ops:
@@ -335,7 +419,8 @@ class Executor:
                                         executor=self, block=block,
                                         fetch_names=fetch_names,
                                         read_names=read_names,
-                                        seed_fn=seed, rng_keys=rng_keys)
+                                        seed_fn=seed, rng_keys=rng_keys,
+                                        static_info=dict(static_info))
             if bwd_idx is None:
                 with torch.no_grad():
                     for op in ops:
@@ -349,7 +434,9 @@ class Executor:
             for n in persistable_names:
                 if n not in new_state and n in env:
                     new_state[n] = env[n].detach()
-            return fetches, new_state
+            fetch_lods = {n: env[n + "@LOD"] for n in fetch_names
+                          if env.get(n + "@LOD") is not None}
+            return fetches, new_state, fetch_lods
 
         return step
 
@@ -425,6 +512,7 @@ class Executor:
         keep.update(names)
         keep.update(n for op in ops[bwd_idx + 1:] for n in op.input_names)
         base_env = dict(ctx.env)
+        keep.update(n for n in base_env if n.endswith("@LOD"))
 
         def forward(*leaf_vals):
             env = dict(base_env)
@@ -433,7 +521,8 @@ class Executor:
             for op in ops[:bwd_idx]:
                 _lower_op(fctx, op)
             return (_objective(env, target_names),
-                    {n: v for n, v in env.items() if n in keep})
+                    {n: v for n, v in env.items()
+                     if n in keep or n.endswith("@LOD")})
 
         total, kept = _checkpoint.checkpoint(
             forward, *vals, use_reentrant=False, preserve_rng_state=False)
@@ -475,13 +564,22 @@ def _signature(value):
 
 def _stack_feeds(feeds, k):
     """(``{name: [k, ...] host or device tensor}``, the per-step feed
-    signature ``((name, shape, dtype), ...)``) from K per-step feed
-    dicts or one pre-stacked dict."""
+    signature ``((name, shape, dtype), ...)``, the static table) from K
+    per-step feed dicts, each normalized as ``run()`` normalizes it (LoD
+    feeds and their ``@LOD`` lengths included), or from one pre-stacked
+    dict of dense feeds."""
     if isinstance(feeds, dict):
         stacked = {}
         for name, value in feeds.items():
-            if hasattr(value, "recursive_sequence_lengths"):
-                raise _left_out("LoD feed %r" % name, "7")
+            if _is_lod(value):
+                # the JAX package's message
+                raise ValueError(
+                    "LoD feed %r cannot ride the pre-stacked [k, ...] "
+                    "megastep staging path: its flat/bucketed form and "
+                    "@LOD/@MAXLEN static_info must be derived per step by "
+                    "the executor's own normalization. Pass run_steps a "
+                    "LIST of per-step feed dicts instead (the host path "
+                    "normalizes and stacks LoD feeds correctly)." % name)
             t = value if isinstance(value, torch.Tensor) else \
                 torch.from_numpy(np.ascontiguousarray(value))
             if t.dim() < 1 or t.shape[0] != k:
@@ -489,31 +587,35 @@ def _stack_feeds(feeds, k):
                     "pre-stacked megastep feed %r must have leading dim "
                     "k=%d, got shape %s" % (name, k, tuple(t.shape)))
             stacked[name] = t
+        info0 = {}
     else:
-        sig0 = None
+        sig0 = info0 = None
+        normed = []
         for i, feed in enumerate(feeds):
-            for name, value in feed.items():
-                if hasattr(value, "recursive_sequence_lengths"):
-                    raise _left_out("LoD feed %r" % name, "7")
-            sig = tuple(sorted((n,) + _signature(v) for n, v in feed.items()))
+            arrays, info = _normalize_feeds(feed)
+            normed.append(arrays)
+            sig = tuple(sorted((n,) + _signature(v)
+                               for n, v in arrays.items()))
             if sig0 is None:
-                sig0 = sig
-            elif sig != sig0:
+                sig0, info0 = sig, info
+            elif sig != sig0 or info != info0:
                 raise ValueError(
                     "run_steps feeds must share ONE step signature (the "
-                    "K step bodies are captured once): feed %d is %s, "
-                    "feed 0 is %s. Pad or re-bucket the odd batch, or "
-                    "run() it separately." % (i, sig, sig0))
+                    "K step bodies are captured once): feed %d is %s / "
+                    "static %s, feed 0 is %s / static %s. Pad or "
+                    "re-bucket the odd batch, or run() it separately."
+                    % (i, sig, sorted(info.items()), sig0,
+                       sorted(info0.items())))
         stacked = {}
-        for name in feeds[0]:
-            values = [f[name] for f in feeds]
+        for name in normed[0]:
+            values = [a[name] for a in normed]
             if all(isinstance(v, torch.Tensor) for v in values):
                 stacked[name] = torch.stack(values)
             else:
                 stacked[name] = torch.from_numpy(np.ascontiguousarray(
                     np.stack([np.asarray(v) for v in values])))
     sig = tuple(sorted((n,) + _signature(t[0]) for n, t in stacked.items()))
-    return stacked, sig
+    return stacked, sig, info0
 
 
 def _no_draws():
@@ -545,6 +647,7 @@ class _Megastep:
         # the K steps' run seeds; step i's draws read row i
         self.seeds = torch.empty((k,), dtype=torch.int64, device=device)
         self.fetches = None      # made at the first step, from its fetches
+        self.fetch_lods = None   # {fetch name: [K, n] lengths}, likewise
         self.graph = None
         self._owner = None       # weakref to the scope holding the state
 
@@ -609,7 +712,7 @@ class _Megastep:
         """Step ``i``: read feed row i, write fetch row i, update
         ``state`` in place."""
         seed = self.seeds[i]
-        fetches, new = self.step(
+        fetches, new, lods = self.step(
             state, {n: b[i] for n, b in self.feeds.items()}, rng,
             lambda: seed)
         extra = sorted(set(new) - set(state))
@@ -623,8 +726,14 @@ class _Megastep:
             self.fetches = [torch.empty((self.k,) + tuple(v.shape),
                                         dtype=v.dtype, device=self.device)
                             for v in fetches]
+        if self.fetch_lods is None:
+            self.fetch_lods = {
+                n: torch.empty((self.k,) + tuple(v.shape), dtype=v.dtype,
+                               device=self.device) for n, v in lods.items()}
         for buf, v in zip(self.fetches, fetches):
             buf[i].copy_(v)
+        for n, v in lods.items():
+            self.fetch_lods[n][i].copy_(v)
         _commit(state, new)
 
 
@@ -673,6 +782,36 @@ def _lower_op(ctx, op):
         raise
     except Exception as e:  # annotate with op context (enforce.h:203 parity)
         raise op_error(op, ctx.env, e) from e
+    _propagate_lod(ctx, op)
+
+
+def _propagate_lod(ctx, op):
+    """LoD lengths flow through row-preserving ops, as in the JAX
+    package: when a lowering did not set ``out@LOD`` itself (the
+    sequence ops do), every output with the leading dim of the first
+    LoD-carrying input inherits that input's lengths, and its
+    ``@MAXLEN`` bound. This is what lets ``embedding -> fc ->
+    dynamic_lstm -> sequence_pool`` see the sequence boundaries."""
+    in_lod = lead = src = None
+    for name in op.input_names:
+        lod = ctx.env.get(name + "@LOD")
+        if lod is not None:
+            val = ctx.env.get(name)
+            if isinstance(val, torch.Tensor) and val.dim() >= 1:
+                in_lod, lead, src = lod, val.shape[0], name
+                break
+    if in_lod is None:
+        return
+    maxlen = ctx.static_info.get(src + "@MAXLEN")
+    for name in op.output_names:
+        if name + "@LOD" in ctx.env:
+            continue        # the lowering set it
+        val = ctx.env.get(name)
+        if isinstance(val, torch.Tensor) and val.dim() >= 1 \
+                and val.shape[0] == lead:
+            ctx.env[name + "@LOD"] = in_lod
+            if maxlen is not None:
+                ctx.static_info.setdefault(name + "@MAXLEN", maxlen)
 
 
 def _lower_feed_fetch(ctx, op):
@@ -694,4 +833,7 @@ def _fetch_from_env(env, name):
         raise KeyError(
             "fetch var %r was not produced by the program; "
             "available: %s..." % (name, sorted(env)[:20]))
-    return env[name]
+    val = env[name]
+    if isinstance(val, list):       # a tensor array, stacked on fetch
+        val = torch.stack(val)
+    return val

@@ -27,24 +27,26 @@ __all__ = ["StepGraph", "launch_counts"]
 
 
 def _kernel_modules():
-    from ..ops import dropout, flash_attention, matmul_stats, paged_attention
-    return flash_attention, matmul_stats, paged_attention, dropout
+    from ..ops import (dropout, flash_attention, lstm_cell, matmul_stats,
+                       paged_attention)
+    return flash_attention, matmul_stats, paged_attention, dropout, lstm_cell
 
 
 def launch_counts():
     """{kernel: launches so far} over the port's kernel wrappers:
     ``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``, ``matmul_stats``,
-    ``paged_attention`` and ``dropout``."""
-    fa, ms, pa, do = _kernel_modules()
+    ``paged_attention``, ``dropout`` and ``lstm_cell``."""
+    fa, ms, pa, do, lc = _kernel_modules()
     out = {"flash_" + k: n for k, n in fa.flash_attention.launches.items()}
     out["matmul_stats"] = ms.matmul_colstats.launches
     out["paged_attention"] = pa.paged_attention.launches
     out["dropout"] = do.dropout.launches
+    out["lstm_cell"] = lc.lstm_cell.launches
     return out
 
 
 def _add_launches(delta):
-    fa, ms, pa, do = _kernel_modules()
+    fa, ms, pa, do, lc = _kernel_modules()
     for name, n in delta.items():
         if name.startswith("flash_"):
             fa.flash_attention.launches[name[len("flash_"):]] += n
@@ -52,6 +54,8 @@ def _add_launches(delta):
             ms.matmul_colstats.launches += n
         elif name == "dropout":
             do.dropout.launches += n
+        elif name == "lstm_cell":
+            lc.lstm_cell.launches += n
         else:
             pa.paged_attention.launches += n
 

@@ -101,13 +101,17 @@ class LowerContext:
     order. ``seed_fn()`` hands out the run's seed (an int64 device
     scalar) and ``rng_keys`` the program's ``random_op_keys``: together
     they key the counter-based draws (``draw_key``). ``mesh`` is always
-    None in the port: no op runs across cards yet.
+    None in the port: no op runs across cards yet. ``static_info`` is the
+    run's static table, host values the feeds fix for the whole run:
+    ``<name>@MAXLEN``, the bound of a LoD value's sequence lengths,
+    which the RNN scans loop to.
     """
 
     def __init__(self, env, rng_fn, device, is_test=False, executor=None,
                  block=None, mesh=None, fetch_names=(), read_names=None,
-                 seed_fn=None, rng_keys=None):
+                 seed_fn=None, rng_keys=None, static_info=None):
         self.env = env
+        self.static_info = static_info if static_info is not None else {}
         self._rng_fn = rng_fn      # () -> the run's torch.Generator
         self._seed_fn = seed_fn    # () -> the run's seed, int64 [] tensor
         self.rng_keys = rng_keys if rng_keys is not None else {}
@@ -178,4 +182,5 @@ class LowerContext:
                             block=block, mesh=self.mesh,
                             fetch_names=self.fetch_names,
                             read_names=self._read_names,
-                            seed_fn=self._seed_fn, rng_keys=self.rng_keys)
+                            seed_fn=self._seed_fn, rng_keys=self.rng_keys,
+                            static_info=self.static_info)

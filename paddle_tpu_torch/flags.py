@@ -6,7 +6,8 @@ from the ``PADDLE_TPU_<NAME>`` environment variable (gflags booleans:
 0/false/off/no = off) or from ``set_flag``. One environment therefore
 configures both packages. Registered here: the ``serving_*`` flags the
 port's engine reads, ``fuse_conv_bn`` (the conv lowering's),
-``megastep_inflight`` (``Executor.run_steps``'s), and the
+``megastep_inflight`` (``Executor.run_steps``'s), ``lod_bucketing``
+(the LoD feeds'), and the
 Executor switches of features not ported yet, so that setting one fails
 loudly instead of being ignored.
 """
@@ -126,6 +127,11 @@ _register("megastep_inflight", int, 2,
           "oldest. 2 = double buffering (host feed of megastep N+1 "
           "overlaps device compute of megastep N); 1 restores "
           "serialized dispatch")
+_register("lod_bucketing", bool, True,
+          "bucket flat LoD feed totals to the next power of two (zero "
+          "pad rows at the tail, which every reduction masks), so the "
+          "step's shapes stay the same across batches whose token totals "
+          "differ")
 _register("check_nan_inf", bool, False,
           "per-op NaN/Inf guards in the Executor. Not ported yet; 1 "
           "makes Executor.run raise (see ROADMAP.md)")

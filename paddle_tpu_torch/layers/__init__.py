@@ -1,10 +1,11 @@
 """fluid.layers-compatible DSL surface: the layers whose ops the port
-lowers. The others (sequence, RNN, detection, the rest of control flow,
-...) come with their lowerings (ROADMAP.md, queue 1)."""
+lowers. The others (CTC/CRF, detection, ...) come with their lowerings
+(ROADMAP.md, queue 1)."""
 
 from . import ops  # noqa: F401
 from .compat import *  # noqa: F401,F403
-from .control_flow import recompute  # noqa: F401
+from .control_flow import *  # noqa: F401,F403
+from . import control_flow  # noqa: F401
 from .conv_layers import (  # noqa: F401
     conv2d, conv2d_transpose, conv3d, conv3d_transpose, pool2d, pool3d,
     roi_pool, row_conv, spp,
@@ -25,6 +26,8 @@ from .nn import (  # noqa: F401
 )
 from .ops import *  # noqa: F401,F403
 from .parallel_layers import sequence_parallel_attention  # noqa: F401
+from .rnn_layers import *  # noqa: F401,F403
+from .sequence_layers import *  # noqa: F401,F403
 from .tensor import (  # noqa: F401
     argmax, argmin, assign, cast, concat, create_global_var, create_tensor,
     expand, fill_constant, fill_constant_batch_size_like, gather, increment,

@@ -1,10 +1,11 @@
 """Reference-parity layer wrappers over the port's op lowerings.
 
 The counterpart of ``paddle_tpu/layers/compat.py`` for Print, mul,
-sums/sum, pad, multiplex, smooth_l1, lrn, the random layers (also
-``*_batch_size_like``), nce and the two beam-search builders. Its
-sequence, CTC, detection and reader wrappers come with their lowerings
-(ROADMAP.md, queue 1 items 7 and 10).
+sums/sum, pad, multiplex, smooth_l1, lrn, im2sequence, the random layers
+(also ``*_batch_size_like``), nce, edit_distance, the two beam-search
+builders, shrink_memory, reorder_lod_tensor_by_rank and
+ConditionalBlock. Its CTC, detection and reader wrappers come with their
+lowerings (ROADMAP.md, queue 1 items 7 and 10).
 """
 
 from .layer_helper import LayerHelper
@@ -13,7 +14,8 @@ __all__ = [
     "Print", "mul", "sums", "sum", "pad", "multiplex", "smooth_l1", "lrn",
     "uniform_random", "gaussian_random", "uniform_random_batch_size_like",
     "gaussian_random_batch_size_like", "nce", "beam_search",
-    "beam_search_decode",
+    "beam_search_decode", "im2sequence", "edit_distance", "shrink_memory",
+    "reorder_lod_tensor_by_rank", "ConditionalBlock",
 ]
 
 
@@ -182,3 +184,80 @@ def beam_search_decode(ids, scores, beam_size, end_id, name=None):
                  "SentenceScores": [out_scores]},
         attrs={"beam_size": beam_size, "end_id": end_id})
     return out_ids, out_scores
+
+def im2sequence(input, filter_size=1, stride=1, padding=0, name=None):
+    def _pair(v):
+        return list(v) if isinstance(v, (list, tuple)) else [v, v]
+
+    pad4 = _pair(padding)
+    if len(pad4) == 2:
+        pad4 = pad4 + pad4
+    return _simple("im2sequence", {"X": [input]},
+                   {"kernels": _pair(filter_size),
+                    "strides": _pair(stride), "paddings": pad4},
+                   dtype=input.dtype, name=name)
+
+
+def edit_distance(input, label, normalized=True, ignored_tokens=None):
+    if ignored_tokens:
+        # reference composition (layers/metric wrappers): erase the
+        # ignored tokens from both sequences BEFORE the distance
+        from .sequence_layers import sequence_erase
+        input = sequence_erase(input, list(ignored_tokens))
+        label = sequence_erase(label, list(ignored_tokens))
+    out, seq_num = _simple(
+        "edit_distance", {"Hyps": [input], "Refs": [label]},
+        {"normalized": normalized},
+        out_slots=("Out", "SequenceNum"))
+    return out, seq_num
+
+
+def shrink_memory(x, i, table):
+    return _simple("shrink_rnn_memory", {"X": [x]}, {}, dtype=x.dtype)
+
+
+def reorder_lod_tensor_by_rank(x, rank_table):
+    return _simple("reorder_lod_tensor_by_rank",
+                   {"X": [x], "RankTable": [rank_table]}, {},
+                   dtype=x.dtype)
+
+
+class ConditionalBlock:
+    """`with ConditionalBlock([cond]).block(): ...` — ops built inside
+    run only when cond holds (conditional_block_op.cc). Vars written in
+    the block must have a pre-set default (the false branch keeps it)."""
+
+    def __init__(self, inputs, is_scalar_condition=True, name=None):
+        self.cond = inputs[0] if isinstance(inputs, (list, tuple)) \
+            else inputs
+
+    def block(self):
+        from .control_flow import BlockGuard
+        from ..core.program import default_main_program
+        outer = self
+
+        class _Guard(BlockGuard):
+            def __init__(self):
+                super().__init__(default_main_program())
+
+            def __exit__(self, *exc):
+                program = self.program
+                sub_block = program.current_block()
+                super().__exit__(*exc)
+                if exc[0] is None:
+                    # Only vars of OUTER blocks are conditional outputs;
+                    # names created inside the sub-block are its private
+                    # temps and die with it (conditional_block_op.cc: the
+                    # op's Out is the parent-scope vars the block assigns).
+                    written = sorted({n for o in sub_block.ops
+                                      for ns in o.outputs.values()
+                                      for n in ns} - set(sub_block.vars))
+                    program.current_block().append_op(
+                        type="conditional_block",
+                        inputs={"Condition": [outer.cond]},
+                        outputs={"Out": written},
+                        attrs={"sub_block": sub_block,
+                               "written_names": written})
+                return False
+
+        return _Guard()

@@ -12,4 +12,6 @@ from . import metrics_ops  # noqa: F401
 from . import nn  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import parallel_ops  # noqa: F401
+from . import rnn_ops  # noqa: F401
+from . import sequence_ops  # noqa: F401
 from . import tensor_ops  # noqa: F401

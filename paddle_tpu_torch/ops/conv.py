@@ -359,15 +359,13 @@ def _roi_pool(ctx, op):
     ``spatial_scale`` and rounded half to even) into pooled_h x
     pooled_w bins; bin i spans [floor(y1 + i h / ph), ceil(y1 + (i + 1)
     h / ph)), at least one cell; an empty bin reads 0 (roi_pool_op.cc,
-    as the JAX package lowers it). Every ROI reads image 0: ROIs with
-    LoD (one image each) wait for ROADMAP.md queue 1 item 7. The max is
-    taken over the bin's columns, then its rows."""
+    as the JAX package lowers it). ROIs with a LoD read image i for the
+    i-th sequence of ROIs (pad rows past the lengths read the last
+    image); without one, every ROI reads image 0. The max is taken over
+    the bin's columns, then its rows."""
     x = ctx.in1(op, "X")
-    if ctx.maybe_get(op.input("ROIs")[0] + "@LOD") is not None:
-        raise NotImplementedError(
-            "roi_pool over LoD ROIs is not ported to paddle_tpu_torch yet "
-            "(ROADMAP.md, queue 1 item 7)")
     rois = ctx.in1(op, "ROIs").float()          # [R, 4]
+    lod = ctx.maybe_get(op.input("ROIs")[0] + "@LOD")
     ph = int(op.attr("pooled_height", 1))
     pw = int(op.attr("pooled_width", 1))
     scale = float(op.attr("spatial_scale", 1.0))
@@ -389,9 +387,18 @@ def _roi_pool(ctx, op):
 
     my = bins(y1, rh, ph, h)                          # [R, ph, H]
     mx = bins(x1, rw, pw, w)                          # [R, pw, W]
-    img = x[0]                                        # [C, H, W]
+    if lod is None:
+        img = x[0][None]                              # [1, C, H, W]
+    else:
+        # jnp.repeat(arange(n), lod, total_repeat_length=R): the rows past
+        # sum(lod) repeat the last image
+        ends = torch.cumsum(lod, 0)
+        idx = torch.searchsorted(ends, torch.arange(rois.shape[0],
+                                                    device=dev),
+                                 right=True)
+        img = x[torch.clamp(idx, max=lod.shape[0] - 1)]   # [R, C, H, W]
     neg = float("-inf")
-    cols = torch.amax(torch.where(mx[:, None, None], img[None, :, :, None],
+    cols = torch.amax(torch.where(mx[:, None, None], img[:, :, :, None],
                                   neg), dim=-1)       # [R, C, H, pw]
     out = torch.amax(torch.where(my[:, None, :, :, None],
                                  cols[:, :, None], neg), dim=3)
@@ -402,17 +409,23 @@ def _roi_pool(ctx, op):
 @register("row_conv")
 def _row_conv(ctx, op):
     """Lookahead convolution over time (row_conv_op.cc): out[t] =
-    sum_k x[t + k] w[k], x [T, D] one sequence, w [future_context + 1,
-    D]. Over LoD sequences (each cut at its end) it raises: LoD feeds
-    wait for ROADMAP.md queue 1 item 7."""
+    sum_k x[t + k] w[k], x [T, D], w [future_context + 1, D]; over LoD
+    sequences, each cut at its end (a lookahead row of another sequence
+    counts as zero)."""
     x = ctx.in1(op, "X")
     w = ctx.in1(op, "Filter")
-    if ctx.maybe_get(op.input("X")[0] + "@LOD") is not None:
-        raise NotImplementedError(
-            "row_conv over LoD sequences is not ported to paddle_tpu_torch "
-            "yet (ROADMAP.md, queue 1 item 7)")
     k = w.shape[0]
     t = x.shape[0]
     xp = F.pad(x, (0, 0, 0, k - 1))
     stacked = torch.stack([xp[i:i + t] for i in range(k)], dim=0)
+    lengths = ctx.maybe_get(op.input("X")[0] + "@LOD")
+    if lengths is not None and t:
+        seg = torch.searchsorted(torch.cumsum(lengths, 0),
+                                 torch.arange(t, device=x.device),
+                                 right=True)
+        seg_p = torch.cat([seg, (seg[-1] + 1).expand(k - 1)])
+        same = torch.stack([seg_p[i:i + t] == seg for i in range(k)])
+        stacked = torch.where(same[..., None], stacked,
+                              torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
     ctx.set_out(op, "Out", torch.einsum("ktd,kd->td", stacked, w))

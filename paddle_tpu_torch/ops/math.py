@@ -15,6 +15,7 @@ import torch
 
 from ..core.registry import register
 from ..core.scope import torch_dtype
+from .common import lod_valid_mask
 
 
 def _flatten2d(x, num_col_dims):
@@ -66,9 +67,11 @@ def _sum(ctx, op):
 
 @register("mean")
 def _mean(ctx, op):
-    """Mean over every element (LoD feeds, whose padded rows the JAX
-    package masks out here, raise in the Executor)."""
-    ctx.set_out(op, "Out", torch.mean(ctx.in1(op, "X")))
+    """Mean over every element; over a bucketed LoD input, over the
+    real rows only."""
+    x = ctx.in1(op, "X")
+    out = _masked_mean(ctx, op, x, None, False)
+    ctx.set_out(op, "Out", torch.mean(x) if out is None else out)
 
 
 @register("scale")
@@ -134,25 +137,78 @@ def _mean(x, dim, keepdim):
                       keepdim=keepdim)
 
 
-def _reduce(fn):
+def _row_mask(valid, x):
+    return valid.reshape((x.shape[0],) + (1,) * (x.dim() - 1))
+
+
+def _fill_value(fill, dtype):
+    """The neutral element of a reduction in ``dtype``: 'min' and 'max'
+    are the dtype's extremes (-inf / inf for floats), so an integer
+    reduction stays integer."""
+    if fill in ("min", "max"):
+        if dtype.is_floating_point:
+            return float("-inf") if fill == "min" else float("inf")
+        info = torch.iinfo(dtype)
+        return info.min if fill == "min" else info.max
+    return fill
+
+
+def _masked_rows(ctx, op, x, fill=0):
+    """x with the bucket's pad rows replaced by the neutral ``fill`` (x
+    itself when the input carries no LoD)."""
+    valid, _ = lod_valid_mask(ctx, op)
+    if valid is None:
+        return x
+    return torch.where(_row_mask(valid, x), x, _fill_value(fill, x.dtype))
+
+
+def _masked_mean(ctx, op, x, axes, keep):
+    """The mean over the REAL rows of a bucketed LoD input (None when
+    the input carries no LoD and the plain mean applies)."""
+    valid, n_valid = lod_valid_mask(ctx, op)
+    if valid is None:
+        return None
+    red = tuple(range(x.dim())) if axes is None else axes
+    other = 1
+    for a in red:
+        if a != 0:
+            other *= x.shape[a]
+    s = torch.sum(torch.where(_row_mask(valid, x), x, torch.zeros_like(x)),
+                  dim=red, keepdim=keep)
+    acc = x.dtype if x.is_floating_point() else torch.float32
+    return s / (n_valid.to(acc) * other)
+
+
+def _reduce(fn, fill=None):
     """A reduce op over ``dim`` (or every axis with ``reduce_all``),
     keeping the reduced axes with ``keep_dim``, in X's dtype (the mean
-    of integers is float32). LoD inputs, whose pad
-    rows the JAX package neutralizes here, raise in the Executor."""
+    of integers is float32). Over a bucketed LoD input, a reduction of
+    the row axis neutralizes the pad rows first (sum: 0, max/min: the
+    dtype's extremes, prod: 1; the mean divides by the real rows)."""
     def lower(ctx, op):
         x = ctx.in1(op, "X")
-        out = fn(x, dim=_axes(op, x), keepdim=op.attr("keep_dim", False))
+        axes = _axes(op, x)
+        keep = op.attr("keep_dim", False)
+        if axes is None or 0 in axes:
+            if fill is None:
+                out = _masked_mean(ctx, op, x, axes, keep)
+                if out is not None:
+                    ctx.set_out(op, "Out", out)
+                    return
+            else:
+                x = _masked_rows(ctx, op, x, fill)
+        out = fn(x, dim=axes, keepdim=keep)
         if out.is_floating_point() == x.is_floating_point():
             out = out.to(x.dtype)        # an integer sum stays int32
         ctx.set_out(op, "Out", out)
     return lower
 
 
-register("reduce_sum", _reduce(_all_axes(torch.sum)))
+register("reduce_sum", _reduce(_all_axes(torch.sum), fill=0))
 register("reduce_mean", _reduce(_all_axes(_mean)))
-register("reduce_max", _reduce(_all_axes(torch.amax)))
-register("reduce_min", _reduce(_all_axes(torch.amin)))
-register("reduce_prod", _reduce(_prod))
+register("reduce_max", _reduce(_all_axes(torch.amax), fill="min"))
+register("reduce_min", _reduce(_all_axes(torch.amin), fill="max"))
+register("reduce_prod", _reduce(_prod, fill=1))
 
 
 @register("cumsum")
@@ -173,12 +229,14 @@ def _cumsum(ctx, op):
 
 @register("l1_norm")
 def _l1_norm(ctx, op):
-    ctx.set_out(op, "Out", torch.sum(torch.abs(ctx.in1(op, "X"))))
+    x = _masked_rows(ctx, op, ctx.in1(op, "X"))
+    ctx.set_out(op, "Out", torch.sum(torch.abs(x)))
 
 
 @register("squared_l2_norm")
 def _squared_l2_norm(ctx, op):
-    ctx.set_out(op, "Out", torch.sum(torch.square(ctx.in1(op, "X"))))
+    x = _masked_rows(ctx, op, ctx.in1(op, "X"))
+    ctx.set_out(op, "Out", torch.sum(torch.square(x)))
 
 
 @register("squared_l2_distance")

@@ -1,28 +1,37 @@
-"""Metric ops: accuracy, auc, precision_recall and positive_negative_pair
-(the counterpart of ``paddle_tpu/ops/metrics_ops.py``; per-batch values,
-as the JAX package computes them inside the step). edit_distance, over
-LoD sequences, waits for ROADMAP.md queue 1 item 7."""
+"""Metric ops: accuracy, auc, precision_recall, positive_negative_pair
+and edit_distance (the counterpart of ``paddle_tpu/ops/metrics_ops.py``;
+per-batch values, as the JAX package computes them inside the step)."""
 
 import torch
 
 from ..core.registry import register
 from ..core.scope import torch_dtype
+from .common import lod_valid_mask
 
 
 @register("accuracy")
 def _accuracy(ctx, op):
     """Share of rows whose label is among their top-k ``Indices``; Correct
-    and Total as [1] int32 (int64 narrowed, as the port holds it). LoD
-    labels, which the JAX package masks, raise in the Executor."""
+    and Total as [1] int32 (int64 narrowed, as the port holds it). Over a
+    bucketed LoD label (or LoD indices), pad rows are neither hits nor
+    part of the total."""
     indices = ctx.in1(op, "Indices")      # [N, k]
     label = ctx.in1(op, "Label")          # [N, 1] or [N]
     if label.dim() == 2 and label.shape[-1] == 1:
         label = label.reshape(-1)
     hit = torch.any(indices == label[:, None].to(indices.dtype), dim=1)
     i64 = torch_dtype("int64")
+    valid, n_valid = lod_valid_mask(ctx, op, slot="Label")
+    if valid is None:
+        valid, n_valid = lod_valid_mask(ctx, op, slot="Indices")
+    if valid is not None:
+        hit = hit & valid
+        total = n_valid.to(i64)
+    else:
+        # made on the device (a fill, no host copy a CUDA graph refuses)
+        total = torch.full((), label.shape[0], dtype=i64,
+                           device=indices.device)
     correct = torch.sum(hit).to(i64)
-    # made on the device (a fill, no host copy a CUDA graph would refuse)
-    total = torch.full((), label.shape[0], dtype=i64, device=indices.device)
     ctx.set_out(op, "Accuracy",
                 (correct.float() / total.float()).reshape(1))
     ctx.set_out(op, "Correct", correct.reshape(1))
@@ -117,3 +126,58 @@ def _positive_negative_pair(ctx, op):
         out = total[i].reshape(1)
         a = ctx.in1(op, acc)
         ctx.set_out(op, slot, out + (0.0 if a is None else a.reshape(1)))
+
+
+@register("edit_distance")
+def _edit_distance(ctx, op):
+    """Levenshtein distance between int sequences (edit_distance_op.cc),
+    row b of Hyps against row b of Refs, each cut at its length (the LoD
+    lengths, else the row's width); divided by the reference's length
+    with ``normalized``. A [T, 1] LoD input is one row of T. The DP runs
+    row by row over the table, each row one pass of tensor ops."""
+    hyp = ctx.in1(op, "Hyps")
+    ref = ctx.in1(op, "Refs")
+    hyp_lod = ctx.maybe_get(op.input("Hyps")[0] + "@LOD")
+    ref_lod = ctx.maybe_get(op.input("Refs")[0] + "@LOD")
+    if hyp.dim() == 2 and hyp.shape[-1] == 1:
+        hyp = hyp[:, 0][None, :] if hyp_lod is None else hyp[:, 0]
+    if ref.dim() == 2 and ref.shape[-1] == 1:
+        ref = ref[:, 0][None, :] if ref_lod is None else ref[:, 0]
+    if hyp.dim() == 1:
+        hyp = hyp[None, :]
+    if ref.dim() == 1:
+        ref = ref[None, :]
+    dev = hyp.device
+    b, m = hyp.shape
+    n = ref.shape[1]
+    hls = hyp_lod if hyp_lod is not None else \
+        torch.full((b,), m, dtype=torch.int32, device=dev)
+    rls = ref_lod if ref_lod is not None else \
+        torch.full((ref.shape[0],), n, dtype=torch.int32, device=dev)
+    if not (b == ref.shape[0] == hls.shape[0] == rls.shape[0]):
+        raise ValueError(
+            "edit_distance pairs row b of Hyps with row b of Refs: got "
+            "%d hypothesis rows, %d reference rows and %d / %d lengths"
+            % (b, ref.shape[0], hls.shape[0], rls.shape[0]))
+    cols = torch.arange(n, device=dev)
+    prev = torch.arange(n + 1, dtype=torch.float32,
+                        device=dev).expand(b, n + 1)
+    for i in range(m):
+        # the row's first cell, then left to right: min(up + 1, left + 1,
+        # diag + cost); past the reference's length a cell copies left
+        cost = (hyp[:, i:i + 1] != ref).float()             # [b, n]
+        left = prev[:, 0] + 1
+        row = [left]
+        for j in range(n):
+            val = torch.minimum(torch.minimum(prev[:, j + 1] + 1, left + 1),
+                                prev[:, j] + cost[:, j])
+            left = torch.where(cols[j] < rls, val, left)
+            row.append(left)
+        row = torch.stack(row, 1)
+        prev = torch.where((i < hls)[:, None], row, prev)
+    dists = torch.gather(prev, 1, rls.to(torch.int64)[:, None])[:, 0]
+    if op.attr("normalized", True):
+        dists = dists / torch.clamp_min(rls.float(), 1.0)
+    ctx.set_out(op, "Out", dists.reshape(-1, 1))
+    ctx.set_out(op, "SequenceNum",
+                torch.full((1,), b, dtype=torch_dtype("int64"), device=dev))

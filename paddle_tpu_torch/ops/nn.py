@@ -1,11 +1,13 @@
-"""NN ops: dropout, softmax, log_softmax, batch_norm, layer_norm, lrn and
-maxout (the counterpart of ``paddle_tpu/ops/nn.py``; its LoD ops,
-sequence_softmax and im2sequence, wait for ROADMAP.md queue 1 item 7)."""
+"""NN ops: dropout, softmax, log_softmax, sequence_softmax, batch_norm,
+layer_norm, lrn, maxout and im2sequence (the counterpart of
+``paddle_tpu/ops/nn.py``)."""
 
 import torch
+import torch.nn.functional as F
 
 from ..core.registry import register
 from . import dropout as _dropout_kernel
+from .sequence_ops import segment_sum, segments, take_rows
 
 
 @register("dropout", stateful_rng=True)
@@ -164,3 +166,43 @@ def _maxout(ctx, op):
     n, c, h, w = x.shape
     ctx.set_out(op, "Out", torch.amax(
         x.reshape(n, c // groups, groups, h, w), dim=2))
+
+
+@register("sequence_softmax")
+def _sequence_softmax(ctx, op):
+    """Softmax over each sequence of a [T, 1] LoD input (over all of X
+    without a LoD). The segment max that steadies the exponent is a
+    constant to the gradient (softmax does not depend on it). A pad row
+    divides by the last sequence's sum, as in the JAX package, without
+    a gradient through it."""
+    x = ctx.in1(op, "X")
+    lengths = ctx.maybe_get(op.input("X")[0] + "@LOD")
+    if lengths is None:
+        ctx.set_out(op, "Out", torch.softmax(x.reshape(-1), 0)
+                    .reshape(x.shape))
+        return
+    n = lengths.shape[0]
+    seg = segments(lengths, x.shape[0])
+    flat = x.reshape(x.shape[0])
+    m = torch.full((n + 1,), float("-inf"), dtype=x.dtype,
+                   device=x.device).scatter_reduce(
+                       0, seg, flat.detach(), "amax")[:n]
+    e = torch.exp(flat - take_rows(m, seg))
+    s = segment_sum(e, seg, n)
+    ctx.set_out(op, "Out", (e / take_rows(s, seg)).reshape(x.shape))
+
+
+@register("im2sequence")
+def _im2sequence(ctx, op):
+    """Image -> sequence of flattened patches (im2sequence_op.cc): X
+    [N, C, H, W] padded by ``paddings`` (top, left, bottom, right), each
+    kernels-sized patch at ``strides`` one row of C * kh * kw values,
+    image after image, patches in row-major order."""
+    x = ctx.in1(op, "X")
+    kh, kw = op.attr("kernels", [1, 1])
+    sh, sw = op.attr("strides", [1, 1])
+    pads = op.attr("paddings", [0, 0, 0, 0])
+    x = F.pad(x, (pads[1], pads[3], pads[0], pads[2]))
+    n, c = x.shape[:2]
+    patches = F.unfold(x, (kh, kw), stride=(sh, sw))    # [N, C*kh*kw, L]
+    ctx.set_out(op, "Out", patches.transpose(1, 2).reshape(-1, c * kh * kw))

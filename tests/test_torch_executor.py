@@ -236,15 +236,23 @@ def test_left_out_flags_raise(flag, monkeypatch):
 
 
 def test_left_out_features_raise():
+    """What the port leaves out raises (the left-out flags and the
+    wire's host ops: the tests above and below). LoD feeds, which raised
+    here before, are ported (tests/test_torch_lod.py): a LoD src whose
+    lengths cover its rows gives the dense step's loss through run(), and
+    run_steps takes a list of such feeds."""
     exe, main, avg, scope, feed = _small_step()
-    lod = dict(feed, src=LoDTensor(feed["src"], [[0, 8, 16]]))
-    with pytest.raises(NotImplementedError, match="LoD feed.*ROADMAP"):
-        exe.run(main, feed=lod, fetch_list=[avg], scope=scope)
-    # run_steps is ported (tests/test_torch_megastep.py); LoD feeds
-    # still raise there too
-    with pytest.raises(NotImplementedError, match="LoD feed.*ROADMAP"):
-        exe.run_steps(main, feeds=[lod, lod], fetch_list=[avg],
-                      scope=scope)
+    state = {n: scope.get_numpy(n) for n in scope.local_var_names()}
+    lod = dict(feed, src=LoDTensor(feed["src"], [[0, 1, 4]]))
+    losses = []
+    for f in (feed, lod):
+        s = tfluid.Scope()
+        tfluid.load_numpy_state(s, state, "cpu")
+        losses.append(exe.run(main, feed=f, fetch_list=[avg], scope=s)[0])
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-6)
+    out = exe.run_steps(main, feeds=[lod, lod], fetch_list=[avg],
+                        scope=scope)
+    assert len(out) == 2 and all(np.isfinite(o[0]) for o in out)
     # the LM's three training options are ported now: each builds the
     # op it stands for (tests/test_torch_recompute.py and
     # tests/test_torch_dropout.py run them)

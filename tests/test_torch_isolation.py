@@ -59,7 +59,11 @@ def test_scan_covers_the_port():
                  ("paddle_tpu_torch", "nets.py"), ("models", "mlp.py"),
                  ("models", "vgg.py"), ("models", "harness.py"),
                  ("models", "decoding.py"), ("ops", "beam_search.py"),
-                 ("layers", "compat.py"), ("models", "__init__.py")):
+                 ("layers", "compat.py"), ("models", "__init__.py"),
+                 ("core", "lod.py"), ("ops", "common.py"),
+                 ("ops", "sequence_ops.py"), ("ops", "rnn_ops.py"),
+                 ("ops", "lstm_cell.py"), ("layers", "sequence_layers.py"),
+                 ("layers", "rnn_layers.py"), ("tools", "op_sweep.py")):
         assert any(p.endswith(os.path.join(*tail)) for p in srcs), tail
 
 
@@ -86,7 +90,10 @@ def test_import_leaves_jax_unloaded():
             "paddle_tpu_torch.models.resnet, paddle_tpu_torch.io, "
             "paddle_tpu_torch.serving.artifact, paddle_tpu_torch.nets, "
             "paddle_tpu_torch.models.decoding, paddle_tpu_torch.models.mlp, "
-            "paddle_tpu_torch.models.vgg, paddle_tpu_torch.ops.beam_search; "
+            "paddle_tpu_torch.models.vgg, paddle_tpu_torch.ops.beam_search, "
+            "paddle_tpu_torch.ops.rnn_ops, paddle_tpu_torch.ops.lstm_cell, "
+            "paddle_tpu_torch.ops.sequence_ops, "
+            "paddle_tpu_torch.tools.op_sweep; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

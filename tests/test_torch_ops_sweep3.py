@@ -286,18 +286,7 @@ STILL_MISSING = {
     "send_barrier": 10, "send_sparse": 10,
     # the transform pipeline's fused ops (item 11)
     "fused_matmul_bias_act": 11, "fused_scale_cast": 11,
-    # control flow, RNN, sequence (LoD), CRF/CTC, detection (item 7)
-    "conditional_block": 7, "lod_array_length": 7, "lod_rank_table": 7,
-    "max_sequence_len": 7, "read_from_array": 7, "recurrent": 7,
-    "select_rows_by_mask": 7, "shrink_rnn_memory": 7, "while": 7,
-    "write_to_array": 7,
-    "gru": 7, "gru_unit": 7, "lstm": 7, "lstm_unit": 7, "lstmp": 7,
-    "lod_reset": 7, "reorder_lod_tensor_by_rank": 7, "sequence_concat": 7,
-    "sequence_conv": 7, "sequence_erase": 7, "sequence_expand": 7,
-    "sequence_first_step": 7, "sequence_last_step": 7, "sequence_pad": 7,
-    "sequence_pool": 7, "sequence_reshape": 7, "sequence_scatter": 7,
-    "sequence_slice": 7, "sequence_unpad": 7, "sequence_softmax": 7,
-    "im2sequence": 7, "edit_distance": 7,
+    # CRF/CTC and detection (item 7)
     "chunk_eval": 7, "crf_decoding": 7, "ctc_align": 7,
     "linear_chain_crf": 7, "warpctc": 7,
     "bipartite_match": 7, "box_coder": 7, "detection_map": 7,
@@ -313,11 +302,11 @@ def test_registry_is_the_jax_one_less_the_listed():
     jops = set(jregistry.registered_ops())
     tops = set(tregistry.registered_ops())
     assert tops <= jops, sorted(tops - jops)
-    assert len(STILL_MISSING) == 63
+    assert len(STILL_MISSING) == 31
     assert jops - tops == set(STILL_MISSING), (
         sorted((jops - tops) - set(STILL_MISSING)),
         sorted(set(STILL_MISSING) - (jops - tops)))
-    assert len(tops) == 175
+    assert len(tops) == 207
 
 
 # the port's op types before the dense op library and the SelectedRows
@@ -341,12 +330,17 @@ BEFORE = {
 
 
 def test_card_sweep_covers_every_added_op_on_the_cpu():
-    """``tools/op_sweep.py`` (chip_smoke.py phase 14 (c)) holds one case
-    or more of each of the 112 added op types; here it runs against the
-    CPU itself, so every case must run and agree."""
+    """``tools/op_sweep.py`` (chip_smoke.py phases 14 (c) and 15 (c))
+    holds one case or more of each of the 144 added op types: the 112 of
+    the op library and the 32 of the LoD, sequence, RNN and control-flow
+    slice; here it runs against the CPU itself, so every case must run
+    and agree."""
     from paddle_tpu_torch.tools import op_sweep
     held, worst = op_sweep.run("cpu")
+    held_lod, worst_lod = op_sweep.run("cpu", part="lod")
     added = set(tregistry.registered_ops()) - BEFORE
-    assert len(BEFORE) == 63 and len(added) == 112
-    assert held == added, (sorted(added - held), sorted(held - added))
-    assert worst == 0.0
+    assert len(BEFORE) == 63 and len(added) == 144
+    assert len(held) == 112 and len(held_lod) == 32
+    assert held | held_lod == added, (sorted(added - held - held_lod),
+                                      sorted((held | held_lod) - added))
+    assert worst == 0.0 and worst_lod == 0.0

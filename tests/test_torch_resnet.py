@@ -241,12 +241,13 @@ def test_momentum_matches_jax(nesterov):
 
 
 def test_unported_vision_ops_raise():
-    """The vision ops of the JAX package not ported yet (im2sequence,
+    """The vision ops of the JAX package not ported yet (box_coder,
     prior_box: ROADMAP.md, queue 1 item 7) raise NotImplementedError
-    naming ROADMAP.md. Adaptive pooling and pool3d, which raised here
-    before, are ported (tests/test_torch_ops_sweep3.py)."""
+    naming ROADMAP.md. Adaptive pooling, pool3d and im2sequence, which
+    raised here before, are ported (tests/test_torch_ops_sweep3.py,
+    tests/test_torch_sequence_ops.py)."""
     x = {"X": _rand(16, 1, 2, 4, 4)}
-    for op_type, attrs in (("im2sequence", {"kernels": [2, 2]}),
+    for op_type, attrs in (("box_coder", {}),
                            ("prior_box", {"min_sizes": [2.0]})):
         prog = _program(tfluid, [(op_type, {"X": ["x"]},
                                   {"Out": ["out"]}, attrs)],
@@ -257,7 +258,8 @@ def test_unported_vision_ops_raise():
                 scope=tfluid.Scope())
     for op_type, attrs, v in (
             ("pool2d", {"adaptive": True, "ksize": [2, 2]}, x["X"]),
-            ("pool3d", {"ksize": [1, 1, 1]}, _rand(17, 1, 2, 3, 4, 4))):
+            ("pool3d", {"ksize": [1, 1, 1]}, _rand(17, 1, 2, 3, 4, 4)),
+            ("im2sequence", {"kernels": [2, 2]}, x["X"])):
         prog = _program(tfluid, [(op_type, {"X": ["x"]},
                                   {"Out": ["out"]}, attrs)],
                         {"x": v}, ["out"])

@@ -287,31 +287,42 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
      slice added, forward and (where the CPU sweep checks one) backward,
      on the card against the CPU at the CPU sweep's tolerances.
  15. lstm    — LoD sequences, the RNN ops and the rest of control flow,
-     with the fused LSTM cell (``ops/csrc/lstm_cell.cu``). (a) The
-     kernel against its plain version (``_lstm_cell_plain``) at B 64 D
-     512 and B 5 D 48, with and without peepholes, two activation sets,
-     dead rows at the step: H, C, Out and every input's gradient at rtol
-     1e-5 / atol 1e-6 of the largest value; two launches bitwise; a
-     reverse peephole ``lstm`` (B 64, D 512, lengths 1..16) through the
-     lowering, kernel route against the plain route at rtol 1e-4 / atol
-     1e-5; then timed at B 64 D 512 with the benchmark's lengths over
-     the 128 steps of a layer's scan (forward and backward, device time
-     alone and with the host's gaps) against the plain chain, the bound
-     from those lengths and ATen's fused cell ``_thnn_fused_lstm_cell``
-     (no peepholes and no mask: a yardstick the port never calls) where
-     PyTorch exposes it. (b) benchmarks/stacked_dynamic_lstm.py at its own
+     with the fused LSTM step (``ops/csrc/lstm_cell.cu``: h @ W on
+     3xTF32 tensor cores with the cell in the epilogue, forward and
+     backward). (a) The step kernels against their plain versions
+     (``_lstm_step_plain``, ``_lstm_step_bwd_plain``) at B 64 D 512,
+     B 5 D 48 and B 3 D 6 (rows not 16-byte aligned), with and without
+     peepholes, two activation sets, dead rows at the step and at the
+     next, the scan's first backward step and
+     later ones in both directions, and the dh-only call: H, C, Out, the
+     saved gates, dh, dc, the gate and peephole gradients at rtol 1e-5 /
+     atol 1e-6 of the largest value; two launches bitwise; a reverse
+     peephole ``lstm`` (B 64, D 512, lengths 1..16) through the lowering,
+     kernel route against the plain steps at rtol 1e-4 / atol 1e-5; then
+     timed at B 64 D 512 with the benchmark's lengths over the 128 steps
+     of a layer's scan (forward and backward, device time alone and with
+     the host's gaps) against the plain steps, the bound from those
+     lengths (W's bytes included) and the library's route for a step
+     (``torch.mm`` then ATen's ``_thnn_fused_lstm_cell``, and its
+     backward, where PyTorch exposes it: no peepholes and no mask, a
+     yardstick the port never calls); one layer's scan forward and
+     backward against cuDNN's LSTM on the packed batch (TF32 off; it
+     includes the input projection the port's fc does). (b)
+     benchmarks/stacked_dynamic_lstm.py at its own
      widths (vocab 5000, hidden 512, 3 layers, batch 64, lengths
      ``RandomState(0).randint(40, 81)``: 3,823 tokens in a bucket of
      4,096, @MAXLEN 128) with Adam 1e-3: the card's first step against
      the port's CPU path from one startup scope, the loss and the norm
      of the weights' difference within 4 x the gap of the control (the
-     plain cell on the card); 20 eager steps on the fixed batch, losses
+     plain steps on the card); 20 eager steps on the fixed batch, losses
      falling, lstm_cell launches exactly 3 x 128 x 2 a step and no other
      kernel of the port; 5 ``run()`` calls against one ``run_steps(K=5)``
      dispatch bitwise; ms per batch eager and under the graph A/B/A/B (3
      pairs after a warm window on each scope, medians), tokens/s and the
-     busy share; the device kernels of one step through the kernel and
-     through the plain route, from traced passes; the book GRU
+     busy share; an eager step's peak device memory; the device kernels
+     of one step through the kernels and through the plain steps, from
+     traced passes (the kernel route: 768 step kernels and fewer GEMMs
+     than @MAXLEN); the book GRU
      encoder-decoder (dict 100, emb 32, hidden 64, batch 16, its cost
      sum-pooled: segment sums) with 5 ``run()`` calls against one
      ``run_steps(K=5)`` dispatch bitwise. (c) ``tools/op_sweep.py``'s LoD part: each of the 32
@@ -336,12 +347,14 @@ bitwise).
 The ``lstm_cell`` entry (``"tpu_kernel": false``: the JAX package's
 LSTM step is a ``lax.scan`` body XLA fuses) counts phase 15's 20 eager
 steps (``graph_launches``: its K=5 dispatch); its times and bound are
-the forward's at B 64 D 512 with the benchmark's lengths, a call's mean
-over the 128 steps of one layer's scan, and it adds the backward's
-(``bwd_ms``, ``bwd_plain_ms``, ``bwd_bound_ms``, ``bwd_bound_by``,
-``bwd_ms_with_host_gaps``);
-``library_ms`` is ATen's ``_thnn_fused_lstm_cell``'s (null where PyTorch
-lacks it).
+the forward step's at B 64 D 512 with the benchmark's lengths, a call's
+mean over the 128 steps of one layer's scan, and it adds the backward
+step's (``bwd_ms``, ``bwd_plain_ms``, ``bwd_bound_ms``, ``bwd_bound_by``,
+``bwd_library_ms``, ``bwd_ms_with_host_gaps``) and one layer's scan
+forward and backward against cuDNN's (``layer_ms``, ``cudnn_layer_ms``);
+``library_ms`` is the library's route for a step, ``torch.mm`` then
+ATen's ``_thnn_fused_lstm_cell`` (two calls: no single PyTorch call
+computes the step; null where PyTorch lacks the cell).
 Paged attention's entry carries ``scoring_shape``: its times and bound
 at (d), and its launches at the scoring shape among phase 10's: counted
 inside each scoring dispatch (the kernel's counter read before and after
@@ -962,13 +975,15 @@ def flash_backward_checks(torch, F):
 HIDE_HOST_CYCLES = 4_000_000       # ~2 ms of the card's clock
 
 
-def _events_ms(torch, fn, reps, prep=None, hide_host=False):
+def _events_ms(torch, fn, reps, prep=None, hide_host=False,
+               sleep_cycles=HIDE_HOST_CYCLES):
     """Mean device ms of ``fn(i)`` over ``reps`` calls, CUDA-event timed
     around each call; ``prep(i)``, when given, runs before each call
     outside the timed span (to build an autograd graph). With
-    ``hide_host``, a sleep kernel queued before the start event keeps the
-    card busy while the host enqueues the call, so the span is device
-    time alone, without the host's gaps between the call's launches."""
+    ``hide_host``, a sleep kernel of ``sleep_cycles`` queued before the
+    start event keeps the card busy while the host enqueues the call, so
+    the span is device time alone, without the host's gaps between the
+    call's launches."""
     for i in range(3):
         if prep:
             prep(i)
@@ -979,7 +994,7 @@ def _events_ms(torch, fn, reps, prep=None, hide_host=False):
         if prep:
             prep(i)
         if hide_host:
-            torch.cuda._sleep(HIDE_HOST_CYCLES)
+            torch.cuda._sleep(sleep_cycles)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -1802,7 +1817,7 @@ def _reset_launches():
     MS.matmul_colstats.launches = 0
     P.paged_attention.launches = 0
     D.dropout.launches = 0
-    LC.lstm_cell.launches = 0
+    LC.lstm_scan.launches = 0
 
 
 def _launches():
@@ -4381,7 +4396,7 @@ def deepfm_phase(torch, smi):
 # layers, batch 64, lengths RandomState(0).randint(40, 81))
 LSTM = dict(vocab=5000, hidden=512, stacked=3, batch=64)
 LSTM_STEPS, LSTM_K = 20, 5
-LSTM_CELL_CASES = [(64, 512), (5, 48)]
+LSTM_CELL_CASES = [(64, 512), (5, 48), (3, 6)]  # (3, 6): unaligned rows
 LSTM_ACTS = [(1, 2, 2), (1, 3, 0)]      # sigmoid/tanh/tanh, sigmoid/relu/id
 LSTM_RTOL, LSTM_ATOL = 1e-5, 1e-6       # a few f32 ulp at O(1) values
 LSTM_OP_RTOL, LSTM_OP_ATOL = 1e-4, 1e-5  # 16 steps through the lowering
@@ -4424,27 +4439,42 @@ def _lstm_batch(fluid):
     return {"words": fluid.create_lod_tensor(ids, [lens]), "label": ys}, lens
 
 
-def _cell_inputs(torch, b, d, seed, peep):
+def _step_inputs(torch, b, d, seed, peep):
+    """On the card: a forward step's inputs (xt, h_prev, c_prev, w at an
+    initializer's scale randn / sqrt(D), peep), lengths 0..8, and a
+    backward step's (dg_next, dout, dcell, the carried dh and dc)."""
     g = torch.Generator().manual_seed(seed)
-    t = [torch.randn(b, 4 * d, generator=g), torch.randn(b, 4 * d,
-                                                         generator=g),
-         torch.randn(b, d, generator=g), torch.randn(b, d, generator=g),
-         torch.randn(3 * d, generator=g) if peep else None]
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g)
+
+    fwd = [r(b, 4 * d), r(b, d), r(b, d), r(d, 4 * d) * d ** -0.5,
+           r(3 * d) if peep else None]
     lens = torch.randint(0, 9, (b,), generator=g, dtype=torch.int32)
-    cot = [torch.randn(b, d, generator=g) for _ in range(3)]
-    cuda = [None if x is None else x.cuda() for x in t]
-    return cuda, lens.cuda(), [c.cuda() for c in cot]
+    bwd = [r(b, 4 * d)] + [r(b, d) for _ in range(4)]
+    cuda = [None if x is None else x.cuda() for x in fwd + bwd]
+    return cuda[:5], lens.cuda(), cuda[5:]
 
 
-def _cell_pass(torch, fn, ins, lens, t, acts, cot):
-    """(outputs, gradients of sum(out * cot) in every input) of one call
-    of ``fn`` (the kernel's autograd Function or the plain version)."""
-    leaves = [None if x is None else x.clone().requires_grad_(True)
-              for x in ins]
-    outs = fn(*leaves, lens, t, acts)
-    total = sum(torch.sum(o * w) for o, w in zip(outs, cot))
-    grads = torch.autograd.grad(total, [x for x in leaves if x is not None])
-    return [o.detach() for o in outs], list(grads)
+_STEP_NAMES = ("H", "C", "Out", "gates", "dh", "dc", "dg", "dpeep")
+
+
+def _step_pair(torch, fwd, bwd, ins, lens, grads, t, t_next, acts, saved):
+    """A forward step and a backward step through ``fwd``/``bwd`` (the
+    kernels or the plain versions): [H, C, Out, gates, dh, dc, dg] and
+    dpeep with peepholes. The backward reads ``saved`` (the plain
+    forward's gates and C), so it sees the same inputs in both; t_next
+    None is the scan's first backward step."""
+    xt, h, c, w, peep = ins
+    dgn, dout, dcell, dh0, dc0 = grads
+    out = list(fwd(xt, h, c, w, peep, lens, t, acts))
+    dh, dc = dh0.clone(), dc0.clone()
+    dpeep = None if peep is None else torch.full(
+        (c.shape[0], 3 * c.shape[1]), 0.5, device=c.device)
+    dg = torch.full_like(xt, 7.0)
+    bwd(None if t_next is None else dgn, w, lens, t_next, saved[0], c,
+        saved[1], peep, t, acts, dout, dcell, dh, dc, dpeep, dg)
+    return out + [dh, dc, dg] + ([] if peep is None else [dpeep])
 
 
 def _close_err(torch, got, want, rtol, atol):
@@ -4456,52 +4486,65 @@ def _close_err(torch, got, want, rtol, atol):
 
 
 def lstm_kernel_phase(torch):
-    """(a) The fused LSTM cell against its plain version on the card:
-    forward (H, C, Out) and backward (every input's gradient through the
-    autograd Function) at B 64 D 512 and B 5 D 48, with and without
-    peepholes, two activation sets, ragged lengths (dead rows at the
-    step) at rtol 1e-5 / atol 1e-6 of the largest value; two launches
-    bitwise; then a reverse LSTM with peepholes through the ``lstm``
-    lowering, kernel route against the plain route on the card (Hidden,
-    Cell and the gradients of Input, Weight and Bias at rtol 1e-4 / atol
-    1e-5). Then timed at the main path's shape and lengths."""
+    """(a) The fused step kernels against their plain versions on the
+    card at B 64 D 512, B 5 D 48 and B 3 D 6 (rows that are no
+    multiple of 16 bytes: the element-wise staging), with and without
+    peepholes, two activation sets, dead rows at the step and at the
+    next: the forward
+    step (H, C, Out and the saved gates) and the backward step (dh, dc,
+    the gate gradients and the per-row peephole gradients), as the
+    scan's first backward step (no dg_next) and as a later one, and the
+    dh-only call a scan with H0 ends on, at rtol 1e-5 / atol 1e-6 of the
+    largest value; two launches of each bitwise; then a reverse LSTM
+    with peepholes through the ``lstm`` lowering, kernel route against
+    the plain steps on the card (Hidden, Cell and the gradients of
+    Input, Weight and Bias at rtol 1e-4 / atol 1e-5). Then timed at the
+    main path's shape and lengths."""
     import paddle_tpu_torch as fluid
-    from paddle_tpu_torch.ops import lstm_cell as LC, rnn_ops
+    from paddle_tpu_torch.ops import lstm_cell as LC
     from paddle_tpu_torch.tools import op_sweep
+    kernel = (LC._lstm_step_cuda, LC._lstm_step_bwd_cuda)
+    plain = (LC._lstm_step_plain, LC._lstm_step_bwd_plain)
     compared, err = 0, 0.0
     for n, (b, d) in enumerate(LSTM_CELL_CASES):
         for peep in (False, True):
             for acts in LSTM_ACTS:
-                for t in (0, 5):
-                    ins, lens, cot = _cell_inputs(torch, b, d, 500 + n, peep)
-                    ko, kg = _cell_pass(torch, LC._lstm_cell_cuda, ins, lens,
-                                        t, acts, cot)
-                    po, pg = _cell_pass(torch, LC._lstm_cell_plain, ins,
-                                        lens, t, acts, cot)
+                for t, t_next in ((0, None), (5, 6), (5, 4)):
+                    ins, lens, grads = _step_inputs(torch, b, d, 500 + n,
+                                                    peep)
+                    saved = LC._lstm_step_plain(*ins, lens, t, acts)
+                    saved = (saved[3], saved[1])
+                    got = _step_pair(torch, *kernel, ins, lens, grads, t,
+                                     t_next, acts, saved)
+                    want = _step_pair(torch, *plain, ins, lens, grads, t,
+                                      t_next, acts, saved)
+                    dh_k, dh_p = grads[3].clone(), grads[3].clone()
+                    for fn, dh in ((LC._lstm_step_bwd_cuda, dh_k),
+                                   (LC._lstm_step_bwd_plain, dh_p)):
+                        fn(grads[0], ins[3], lens, t, None, None, None,
+                           None, None, acts, None, None, dh, grads[4].clone(),
+                           None, None)
                     torch.cuda.synchronize()
-                    names = ["H", "C", "Out", "dxt", "dhw", "dc_prev",
-                             "dh_prev", "dpeep"]
-                    for name, a, w in zip(names, ko + kg, po + pg):
+                    for name, a, w in zip(_STEP_NAMES + ("dh only",),
+                                          got + [dh_k], want + [dh_p]):
                         ok, e = _close_err(torch, a, w, LSTM_RTOL, LSTM_ATOL)
                         err = max(err, e)
-                        check(ok, "lstm_cell kernel %s differs from the "
+                        check(ok, "lstm step kernel %s differs from the "
                               "plain version at B %d D %d peep %s acts %s "
-                              "t %d: largest |diff| %g", name, b, d, peep,
-                              acts, t, e)
+                              "t %d t_next %s: largest |diff| %g", name, b,
+                              d, peep, acts, t, t_next, e)
                     compared += 1
-        log("lstm_cell kernel: B %d D %d: forward and backward within rtol "
-            "%g / atol %g of the plain version (peepholes on/off, acts %s, "
-            "t 0 and 5, dead rows among the live)", b, d, LSTM_RTOL,
-            LSTM_ATOL, LSTM_ACTS)
-    ins, lens, cot = _cell_inputs(torch, 64, 512, 599, True)
-    a = LC._fwd_cuda(*ins, lens, 3, (1, 2, 2))
-    b2 = LC._fwd_cuda(*ins, lens, 3, (1, 2, 2))
-    ga = LC._bwd_cuda(ins[0], ins[1], ins[2], ins[4], lens, 3, (1, 2, 2),
-                      *cot)
-    gb = LC._bwd_cuda(ins[0], ins[1], ins[2], ins[4], lens, 3, (1, 2, 2),
-                      *cot)
-    check(all(torch.equal(x, y) for x, y in zip(a + ga, b2 + gb)),
-          "two lstm_cell launches on the same inputs differ")
+        log("lstm step kernels: B %d D %d: forward and backward within rtol "
+            "%g / atol %g of the plain versions (peepholes on/off, acts %s, "
+            "the first backward step and later ones in both directions, "
+            "dead rows among the live)", b, d, LSTM_RTOL, LSTM_ATOL,
+            LSTM_ACTS)
+    ins, lens, grads = _step_inputs(torch, 64, 512, 599, True)
+    saved = LC._lstm_step_plain(*ins, lens, 3, (1, 2, 2))
+    runs = [_step_pair(torch, *kernel, ins, lens, grads, 3, 4, (1, 2, 2),
+                       (saved[3], saved[1])) for _ in range(2)]
+    check(all(torch.equal(x, y) for x, y in zip(*runs)),
+          "two lstm step launches on the same inputs differ")
     # a reverse LSTM with peepholes through the lowering (16 steps)
     b, d = 64, 512
     rng = np.random.RandomState(77)
@@ -4515,8 +4558,12 @@ def lstm_kernel_phase(torch):
         fluid, "lstm", inputs, {"use_peepholes": True, "is_reverse": True},
         ["Hidden", "Cell"], ["Input", "Weight", "Bias"])
     exe = fluid.Executor(fluid.CUDAPlace(0))
+    LC.lstm_scan.launches = 0
     got = exe.run(prog, feed=feed, fetch_list=fetch, scope=fluid.Scope())
-    with _patched(rnn_ops, "lstm_cell", lambda real: LC._lstm_cell_plain):
+    torch.cuda.synchronize()
+    check(LC.lstm_scan.launches == 2 * 16, "the reverse lstm launched the "
+          "step kernels %d times, want 2 x 16", LC.lstm_scan.launches)
+    with _plain_steps(LC):
         want = exe.run(prog, feed=feed, fetch_list=fetch,
                        scope=fluid.Scope())
     for name, g, w in zip(fetch, got, want):
@@ -4524,138 +4571,259 @@ def lstm_kernel_phase(torch):
                            LSTM_OP_RTOL, LSTM_OP_ATOL)
         check(ok, "reverse peephole lstm (B %d, D %d, 16 steps): %s differs "
               "between the kernel and the plain route by %g", b, d, name, e)
-    log("lstm_cell kernel: reverse peephole lstm through the lowering (B "
-        "%d, D %d, lengths 1..16): Hidden, Cell and the gradients of Input, "
-        "Weight and Bias within rtol %g / atol %g of the plain route; %d "
-        "cell comparisons; two launches bitwise; largest |diff| %.3g", b, d,
-        LSTM_OP_RTOL, LSTM_OP_ATOL, compared, err)
+    log("lstm step kernels: reverse peephole lstm through the lowering (B "
+        "%d, D %d, lengths 1..16, 32 launches): Hidden, Cell and the "
+        "gradients of Input, Weight and Bias within rtol %g / atol %g of "
+        "the plain steps; %d step comparisons; two launches bitwise; "
+        "largest |diff| %.3g", b, d, LSTM_OP_RTOL, LSTM_OP_ATOL, compared,
+        err)
     return dict(_lstm_timing(torch, LC), max_abs_err=err)
 
 
+@contextlib.contextmanager
+def _plain_steps(LC):
+    """The scan on the card through the plain steps (the control route)."""
+    with _patched(LC, "_steps_for", lambda real: lambda device: (
+            LC._lstm_step_plain, LC._lstm_step_bwd_plain)):
+        yield
+
+
+def _step_bounds(lengths, b, d):
+    """(forward, backward) bounds of one step, each averaged over the
+    sweep's steps t = 0..@MAXLEN-1 as (bytes, operations, ms, bound_by).
+    What a step must move, in f32 words: W [D, 4D] once when a row is
+    live (forward: at t; backward: at t + 1), and per row, forward, 13 D
+    for a live row (reads x_t 4D, h_prev and c_prev; writes H, C, Out and
+    the gates 4D) and 5 D for a dead one (reads h_prev, c_prev; writes H, C, Out);
+    backward, 17 D for a row live at t + 1 (reads dg_next 4D, dOut, dc,
+    the gates 4D, c_prev, c; writes dg 4D and dc), 14 D for one live at
+    t only (the carried dh in place of dg_next) and 6 D for a dead one
+    (reads dc; writes dg 4D and dc); plus the lengths. Operations: the
+    product's 2 x 4D x D a row (live at t forward, at t + 1 backward) at
+    the TF32 tensor cores' rate, the cell's 22 (forward) or 44
+    (backward: the activations again, then the gradients) an element of
+    a row live at t at the fp32 rate."""
+    maxlen = 1 << (max(lengths) - 1).bit_length()
+    live = [sum(n > t for n in lengths) for t in range(maxlen + 1)]
+    f32, w_bytes = 4, 4 * 4 * d * d
+
+    def bound(per_step):
+        rows = [per_step(live[t], live[t + 1]) for t in range(maxlen)]
+        nbytes = float(np.mean([r[0] for r in rows]))
+        ops_s = float(np.mean([r[1] / TF32_FLOPS + r[2] / FP32_FLOPS
+                               for r in rows]))
+        ops = float(np.mean([r[1] + r[2] for r in rows]))
+        by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops_s else "operations"
+        return nbytes, ops, max(nbytes / HBM_BYTES_PER_S, ops_s) * 1e3, by
+
+    fwd = bound(lambda k, _: ((w_bytes if k else 0) + f32 * d * (
+        13 * k + 5 * (b - k)) + 4 * b, 8 * k * d * d, 22 * k * d))
+    bwd = bound(lambda k, k2: ((w_bytes if k2 else 0) + f32 * d * (
+        17 * k2 + 14 * (k - k2) + 6 * (b - k)) + 4 * b, 8 * k2 * d * d,
+        44 * k * d))
+    return fwd, bwd
+
+
 def _lstm_timing(torch, LC):
-    """Forward and backward at the main path's shape and live share: B
-    64, D 512, no peepholes, the benchmark's lengths (40..80, @MAXLEN
-    128), the timed calls sweeping the steps t = 0..127 of one layer's
-    scan as the main path does (every row live for t < 40, 46.7% of the
-    (row, step) cells live in all). Device time alone and with the host's
-    gaps, the plain chain (forward; autograd backward) over the same
-    sweep, the bound from the sweep's lengths, and ATen's fused cell
-    (``_thnn_fused_lstm_cell``, as ``torch`` or ``torch.ops.aten``
-    exposes it: no peepholes, no mask) as the library time where PyTorch
-    has it."""
+    """The step kernels at the main path's shape and live share: B 64, D
+    512, no peepholes, the benchmark's lengths (40..80, @MAXLEN 128),
+    the timed calls sweeping the steps of one layer's scan as the main
+    path does (forward t = 0..127; backward t = 127..0, each reading the
+    gate gradients of step t + 1, none at the last step). Device time
+    alone and with the host's gaps, the plain steps over the same sweep,
+    the bound from the sweep's lengths (``_step_bounds``), and the
+    library's route for a step: ``torch.mm`` (h @ W) then ATen's fused
+    cell ``_thnn_fused_lstm_cell`` (no peepholes, no mask; its backward
+    ``_thnn_fused_lstm_cell_backward_impl`` then ``torch.mm`` for dh),
+    two calls each way, where PyTorch exposes the cell. The kernels and
+    the library's route also back to back, as the graph-held scan runs
+    them (``tools/kernel_trials.graph_sweep_ms``). Then one layer's
+    scan forward and backward (autograd through ``lstm_scan``: 256
+    launches and the weight-gradient product) against cuDNN's LSTM
+    (``torch.nn.LSTM(512, 512)`` on the packed batch, TF32 off: its time
+    includes the input projection the port's fc does, and it runs only
+    to the longest length, 80 steps, on a shrinking batch)."""
+    from paddle_tpu_torch.tools.kernel_trials import graph_sweep_ms
     b, d = LSTM["batch"], LSTM["hidden"]
     acts = (1, 2, 2)
-    ins, _, cot = _cell_inputs(torch, b, d, 600, False)
-    xt, hw, c, h, _ = ins
+    (xt, h, c, w, _), _, (dgn, dout, _, dh0, dc0) = _step_inputs(
+        torch, b, d, 600, False)
     lengths = _lstm_lengths(np.random.RandomState(0))
     maxlen = 1 << (max(lengths) - 1).bit_length()
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     sweep = 2 * maxlen                  # each timed loop: whole sweeps
-    fwd = lambda i: LC._fwd_cuda(xt, hw, c, h, None, lens, i % maxlen, acts)
-    bwd = lambda i: LC._bwd_cuda(xt, hw, c, None, lens, i % maxlen, acts,
-                                 *cot)
+    outs = tuple(torch.empty_like(c) for _ in range(3)) + (
+        torch.empty_like(xt),)
+    gates = LC._lstm_step_plain(xt, h, c, w, None, lens, 0, acts)[3]
+    dh, dc, dg = dh0.clone(), dc0.clone(), torch.empty_like(xt)
+
+    def fwd_of(step):
+        return lambda i: step(xt, h, c, w, None, lens, i % maxlen, acts,
+                              out=outs)
+
+    def bwd_of(step):
+        def call(i):
+            t = maxlen - 1 - i % maxlen
+            step(dgn if t < maxlen - 1 else None, w, lens, t + 1, gates, c,
+                 outs[1], None, t, acts, dout, None, dh, dc, None, dg)
+        return call
+
+    fwd, bwd = fwd_of(LC._lstm_step_cuda), bwd_of(LC._lstm_step_bwd_cuda)
     ms = _events_ms(torch, fwd, sweep, hide_host=True)
     gaps = _events_ms(torch, fwd, sweep)
     bwd_ms = _events_ms(torch, bwd, sweep, hide_host=True)
     bwd_gaps = _events_ms(torch, bwd, sweep)
+    in_graph = {"fwd": graph_sweep_ms(fwd, maxlen),
+                "bwd": graph_sweep_ms(bwd, maxlen)}
     with torch.no_grad():
-        plain_ms = _events_ms(torch, lambda i: LC._lstm_cell_plain(
-            xt, hw, c, h, None, lens, i % maxlen, acts), maxlen,
-            hide_host=True)
-    graph = {}
-
-    def prep(i):
-        leaves = [x.clone().requires_grad_(True) for x in (xt, hw, c, h)]
-        outs = LC._lstm_cell_plain(*leaves, None, lens, i % maxlen, acts)
-        graph["total"] = sum(torch.sum(o * w) for o, w in zip(outs, cot))
-        graph["leaves"] = leaves
-
-    plain_bwd_ms = _events_ms(torch, lambda i: torch.autograd.grad(
-        graph["total"], graph["leaves"]), maxlen, prep=prep, hide_host=True)
-    lib_ms = lib_gaps = None
+        plain_ms = _events_ms(torch, fwd_of(LC._lstm_step_plain), maxlen,
+                              hide_host=True)
+        plain_bwd_ms = _events_ms(torch, bwd_of(LC._lstm_step_bwd_plain),
+                                  maxlen, hide_host=True)
+    lib_ms = lib_gaps = lib_bwd_ms = None
     fused = getattr(torch, "_thnn_fused_lstm_cell", None) or getattr(
         torch.ops.aten, "_thnn_fused_lstm_cell", None)
+    fused_bwd = getattr(torch.ops.aten, "_thnn_fused_lstm_cell_backward_impl",
+                        None)
     if fused is not None:
         with torch.no_grad():
-            lib_ms = _events_ms(torch, lambda i: fused(xt, hw, c), sweep,
-                                hide_host=True)
-            lib_gaps = _events_ms(torch, lambda i: fused(xt, hw, c), sweep)
-    # What one call must move, per (row, element) in f32 words: a live
-    # row reads x_t, hW (4 each) and c_prev and writes h, c and the output
-    # (12) forward; reads x_t, hW, c_prev and the three incoming
-    # gradients and writes d(gates) (4), dc_prev and dh_prev (18)
-    # backward. A dead row reads c_prev and h_prev and writes h, c and
-    # the output (5) forward; reads dh and dc and writes d(gates), dc_prev
-    # and dh_prev (8) backward. Plus the lengths. Operations, one per
-    # add, multiply, divide, exp or tanh, for a live element: 22 forward
-    # (the gate sums 4, three sigmoids 12, two tanh 2, c 3, h 1) and 44
-    # backward (the forward recomputed, then the gradients); a dead one
-    # does none. Averaged over the sweep's steps.
-    live = [sum(n > t for n in lengths) for t in range(maxlen)]
-    f32 = 4
-
-    def mean_bound(live_words, dead_words, live_ops):
-        nbytes = np.mean([f32 * d * (live_words * k + dead_words * (b - k))
-                          + 4 * b for k in live])
-        ops = np.mean([live_ops * d * k for k in live])
-        return (float(nbytes), float(ops),
-                max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS) * 1e3,
-                "bytes" if nbytes / HBM_BYTES_PER_S >= ops / FP32_FLOPS
-                else "operations")
-
-    nbytes, flops, bound, bound_by = mean_bound(12, 5, 22)
-    bwd_bytes, bwd_flops, bwd_bound, bwd_by = mean_bound(18, 8, 44)
-    log("timing lstm_cell (B %d, D %d, f32, no peepholes, the benchmark's "
-        "lengths, steps 0..%d swept: %.1f%% of the (row, step) cells "
-        "live), device time alone: forward kernel_ms=%.5f bound_ms=%.5f "
-        "by %s (bytes: %.0f, operations: %.0f) plain_ms=%.5f library_ms=%s "
-        "(_thnn_fused_lstm_cell); backward kernel_ms=%.5f bound_ms=%.5f by "
-        "%s (bytes: %.0f, operations: %.0f) plain_ms=%.5f (autograd through "
-        "the plain chain); with the host's gaps: forward kernel_ms=%.5f "
-        "library_ms=%s, backward kernel_ms=%.5f; kernel / bound %.1f "
-        "forward, %.1f backward", b, d, maxlen - 1,
-        100.0 * sum(live) / (b * maxlen), ms, bound, bound_by, nbytes,
-        flops, plain_ms, "none" if lib_ms is None else "%.5f" % lib_ms,
-        bwd_ms, bwd_bound, bwd_by, bwd_bytes, bwd_flops, plain_bwd_ms, gaps,
+            def lib(_):
+                return fused(xt, torch.mm(h, w), c)
+            lib_ms = _events_ms(torch, lib, sweep, hide_host=True)
+            lib_gaps = _events_ms(torch, lib, sweep)
+            in_graph["library fwd"] = graph_sweep_ms(lib, maxlen)
+            hy, cy, work = lib(0)
+            if fused_bwd is not None:
+                def lib_bwd(_):
+                    return torch.mm(fused_bwd(dout, dc0, c, cy, work,
+                                              False)[0], w.t())
+                lib_bwd_ms = _events_ms(torch, lib_bwd, sweep,
+                                        hide_host=True)
+                in_graph["library bwd"] = graph_sweep_ms(lib_bwd, maxlen)
+    (nbytes, flops, bound, bound_by), (bwd_bytes, bwd_flops, bwd_bound,
+                                       bwd_by) = _step_bounds(lengths, b, d)
+    layer = _lstm_layer_timing(torch, LC, lengths, maxlen)
+    log("timing lstm step kernels (B %d, D %d, f32, no peepholes, the "
+        "benchmark's lengths, steps 0..%d swept), device time alone: "
+        "forward kernel_ms=%.5f bound_ms=%.5f by %s (bytes: %.0f, "
+        "operations: %.0f) plain_ms=%.5f library_ms=%s (torch.mm then "
+        "_thnn_fused_lstm_cell); backward kernel_ms=%.5f bound_ms=%.5f by "
+        "%s (bytes: %.0f, operations: %.0f) plain_ms=%.5f library_ms=%s "
+        "(_thnn_fused_lstm_cell_backward_impl then torch.mm); with the "
+        "host's gaps: forward kernel_ms=%.5f library_ms=%s, backward "
+        "kernel_ms=%.5f; kernel / bound %.1f forward, %.1f backward", b, d,
+        maxlen - 1, ms, bound, bound_by, nbytes, flops, plain_ms,
+        "none" if lib_ms is None else "%.5f" % lib_ms, bwd_ms, bwd_bound,
+        bwd_by, bwd_bytes, bwd_flops, plain_bwd_ms,
+        "none" if lib_bwd_ms is None else "%.5f" % lib_bwd_ms, gaps,
         "none" if lib_gaps is None else "%.5f" % lib_gaps, bwd_gaps,
         ms / bound, bwd_ms / bwd_bound)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": lib_ms,
-            "ms_with_host_gaps": gaps, "library_ms_with_host_gaps": lib_gaps,
-            "bwd_ms": bwd_ms, "bwd_plain_ms": plain_bwd_ms,
-            "bwd_bound_ms": bwd_bound, "bwd_bound_by": bwd_by,
-            "bwd_ms_with_host_gaps": bwd_gaps}
+    log("timing lstm step kernels back to back (the sweep captured in one "
+        "CUDA graph, as run_steps replays the scan), ms a call: %s",
+        ", ".join("%s %.5f" % kv for kv in in_graph.items()))
+    return dict({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                 "bound_by": bound_by, "library_ms": lib_ms,
+                 "ms_with_host_gaps": gaps,
+                 "library_ms_with_host_gaps": lib_gaps, "bwd_ms": bwd_ms,
+                 "bwd_plain_ms": plain_bwd_ms, "bwd_bound_ms": bwd_bound,
+                 "bwd_bound_by": bwd_by, "bwd_library_ms": lib_bwd_ms,
+                 "bwd_ms_with_host_gaps": bwd_gaps,
+                 "ms_in_graph_sweep": in_graph}, **layer)
 
 
-def _traced_launches(torch, fn, title):
-    """Device kernels one call of ``fn`` launches, from a traced pass
-    (None when the profiler saw no device time)."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    counts = [ev.count for ev in prof.key_averages()
-              if getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0)) > 0]
-    if not counts:
+LSTM_LAYER_SLEEP = 60_000_000      # ~30 ms: hides a layer's enqueue
+
+
+def _lstm_layer_timing(torch, LC, lengths, maxlen):
+    """One layer forward and backward, device time alone (a long sleep
+    hides the host's enqueue of its ~260 launches): the port's scan
+    through autograd against cuDNN's LSTM on the packed batch."""
+    b, d = LSTM["batch"], LSTM["hidden"]
+    g = torch.Generator(device="cuda").manual_seed(601)
+    xp = (0.5 * torch.randn(maxlen, b, 4 * d, generator=g, device="cuda")
+          ).requires_grad_(True)
+    w = (torch.randn(d, 4 * d, generator=g, device="cuda") * d ** -0.5
+         ).requires_grad_(True)
+    zeros = torch.zeros(b, d, device="cuda")
+    cot = torch.randn(maxlen, b, d, generator=g, device="cuda")
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+
+    def port(_):
+        hs, _ = LC.lstm_scan(xp, w, zeros, zeros, None, lens, (1, 2, 2))
+        torch.autograd.grad(torch.sum(hs * cot), [xp, w])
+
+    port_ms = _events_ms(torch, port, 4, hide_host=True,
+                         sleep_cycles=LSTM_LAYER_SLEEP)
+    from torch.nn.utils.rnn import PackedSequence, pack_padded_sequence
+    lstm = torch.nn.LSTM(d, d).cuda()
+    x = torch.randn(maxlen, b, d, generator=g, device="cuda")
+    packed = pack_padded_sequence(x, torch.tensor(lengths),
+                                  enforce_sorted=False)
+    data = packed.data.detach().requires_grad_(True)
+    packed = PackedSequence(data, packed.batch_sizes, packed.sorted_indices,
+                            packed.unsorted_indices)
+    pcot = torch.randn(data.shape[0], d, generator=g, device="cuda")
+
+    def cudnn(_):
+        out, _ = lstm(packed)
+        torch.autograd.grad(torch.sum(out.data * pcot),
+                            [data] + list(lstm.parameters()))
+
+    cudnn_ms = _events_ms(torch, cudnn, 4, hide_host=True,
+                          sleep_cycles=LSTM_LAYER_SLEEP)
+    log("timing one lstm layer forward and backward (B %d, D %d, the "
+        "benchmark's lengths), device time alone: the port's scan %.4f ms "
+        "(%d steps: %d step launches and the weight-gradient product), "
+        "cuDNN's LSTM %.4f ms (packed, %d steps on a shrinking batch, "
+        "with the input projection the port's fc does); port / cuDNN %.2f",
+        b, d, port_ms, maxlen, 2 * maxlen, cudnn_ms, max(lengths),
+        port_ms / cudnn_ms)
+    return {"layer_ms": port_ms, "cudnn_layer_ms": cudnn_ms}
+
+
+def _traced_kernels(torch, fn, title):
+    """Device kernels one call of ``fn`` launches, from a traced pass:
+    {"all", "lstm_cell" (the step kernels), "gemm" (names holding
+    "gemm")}, or None when the profiler saw no device time. A warm-up
+    call is traced first and discarded (the profiler's schedule): late
+    in a long process the tracer missed the first kernels of a window
+    (1,913 of 1,920 forward step kernels in 5 traced steps, 1,914 of
+    1,920 in a graph replay that runs them all)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    rows = [(ev.key, ev.count) for ev in prof.key_averages()
+            if getattr(ev, "self_device_time_total",
+                       getattr(ev, "self_cuda_time_total", 0.0)) > 0]
+    if not rows:
         log("%s: the profiler reported no device time (not measured)", title)
         return None
-    return sum(counts)
+    return {"all": sum(n for _, n in rows),
+            "lstm_cell": sum(n for k, n in rows if "lstm_cell_" in k),
+            "gemm": sum(n for k, n in rows if "gemm" in k.lower())}
 
 
 def lstm_train_phase(torch, smi):
     """(b) The stacked LSTM at full width: the card's first step against
     the port's CPU path from one startup scope, at LSTM_CONTROL times the
-    gap of the control (the plain cell on the card) in the loss and in
+    gap of the control (the plain steps on the card) in the loss and in
     the norm of the weights' difference; LSTM_STEPS eager steps on the
     fixed batch with losses falling and lstm_cell launches exactly 3
     layers x @MAXLEN steps x 2 (forward, backward) a step (reset just
     before, read just after); 5 run() calls against one run_steps(K=5)
     dispatch bitwise; eager and graph ms per batch A/B/A/B, tokens/s and
-    the busy share; the device kernels of one step through the kernel
-    and through the plain route, from traced passes."""
+    the busy share; the peak device memory of an eager step; the device
+    kernels of one step through the kernels and through the plain steps,
+    from traced passes: the kernel route's step kernels exactly 768 and
+    fewer GEMM kernels than @MAXLEN (no per-step product outside the
+    kernel: the weight gradient is one product a layer)."""
     import paddle_tpu_torch as fluid
-    from paddle_tpu_torch.ops import lstm_cell as LC, rnn_ops
+    from paddle_tpu_torch.ops import lstm_cell as LC
     exe = fluid.Executor(fluid.CUDAPlace(0))
     main, startup, loss = _lstm_program(fluid)
     prog = (main, startup, loss)
@@ -4669,8 +4837,7 @@ def lstm_train_phase(torch, smi):
     def first_step(executor, plain=False):
         scope = _scope_from(fluid, init, executor.device)
         if plain:
-            with _patched(rnn_ops, "lstm_cell",
-                          lambda real: LC._lstm_cell_plain):
+            with _plain_steps(LC):
                 lv, = executor.run(main, feed=batch, fetch_list=[loss],
                                    scope=scope)
         else:
@@ -4738,17 +4905,29 @@ def lstm_train_phase(torch, smi):
         exe.run(main, feed=batch, fetch_list=[loss], scope=scope)
 
     step()
-    kernel_route = _traced_launches(torch, step, "lstm traced step")
-    with _patched(rnn_ops, "lstm_cell", lambda real: LC._lstm_cell_plain):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    kernel_route = _traced_kernels(torch, step, "lstm traced step")
+    with _plain_steps(LC):
         step()
-        plain_route = _traced_launches(torch, step, "lstm plain traced step")
+        plain_route = _traced_kernels(torch, step, "lstm plain traced step")
+    if kernel_route is not None:
+        check(kernel_route["lstm_cell"] == per_step, "the traced lstm step "
+              "ran %d step kernels, want %d", kernel_route["lstm_cell"],
+              per_step)
+        check(kernel_route["gemm"] < maxlen, "the traced lstm step ran %d "
+              "GEMM kernels: a per-step product outside the step kernel",
+              kernel_route["gemm"])
     log("lstm device kernels in one step (traced): %s through the kernel "
-        "route (%d of them lstm_cell), %s through the plain route; %s",
-        kernel_route, per_step, plain_route, smi)
+        "route, %s through the plain steps; peak device memory of an eager "
+        "step %.1f MB; %s", kernel_route, plain_route, peak / 2 ** 20, smi)
     return counts["lstm_cell"], graph_counts["lstm_cell"], {
         "first_step_gap": k_gap, "control_gap": p_gap,
         "kernels_a_step": kernel_route, "plain_kernels_a_step": plain_route,
-        "timing": timing}
+        "peak_bytes": peak, "timing": timing}
 
 
 def _gru_book_program(fluid):

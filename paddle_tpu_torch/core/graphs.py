@@ -41,7 +41,7 @@ def launch_counts():
     out["matmul_stats"] = ms.matmul_colstats.launches
     out["paged_attention"] = pa.paged_attention.launches
     out["dropout"] = do.dropout.launches
-    out["lstm_cell"] = lc.lstm_cell.launches
+    out["lstm_cell"] = lc.lstm_scan.launches
     return out
 
 
@@ -55,7 +55,7 @@ def _add_launches(delta):
         elif name == "dropout":
             do.dropout.launches += n
         elif name == "lstm_cell":
-            lc.lstm_cell.launches += n
+            lc.lstm_scan.launches += n
         else:
             pa.paged_attention.launches += n
 

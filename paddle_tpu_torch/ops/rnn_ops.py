@@ -14,21 +14,23 @@ package pads them into [n, maxlen, ...] in the graph and runs one
 same scan as a Python loop over ``maxlen`` steps, where ``maxlen`` is the
 input's ``@MAXLEN`` bound from the run's static table (the next power of
 two of the longest length), and masks with ``torch.where`` (the lstm
-cell: inside its kernel) on the device lengths. Nothing reads the host,
+step: inside its kernel) on the device lengths. Nothing reads the host,
 so a CUDA graph holds the loop. Each output passes its lengths and its
 ``@MAXLEN`` on (``_set_seq_out``): a stacked RNN's later layers scan
 ``maxlen`` steps too, not the flat total.
 
-``lstm`` runs one ``torch.matmul`` (h @ W) and one call of the fused
-cell (``ops/lstm_cell.py``: the hand-written CUDA kernel on the card,
-its plain version on the CPU) per step. lstmp (the same cell's plain
-version, then the projection), gru and the units are plain PyTorch.
+``lstm`` runs its scan as one autograd Function (``ops/lstm_cell.py``
+``lstm_scan``): one fused recurrent step a step, product and cell
+together (the hand-written CUDA kernels on the card, their plain
+versions on the CPU), and the weight gradient as one product after the
+backward's loop. lstmp (the same cell's plain version, then the
+projection), gru and the units are plain PyTorch.
 """
 
 import torch
 
 from ..core.registry import register
-from .lstm_cell import ACT_CODES, ACTS, _lstm_cell_plain, lstm_cell
+from .lstm_cell import ACT_CODES, ACTS, _lstm_cell_plain, _order, lstm_scan
 from .sequence_ops import starts, unpad_index
 
 
@@ -99,10 +101,6 @@ def _cell_acts(op):
         ("candidate_activation", "tanh")))
 
 
-def _steps(maxlen, reverse):
-    return range(maxlen - 1, -1, -1) if reverse else range(maxlen)
-
-
 @register("lstm")
 def _lstm(ctx, op):
     """dynamic_lstm: Input [T, 4D] (x already projected), Weight [D, 4D],
@@ -122,18 +120,12 @@ def _lstm(ctx, op):
         if h is None else h.contiguous()
     c = torch.zeros((n, d), dtype=xp.dtype, device=xp.device) \
         if c is None else c.contiguous()
-    keep_cells = ctx.is_read(ctx.out_name(op, "Cell"))
-    xs = xp.contiguous().unbind(0)
-    hs, cs = [None] * maxlen, [None] * maxlen
-    for t in _steps(maxlen, op.attr("is_reverse", False)):
-        h, c, hs[t] = lstm_cell(xs[t], torch.matmul(h, w), c, h, peep,
-                                lens, t, acts)
-        cs[t] = c
-    _set_seq_out(ctx, op, "Hidden",
-                 _unpad_to_lod(torch.stack(hs), lens, total), lens, maxlen)
-    if keep_cells:
-        _set_seq_out(ctx, op, "Cell",
-                     _unpad_to_lod(torch.stack(cs), lens, total), lens,
+    hs, cs = lstm_scan(xp.contiguous(), w.contiguous(), h, c, peep, lens,
+                       acts, op.attr("is_reverse", False))
+    _set_seq_out(ctx, op, "Hidden", _unpad_to_lod(hs, lens, total), lens,
+                 maxlen)
+    if ctx.is_read(ctx.out_name(op, "Cell")):
+        _set_seq_out(ctx, op, "Cell", _unpad_to_lod(cs, lens, total), lens,
                      maxlen)
 
 
@@ -157,7 +149,7 @@ def _lstmp(ctx, op):
     c = torch.zeros((n, d), dtype=xp.dtype, device=xp.device)
     dead_h = torch.zeros_like(c)            # a dead row's h: masked below
     rs = [None] * maxlen
-    for t in _steps(maxlen, op.attr("is_reverse", False)):
+    for t in _order(maxlen, op.attr("is_reverse", False)):
         h, c, _ = _lstm_cell_plain(xp[t], r @ w, c, dead_h, peep, lens, t,
                                    acts)
         alive = (t < lens)[:, None]
@@ -187,7 +179,7 @@ def _gru(ctx, op):
     if h is None:
         h = torch.zeros((n, d), dtype=xp.dtype, device=xp.device)
     hs = [None] * maxlen
-    for t in _steps(maxlen, op.attr("is_reverse", False)):
+    for t in _order(maxlen, op.attr("is_reverse", False)):
         xt = xp[t]
         gh = h @ w_gate                                          # [n,2D]
         u = ga(xt[:, :d] + gh[:, :d] + b[:, :d])

@@ -26,16 +26,26 @@ show what a part of the kernel costs.
                 S=1, C=16, a chain of 14 blocks), at
                 the host rule's split count and at each of
                 ``PAGED_SPLITS`` (the split-rule variants).
+  lstm          ``lstm_cell.cu``: the fused recurrent step, forward
+                (t = 0..127) and backward (t = 127..0) over one layer's
+                scan at the stacked LSTM's shape (B 64, D 512, f32, the
+                benchmark's lengths 40..80), each launch alone and, as
+                the main path runs them, the sweep back to back in one
+                CUDA graph.
 
 ``--baseline FAMILY=PATH`` adds another version of a family's source (for
 example the parent commit's, unpacked from ``git archive``); its C
 interface must be the family's own, except for ``paged``, where the
 baseline is called through the interface of the first version (no
-splits; one launch per call).
+splits; one launch per call), and ``lstm``, where the baseline is the
+first version's cell (``git show <commit>:paddle_tpu_torch/ops/csrc/
+lstm_cell.cu``) on the route it ran: a ``torch.matmul`` for h @ W and
+the cell kernel a step forward; the cell's backward, dh = dgates W^T and
+the step's weight gradient h^T dgates added into dW a step backward.
 
 Run on the card from the repository root:
     python3 -m paddle_tpu_torch.tools.kernel_trials [flash] [matmul_stats]
-        [paged] [--rounds 2] [--baseline matmul_stats=PARENT.cu]
+        [paged] [lstm] [--rounds 2] [--baseline matmul_stats=PARENT.cu]
 """
 
 import argparse
@@ -81,7 +91,7 @@ def build(sources, out_dir):
             out[name] = (None, log[-2000:])
             continue
         regs = re.findall(r"Compiling entry function '\w*?\d([a-z][a-z_]*"
-                          r"_kernel)I.*?(\d+) bytes spill stores.*?Used "
+                          r"_kernel)[IE].*?(\d+) bytes spill stores.*?Used "
                           r"(\d+) registers", log, re.S)
         out[name] = (ctypes.CDLL(so), ", ".join(
             "%s %s regs %s B spilled" % (k, r, s) for k, s, r in regs))
@@ -521,6 +531,186 @@ def _paged_time_first_version(lib, inputs, reps):
     return times, got
 
 
+# -- lstm -------------------------------------------------------------------
+LSTM_SHAPE = (64, 512)            # B, D: the stacked LSTM's batch and hidden
+LSTM_LENGTHS = dict(seed=0, low=40, high=81)   # RandomState(0).randint
+_L_STAGES = ("constexpr int FNS = 6;", "constexpr int BNS = 6;")
+_L_SPLIT = ("  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n"
+            "  small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;")
+_L_MMA3 = ("  float d[4] = {0.f, 0.f, 0.f, 0.f};\n"
+           "  mma_tf32(d, a.small, b.big);\n"
+           "  mma_tf32(d, a.big, b.small);\n"
+           "  mma_tf32(d, a.big, b.big);\n"
+           "#pragma unroll\n"
+           "  for (int e = 0; e < 4; ++e) c[e] += d[e];")
+
+LSTM_VARIANTS = {
+    "as built": [],
+    "4 stages": [(c, c.replace("6;", "4;")) for c in _L_STAGES],
+    "8 stages": [(c, c.replace("6;", "8;")) for c in _L_STAGES],
+    "fwd 16 rows (256 blocks)": [("constexpr int FR = 32;",
+                                  "constexpr int FR = 16;")],
+    "fwd 64 rows (64 blocks)": [("constexpr int FR = 32;",
+                                 "constexpr int FR = 64;")],
+    "fwd K 32 a stage (8 warps)": [("constexpr int FBK = 64;",
+                                    "constexpr int FBK = 32;")],
+    "bwd K 64 a stage (8 warps)": [("constexpr int BBK = 128;",
+                                    "constexpr int BBK = 64;")],
+    "bwd 32 units (64 blocks)": [("constexpr int BU = 16;",
+                                  "constexpr int BU = 32;")],
+    "bwd 3 stages": [("constexpr int BNS = 6;", "constexpr int BNS = 3;")],
+    "no dead-block skip": [
+        ("  const bool live = __syncthreads_or(threadIdx.x < FR && rr < B &&\n"
+         "                                     t < lens[rr]);",
+         "  const bool live = __syncthreads_or(1);"),
+        ("      __syncthreads_or(threadIdx.x < BR && rr < B && t_next < "
+         "lens[rr])) {", "      __syncthreads_or(1)) {")],
+    "no split (wrong)": [(_L_SPLIT, "  big = __float_as_uint(x);\n"
+                                    "  small = big;")],
+    "one MMA (wrong)": [(_L_MMA3, "  mma_tf32(c, a.big, b.big);")],
+    "no MMA (wrong)": [(_L_MMA3, "")],
+    "no staging (wrong)": [
+        ("    float* a = smem + buf * FSTAGE;",
+         "    return;\n    float* a = smem + buf * FSTAGE;"),
+        ("      float* s = smem + buf * BSTAGE;",
+         "      return;\n      float* s = smem + buf * BSTAGE;")],
+}
+
+
+def _lstm_lengths():
+    import numpy as np
+    rng = np.random.RandomState(LSTM_LENGTHS["seed"])
+    return rng.randint(LSTM_LENGTHS["low"], LSTM_LENGTHS["high"],
+                       size=LSTM_SHAPE[0]).tolist()
+
+
+def _lstm_inputs():
+    b, d = LSTM_SHAPE
+    lengths = _lstm_lengths()
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    return {"b": b, "d": d, "maxlen": 1 << (max(lengths) - 1).bit_length(),
+            "lens": torch.tensor(lengths, dtype=torch.int32, device="cuda"),
+            "xt": r(b, 4 * d), "h": r(b, d), "c": r(b, d),
+            "w": r(d, 4 * d) * d ** -0.5, "gates": r(b, 4 * d),
+            "dgn": r(b, 4 * d), "dout": r(b, d), "dh": r(b, d),
+            "dc": r(b, d)}
+
+
+def graph_sweep_ms(fn, n, replays=5):
+    """Device ms a call of ``fn(0..n-1)`` back to back: the sweep
+    captured in one CUDA graph, its replays event-timed."""
+    for j in range(n):
+        fn(j)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), torch.cuda.graph(graph, stream=side):
+        for j in range(n):
+            fn(j)
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (replays * n)
+
+
+def _lstm_time(lib, x, reps):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ptt_lstm_step_fwd.argtypes = [p] * 6 + [i] * 6 + [p] * 5
+    lib.ptt_lstm_step_bwd.argtypes = [p, p, p, i, p, p, p, p] + [i] * 6 + \
+        [p] * 7
+    lib.ptt_lstm_step_fwd.restype = lib.ptt_lstm_step_bwd.restype = i
+    b, d, maxlen = x["b"], x["d"], x["maxlen"]
+    outs = [torch.empty_like(x["c"]) for _ in range(3)] + [
+        torch.empty_like(x["xt"])]
+    dh, dc, dg = x["dh"].clone(), x["dc"].clone(), torch.empty_like(x["xt"])
+
+    def fwd(j):
+        _launched(lib.ptt_lstm_step_fwd(
+            *[x[k].data_ptr() for k in ("xt", "h", "c", "w")], None,
+            x["lens"].data_ptr(), j % maxlen, b, d, 1, 2, 2,
+            *[o.data_ptr() for o in outs],
+            torch.cuda.current_stream().cuda_stream))
+
+    def bwd(j):
+        t = maxlen - 1 - j % maxlen
+        _launched(lib.ptt_lstm_step_bwd(
+            x["dgn"].data_ptr() if t < maxlen - 1 else None,
+            x["w"].data_ptr(), x["lens"].data_ptr(), t + 1,
+            x["gates"].data_ptr(), x["c"].data_ptr(), outs[1].data_ptr(),
+            None, t, b, d, 1, 2, 2, x["dout"].data_ptr(), None,
+            dh.data_ptr(), dc.data_ptr(), None, dg.data_ptr(),
+            torch.cuda.current_stream().cuda_stream))
+
+    times = {"fwd": _events_ms(fwd, reps * maxlen),
+             "bwd": _events_ms(bwd, reps * maxlen)}
+    times["fwd+bwd"] = times["fwd"] + times["bwd"]
+    times["fwd in a graph"] = graph_sweep_ms(fwd, maxlen)
+    times["bwd in a graph"] = graph_sweep_ms(bwd, maxlen)
+    fwd(5)
+    dh.copy_(x["dh"])
+    dc.copy_(x["dc"])
+    bwd(maxlen - 1 - 5)
+    torch.cuda.synchronize()
+    return times, [o.clone() for o in outs] + [dh.clone(), dc.clone(),
+                                               dg.clone()]
+
+
+def _lstm_time_first_version(lib, x, reps):
+    """The first version's route: torch.matmul for h @ W and its cell
+    kernel forward; its cell backward, dgates W^T and h^T dgates added
+    into dW backward (what autograd ran a step)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ptt_lstm_cell_fwd.argtypes = [p] * 6 + [i] * 6 + [p] * 4
+    lib.ptt_lstm_cell_bwd.argtypes = [p] * 5 + [i] * 6 + [p] * 8
+    lib.ptt_lstm_cell_fwd.restype = lib.ptt_lstm_cell_bwd.restype = i
+    b, d, maxlen = x["b"], x["d"], x["maxlen"]
+    outs = [torch.empty_like(x["c"]) for _ in range(3)]
+    hw = torch.empty_like(x["xt"])
+    dgates, dcp, dhp = (torch.empty_like(x["xt"]), torch.empty_like(x["c"]),
+                        torch.empty_like(x["c"]))
+    dw = torch.zeros_like(x["w"])
+
+    def fwd(j):
+        torch.matmul(x["h"], x["w"], out=hw)
+        _launched(lib.ptt_lstm_cell_fwd(
+            x["xt"].data_ptr(), hw.data_ptr(), x["c"].data_ptr(),
+            x["h"].data_ptr(), None, x["lens"].data_ptr(), j % maxlen, b, d,
+            1, 2, 2, *[o.data_ptr() for o in outs],
+            torch.cuda.current_stream().cuda_stream))
+
+    def bwd(j):
+        t = maxlen - 1 - j % maxlen
+        _launched(lib.ptt_lstm_cell_bwd(
+            x["xt"].data_ptr(), hw.data_ptr(), x["c"].data_ptr(), None,
+            x["lens"].data_ptr(), t, b, d, 1, 2, 2, x["dh"].data_ptr(),
+            x["dc"].data_ptr(), x["dout"].data_ptr(), dgates.data_ptr(),
+            dcp.data_ptr(), dhp.data_ptr(), None,
+            torch.cuda.current_stream().cuda_stream))
+        dhp.add_(torch.matmul(dgates, x["w"].t()))
+        dw.add_(torch.matmul(x["h"].t(), dgates))
+
+    times = {"fwd": _events_ms(fwd, reps * maxlen),
+             "bwd": _events_ms(bwd, reps * maxlen)}
+    times["fwd+bwd"] = times["fwd"] + times["bwd"]
+    times["fwd in a graph"] = graph_sweep_ms(fwd, maxlen)
+    times["bwd in a graph"] = graph_sweep_ms(bwd, maxlen)
+    fwd(5)
+    torch.cuda.synchronize()
+    return times, [o.clone() for o in outs]
+
+
 class Family:
     def __init__(self, source, variants, inputs, time, prepare=None,
                  reps=20, baseline_time=None):
@@ -550,6 +740,8 @@ FAMILIES = {
     "paged": Family("paged_attention.cu", PAGED_VARIANTS, _paged_inputs,
                     _paged_time, reps=100,
                     baseline_time=_paged_time_first_version),
+    "lstm": Family("lstm_cell.cu", LSTM_VARIANTS, _lstm_inputs, _lstm_time,
+                   reps=2, baseline_time=_lstm_time_first_version),
 }
 
 

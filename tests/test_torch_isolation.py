@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
 package, so it runs on a machine that has neither installed.
 
-An AST scan of every ``paddle_tpu_torch/**/*.py`` and ``chip_smoke.py``
-rejects imports of ``jax``, ``jaxlib``, ``paddle_tpu`` and
+An AST scan of every ``paddle_tpu_torch/**/*.py``, ``chip_smoke.py`` and
+``lstm_ab.py`` rejects imports of ``jax``, ``jaxlib``, ``paddle_tpu`` and
 ``paddle_tpu.*`` (``paddle_tpu_torch`` itself is allowed), and a fresh
 interpreter importing the port's serving package must not load jax.
 """
@@ -19,7 +19,7 @@ BANNED = ("jax", "jaxlib", "paddle_tpu")
 
 
 def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, f) for f in ("chip_smoke.py", "lstm_ab.py")]
     for dirpath, dirnames, filenames in os.walk(
             os.path.join(ROOT, "paddle_tpu_torch")):
         dirnames[:] = [d for d in dirnames if d != "__pycache__"]

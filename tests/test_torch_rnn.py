@@ -127,12 +127,12 @@ def test_lstm_cell_plain_matches_the_jax_step(peep, acts):
 
 
 def test_lstm_cell_raises_off_cpu_and_cuda():
-    x = torch.zeros(2, 8, device="meta")
+    x = torch.zeros(1, 2, 8, device="meta")
+    w = torch.zeros(2, 8, device="meta")
     c = torch.zeros(2, 2, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        LC.lstm_cell(x, x, c, c, None, torch.zeros(2, dtype=torch.int32,
-                                                   device="meta"), 0,
-                     (1, 2, 2))
+        LC.lstm_scan(x, w, c, c, None, torch.zeros(2, dtype=torch.int32,
+                                                   device="meta"), (1, 2, 2))
 
 
 # --------------------------------------------------------------------------
@@ -166,14 +166,13 @@ def test_stacked_lstm_passes_the_maxlen_bound():
            for k, v in arrays.items()}
     env.update({n: scope.find_var(n) for n in scope.local_var_names()})
     calls = []
-    real = LC.lstm_cell
+    real = LC._lstm_step_plain
 
-    def counting(*args):
+    def counting(*args, **kwargs):
         calls.append(args[6])
-        return real(*args)
+        return real(*args, **kwargs)
 
-    from paddle_tpu_torch.ops import rnn_ops
-    rnn_ops.lstm_cell = counting
+    LC._lstm_step_plain = counting
     try:
         ctx = registry.LowerContext(env, None, torch.device("cpu"),
                                     block=main.global_block(),
@@ -182,7 +181,7 @@ def test_stacked_lstm_passes_the_maxlen_bound():
             for op in main.global_block().ops:
                 E._lower_op(ctx, op)
     finally:
-        rnn_ops.lstm_cell = real
+        LC._lstm_step_plain = real
     assert ctx.static_info[h1.name + "@MAXLEN"] == 8
     assert ctx.static_info[proj2.name + "@MAXLEN"] == 8
     assert calls == list(range(8)) * 2          # two layers of 8 steps

@@ -327,7 +327,38 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
      sum-pooled: segment sums) with 5 ``run()`` calls against one
      ``run_steps(K=5)`` dispatch bitwise. (c) ``tools/op_sweep.py``'s LoD part: each of the 32
      op types the slice added (the sequence, RNN and control-flow ops)
-     on the card against the CPU.
+     on the card against the CPU;
+ 16. crf/detection — (a) the reference book's label_semantic_roles
+     tagger (``models/label_semantic_roles.py``) at its own widths:
+     word_dim 32, the shared 44068 x 32 table (not trained), predicate
+     3162 x 32, mark 2 x 5, hidden 512, 8 ``dynamic_lstm`` layers of 128
+     units with peepholes, reversed on odd layers, with the book's
+     activation attributes, 59 labels, ``linear_chain_crf`` (crfw at lr
+     x 1e-3), ``crf_decoding`` and ``chunk_eval``; Adam 2e-3, batch 64,
+     lengths ``RandomState(0).randint(5, 30)`` (@MAXLEN 32). The forward
+     of one batch on the card against the CPU from one scope: the CRF
+     NLL within rtol 1e-5, the Viterbi paths equal (a parting must be a
+     near-tie: its margin under the CPU's emissions no more than 2 x the
+     row's rounding) and every tag in [0, 59); the first step within 4 x
+     the plain LSTM steps' gap to the CPU; 20 eager steps, losses
+     falling, lstm_cell launches exactly 8 x 32 x 2 a step; K=5
+     bitwise; eager and graph ms A/B/A/B, tokens/s, busy share; an eager
+     step's kernels by device time (the step kernels', the GEMMs' and
+     the CRF part's share and launches, the last traced alone on the
+     step's emissions) and its peak memory. (b) The ssd zoo model at its
+     widths (3 x 64 x 64, 5 classes, 352 priors), batch 32 with 1..4
+     ground-truth boxes an image, Adam 1e-3: 10 eager steps, losses
+     falling; K=5 bitwise (cudnn.deterministic); eager and graph ms
+     A/B/A/B. (c) ``build_ssd_infer_net`` on the trained weights, card
+     rows against the CPU's (labels equal, scores and boxes at rtol 1e-5
+     / atol 1e-6, or a diagnosed near-tie), DetectionMAP card against
+     CPU, ms per batch eager and as one CUDA graph, one multiclass_nms's
+     launches (traced). (d) CTC at batch 32, T 64, 32 classes, labels
+     5..20: warpctc's loss and gradient card against CPU at rtol 1e-5,
+     ``F.ctc_loss`` as a control on the feasible sequences at rtol 1e-4,
+     ``ctc_greedy_decoder`` card equal to CPU; then ``tools/op_sweep``'s
+     detection part: each of the 14 CRF, CTC and detection op types on
+     the card against the CPU.
 
 The last three lines of standard output are the kernels' JSON line, the
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device": ...}``.
@@ -346,7 +377,9 @@ is the largest difference over its comparisons (0: they must be
 bitwise).
 The ``lstm_cell`` entry (``"tpu_kernel": false``: the JAX package's
 LSTM step is a ``lax.scan`` body XLA fuses) counts phase 15's 20 eager
-steps (``graph_launches``: its K=5 dispatch); its times and bound are
+steps (``graph_launches``: its K=5 dispatch) and phase 16's 20 eager
+SRL steps (``srl_launches``; ``srl_graph_launches``: its K=5
+dispatch); its times and bound are
 the forward step's at B 64 D 512 with the benchmark's lengths, a call's
 mean over the 128 steps of one layer's scan, and it adds the backward
 step's (``bwd_ms``, ``bwd_plain_ms``, ``bwd_bound_ms``, ``bwd_bound_by``,
@@ -4396,8 +4429,12 @@ def deepfm_phase(torch, smi):
 # layers, batch 64, lengths RandomState(0).randint(40, 81))
 LSTM = dict(vocab=5000, hidden=512, stacked=3, batch=64)
 LSTM_STEPS, LSTM_K = 20, 5
-LSTM_CELL_CASES = [(64, 512), (5, 48), (3, 6)]  # (3, 6): unaligned rows
-LSTM_ACTS = [(1, 2, 2), (1, 3, 0)]      # sigmoid/tanh/tanh, sigmoid/relu/id
+# (3, 6): unaligned rows; (64, 128): the SRL book's 128 units
+LSTM_CELL_CASES = [(64, 512), (5, 48), (3, 6), (64, 128)]
+# (gate, cell, candidate) attribute codes as the lowering passes them:
+# sigmoid/tanh/tanh, sigmoid/relu/id, the SRL book's sigmoid/sigmoid/relu,
+# and its reading with cell and candidate swapped
+LSTM_ACTS = [(1, 2, 2), (1, 3, 0), (1, 1, 3), (1, 3, 1)]
 LSTM_RTOL, LSTM_ATOL = 1e-5, 1e-6       # a few f32 ulp at O(1) values
 LSTM_OP_RTOL, LSTM_OP_ATOL = 1e-4, 1e-5  # 16 steps through the lowering
 LSTM_CONTROL = 4.0                      # limit: 4 x the plain cell's gap
@@ -4487,16 +4524,18 @@ def _close_err(torch, got, want, rtol, atol):
 
 def lstm_kernel_phase(torch):
     """(a) The fused step kernels against their plain versions on the
-    card at B 64 D 512, B 5 D 48 and B 3 D 6 (rows that are no
-    multiple of 16 bytes: the element-wise staging), with and without
-    peepholes, two activation sets, dead rows at the step and at the
+    card at B 64 D 512, B 5 D 48, B 3 D 6 (rows that are no
+    multiple of 16 bytes: the element-wise staging) and B 64 D 128 (the
+    SRL book's width), with and without peepholes, the four activation
+    sets of LSTM_ACTS, dead rows at the step and at the
     next: the forward
     step (H, C, Out and the saved gates) and the backward step (dh, dc,
     the gate gradients and the per-row peephole gradients), as the
     scan's first backward step (no dg_next) and as a later one, and the
     dh-only call a scan with H0 ends on, at rtol 1e-5 / atol 1e-6 of the
     largest value; two launches of each bitwise; then a reverse LSTM
-    with peepholes through the ``lstm`` lowering, kernel route against
+    with peepholes through the ``lstm`` lowering (D 512 with the default
+    activations, D 128 with the SRL book's), kernel route against
     the plain steps on the card (Hidden, Cell and the gradients of
     Input, Weight and Bias at rtol 1e-4 / atol 1e-5). Then timed at the
     main path's shape and lengths."""
@@ -4545,38 +4584,47 @@ def lstm_kernel_phase(torch):
                        (saved[3], saved[1])) for _ in range(2)]
     check(all(torch.equal(x, y) for x, y in zip(*runs)),
           "two lstm step launches on the same inputs differ")
-    # a reverse LSTM with peepholes through the lowering (16 steps)
-    b, d = 64, 512
-    rng = np.random.RandomState(77)
-    lens = rng.randint(1, 17, size=b).tolist()
-    lens[0] = 16
-    inputs = {"Input": op_sweep.Seq(0.5 * rng.randn(sum(lens), 4 * d)
-                                    .astype(np.float32), lens),
-              "Weight": (0.05 * rng.randn(d, 4 * d)).astype(np.float32),
-              "Bias": (0.1 * rng.randn(1, 7 * d)).astype(np.float32)}
-    prog, feed, fetch = op_sweep.one_op_program(
-        fluid, "lstm", inputs, {"use_peepholes": True, "is_reverse": True},
-        ["Hidden", "Cell"], ["Input", "Weight", "Bias"])
+    # a reverse LSTM with peepholes through the lowering (16 steps), with
+    # the default activations and with the SRL book's at its width
+    b = 64
     exe = fluid.Executor(fluid.CUDAPlace(0))
-    LC.lstm_scan.launches = 0
-    got = exe.run(prog, feed=feed, fetch_list=fetch, scope=fluid.Scope())
-    torch.cuda.synchronize()
-    check(LC.lstm_scan.launches == 2 * 16, "the reverse lstm launched the "
-          "step kernels %d times, want 2 x 16", LC.lstm_scan.launches)
-    with _plain_steps(LC):
-        want = exe.run(prog, feed=feed, fetch_list=fetch,
-                       scope=fluid.Scope())
-    for name, g, w in zip(fetch, got, want):
-        ok, e = _close_err(torch, torch.from_numpy(g), torch.from_numpy(w),
-                           LSTM_OP_RTOL, LSTM_OP_ATOL)
-        check(ok, "reverse peephole lstm (B %d, D %d, 16 steps): %s differs "
-              "between the kernel and the plain route by %g", b, d, name, e)
-    log("lstm step kernels: reverse peephole lstm through the lowering (B "
-        "%d, D %d, lengths 1..16, 32 launches): Hidden, Cell and the "
-        "gradients of Input, Weight and Bias within rtol %g / atol %g of "
-        "the plain steps; %d step comparisons; two launches bitwise; "
-        "largest |diff| %.3g", b, d, LSTM_OP_RTOL, LSTM_OP_ATOL, compared,
-        err)
+    for d, attrs in ((512, {}), (128, {"gate_activation": "sigmoid",
+                                       "cell_activation": "sigmoid",
+                                       "candidate_activation": "relu"})):
+        rng = np.random.RandomState(77)
+        lens = rng.randint(1, 17, size=b).tolist()
+        lens[0] = 16
+        inputs = {"Input": op_sweep.Seq(0.5 * rng.randn(sum(lens), 4 * d)
+                                        .astype(np.float32), lens),
+                  "Weight": (0.05 * rng.randn(d, 4 * d)).astype(np.float32),
+                  "Bias": (0.1 * rng.randn(1, 7 * d)).astype(np.float32)}
+        prog, feed, fetch = op_sweep.one_op_program(
+            fluid, "lstm", inputs, dict(attrs, use_peepholes=True,
+                                        is_reverse=True),
+            ["Hidden", "Cell"], ["Input", "Weight", "Bias"])
+        LC.lstm_scan.launches = 0
+        got = exe.run(prog, feed=feed, fetch_list=fetch, scope=fluid.Scope())
+        torch.cuda.synchronize()
+        check(LC.lstm_scan.launches == 2 * 16, "the reverse lstm launched "
+              "the step kernels %d times, want 2 x 16",
+              LC.lstm_scan.launches)
+        with _plain_steps(LC):
+            want = exe.run(prog, feed=feed, fetch_list=fetch,
+                           scope=fluid.Scope())
+        for name, g, w in zip(fetch, got, want):
+            ok, e = _close_err(torch, torch.from_numpy(g),
+                               torch.from_numpy(w), LSTM_OP_RTOL,
+                               LSTM_OP_ATOL)
+            check(ok, "reverse peephole lstm (B %d, D %d, %s, 16 steps): %s "
+                  "differs between the kernel and the plain route by %g", b,
+                  d, attrs or "default activations", name, e)
+        log("lstm step kernels: reverse peephole lstm through the lowering "
+            "(B %d, D %d, %s, lengths 1..16, 32 launches): Hidden, Cell and "
+            "the gradients of Input, Weight and Bias within rtol %g / atol "
+            "%g of the plain steps", b, d, attrs or "default activations",
+            LSTM_OP_RTOL, LSTM_OP_ATOL)
+    log("lstm step kernels: %d step comparisons; two launches bitwise; "
+        "largest |diff| %.3g", compared, err)
     return dict(_lstm_timing(torch, LC), max_abs_err=err)
 
 
@@ -4781,14 +4829,10 @@ def _lstm_layer_timing(torch, LC, lengths, maxlen):
     return {"layer_ms": port_ms, "cudnn_layer_ms": cudnn_ms}
 
 
-def _traced_kernels(torch, fn, title):
-    """Device kernels one call of ``fn`` launches, from a traced pass:
-    {"all", "lstm_cell" (the step kernels), "gemm" (names holding
-    "gemm")}, or None when the profiler saw no device time. A warm-up
-    call is traced first and discarded (the profiler's schedule): late
-    in a long process the tracer missed the first kernels of a window
-    (1,913 of 1,920 forward step kernels in 5 traced steps, 1,914 of
-    1,920 in a graph replay that runs them all)."""
+def _kernel_rows(torch, fn):
+    """[(device us, launches, name)] of the device kernels one call of
+    ``fn`` runs, from a traced pass after a discarded warm-up (copies and
+    fills left out), or None when the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile, schedule
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
@@ -4797,15 +4841,67 @@ def _traced_kernels(torch, fn, title):
             fn()
             torch.cuda.synchronize()
             prof.step()
-    rows = [(ev.key, ev.count) for ev in prof.key_averages()
-            if getattr(ev, "self_device_time_total",
-                       getattr(ev, "self_cuda_time_total", 0.0)) > 0]
-    if not rows:
+    rows = [(getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0)), ev.count,
+             ev.key) for ev in prof.key_averages()]
+    rows = [r for r in rows if r[0] > 0
+            and not r[2].startswith(("Memcpy", "Memset"))]
+    return rows or None
+
+
+def _traced_kernels(torch, fn, title):
+    """Device kernels one call of ``fn`` launches, from a traced pass
+    (``_kernel_rows``): {"all", "lstm_cell" (the step kernels), "gemm"
+    (names holding "gemm")}, or None when the profiler saw no device
+    time."""
+    rows = _kernel_rows(torch, fn)
+    if rows is None:
         log("%s: the profiler reported no device time (not measured)", title)
         return None
-    return {"all": sum(n for _, n in rows),
-            "lstm_cell": sum(n for k, n in rows if "lstm_cell_" in k),
-            "gemm": sum(n for k, n in rows if "gemm" in k.lower())}
+    return {"all": sum(n for _, n, _ in rows),
+            "lstm_cell": sum(n for _, n, k in rows if "lstm_cell_" in k),
+            "gemm": sum(n for _, n, k in rows if "gemm" in k.lower())}
+
+
+def _first_step_gaps(fluid, LC, exe, prog, init, batch, what):
+    """The first step from ``init`` on the CPU, and on the card through
+    the step kernels and through the plain steps (the control): the
+    kernel route's loss and the norm of its weights' difference to the
+    CPU's, each within LSTM_CONTROL x the control's. Returns (the
+    kernel's loss gap, the control's)."""
+    main, _, loss = prog
+    names = sorted(init)
+
+    def first_step(executor, plain=False):
+        scope = _scope_from(fluid, init, executor.device)
+        with (_plain_steps(LC) if plain else contextlib.nullcontext()):
+            lv, = executor.run(main, feed=batch, fetch_list=[loss],
+                               scope=scope)
+        return float(lv), {n: scope.get_numpy(n) for n in names}
+
+    t0 = time.perf_counter()
+    cpu_loss, cpu_w = first_step(fluid.Executor(fluid.CPUPlace()))
+    cpu_s = time.perf_counter() - t0
+    k_loss, k_w = first_step(exe)
+    p_loss, p_w = first_step(exe, plain=True)
+    k_gap = abs(k_loss - cpu_loss) / abs(cpu_loss)
+    p_gap = abs(p_loss - cpu_loss) / abs(cpu_loss)
+    k_norm = _apart(k_w, cpu_w)[2]
+    p_norm = _apart(p_w, cpu_w)[2]
+    kp_norm = _apart(k_w, p_w)[2]
+    log("%s first step: loss card kernel %.7f, card plain steps %.7f, CPU "
+        "%.7f; loss gap to the CPU %.3g (control: the plain steps %.3g); "
+        "weights' difference norm / weights' norm to the CPU %.3g (control "
+        "%.3g), kernel to plain steps %.3g; limit %g x the control; the "
+        "CPU step took %.1f s", what, k_loss, p_loss, cpu_loss, k_gap, p_gap,
+        k_norm, p_norm, kp_norm, LSTM_CONTROL, cpu_s)
+    check(k_gap <= max(LSTM_CONTROL * p_gap, 1e-6), "%s first step: the "
+          "kernel's loss is %g from the CPU's, the plain steps' %g", what,
+          k_gap, p_gap)
+    check(k_norm <= max(LSTM_CONTROL * p_norm, 1e-6), "%s first step: the "
+          "kernel's weights are %g from the CPU's, the plain steps' %g",
+          what, k_norm, p_norm)
+    return k_gap, p_gap
 
 
 def lstm_train_phase(torch, smi):
@@ -4832,44 +4928,12 @@ def lstm_train_phase(torch, smi):
     tokens = sum(lens)
     maxlen = 1 << (max(lens) - 1).bit_length()
     per_step = 2 * LSTM["stacked"] * maxlen
-    names = sorted(init)
-
-    def first_step(executor, plain=False):
-        scope = _scope_from(fluid, init, executor.device)
-        if plain:
-            with _plain_steps(LC):
-                lv, = executor.run(main, feed=batch, fetch_list=[loss],
-                                   scope=scope)
-        else:
-            lv, = executor.run(main, feed=batch, fetch_list=[loss],
-                               scope=scope)
-        return float(lv), {n: scope.get_numpy(n) for n in names}
-
-    t0 = time.perf_counter()
-    cpu_loss, cpu_w = first_step(fluid.Executor(fluid.CPUPlace()))
-    cpu_s = time.perf_counter() - t0
-    k_loss, k_w = first_step(exe)
-    p_loss, p_w = first_step(exe, plain=True)
-    k_gap = abs(k_loss - cpu_loss) / abs(cpu_loss)
-    p_gap = abs(p_loss - cpu_loss) / abs(cpu_loss)
-    k_norm = _apart(k_w, cpu_w)[2]
-    p_norm = _apart(p_w, cpu_w)[2]
-    kp_norm = _apart(k_w, p_w)[2]
-    log("lstm first step (vocab %d, hidden %d, %d layers, batch %d, %d "
-        "tokens in a bucket of %d, @MAXLEN %d): loss card kernel %.7f, card "
-        "plain cell %.7f, CPU %.7f; loss gap to the CPU %.3g (control: the "
-        "plain cell %.3g); weights' difference norm / weights' norm to the "
-        "CPU %.3g (control %.3g), kernel to plain cell %.3g; limit %g x the "
-        "control; the CPU step took %.1f s", LSTM["vocab"], LSTM["hidden"],
-        LSTM["stacked"], LSTM["batch"], tokens,
-        1 << (tokens - 1).bit_length(), maxlen, k_loss, p_loss, cpu_loss,
-        k_gap, p_gap, k_norm, p_norm, kp_norm, LSTM_CONTROL, cpu_s)
-    check(k_gap <= max(LSTM_CONTROL * p_gap, 1e-6), "lstm first step: the "
-          "kernel's loss is %g from the CPU's, the plain cell's %g", k_gap,
-          p_gap)
-    check(k_norm <= max(LSTM_CONTROL * p_norm, 1e-6), "lstm first step: the "
-          "kernel's weights are %g from the CPU's, the plain cell's %g",
-          k_norm, p_norm)
+    k_gap, p_gap = _first_step_gaps(
+        fluid, LC, exe, prog, init, batch,
+        "lstm (vocab %d, hidden %d, %d layers, batch %d, %d tokens in a "
+        "bucket of %d, @MAXLEN %d)" % (
+            LSTM["vocab"], LSTM["hidden"], LSTM["stacked"], LSTM["batch"],
+            tokens, 1 << (tokens - 1).bit_length(), maxlen))
     _reset_launches()
     losses, wall, _ = _train(torch, fluid, exe, prog, init, [batch],
                              LSTM_STEPS)
@@ -5005,6 +5069,575 @@ def lstm_phase(torch, smi):
     return launches, graph_launches, cell, train
 
 
+# -- phase 16 ------------------------------------------------------------
+# the CRF/CTC and detection ops: the reference's label_semantic_roles
+# tagger at the book's widths, the ssd zoo model, CTC
+SRL_BATCH, SRL_STEPS = 64, 20
+SRL_NLL_RTOL = 1e-5
+NEAR_TIE_X = 2.0          # a parting's margin: at most 2 x the rounding
+SSD_BATCH, SSD_STEPS = 32, 10
+DET_RTOL, DET_ATOL = 1e-5, 1e-6
+CTC = dict(batch=32, t=64, classes=32, label_lens=(5, 20))
+CTC_RTOL = 1e-5
+
+
+def _srl_program(fluid):
+    from paddle_tpu_torch.models import label_semantic_roles as SRL
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        net = SRL.build_train_net(fluid)
+    return main, startup, net
+
+
+def _path_score(em, trans, path):
+    """A tag path's CRF score in float64 under emissions ``em`` [n, D]."""
+    em, trans = em.astype(np.float64), trans.astype(np.float64)
+    return trans[0, path[0]] + trans[1, path[-1]] + \
+        em[np.arange(len(path)), path].sum() + \
+        trans[2:][path[:-1], path[1:]].sum()
+
+
+def _viterbi_partings(em_k, em_c, trans, path_k, path_c, lens):
+    """[(near-tie, margin, rounding, first row, length)] of the
+    sentences whose card and CPU Viterbi paths part. The margin is the
+    CPU path's score less the card path's, both under the CPU's
+    emissions; the row's rounding is the most that two correct fp32
+    computations of its emissions (the card's, the CPU's) can move a
+    path's score, sum_t max_d |em_k - em_c|, plus the fp32 rounding of
+    the score's own sum. A near-tie's margin is at most NEAR_TIE_X times
+    that."""
+    out, start = [], 0
+    eps32 = float(np.finfo(np.float32).eps)
+    for n in lens:
+        pk, pc = path_k[start:start + n], path_c[start:start + n]
+        if not np.array_equal(pk, pc):
+            ek, ec = em_k[start:start + n], em_c[start:start + n]
+            margin = _path_score(ec, trans, pc) - _path_score(ec, trans, pk)
+            terms = float(np.abs(ec).max(1).sum()) + \
+                float(np.abs(trans).max()) * (n + 1)
+            eps = float(np.abs(ek - ec).max(1).sum()) + eps32 * terms
+            out.append((abs(margin) <= NEAR_TIE_X * eps, margin, eps, start,
+                        n))
+        start += n
+    return out
+
+
+def _crf_part(fluid, em, target, path, lens, trans):
+    """The SRL step's CRF part alone, on its own inputs: one-op programs
+    of linear_chain_crf (with the gradients of its Emission and
+    Transition), crf_decoding and chunk_eval (the path against the
+    target), and their feeds."""
+    from paddle_tpu_torch.tools import op_sweep
+    S = op_sweep.Seq
+    parts = [("linear_chain_crf", {"Emission": S(em, lens),
+                                   "Label": S(target, lens),
+                                   "Transition": trans}, {},
+              ["LogLikelihood"], ["Emission", "Transition"]),
+             ("crf_decoding", {"Emission": S(em, lens),
+                               "Transition": trans}, {}, ["ViterbiPath"],
+              []),
+             ("chunk_eval", {"Inference": S(path, lens),
+                             "Label": S(target, lens)},
+              {"num_chunk_types": 29, "chunk_scheme": "IOB"},
+              ["Precision", "NumCorrectChunks"], [])]
+    return [op_sweep.one_op_program(fluid, *p) for p in parts]
+
+
+def _share(rows, pick):
+    """(device ms, launches, share of the rows' device time) of the rows
+    whose names ``pick`` accepts."""
+    mine = [r for r in rows if pick(r[2])]
+    total = sum(r[0] for r in rows)
+    return (sum(r[0] for r in mine) / 1e3, sum(r[1] for r in mine),
+            sum(r[0] for r in mine) / total)
+
+
+def srl_phase(torch, smi):
+    """(a) The reference book's label_semantic_roles tagger at its own
+    widths (``models/label_semantic_roles.py``: word_dim 32, the shared
+    44068 x 32 table not trained, predicate 3162 x 32, mark 2 x 5,
+    hidden 512, 8 dynamic_lstm layers of 128 units with peepholes,
+    reversed on odd layers, 59 labels, the CRF with crfw at lr x 1e-3,
+    Viterbi, chunk_eval over 29 IOB types; Adam 2e-3), batch 64 with
+    lengths RandomState(0).randint(5, 30): the forward of one fixed
+    batch on the card and on the CPU from one scope (the CRF NLL within
+    rtol 1e-5, the Viterbi paths equal or parted at a diagnosed
+    near-tie, every tag in [0, 59)); the card's first step against the
+    CPU's within 4 x the gap of the control (the plain LSTM steps on the
+    card), on loss and weights; 20 eager steps, losses falling, lstm_cell
+    launches exactly 8 layers x @MAXLEN x 2 a step and no other kernel
+    of the port; 5 ``run()`` calls against one ``run_steps(K=5)``
+    dispatch bitwise; eager and graph ms A/B/A/B, tokens/s and the busy
+    share; an eager step's kernels by device time (the step kernels', the
+    GEMMs' and, traced alone on the same inputs, the CRF part's share
+    and launches); an eager step's peak memory."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import label_semantic_roles as SRL
+    from paddle_tpu_torch.ops import lstm_cell as LC
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    cpu = fluid.Executor(fluid.CPUPlace())
+    main, startup, net = _srl_program(fluid)
+    loss = net["loss"]
+    prog = (main, startup, loss)
+    init = _init_of(fluid, exe, startup)
+    batch, lens = SRL.make_batch(fluid, batch=SRL_BATCH, seed=0)
+    labels = SRL.LABEL_DICT_LEN
+    tokens = sum(lens)
+    maxlen = 1 << (max(lens) - 1).bit_length()
+    per_step = 2 * SRL.BOOK["depth"] * maxlen
+    w = SRL.BOOK
+    log("srl (the book's db_lstm at its widths: vocabularies %d / %d, "
+        "word_dim %d, hidden %d, %d peephole lstm layers of %d units, %d "
+        "labels; Adam 2e-3): batch %d, %d tokens in a bucket of %d, "
+        "@MAXLEN %d, %.1f%% of the (row, step) cells live",
+        w["word_dict_len"], w["pred_dict_len"], w["word_dim"],
+        w["hidden_dim"], w["depth"], w["hidden_dim"] // 4, labels,
+        SRL_BATCH, tokens, 1 << (tokens - 1).bit_length(), maxlen,
+        100.0 * tokens / (SRL_BATCH * maxlen))
+
+    # the forward of one fixed batch, card against CPU, from one scope
+    fetch = [net["nll"], net["emission"], net["path"]] + list(net["chunks"])
+    infer = main.prune([v.name for v in fetch])
+
+    def forward(executor):
+        return executor.run(infer, feed=batch, fetch_list=fetch,
+                            scope=_scope_from(fluid, init, executor.device))
+
+    got, want = forward(exe), forward(cpu)
+    nll_err = float(np.max(np.abs(got[0] - want[0]) / np.abs(want[0])))
+    check(np.allclose(got[0], want[0], rtol=SRL_NLL_RTOL, atol=0),
+          "srl: the card's CRF NLL is %g (relative) from the CPU's, limit "
+          "%g", nll_err, SRL_NLL_RTOL)
+    path_k, path_c = got[2].ravel(), want[2].ravel()
+    check(path_k.shape == (tokens,) and bool(((path_k >= 0)
+                                               & (path_k < labels)).all()),
+          "srl: Viterbi path of shape %s, tags %d..%d, want %d tags in "
+          "[0, %d)", path_k.shape, path_k.min(), path_k.max(), tokens,
+          labels)
+    partings = _viterbi_partings(got[1], want[1], init["crfw"], path_k,
+                                 path_c, lens)
+    for tie, margin, eps, start, n in partings:
+        log("srl: the Viterbi paths part in the sentence at row %d (%d "
+            "tokens): margin %.3g, the row's rounding %.3g: %s", start, n,
+            margin, eps, "a near-tie" if tie else "NOT a near-tie")
+        check(tie, "srl: the card's Viterbi path parts from the CPU's at "
+              "row %d, margin %g over %g x the row's rounding %g", start,
+              margin, NEAR_TIE_X, eps)
+    chunks_k = [float(np.ravel(x)[0]) for x in got[3:]]
+    chunks_c = [float(np.ravel(x)[0]) for x in want[3:]]
+    check(partings or chunks_k == chunks_c, "srl: chunk metrics on the "
+          "card %s, on the CPU %s", chunks_k, chunks_c)
+    log("srl forward, card vs CPU: CRF NLL within %.3g (relative; limit "
+        "%g), mean NLL %.4f; Viterbi paths %s; chunk_eval (precision, "
+        "recall, F1, infer / label / correct chunks) card %s, CPU %s; %s",
+        nll_err, SRL_NLL_RTOL, float(np.mean(got[0])),
+        "equal" if not partings else "part in %d sentences, each at a "
+        "near-tie" % len(partings), chunks_k, chunks_c, smi)
+
+    k_gap, p_gap = _first_step_gaps(fluid, LC, exe, prog, init, batch,
+                                    "srl")
+    _reset_launches()
+    losses, wall, _ = _train(torch, fluid, exe, prog, init, [batch],
+                             SRL_STEPS)
+    counts = _launches()
+    log("srl train (the fixed batch): %d steps, losses %s; %.1f tokens/s, "
+        "mean step %.3f ms (steps 2..%d); lstm_cell launches %d (%d a "
+        "step); %s", SRL_STEPS, " ".join("%.4f" % x for x in losses),
+        tokens * (SRL_STEPS - 1) / wall, 1e3 * wall / (SRL_STEPS - 1),
+        SRL_STEPS, counts["lstm_cell"], counts["lstm_cell"] // SRL_STEPS,
+        smi)
+    check(all(np.isfinite(losses)) and np.mean(losses[-5:]) < losses[0]
+          and losses[-1] < losses[0], "srl loss did not fall: %r", losses)
+    check(counts["lstm_cell"] == per_step * SRL_STEPS, "srl: lstm_cell "
+          "launched %d times in %d steps, want %d (8 layers x %d steps x 2)",
+          counts["lstm_cell"], SRL_STEPS, per_step * SRL_STEPS, maxlen)
+    others = {k: v for k, v in counts.items() if k != "lstm_cell" and v}
+    check(not others, "the srl step launched other kernels: %s", others)
+    graph_counts = _graph_vs_eager(torch, fluid, prog, init,
+                                   [batch] * MEGA_TRAIN_K,
+                                   "srl run_steps")[0]
+    check(graph_counts["lstm_cell"] == per_step * MEGA_TRAIN_K,
+          "srl run_steps(K=%d): %d lstm_cell launches through the replay, "
+          "want %d", MEGA_TRAIN_K, graph_counts["lstm_cell"],
+          per_step * MEGA_TRAIN_K)
+    _capture_warm(torch, fluid, exe, prog, init, [batch] * MEGA_TRAIN_K,
+                  "srl")
+    timing = _interleaved_train(torch, fluid, exe, prog, init,
+                                [batch] * MEGA_TRAIN_STEPS, "srl",
+                                "tokens/s", tokens, smi, warm=True)
+
+    scope = _scope_from(fluid, init, exe.device)
+
+    def step():
+        exe.run(main, feed=batch, fetch_list=[loss], scope=scope)
+
+    step()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    shares = {}
+    rows = _kernel_rows(torch, step)
+    em = got[1][:tokens]
+    target = batch["target"].data.astype(np.int32)
+    crf = _crf_part(fluid, em, target, path_k.reshape(-1, 1), lens,
+                    init["crfw"])
+
+    def crf_step():
+        for p, f, out in crf:
+            exe.run(p, feed=f, fetch_list=out, scope=fluid.Scope())
+
+    crf_rows = _kernel_rows(torch, crf_step)
+    if rows is not None and crf_rows is not None:
+        step_ms = sum(r[0] for r in rows) / 1e3
+        crf_ms = sum(r[0] for r in crf_rows) / 1e3
+        shares = {
+            "step_device_ms": step_ms,
+            "step_launches": sum(r[1] for r in rows),
+            "lstm_cell": _share(rows, lambda k: "lstm_cell_" in k),
+            "gemm": _share(rows, lambda k: "gemm" in k.lower()),
+            "crf_part": (crf_ms, sum(r[1] for r in crf_rows),
+                         crf_ms / step_ms)}
+        log("srl eager step kernels (traced): %d launches, %.3f ms of "
+            "device time; the lstm step kernels %.3f ms in %d launches = "
+            "%.1f%%; GEMMs %.3f ms in %d = %.1f%%; the CRF part (its "
+            "forward and gradient, Viterbi and chunk_eval, traced alone on "
+            "the step's emissions) %.3f ms in %d launches = %.1f%% of the "
+            "step's device time", shares["step_launches"], step_ms,
+            *shares["lstm_cell"][:2], 100 * shares["lstm_cell"][2],
+            *shares["gemm"][:2], 100 * shares["gemm"][2], crf_ms,
+            shares["crf_part"][1], 100 * shares["crf_part"][2])
+        for dev_us, count, key in sorted(rows, reverse=True)[:8]:
+            log("  %6.1f%% of device time  %8.3f ms  x%-6d %s",
+                100 * dev_us / 1e3 / step_ms, dev_us / 1e3, count, key[:70])
+    log("srl: an eager step's peak device memory %.1f MB, %.1f MB above "
+        "what was held before it (the weights, their moments and the "
+        "captured graphs' pools); %s", peak / 2 ** 20, (peak - held) / 2 ** 20,
+        smi)
+    return counts["lstm_cell"], graph_counts["lstm_cell"], {
+        "tokens": tokens, "first_step_gap": k_gap, "control_gap": p_gap,
+        "nll_err": nll_err, "viterbi_partings": len(partings),
+        "kernels": shares, "peak_bytes": peak, "step_bytes": peak - held,
+        "timing": timing}
+
+
+def _ssd_programs(fluid):
+    from paddle_tpu_torch.models import ssd as S
+    progs = []
+    for build in (S.build_ssd_train_net, S.build_ssd_infer_net):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            out = build()
+        progs.append((main, startup, out[-1]))
+    return progs
+
+
+def ssd_train_phase(torch, smi, prog):
+    """(b) The ssd zoo model at its own widths (3 x 64 x 64, 5 classes,
+    352 priors over two maps, Adam 1e-3), batch 32 with 1..4 ground-truth
+    boxes an image (``models/ssd.make_batch``): SSD_STEPS eager steps on
+    the fixed batch, losses falling; 5 ``run()`` calls against one
+    ``run_steps(K=5)`` dispatch bitwise (under cudnn.deterministic);
+    eager and graph ms A/B/A/B and the busy share. Returns the trained
+    scope's state and the batch."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import ssd as S
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    init = _init_of(fluid, exe, prog[1])
+    batch, lens = S.make_batch(fluid, batch=SSD_BATCH, seed=0)
+    losses, wall, scope = _train(torch, fluid, exe, prog, init, [batch],
+                                 SSD_STEPS)
+    log("ssd train (Adam 1e-3, batch %d, %d ground-truth boxes in a bucket "
+        "of %d): %d steps, losses %s; mean step %.3f ms (steps 2..%d); %s",
+        SSD_BATCH, sum(lens), 1 << (sum(lens) - 1).bit_length(), SSD_STEPS,
+        " ".join("%.4f" % x for x in losses), 1e3 * wall / (SSD_STEPS - 1),
+        SSD_STEPS, smi)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "ssd loss did not fall: %r", losses)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _graph_vs_eager(torch, fluid, prog, init, [batch] * MEGA_TRAIN_K,
+                        "ssd run_steps")
+    finally:
+        torch.backends.cudnn.deterministic = det
+    _capture_warm(torch, fluid, exe, prog, init, [batch] * MEGA_TRAIN_K,
+                  "ssd")
+    timing = _interleaved_train(torch, fluid, exe, prog, init,
+                                [batch] * MEGA_TRAIN_STEPS, "ssd",
+                                "images/s", SSD_BATCH, smi, warm=True)
+    return {n: scope.get_numpy(n) for n in init}, batch, timing
+
+
+def _det_rows_part(a, b):
+    """Images whose detection rows part: labels not equal, or scores or
+    boxes beyond rtol DET_RTOL / atol DET_ATOL."""
+    return [i for i in range(a.shape[0])
+            if not (np.array_equal(a[i, :, 0], b[i, :, 0])
+                    and np.allclose(a[i, :, 1:], b[i, :, 1:], rtol=DET_RTOL,
+                                    atol=DET_ATOL))]
+
+
+def _det_program(fluid, m, c):
+    """detection_output alone over fed locations [N, m, 4], scores
+    [N, m, c], priors and variances [m, 4], with the infer net's
+    attributes."""
+    main = fluid.Program()
+    with fluid.program_guard(main, fluid.Program()), \
+            fluid.unique_name.guard():
+        L = fluid.layers
+        loc = L.data("loc", [m, 4])
+        conf = L.data("conf", [m, c])
+        prior = L.data("prior", [m, 4], append_batch_size=False)
+        var = L.data("var", [m, 4], append_batch_size=False)
+        dets = L.detection_output(loc, conf, prior, var, nms_threshold=0.45,
+                                  score_threshold=0.01, keep_top_k=50)
+    return main, dets
+
+
+def ssd_infer_phase(torch, smi, prog, state, images, gt):
+    """(c) ``build_ssd_infer_net`` (detection_output: softmax, box_coder
+    decode, multiclass_nms; nms_top_k 400 over 352 priors, keep_top_k
+    50) on the trained weights: the card's rows against the CPU's from
+    the same weights, labels equal and scores and boxes within rtol 1e-5
+    / atol 1e-6, unless the image's parting is diagnosed as a near-tie
+    (the network's outputs on the card within rounding of the CPU's, and
+    detection_output alone on the CPU fed the card's outputs giving the
+    card's rows: a decision at a boundary, not the detection ops);
+    DetectionMAP (class_num 5, 11-point) over the images, card against
+    CPU; ms per batch eager and as one CUDA graph (``run_steps``, K=1)
+    A/B/A/B; the launches of one multiclass_nms (traced)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools import op_sweep
+    main, _, dets = prog
+    ops = main.global_block().ops
+    coder = next(op for op in ops if op.type == "box_coder")
+    nms = next(op for op in ops if op.type == "multiclass_nms")
+    soft = next(op for op in ops if op.type == "softmax")
+    inner = [soft.input("X")[0], coder.input("TargetBox")[0],
+             coder.input("PriorBox")[0], coder.input("PriorBoxVar")[0],
+             nms.input("BBoxes")[0], nms.input("Scores")[0]]
+    fetch = [dets.name] + inner
+    feed = {"image": images}
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    cpu = fluid.Executor(fluid.CPUPlace())
+    scope = _scope_from(fluid, state, exe.device)
+    got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    want = cpu.run(main, feed=feed, fetch_list=fetch,
+                   scope=_scope_from(fluid, state, "cpu"))
+    k_rows, c_rows = got[0], want[0]
+    n, m, c = got[1].shape
+    kept = int((k_rows[..., 1] > 0).sum())
+    check(k_rows.shape == (images.shape[0], 50, 6) and kept > 0
+          and bool(np.isfinite(k_rows).all()), "ssd detections: shape %s, "
+          "%d kept rows", k_rows.shape, kept)
+    parted = _det_rows_part(k_rows, c_rows)
+    if parted:
+        det_main, det_out = _det_program(fluid, m, c)
+        alone, = cpu.run(det_main, feed={"conf": got[1], "loc": got[2],
+                                         "prior": got[3], "var": got[4]},
+                         fetch_list=[det_out], scope=fluid.Scope())
+        net_err = max(_close_err(torch, torch.from_numpy(g),
+                                 torch.from_numpy(w), 1e-4, 1e-5)[1]
+                      for g, w in zip(got[1:3], want[1:3]))
+        near = all(np.allclose(g, w, rtol=1e-4, atol=1e-5 * max(
+            1.0, float(np.abs(w).max())))
+                   for g, w in zip(got[1:3], want[1:3]))
+        same_alone = not _det_rows_part(k_rows, alone)
+        log("ssd detections: %d of %d images part between the card and the "
+            "CPU; the network's outputs differ by up to %.3g; "
+            "detection_output alone on the CPU, fed the card's outputs, %s "
+            "the card's rows: %s", len(parted), n, net_err,
+            "gives" if same_alone else "does NOT give",
+            "near-ties" if near and same_alone else "NOT near-ties")
+        check(near and same_alone, "ssd detections part from the CPU's in "
+              "images %s, and not at a near-tie", parted[:8])
+    # DetectionMAP over the images, card and CPU
+    map_main = fluid.Program()
+    with fluid.program_guard(map_main, fluid.Program()), \
+            fluid.unique_name.guard():
+        d = fluid.layers.data("det", [6])
+        gl = fluid.layers.data("gt_label", [1])
+        gb = fluid.layers.data("gt_box", [4])
+        ev = fluid.evaluator.DetectionMAP(d, gl, gb, class_num=5)
+    gt_box, gt_label, lens = gt
+    maps = []
+    for executor, rows in ((exe, k_rows), (cpu, c_rows)):
+        ev.reset()
+        start = 0
+        for i, g in enumerate(lens):
+            mv, = executor.run(map_main, feed={
+                "det": rows[i], "gt_label": gt_label[start:start + g]
+                .astype(np.float32), "gt_box": gt_box[start:start + g]},
+                fetch_list=ev.metrics, scope=fluid.Scope())
+            ev.update(mv)
+            start += g
+        maps.append(float(ev.eval()[0]))
+    check(parted or abs(maps[0] - maps[1]) <= 1e-5 * max(1.0, maps[1]),
+          "ssd DetectionMAP: card %r, CPU %r", maps[0], maps[1])
+    # ms per batch: eager and one captured dispatch (K=1)
+    graph_out = exe.run_steps(main, feeds=[feed], fetch_list=[dets],
+                              scope=scope)
+    torch.cuda.synchronize()
+    check(np.array_equal(np.asarray(graph_out[0][0]), k_rows),
+          "ssd detections: the CUDA graph's rows differ from eager's")
+    walls = _ab_timing(torch, {
+        "eager": lambda: exe.run(main, feed=feed, fetch_list=[dets],
+                                 scope=scope),
+        "graph": lambda: exe.run_steps(main, feeds=[feed],
+                                       fetch_list=[dets], scope=scope)})
+    one = op_sweep.one_op_program(
+        fluid, "multiclass_nms", {"BBoxes": got[5], "Scores": got[6]},
+        {a: nms.attr(a) for a in ("score_threshold", "nms_top_k",
+                                  "keep_top_k", "nms_threshold",
+                                  "normalized", "nms_eta",
+                                  "background_label")}, ["Out"])
+    nms_rows = _kernel_rows(torch, lambda: exe.run(
+        one[0], feed=one[1], fetch_list=one[2], scope=fluid.Scope()))
+    nms_launches = None if nms_rows is None else sum(r[1] for r in nms_rows)
+    nms_ms = None if nms_rows is None else sum(r[0] for r in nms_rows) / 1e3
+    log("ssd inference (batch %d, %d priors, %d classes): %d kept rows, "
+        "card rows %s the CPU's; DetectionMAP (11-point, class_num 5) card "
+        "%.6f, CPU %.6f; ms per batch eager %s (median %.3f), one CUDA "
+        "graph %s (median %.3f); one multiclass_nms: %s launches, %s ms of "
+        "device time (%d rounds: min(priors, nms_top_k)); %s", n, m, c,
+        kept, "equal to" if not parted else "at near-ties with", *maps,
+        " ".join("%.3f" % x for x in walls["eager"]),
+        _median(walls["eager"]), " ".join("%.3f" % x for x in
+                                          walls["graph"]),
+        _median(walls["graph"]), nms_launches,
+        "not measured" if nms_ms is None else "%.3f" % nms_ms,
+        min(m, nms.attr("nms_top_k")), smi)
+    return {"eager_ms": _median(walls["eager"]),
+            "graph_ms": _median(walls["graph"]),
+            "nms_launches": nms_launches, "nms_device_ms": nms_ms,
+            "map": maps[0], "parted_images": len(parted)}
+
+
+def ctc_phase(torch):
+    """(d) CTC at batch 32, T 64, 32 classes, label lengths 5..20 (input
+    lengths 40..64; the last sequence cannot align: 5 equal labels in 6
+    steps): warpctc's loss on the card against the port on the CPU at
+    rtol 1e-5, its gradient within 1e-5 of its largest value (the
+    CPU's own fp32 rounding logged beside it, against F.ctc_loss in
+    float64); ``torch.nn.functional.ctc_loss`` as an
+    independent control on the feasible sequences at rtol 1e-4 (it gives
+    inf where the port, as the JAX package, gives a huge finite loss);
+    ``ctc_greedy_decoder`` on the card equal to the CPU's."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools import op_sweep
+    b, t, c = CTC["batch"], CTC["t"], CTC["classes"]
+    rng = np.random.RandomState(16)
+    lab_lens = rng.randint(CTC["label_lens"][0], CTC["label_lens"][1] + 1,
+                           size=b)
+    in_lens = rng.randint(40, t + 1, size=b)
+    in_lens[-1], lab_lens[-1] = 6, 5
+    logits = rng.randn(int(in_lens.sum()), c).astype(np.float32)
+    labels = rng.randint(1, c, (int(lab_lens.sum()), 1)).astype(np.int32)
+    labels[-5:] = 3
+    S = op_sweep.Seq
+    prog, feed, fetch = op_sweep.one_op_program(
+        fluid, "warpctc", {"Logits": S(logits, in_lens.tolist()),
+                           "Label": S(labels, lab_lens.tolist())},
+        {"blank": 0}, ["Loss"], ["Logits"])
+    res = [fluid.Executor(place).run(prog, feed=feed, fetch_list=fetch,
+                                     scope=fluid.Scope())
+           for place in (fluid.CUDAPlace(0), fluid.CPUPlace())]
+    (loss_k, grad_k), (loss_c, grad_c) = res
+    loss_err = float(np.max(np.abs(loss_k - loss_c) / np.abs(loss_c)))
+    grad_err = float(np.abs(grad_k - grad_c).max()) / float(
+        np.abs(grad_c).max())
+    check(np.allclose(loss_k, loss_c, rtol=CTC_RTOL, atol=0),
+          "ctc: the card's loss is %g (relative) from the CPU's", loss_err)
+    check(grad_err <= CTC_RTOL, "ctc: the card's gradient is %g (of its "
+          "largest value) from the CPU's, limit %g", grad_err, CTC_RTOL)
+    dev = torch.device("cuda")
+    padded = torch.zeros((t, b, c), device=dev)
+    starts = np.concatenate([[0], np.cumsum(in_lens)[:-1]])
+    for i, (s, n) in enumerate(zip(starts, in_lens)):
+        padded[:n, i] = torch.from_numpy(logits[s:s + n]).to(dev)
+    ref = torch.nn.functional.ctc_loss(
+        torch.log_softmax(padded, -1),
+        torch.from_numpy(labels.ravel().astype(np.int64)).to(dev),
+        torch.from_numpy(in_lens.astype(np.int64)),
+        torch.from_numpy(lab_lens.astype(np.int64)), blank=0,
+        reduction="none").cpu().numpy()
+    ctl_err = float(np.max(np.abs(loss_k.ravel()[:-1] - ref[:-1])
+                           / np.abs(ref[:-1])))
+    # the CPU gradient's own fp32 rounding: F.ctc_loss in float64 on the
+    # feasible sequences (their rows of the flat logits), for the log
+    x64 = torch.from_numpy(logits[:starts[-1]].astype(np.float64))
+    x64.requires_grad_(True)
+    pad64 = torch.zeros((t, b - 1, c), dtype=torch.float64)
+    for i, (s, n) in enumerate(zip(starts[:-1], in_lens[:-1])):
+        pad64[:n, i] = x64[s:s + n]
+    torch.nn.functional.ctc_loss(
+        torch.log_softmax(pad64, -1),
+        torch.from_numpy(labels.ravel()[:-lab_lens[-1]].astype(np.int64)),
+        torch.from_numpy(in_lens[:-1].astype(np.int64)),
+        torch.from_numpy(lab_lens[:-1].astype(np.int64)), blank=0,
+        reduction="sum").backward()
+    f64_err = float((x64.grad - torch.from_numpy(
+        grad_c[:starts[-1]])).abs().max()) / float(x64.grad.abs().max())
+    check(ctl_err <= 1e-4 and np.isinf(ref[-1])
+          and 1e29 < loss_k.ravel()[-1] < np.inf, "ctc: against "
+          "F.ctc_loss %g (limit 1e-4); the impossible sequence %r (port) "
+          "and %r (F.ctc_loss)", ctl_err, loss_k.ravel()[-1], ref[-1])
+    main = fluid.Program()
+    with fluid.program_guard(main, fluid.Program()), \
+            fluid.unique_name.guard():
+        x = fluid.layers.data("logits", [c], lod_level=1)
+        decoded = fluid.layers.ctc_greedy_decoder(x, blank=0)
+    lod = fluid.create_lod_tensor(logits, [in_lens.tolist()])
+    outs = [fluid.Executor(place).run(main, feed={"logits": lod},
+                                      fetch_list=[decoded],
+                                      scope=fluid.Scope())[0]
+            for place in (fluid.CUDAPlace(0), fluid.CPUPlace())]
+    check(np.array_equal(*outs), "ctc_greedy_decoder: card and CPU differ")
+    log("ctc (batch %d, T up to %d, %d classes, labels %d..%d): warpctc "
+        "loss card vs CPU within %.3g (relative; limit %g), gradient "
+        "within %.3g of its largest value (limit %g; the CPU's own fp32 "
+        "gradient is %.3g of its largest from F.ctc_loss's in float64 on "
+        "the feasible sequences); the control F.ctc_loss within %.3g on "
+        "the %d feasible sequences; the impossible one %.4g (port) and %r "
+        "(F.ctc_loss); ctc_greedy_decoder's %d decoded ids equal on card "
+        "and CPU", b, t, c, CTC["label_lens"][0], CTC["label_lens"][1],
+        loss_err, CTC_RTOL, grad_err, CTC_RTOL, f64_err, ctl_err, b - 1,
+        loss_k.ravel()[-1], float(ref[-1]), outs[0].shape[0])
+    return max(loss_err, grad_err)
+
+
+def crf_detection_phase(torch, smi):
+    """Phase 16."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools import op_sweep
+    t0 = time.perf_counter()
+    srl_launches, srl_graph, srl = srl_phase(torch, smi)
+    t1 = time.perf_counter()
+    train_prog, infer_prog = _ssd_programs(fluid)
+    state, batch, ssd_timing = ssd_train_phase(torch, smi, train_prog)
+    lens = batch["gt_box"].recursive_sequence_lengths()[-1]
+    infer = ssd_infer_phase(torch, smi, infer_prog, state, batch["image"],
+                            (batch["gt_box"].data, batch["gt_label"].data,
+                             lens))
+    t2 = time.perf_counter()
+    ctc_err = ctc_phase(torch)
+    held, worst = op_sweep.run("cuda", part="detection")
+    check(len(held) == 14, "detection op sweep held %d op types, want 14",
+          len(held))
+    t3 = time.perf_counter()
+    log("detection op sweep: %d op types held on the card against the CPU "
+        "(forward rtol %g / atol %g, gradients rtol %g / atol %g); largest "
+        "forward |difference| %.3g", len(held), op_sweep.FWD_RTOL,
+        op_sweep.FWD_ATOL, op_sweep.GRAD_RTOL, op_sweep.GRAD_ATOL, worst)
+    log("crf/detection: phase 16 took %.1f s (srl %.1f s, ssd %.1f s, ctc "
+        "and the op sweep %.1f s)", t3 - t0, t1 - t0, t2 - t1, t3 - t2)
+    return srl_launches, srl_graph, {"srl": srl, "ssd_train": ssd_timing,
+                                     "ssd_infer": infer, "ctc_err": ctc_err}
+
+
 def _report_profile(prof, wall, title, focus=None):
     """Device busy share of ``wall`` and the top kernels; with ``focus``,
     also the share of the kernels whose names hold it. Returns (busy
@@ -5080,6 +5713,7 @@ def main():
         mt_launches, mt_err, mt_times, zoo_drops = mt_phase(torch, smi)
         deepfm_phase(torch, smi)
         lstm_launches, lstm_graph, lstm_cell, _ = lstm_phase(torch, smi)
+        srl_launches, srl_graph, _ = crf_detection_phase(torch, smi)
     except SmokeFailure as e:
         print("chip_smoke: FAILED: %s" % e, file=sys.stderr)
         return 1
@@ -5131,8 +5765,9 @@ def main():
         "source": "paddle_tpu_torch/ops/csrc/lstm_cell.cu",
         "replaces": "paddle_tpu/ops/rnn_ops.py:111-131 (lax.scan body, "
                     "fused by XLA: no Pallas kernel)",
-        "launches": lstm_launches, "graph_launches": lstm_graph},
-        **lstm_cell))
+        "launches": lstm_launches + srl_launches,
+        "graph_launches": lstm_graph, "srl_launches": srl_launches,
+        "srl_graph_launches": srl_graph}, **lstm_cell))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

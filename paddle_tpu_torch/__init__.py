@@ -58,6 +58,8 @@ from . import optimizer  # noqa: F401
 from . import regularizer  # noqa: F401
 from . import clip  # noqa: F401
 from . import io  # noqa: F401
+from . import metrics  # noqa: F401
+from . import evaluator  # noqa: F401
 from . import nets  # noqa: F401
 from .core import (  # noqa: F401
     CPUPlace, CUDAPlace, Executor, LoDTensor, Program, Scope, TPUPlace,

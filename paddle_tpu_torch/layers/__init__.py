@@ -1,6 +1,6 @@
 """fluid.layers-compatible DSL surface: the layers whose ops the port
-lowers. The others (CTC/CRF, detection, ...) come with their lowerings
-(ROADMAP.md, queue 1)."""
+lowers. The others (the parallel tier, the readers, ...) come with
+their lowerings (ROADMAP.md, queue 1)."""
 
 from . import ops  # noqa: F401
 from .compat import *  # noqa: F401,F403
@@ -18,11 +18,12 @@ from .learning_rate_scheduler import (  # noqa: F401
 )
 from .math_ops import scale  # noqa: F401
 from .nn import (  # noqa: F401
-    accuracy, auc, batch_norm, clip, clip_by_norm, cos_sim, cross_entropy,
-    dropout, embedding, fc, l2_normalize, label_smooth, layer_norm,
-    matmul, mean, one_hot, reduce_max, reduce_mean, reduce_min,
-    reduce_prod, reduce_sum, sigmoid_cross_entropy_with_logits, softmax,
-    softmax_with_cross_entropy, square_error_cost, topk,
+    accuracy, auc, batch_norm, clip, clip_by_norm, cos_sim, crf_decoding,
+    cross_entropy, dropout, embedding, fc, l2_normalize, label_smooth,
+    layer_norm, linear_chain_crf, matmul, mean, one_hot, reduce_max,
+    reduce_mean, reduce_min, reduce_prod, reduce_sum,
+    sigmoid_cross_entropy_with_logits, softmax, softmax_with_cross_entropy,
+    square_error_cost, topk,
 )
 from .ops import *  # noqa: F401,F403
 from .parallel_layers import sequence_parallel_attention  # noqa: F401

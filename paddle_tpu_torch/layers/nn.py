@@ -5,10 +5,10 @@ ops the port lowers (the flagship LM's and the ResNet models'): fc,
 embedding, softmax, cross_entropy, softmax_with_cross_entropy, mean,
 sigmoid_cross_entropy_with_logits, square_error_cost, accuracy, auc,
 batch_norm, layer_norm, l2_normalize, dropout, matmul, topk, clip,
-clip_by_norm, label_smooth, one_hot, the five reductions and cos_sim.
-Each builds ops through LayerHelper exactly as the JAX package's does,
-so the two packages emit the same Program. The CRF layers come with
-their lowerings (ROADMAP.md, queue 1 item 7).
+clip_by_norm, label_smooth, one_hot, the five reductions, the CRF's
+linear_chain_crf and crf_decoding, and cos_sim. Each builds ops through
+LayerHelper exactly as the JAX package's does, so the two packages emit
+the same Program.
 """
 
 from .layer_helper import LayerHelper
@@ -384,6 +384,46 @@ reduce_mean = reduce_op_layer("reduce_mean")
 reduce_max = reduce_op_layer("reduce_max")
 reduce_min = reduce_op_layer("reduce_min")
 reduce_prod = reduce_op_layer("reduce_prod")
+
+
+def linear_chain_crf(input, label, param_attr=None, name=None):
+    """CRF negative log-likelihood over emission ``input`` [T, D] (LoD).
+
+    Creates the Transition parameter [D+2, D] (row 0 start, row 1 end,
+    rows 2.. transitions: linear_chain_crf_op.cc's layout) and returns
+    the per-sequence NLL [N, 1]; train with mean(nll)."""
+    helper = LayerHelper("linear_chain_crf", param_attr=param_attr,
+                         name=name)
+    size = input.shape[-1]
+    transition = helper.create_parameter(
+        helper.param_attr, shape=[size + 2, size], dtype=input.dtype)
+    ll = helper.create_variable_for_type_inference(input.dtype)
+    alpha = helper.create_variable_for_type_inference(input.dtype)
+    eexp = helper.create_variable_for_type_inference(input.dtype)
+    texp = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="linear_chain_crf",
+        inputs={"Emission": [input], "Label": [label],
+                "Transition": [transition]},
+        outputs={"LogLikelihood": [ll], "Alpha": [alpha],
+                 "EmissionExps": [eexp], "TransitionExps": [texp]})
+    return ll
+
+
+def crf_decoding(input, param_attr=None, name=None, label=None):
+    """Viterbi decode against the transition parameter made by
+    linear_chain_crf (shared through the param_attr's name)."""
+    helper = LayerHelper("crf_decoding", param_attr=param_attr, name=name)
+    size = input.shape[-1]
+    transition = helper.create_parameter(
+        helper.param_attr, shape=[size + 2, size], dtype=input.dtype)
+    path = helper.create_variable_for_type_inference("int64")
+    inputs = {"Emission": [input], "Transition": [transition]}
+    if label is not None:
+        inputs["Label"] = [label]
+    helper.append_op(type="crf_decoding", inputs=inputs,
+                     outputs={"ViterbiPath": [path]})
+    return path
 
 
 def cos_sim(X, Y, name=None):

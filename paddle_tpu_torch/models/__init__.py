@@ -3,7 +3,7 @@
 The counterpart of ``paddle_tpu/models/__init__.py`` for its Program-level
 zoo. ``TRANSFORM_ZOO`` names each entry's ``zoo_spec*`` factory, a
 ``(build_fn, feed_fn)`` pair, and ``transform_zoo_entry`` stages its
-programs. The port builds mlp, cnn, cnn_infer, resnet, vgg, deepfm,
+programs. The port builds mlp, cnn, cnn_infer, resnet, vgg, deepfm, ssd,
 transformer and transformer_mt; every other entry of the JAX package's zoo raises,
 naming the ROADMAP.md queue item it waits for. The analysis zoo
 (``ZOO``, ``zoo_entry``) waits for item 11.
@@ -18,6 +18,7 @@ TRANSFORM_ZOO = {
     "resnet": ("paddle_tpu_torch.models.resnet", "zoo_spec"),
     "vgg": ("paddle_tpu_torch.models.vgg", "zoo_spec"),
     "deepfm": ("paddle_tpu_torch.models.deepfm", "zoo_spec"),
+    "ssd": ("paddle_tpu_torch.models.ssd", "zoo_spec"),
     "transformer": ("paddle_tpu_torch.models.transformer", "zoo_spec"),
     "transformer_mt": ("paddle_tpu_torch.models.transformer",
                        "zoo_spec_mt"),
@@ -25,7 +26,6 @@ TRANSFORM_ZOO = {
 
 # the JAX package's other entries -> what they wait for (ROADMAP.md)
 _NOT_PORTED = {
-    "ssd": "queue 1 item 7 (concat, prior_box, ssd_loss)",
     "transformer_moe": "queue 1 item 9 (moe_ffn, the parallel tier)",
 }
 

@@ -5,6 +5,8 @@ from . import activations  # noqa: F401
 from . import beam_search  # noqa: F401
 from . import control_flow  # noqa: F401
 from . import conv  # noqa: F401
+from . import crf_ctc  # noqa: F401
+from . import detection_ops  # noqa: F401
 from . import elementwise  # noqa: F401
 from . import loss  # noqa: F401
 from . import math  # noqa: F401

@@ -93,19 +93,27 @@ def _assign(ctx, op):
     ctx.set_out(op, "Out", ctx.in1(op, "X"))
 
 
+def kept(ctx, op, key, make):
+    """The tensors of ``make()`` (host arrays or tensors) on the device,
+    made once per op and ``key`` and kept by the executor
+    (``assign_value``'s rule for temporaries): a CUDA graph cannot hold
+    the host-to-device copy that would make them again every step."""
+    held = getattr(ctx.executor, "constants", None)
+    made = held.setdefault(op, {}) if held is not None else {}
+    hit = made.get(key)
+    if hit is None:
+        hit = made[key] = tuple(torch.as_tensor(a).to(ctx.device)
+                                for a in make())
+    return hit
+
+
 def _kept(ctx, op, value, dtype):
-    """``value`` (host numbers) as a device tensor of ``dtype``, made
-    once per op and value and kept by the executor (``assign_value``'s
-    rule for temporaries)."""
-    kept = getattr(ctx.executor, "constants", None)
-    made = kept.setdefault(op, {}) if kept is not None else {}
+    """``value`` (host numbers) as a device tensor of ``dtype``, kept
+    once per op and value (``kept``)."""
     key = (tuple(np.asarray(value).reshape(-1).tolist()),
            np.shape(value), str(dtype))
-    t = made.get(key)
-    if t is None:
-        t = made[key] = torch.as_tensor(np.asarray(value), dtype=dtype) \
-            .to(ctx.device)
-    return t
+    return kept(ctx, op, key, lambda: [
+        torch.as_tensor(np.asarray(value), dtype=dtype)])[0]
 
 
 def _refuse_in_capture(what):

@@ -1,8 +1,10 @@
 """The op library's sweep on the card: one case (or a few) for each op
 type the dense op library and the SelectedRows host ops added
-(``run(device)``), and for each op type the LoD, sequence, RNN and
-control-flow slice added (``run(device, part="lod")``), each a one-op
-Program (or, for control flow, a small Program built by the layers) run
+(``run(device)``), for each op type the LoD, sequence, RNN and
+control-flow slice added (``run(device, part="lod")``), and for each
+CRF, CTC and detection op type (``run(device, part="detection")``),
+each a one-op Program (or, for control flow, a small Program built by
+the layers) run
 through ``Executor(CUDAPlace(0))`` and through ``Executor(CPUPlace())``
 on the same inputs, the card's outputs held against the CPU's at the
 CPU sweep's tolerances (forward rtol 1e-5 / atol 1e-6; the gradients of
@@ -17,10 +19,12 @@ its Cost recomputed from its own SampleLabels. ``print`` and ``range``
 read the host and ``delete_var`` only drops a name: they run, and their
 outputs are held as the others'.
 
-Used by ``chip_smoke.py`` (phases 14 (c) and 15 (c)); ``run`` returns
-the op types held. On the CPU against itself it is the tests' check that
-every case runs; tests/test_torch_sequence_ops.py holds ``lod_cases``
-against the JAX package.
+Used by ``chip_smoke.py`` (phases 14 (c), 15 (c) and 16 (d)); ``run``
+returns the op types held. On the CPU against itself it is the tests'
+check that every case runs; tests/test_torch_sequence_ops.py holds
+``lod_cases``, tests/test_torch_crf_ctc.py and
+tests/test_torch_detection.py ``detection_cases`` against the JAX
+package.
 """
 
 import numpy as np
@@ -366,6 +370,180 @@ def lod_cases():
     return out
 
 
+def _boxes(seed, *shape, scale=1.0):
+    """[..., 4] boxes (xmin, ymin, xmax, ymax) with xmin < xmax and
+    ymin < ymax, in [0, scale]."""
+    c = np.sort(np.random.RandomState(seed).uniform(
+        0, scale, shape + (2, 2)), axis=-2)
+    return np.concatenate([c[..., 0, :], c[..., 1, :]], -1).astype(
+        np.float32)
+
+
+def _ints(seed, lo, hi, *shape):
+    return np.random.RandomState(seed).randint(lo, hi, shape).astype(
+        np.int32)
+
+
+def detection_cases():
+    """[(op type, inputs, attrs, output slots, wrt slots)] of the CRF,
+    CTC and detection op types. LoD totals are no power of two (the
+    bucket pads them), some sequences are empty, and rounded values give
+    ties to the sorts, top-k's and argmaxes."""
+    out = []
+    d = 5
+    em = Seq(_r(400, 11, d, lo=-2, hi=2), [3, 5, 1, 2])
+    lab = Seq(_ints(401, 0, d, 11, 1), [3, 5, 1, 2])
+    trans = _r(402, d + 2, d)
+    out += [
+        ("linear_chain_crf", {"Emission": em, "Label": lab,
+                              "Transition": trans}, {},
+         ["LogLikelihood", "Alpha", "EmissionExps", "TransitionExps"],
+         ["Emission", "Transition"]),
+        ("linear_chain_crf", {"Emission": Seq(em.data[:7], [4, 0, 3]),
+                              "Label": Seq(lab.data[:7], [4, 0, 3]),
+                              "Transition": trans}, {},
+         ["LogLikelihood", "EmissionExps"], ["Emission", "Transition"]),
+        ("crf_decoding", {"Emission": em, "Transition": trans}, {},
+         ["ViterbiPath"], []),
+        ("crf_decoding", {"Emission": Seq(np.round(em.data), em.lengths),
+                          "Transition": np.round(trans),
+                          "Label": lab}, {}, ["ViterbiPath"], []),
+    ]
+    logits = Seq(_r(403, 17, 6, lo=-2, hi=2), [6, 4, 7])
+    labels = Seq(_ints(404, 1, 6, 6, 1), [2, 1, 3])
+    out += [
+        ("warpctc", {"Logits": logits, "Label": labels}, {"blank": 0},
+         ["Loss", "WarpCTCGrad"], ["Logits"]),
+        ("warpctc", {"Logits": logits, "Label": labels},
+         {"blank": 0, "norm_by_times": True}, ["Loss"], ["Logits"]),
+        # the second sequence cannot align: 3 repeated labels in 4 steps
+        ("warpctc", {"Logits": Seq(logits.data[:9], [5, 4]),
+                     "Label": Seq(np.array([[2], [3], [3], [3]], np.int32),
+                                  [1, 3])}, {"blank": 0}, ["Loss"], []),
+        ("warpctc", {"Logits": logits,
+                     "Label": Seq(_ints(405, 0, 5, 6, 1), [2, 1, 3])},
+         {"blank": 5}, ["Loss"], ["Logits"]),
+    ]
+    ids = Seq(_ints(406, 0, 4, 15, 1), [7, 5, 3])
+    out += [
+        ("ctc_align", {"Input": ids}, {"blank": 0, "merge_repeated": True},
+         ["Output"], []),
+        ("ctc_align", {"Input": ids}, {"blank": 2,
+                                       "merge_repeated": False},
+         ["Output"], []),
+    ]
+    inf = Seq(_ints(407, 0, 7, 15, 1), [5, 6, 4])
+    lab_tags = Seq(np.where(np.random.RandomState(408).rand(15, 1) < 0.6,
+                            inf.data, _ints(409, 0, 7, 15, 1)), [5, 6, 4])
+    metrics = ["Precision", "Recall", "F1-Score", "NumInferChunks",
+               "NumLabelChunks", "NumCorrectChunks"]
+    out += [
+        ("chunk_eval", {"Inference": inf, "Label": lab_tags},
+         {"num_chunk_types": 3, "chunk_scheme": "IOB"}, metrics, []),
+        ("chunk_eval", {"Inference": inf, "Label": lab_tags},
+         {"num_chunk_types": 3, "chunk_scheme": "IOB",
+          "excluded_chunk_types": [1]}, metrics, []),
+        ("chunk_eval", {"Inference": inf, "Label": lab_tags},
+         {"num_chunk_types": 4, "chunk_scheme": "plain"}, metrics, []),
+    ]
+    prior = _boxes(410, 6)
+    pvar = np.full((6, 4), 0.1, np.float32)
+    out += [
+        ("iou_similarity", {"X": _boxes(411, 5), "Y": _boxes(412, 7)}, {},
+         ["Out"], []),
+        ("box_coder", {"PriorBox": prior, "PriorBoxVar": pvar,
+                       "TargetBox": _boxes(413, 3)},
+         {"code_type": "encode_center_size"}, ["OutputBox"],
+         ["TargetBox"]),
+        ("box_coder", {"PriorBox": prior, "PriorBoxVar": pvar,
+                       "TargetBox": _r(414, 2, 6, 4)},
+         {"code_type": "decode_center_size"}, ["OutputBox"],
+         ["TargetBox"]),
+        ("prior_box", {"Input": _r(415, 1, 2, 3, 4),
+                       "Image": _r(416, 1, 3, 24, 32)},
+         {"min_sizes": [4.0, 8.0], "max_sizes": [8.0, 16.0],
+          "aspect_ratios": [2.0, 3.0], "flip": True, "clip": True},
+         ["Boxes", "Variances"], []),
+    ]
+    dist = np.round(_r(417, 4, 6, lo=0, hi=1) * 4) / 4     # ties
+    dist[2] = 0.0                                          # a row of zeros
+    out += [
+        ("bipartite_match", {"DistMat": dist}, {},
+         ["ColToRowMatchIndices", "ColToRowMatchDist"], []),
+        ("bipartite_match", {"DistMat": dist},
+         {"match_type": "per_prediction", "dist_threshold": 0.3},
+         ["ColToRowMatchIndices", "ColToRowMatchDist"], []),
+        ("target_assign", {"X": _r(418, 4, 1, 3),
+                           "MatchIndices": np.array([[0, -1, 3, 3, -1, 1]],
+                                                    np.int32)},
+         {"mismatch_value": 7.0}, ["Out", "OutWeight"], []),
+        ("mine_hard_examples",
+         {"ClsLoss": np.round(_r(419, 2, 8, lo=0, hi=2) * 2) / 2,
+          "MatchIndices": np.array([[0, -1, -1, 1, -1, -1, -1, -1],
+                                    [-1, -1, 2, -1, -1, -1, -1, -1]],
+                                   np.int32)},
+         {"neg_pos_ratio": 2.0}, ["NegIndices", "UpdatedMatchIndices"], []),
+    ]
+    nms_scores = np.round(_r(420, 2, 3, 8, lo=0, hi=1) * 4) / 4
+    nms_boxes = _boxes(421, 2, 8)
+    for attrs in ({"score_threshold": 0.1, "nms_threshold": 0.3,
+                   "nms_top_k": 6, "keep_top_k": 10},
+                  {"score_threshold": 0.2, "nms_threshold": 0.5,
+                   "nms_top_k": -1, "keep_top_k": 20, "nms_eta": 0.7,
+                   "background_label": 1},
+                  {"score_threshold": 0.0, "nms_threshold": 0.4,
+                   "keep_top_k": 5, "normalized": False}):
+        out.append(("multiclass_nms",
+                    {"BBoxes": nms_boxes * (10 if not attrs.get(
+                        "normalized", True) else 1), "Scores": nms_scores},
+                    attrs, ["Out"], []))
+    det = np.concatenate([_ints(422, 0, 3, 7, 1).astype(np.float32),
+                          np.round(_r(423, 7, 1, lo=0, hi=1) * 3) / 4
+                          + 0.25, _boxes(424, 7)], axis=1)
+    det[6, 1] = 0.0                                  # not a detection
+    gt = np.concatenate([_ints(425, 0, 3, 5, 1).astype(np.float32),
+                         np.zeros((5, 1), np.float32), _boxes(426, 5)],
+                        axis=1)
+    gt[:3, 0] = det[:3, 0]                           # three hits, ...
+    gt[:3, 2:] = det[:3, 2:] + 0.01
+    det[3] = det[0]                                  # ... a duplicate
+    det[3, 1] = 0.5
+    diff = np.array([[0], [1], [0], [0], [1]], np.float32)
+    for attrs in ({"ap_version": "11point"},
+                  {"ap_version": "integral"},
+                  {"ap_version": "integral", "evaluate_difficult": False},
+                  {"ap_version": "11point", "evaluate_difficult": False},
+                  {"ap_version": "11point", "class_num": 3,
+                   "overlap_threshold": 0.3}):
+        inputs = {"DetectRes": det, "Label": gt}
+        if "evaluate_difficult" in attrs:
+            inputs["Difficult"] = diff
+        out.append(("detection_map", inputs, attrs,
+                     ["MAP", "AccumPosCount"], []))
+    m, c = 12, 4
+    ssd = {"Loc": _r(427, 3, m, 4), "Conf": _r(428, 3, m, c, lo=-2, hi=2),
+           "GTBox": Seq(_boxes(429, 5), [2, 0, 3]),
+           "GTLabel": Seq(_ints(430, 1, c, 5, 1), [2, 0, 3]),
+           "PriorBox": _boxes(431, m), "PriorBoxVar": np.tile(
+               np.array([0.1, 0.1, 0.2, 0.2], np.float32), (m, 1))}
+    out += [
+        ("ssd_loss", ssd, {"overlap_threshold": 0.3}, ["Loss"],
+         ["Loc", "Conf"]),
+        ("ssd_loss", ssd, {"overlap_threshold": 0.3, "neg_overlap": 0.2,
+                           "normalize": False, "neg_pos_ratio": 1.0},
+         ["Loss"], ["Loc", "Conf"]),
+        ("ssd_loss", dict(ssd, GTBox=Seq(ssd["GTBox"].data[:3], [2, 0, 1]),
+                          GTLabel=Seq(ssd["GTLabel"].data[:3], [2, 0, 1])),
+         {"match_type": "bipartite"}, ["Loss"], ["Loc", "Conf"]),
+        # no ground truth in the batch: the bucket's two zero rows only
+        ("ssd_loss", dict(ssd, Loc=ssd["Loc"][:1], Conf=ssd["Conf"][:1],
+                          GTBox=Seq(np.zeros((0, 4), np.float32), [0]),
+                          GTLabel=Seq(np.zeros((0, 1), np.int32), [0])),
+         {}, ["Loss"], []),
+    ]
+    return out
+
+
 def control_flow_programs(fluid):
     """[(name, program, startup or None, feed, fetch names)] of small
     Programs built by ``fluid``'s layers (either package's) that hold
@@ -581,13 +759,16 @@ HOST_OPS = ("split_ids", "split_selected_rows", "merge_selected_rows",
 
 def run(device, part="library"):
     """Every case of ``part`` on ``device`` against the CPU: "library"
-    (the dense op library and the SelectedRows host ops) or "lod" (the
-    LoD, sequence, RNN and control-flow op types). Returns (the op types
+    (the dense op library and the SelectedRows host ops), "lod" (the
+    LoD, sequence, RNN and control-flow op types) or "detection" (the
+    CRF, CTC and detection op types). Returns (the op types
     held, the largest forward |difference| over the float outputs);
     raises AssertionError naming the first op that disagrees."""
     import paddle_tpu_torch as fluid
     if part == "lod":
         return _run_lod(fluid, device)
+    if part == "detection":
+        return _run_cases(fluid, device, detection_cases())
     held, worst = _run_cases(fluid, device, cases())
     assert _host_ops(fluid, device), \
         "op sweep: the SelectedRows host ops on %s disagree" % device

@@ -286,12 +286,6 @@ STILL_MISSING = {
     "send_barrier": 10, "send_sparse": 10,
     # the transform pipeline's fused ops (item 11)
     "fused_matmul_bias_act": 11, "fused_scale_cast": 11,
-    # CRF/CTC and detection (item 7)
-    "chunk_eval": 7, "crf_decoding": 7, "ctc_align": 7,
-    "linear_chain_crf": 7, "warpctc": 7,
-    "bipartite_match": 7, "box_coder": 7, "detection_map": 7,
-    "iou_similarity": 7, "mine_hard_examples": 7, "multiclass_nms": 7,
-    "prior_box": 7, "ssd_loss": 7, "target_assign": 7,
 }
 
 
@@ -302,11 +296,11 @@ def test_registry_is_the_jax_one_less_the_listed():
     jops = set(jregistry.registered_ops())
     tops = set(tregistry.registered_ops())
     assert tops <= jops, sorted(tops - jops)
-    assert len(STILL_MISSING) == 31
+    assert len(STILL_MISSING) == 17
     assert jops - tops == set(STILL_MISSING), (
         sorted((jops - tops) - set(STILL_MISSING)),
         sorted(set(STILL_MISSING) - (jops - tops)))
-    assert len(tops) == 207
+    assert len(tops) == 221
 
 
 # the port's op types before the dense op library and the SelectedRows
@@ -330,17 +324,18 @@ BEFORE = {
 
 
 def test_card_sweep_covers_every_added_op_on_the_cpu():
-    """``tools/op_sweep.py`` (chip_smoke.py phases 14 (c) and 15 (c))
-    holds one case or more of each of the 144 added op types: the 112 of
-    the op library and the 32 of the LoD, sequence, RNN and control-flow
-    slice; here it runs against the CPU itself, so every case must run
-    and agree."""
+    """``tools/op_sweep.py`` (chip_smoke.py phases 14 (c), 15 (c) and
+    16 (d)) holds one case or more of each of the 158 added op types: the
+    112 of the op library, the 32 of the LoD, sequence, RNN and
+    control-flow slice and the 14 of CRF, CTC and detection; here it
+    runs against the CPU itself, so every case must run and agree."""
     from paddle_tpu_torch.tools import op_sweep
     held, worst = op_sweep.run("cpu")
     held_lod, worst_lod = op_sweep.run("cpu", part="lod")
+    held_det, worst_det = op_sweep.run("cpu", part="detection")
     added = set(tregistry.registered_ops()) - BEFORE
-    assert len(BEFORE) == 63 and len(added) == 144
-    assert len(held) == 112 and len(held_lod) == 32
-    assert held | held_lod == added, (sorted(added - held - held_lod),
-                                      sorted((held | held_lod) - added))
-    assert worst == 0.0 and worst_lod == 0.0
+    assert len(BEFORE) == 63 and len(added) == 158
+    assert len(held) == 112 and len(held_lod) == 32 and len(held_det) == 14
+    every = held | held_lod | held_det
+    assert every == added, (sorted(added - every), sorted(every - added))
+    assert worst == 0.0 and worst_lod == 0.0 and worst_det == 0.0

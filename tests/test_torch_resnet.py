@@ -241,21 +241,34 @@ def test_momentum_matches_jax(nesterov):
 
 
 def test_unported_vision_ops_raise():
-    """The vision ops of the JAX package not ported yet (box_coder,
-    prior_box: ROADMAP.md, queue 1 item 7) raise NotImplementedError
-    naming ROADMAP.md. Adaptive pooling, pool3d and im2sequence, which
-    raised here before, are ported (tests/test_torch_ops_sweep3.py,
-    tests/test_torch_sequence_ops.py)."""
+    """No vision op of the JAX package is left unported: box_coder and
+    prior_box run (ROADMAP.md, queue 1 item 7, done), as do adaptive
+    pooling, pool3d and im2sequence (tests/test_torch_ops_sweep3.py,
+    tests/test_torch_sequence_ops.py), each against the JAX package
+    here; an op type the port still lacks (``fused_matmul_bias_act``,
+    queue 1 item 11) raises NotImplementedError naming ROADMAP.md."""
     x = {"X": _rand(16, 1, 2, 4, 4)}
-    for op_type, attrs in (("box_coder", {}),
-                           ("prior_box", {"min_sizes": [2.0]})):
-        prog = _program(tfluid, [(op_type, {"X": ["x"]},
-                                  {"Out": ["out"]}, attrs)],
-                        {"x": x["X"]}, ["out"])
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tfluid.Executor(tfluid.CPUPlace()).run(
-                prog, feed={"x": x["X"]}, fetch_list=["out"],
-                scope=tfluid.Scope())
+    prog = _program(tfluid, [("fused_matmul_bias_act", {"X": ["x"]},
+                              {"Out": ["out"]}, {})], {"x": x["X"]},
+                    ["out"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tfluid.Executor(tfluid.CPUPlace()).run(
+            prog, feed={"x": x["X"]}, fetch_list=["out"],
+            scope=tfluid.Scope())
+    prior = np.sort(_rand(18, 6, 2, 2), axis=1).reshape(6, 4)
+    for op_type, inputs, outputs, attrs, arrays in (
+            ("box_coder", {"PriorBox": ["p"], "TargetBox": ["x"]},
+             {"OutputBox": ["out"]}, {"code_type": "decode_center_size"},
+             {"p": prior, "x": _rand(19, 3, 6, 4)}),
+            ("prior_box", {"Input": ["x"], "Image": ["img"]},
+             {"Boxes": ["out"], "Variances": ["var"]},
+             {"min_sizes": [2.0]},
+             {"x": x["X"], "img": _rand(20, 1, 3, 16, 16)})):
+        fetch = [n for ns in outputs.values() for n in ns]
+        got, want = _run_both([(op_type, inputs, outputs, attrs)], arrays,
+                              fetch)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
     for op_type, attrs, v in (
             ("pool2d", {"adaptive": True, "ksize": [2, 2]}, x["X"]),
             ("pool3d", {"ksize": [1, 1, 1]}, _rand(17, 1, 2, 3, 4, 4)),

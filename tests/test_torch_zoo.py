@@ -1,6 +1,7 @@
 """The port's model zoo against the JAX package: mlp, cnn, cnn_infer,
-VGG-16, DeepFM (tests/test_torch_deepfm.py trains it) and the
-encoder-decoder MT transformer.
+VGG-16, DeepFM (tests/test_torch_deepfm.py trains it), ssd
+(tests/test_torch_ssd.py trains it) and the encoder-decoder MT
+transformer.
 
 * Every ``TRANSFORM_ZOO`` entry the port builds gives the JAX package's
   ``Program.to_json()`` (main and startup), built only; the entries it
@@ -37,7 +38,7 @@ from paddle_tpu_torch import nets
 from paddle_tpu_torch.models import transformer as TT
 from paddle_tpu_torch.models import vgg as TV
 
-BUILT = ["mlp", "cnn", "cnn_infer", "resnet", "vgg", "deepfm",
+BUILT = ["mlp", "cnn", "cnn_infer", "resnet", "vgg", "deepfm", "ssd",
          "transformer", "transformer_mt"]
 STEP_RTOL = 2e-4
 
@@ -64,7 +65,7 @@ def test_to_json_identical(name):
     assert tfetch == jfetch
 
 
-@pytest.mark.parametrize("name", ["ssd", "transformer_moe"])
+@pytest.mark.parametrize("name", ["transformer_moe"])
 def test_unported_zoo_entries_raise(name):
     assert name in JM.TRANSFORM_ZOO
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1"):

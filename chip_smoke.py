@@ -358,7 +358,39 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
      ``F.ctc_loss`` as a control on the feasible sequences at rtol 1e-4,
      ``ctc_greedy_decoder`` card equal to CPU; then ``tools/op_sweep``'s
      detection part: each of the 14 CRF, CTC and detection op types on
-     the card against the CPU.
+     the card against the CPU;
+ 17. data — the data plane on the card. (a) The reference book's
+     image_classification net, ``resnet_cifar10(images, 32)`` at batch
+     128 with Adam 1e-3, fp32, ``fuse_conv_bn`` and
+     ``cudnn.deterministic`` on: 2,560 ``dataset.cifar.train10``
+     samples written to two files by the port's ``recordio`` writer (the
+     native library built with g++ and zlib at first use: a machine
+     without ``zlib.h`` fails here, naming it), read back by
+     ``layers.open_files(thread_num=2)`` (every sample once), then
+     ``reader.shuffle``, ``batch(128)`` and ``DataFeeder.feed``: 20
+     feeds. 20 ``run()`` calls against ``DeviceLoader(...)
+     .megabatches(5)`` into ``run_steps(feeds=stack, k=5)`` (4
+     dispatches, the loader's worker staging each stack through pinned
+     memory on a side stream while the previous one runs) and against
+     ``run_steps`` given the same 5 host dicts as a list, each from the
+     same startup values: losses and every state tensor bitwise equal;
+     matmul_stats launched exactly 2 a step (the two 1x1 stride-2
+     projection shortcuts); images/s fed by the loader and by the list,
+     3 pairs in turns (medians), each route's busy share and the streams
+     of its host-to-device copies from a traced window. (b) matmul_stats
+     at the shortcuts' shapes (M=32,768 K=16 N=32; M=8,192 K=32 N=64),
+     fp32 with gradients, against its plain version at phase 7's
+     tolerances, timed as phase 7 times a shape (device time alone and
+     with the host's gaps, the plain version, ``torch.matmul``, the
+     bound). (c) The book's understand_sentiment ``stacked_lstm_net`` at
+     the reference function's widths (emb 128, hid 512: 128-unit LSTMs,
+     3 stacked) over ``dataset.imdb``, batch 64: 3 ``run()`` steps fed
+     by ``DeviceLoader``'s per-batch iterator (the LoD feed passed
+     through on the host, the label staged) bitwise equal to the
+     DataFeeder's dicts fed directly, lstm_cell launches exactly 3 x
+     @MAXLEN x 2 a step; ``run_steps(K=5)`` given a list of the loader's
+     dicts bitwise equal to the DataFeeder's list and to 5 ``run()``
+     calls.
 
 The last three lines of standard output are the kernels' JSON line, the
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device": ...}``.
@@ -375,11 +407,15 @@ counts phase 12's configuration-B runs and phase 13's eager VGG steps
 attention-weight shape [32, 8, 256, 256] f32 and its ``max_abs_err``
 is the largest difference over its comparisons (0: they must be
 bitwise).
+The ``matmul_stats`` entry adds phase 17 (a)'s launches through the
+loader's graphs (``data_launches``) and carries ``cifar_shortcut_shapes``,
+its times, bound and error at the two ResNet-CIFAR shortcut shapes.
 The ``lstm_cell`` entry (``"tpu_kernel": false``: the JAX package's
 LSTM step is a ``lax.scan`` body XLA fuses) counts phase 15's 20 eager
-steps (``graph_launches``: its K=5 dispatch) and phase 16's 20 eager
+steps (``graph_launches``: its K=5 dispatch), phase 16's 20 eager
 SRL steps (``srl_launches``; ``srl_graph_launches``: its K=5
-dispatch); its times and bound are
+dispatch) and phase 17 (c)'s 3 loader-fed steps (``data_launches``;
+``data_graph_launches``: its K=5 dispatch); its times and bound are
 the forward step's at B 64 D 512 with the benchmark's lengths, a call's
 mean over the 128 steps of one layer's scan, and it adds the backward
 step's (``bwd_ms``, ``bwd_plain_ms``, ``bwd_bound_ms``, ``bwd_bound_by``,
@@ -5638,6 +5674,631 @@ def crf_detection_phase(torch, smi):
                                      "ssd_infer": infer, "ctc_err": ctc_err}
 
 
+# -- phase 17 ------------------------------------------------------------
+# (a) the reference book's image_classification ResNet: resnet_cifar10 at
+# depth 32, batch 128, Adam 1e-3, fp32, fed from cifar10 through recordio
+# files, open_files, shuffle, batch and DataFeeder
+DATA = dict(depth=32, batch=128, k=5, dispatches=4, recordio_files=2)
+DATA_SHORTCUTS = [(32768, 16, 32), (8192, 32, 64)]   # the 1x1 projections
+# (c) the book's understand_sentiment stacked_lstm_net at the reference
+# function's default widths, over imdb
+SENTI = dict(emb=128, hid=512, stacked=3, batch=64, batches=8,
+             run_steps=3, k=5)
+DATA_PAIRS = 3
+
+
+def _cifar_program(fluid):
+    """The book's image_classification net: resnet_cifar10(images, 32),
+    cross-entropy, Adam 1e-3."""
+    from paddle_tpu_torch.models import resnet as R
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        images = fluid.layers.data("pixel", [3, 32, 32])
+        label = fluid.layers.data("label", [1], dtype="int64")
+        predict = R.resnet_cifar10(images, DATA["depth"])
+        avg_cost = fluid.layers.mean(fluid.layers.cross_entropy(predict,
+                                                                label))
+        fluid.layers.accuracy(predict, label)
+        fluid.optimizer.Adam(learning_rate=0.001).minimize(avg_cost)
+    block = main.global_block()
+    bn_in = {op.input("X")[0] for op in block.ops
+             if op.type == "batch_norm" and not op.attr("is_test", False)}
+    shapes = []
+    for op in block.ops:
+        co, ci, kh, kw = block.vars[op.input("Filter")[0]].shape \
+            if op.type == "conv2d" else (0, 0, 0, 0)
+        out = op.output("Output")[0] if op.type == "conv2d" else None
+        if (kh, kw) == (1, 1) and out in bn_in:
+            _, _, ho, wo = block.vars[out].shape
+            shapes.append((DATA["batch"] * ho * wo, ci, co))
+    return (main, startup, avg_cost), [images, label], shapes
+
+
+def _cifar_feeds(fluid, tmp, feed_vars, main):
+    """The host feed dicts of DATA["dispatches"] x k steps: cifar10
+    samples written to recordio files by the port's writer, read back by
+    layers.open_files(thread_num=2) (every sample once: held), then
+    shuffle, batch and DataFeeder."""
+    import random
+    n = DATA["batch"] * DATA["k"] * DATA["dispatches"]
+    samples = list(fluid.dataset.cifar.train10(n)())
+    t0 = time.perf_counter()
+    per = -(-n // DATA["recordio_files"])
+    paths = []
+    for f in range(DATA["recordio_files"]):
+        path = os.path.join(tmp, "cifar-%02d.recordio" % f)
+        part = samples[f * per:(f + 1) * per]
+        count = fluid.recordio.convert_reader_to_recordio_file(
+            path, lambda part=part: iter(part))
+        check(count == len(part), "recordio wrote %d of %d samples",
+              count, len(part))
+        paths.append(path)
+    t1 = time.perf_counter()
+    back = list(fluid.layers.open_files(paths, thread_num=2)())
+    t2 = time.perf_counter()
+
+    def key(s):
+        return int(s[1]), np.asarray(s[0]).tobytes()
+    check(len(back) == n and sorted(map(key, back)) ==
+          sorted(map(key, samples)), "open_files read back %d samples, "
+          "not the %d written", len(back), n)
+    random.seed(0)
+    reader = fluid.batch(fluid.reader.shuffle(lambda: iter(back), n),
+                         DATA["batch"])
+    feeder = fluid.DataFeeder(feed_vars, fluid.CPUPlace(), program=main)
+    feeds = [feeder.feed(b) for b in reader()]
+    t3 = time.perf_counter()
+    from paddle_tpu_torch import native
+    log("data (a): %d cifar10 samples through the port's recordio (%s, "
+        "built with g++ and zlib into %s): written to %d files (%d bytes) "
+        "in %.3f s, read back by open_files(thread_num=2) in %.3f s, every "
+        "sample once; shuffle, batch(%d), DataFeeder: %d feeds (pixel %s "
+        "%s, label %s %s) in %.3f s", n, os.path.basename(
+            native.load("recordio")._name), native.BUILD_DIR, len(paths),
+        sum(os.path.getsize(p) for p in paths), t1 - t0, t2 - t1,
+        DATA["batch"], len(feeds), feeds[0]["pixel"].shape,
+        feeds[0]["pixel"].dtype, feeds[0]["label"].shape,
+        feeds[0]["label"].dtype, t3 - t2)
+    return feeds
+
+
+def _loader_dispatches(torch, fluid, exe, main, avg_cost, scope, feeds,
+                       mark=None):
+    """The feeds through DeviceLoader.megabatches(k) into
+    run_steps(feeds=stack, k=k); returns the losses (device tensors) and
+    the loader's feed-plan cache. ``mark`` is called once the first
+    dispatch has been issued."""
+    from paddle_tpu_torch.reader import DeviceLoader
+    out = []
+    loader = DeviceLoader(iter(feeds), capacity=2, device=exe.device)
+    for i, stack in enumerate(loader.megabatches(DATA["k"])):
+        k = int(stack["pixel"].shape[0])
+        check(stack["pixel"].device == exe.device and
+              stack["label"].dtype == torch.int32, "the loader staged "
+              "%s %s, not %s int32", stack["pixel"].device,
+              stack["label"].dtype, exe.device)
+        out += [o[0] for o in exe.run_steps(
+            main, feeds=stack, k=k, fetch_list=[avg_cost], scope=scope,
+            return_numpy=False)]
+        if i == 0 and mark is not None:
+            mark()
+    torch.cuda.synchronize()
+    return out, loader._plans
+
+
+def _list_dispatches(torch, exe, main, avg_cost, scope, feeds, mark=None):
+    out = []
+    for i in range(0, len(feeds), DATA["k"]):
+        out += [o[0] for o in exe.run_steps(
+            main, feeds=feeds[i:i + DATA["k"]], fetch_list=[avg_cost],
+            scope=scope, return_numpy=False)]
+        if i == 0 and mark is not None:
+            mark()
+    torch.cuda.synchronize()
+    return out
+
+
+def _plan_counts(cache, since=(0, 0, 0)):
+    """(hits, misses, buffer_reuses) of a FeedPlanCache, less ``since``."""
+    return tuple(a - b for a, b in zip(
+        (cache.hits, cache.misses, cache.buffer_reuses), since))
+
+
+def _plan_cost(feeds, device, rounds=20):
+    """Host microseconds a feed dict to normalize these feeds: derived
+    every call (no cache), through a fresh FeedPlanCache (the first pass
+    over the feeds: a miss for each new signature) and through the same
+    cache again (every signature seen). Medians over ``rounds``."""
+    from paddle_tpu_torch.core.executor import FeedPlanCache, \
+        _normalize_feeds
+    us = {"derived": [], "cache_first_pass": [], "cache_seen": []}
+    for _ in range(rounds):
+        cache = FeedPlanCache(device_fn=lambda: device)
+        for what, kw in (("derived", {}),
+                         ("cache_first_pass", {"plan_cache": cache}),
+                         ("cache_seen", {"plan_cache": cache})):
+            t0 = time.perf_counter()
+            for f in feeds:
+                _normalize_feeds(f, **kw)
+            us[what].append(1e6 * (time.perf_counter() - t0) / len(feeds))
+    out = {k: _median(v) for k, v in us.items()}
+    out["signatures"] = len({FeedPlanCache._key(f) for f in feeds})
+    return out
+
+
+def _busy_in(spans, lo, hi):
+    """Seconds of [lo, hi) (trace microseconds) covered by the union of
+    ``spans`` (sorted (start, end) pairs)."""
+    busy, reach = 0.0, lo
+    for a, b in spans:
+        a, b = max(a, reach), min(b, hi)
+        if b > a:
+            busy += b - a
+            reach = b
+    return busy / 1e6
+
+
+def _trace_summary(prof, tmp):
+    """One pass over the trace's chrome export: the host-to-device bytes
+    by stream, the streams that ran kernels, the ten kernels with the
+    most device time, and the device busy share (the union of kernel,
+    copy and memset spans, so overlapping streams count once) of the
+    ``chip_smoke.run`` range and of its ``chip_smoke.steady`` part. None
+    when the trace holds no device work."""
+    path = os.path.join(tmp, "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)
+    events = events.get("traceEvents", events) \
+        if isinstance(events, dict) else events
+    copies, kernels, ranges, spans, by_name = {}, set(), {}, [], {}
+    for ev in events:
+        cat, name = str(ev.get("cat", "")), str(ev.get("name", ""))
+        args = ev.get("args") or {}
+        stream = args.get("stream", ev.get("tid"))
+        if cat == "user_annotation" and name.startswith("chip_smoke."):
+            ranges[name] = (float(ev["ts"]),
+                            float(ev["ts"]) + float(ev.get("dur", 0)))
+        if cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        ts, dur = float(ev["ts"]), float(ev.get("dur", 0))
+        spans.append((ts, ts + dur))
+        if cat == "gpu_memcpy" and "HtoD" in name:
+            copies[stream] = copies.get(stream, 0) + int(
+                args.get("bytes", 0))
+        elif cat == "kernel":
+            kernels.add(stream)
+            t, c = by_name.get(name, (0.0, 0))
+            by_name[name] = (t + dur, c + 1)
+    if not spans:
+        return None
+    spans.sort()
+    busy = {}
+    for part in ("run", "steady"):
+        lo, hi = ranges.get("chip_smoke." + part, (None, None))
+        busy[part] = None if lo is None or hi <= lo else \
+            _busy_in(spans, lo, hi) / ((hi - lo) / 1e6)
+    top = sorted(((t / 1e3, c, n) for n, (t, c) in by_name.items()),
+                 reverse=True)[:10]
+    return {"copies": copies, "kernel_streams": kernels, "busy": busy,
+            "top": top}
+
+
+def data_resnet_phase(torch, smi, tmp):
+    """Phase 17 (a)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import flags
+    prog, feed_vars, shapes = _cifar_program(fluid)
+    main, startup, avg_cost = prog
+    check(shapes == DATA_SHORTCUTS, "resnet_cifar10's fusable 1x1 convs "
+          "are %s, expected the two projection shortcuts %s", shapes,
+          DATA_SHORTCUTS)
+    feeds = _cifar_feeds(fluid, tmp, feed_vars, main)
+    steps = len(feeds)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    s0 = fluid.Scope()
+    exe.run(startup, scope=s0)
+    init = {n: s0.get_numpy(n) for n in s0.local_var_names()
+            if s0.find_var(n) is not None}
+    names = sorted(init)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with _fuse(flags, True):
+            sa = _scope_from(fluid, init, exe.device)
+            before = _plan_counts(exe._feed_plans)
+            t0 = time.perf_counter()
+            eager = [exe.run(main, feed=f, fetch_list=[avg_cost], scope=sa,
+                             return_numpy=False)[0] for f in feeds]
+            torch.cuda.synchronize()
+            eager_s = time.perf_counter() - t0
+            plans = {"run": _plan_counts(exe._feed_plans, before)}
+            # the first dispatch captures the K=5 graph while the
+            # loader's worker stages the next stacks (it waits on the
+            # capture lock), the others replay it
+            sb = _scope_from(fluid, init, exe.device)
+            _reset_launches()
+            replays = exe.stats["graph_replays"]
+            captures = exe.stats["graph_captures"]
+            t0 = time.perf_counter()
+            loaded, loader_plans = _loader_dispatches(
+                torch, fluid, exe, main, avg_cost, sb, feeds)
+            loader_s = time.perf_counter() - t0
+            plans["loader"] = _plan_counts(loader_plans)
+            counts = _launches()
+            check(exe.stats["graph_replays"] - replays == DATA["dispatches"]
+                  and exe.stats["graph_captures"] - captures == 1,
+                  "data (a): %d replays and %d captures for %d loader "
+                  "dispatches", exe.stats["graph_replays"] - replays,
+                  exe.stats["graph_captures"] - captures,
+                  DATA["dispatches"])
+            log("data (a): %d loader-fed dispatches (the first captured "
+                "the K=%d graph with the loader's worker running) in %.3f "
+                "s", DATA["dispatches"], DATA["k"], loader_s)
+            sc = _scope_from(fluid, init, exe.device)
+            before = _plan_counts(exe._feed_plans)
+            listed = _list_dispatches(torch, exe, main, avg_cost, sc, feeds)
+            plans["list"] = _plan_counts(exe._feed_plans, before)
+            cost = _plan_cost(feeds, exe.device)
+            _log_plans("data (a)", plans, cost, len(feeds), smi)
+            le = [float(x) for x in eager]
+            check(all(np.isfinite(le)), "data (a): eager losses not finite")
+            for what, got, scope in (("the loader's stacks", loaded, sb),
+                                     ("the host lists", listed, sc)):
+                same = [torch.equal(a, b) for a, b in zip(eager, got)]
+                differ = _same_state(torch, sa, scope, names)
+                log("data (a): %d run() steps vs %d run_steps(K=%d) "
+                    "dispatches fed %s: losses %s; %s", steps,
+                    DATA["dispatches"], DATA["k"], what,
+                    "bitwise equal" if all(same) else
+                    "differ at steps %s" % [i + 1 for i, s in
+                                            enumerate(same) if not s],
+                    "every one of %d state tensors bitwise equal"
+                    % len(names) if not differ else "%d state tensors "
+                    "differ (first %s)" % (len(differ), differ[0]))
+                check(all(same) and not differ, "data (a): run_steps fed "
+                      "%s is not bitwise equal to %d run() calls", what,
+                      steps)
+            log("data (a): losses %s", " ".join("%.5f" % x for x in le))
+            check(le[-1] < le[0], "data (a): the loss did not fall: %r", le)
+            # the capture's warm-up runs one step eagerly, on copies of
+            # the state, before the graph is recorded: its launches ran
+            mm = counts["matmul_stats"]
+            check(mm == len(DATA_SHORTCUTS) * (steps + 1), "data (a): "
+                  "matmul_stats launched %d times in %d steps and the "
+                  "capture's warm-up step, want %d a step (the two "
+                  "projection shortcuts)", mm, steps, len(DATA_SHORTCUTS))
+            log("data (a): matmul_stats launches %d in %d steps through "
+                "the loader's graphs and the capture's warm-up step = %d "
+                "a step: one for each 1x1 stride-2 projection shortcut "
+                "feeding a train batch norm (16->32 at M=%d, 32->64 at "
+                "M=%d; the other 31 convs are 3x3, and the shortcut's "
+                "backward is two torch.matmul calls)", mm, steps,
+                mm // (steps + 1), DATA_SHORTCUTS[0][0],
+                DATA_SHORTCUTS[1][0])
+            t0 = time.perf_counter()
+            timing = _data_timing(torch, fluid, exe, main, avg_cost, init,
+                                  feeds, smi, tmp)
+            log("data (a): timing and tracing took %.1f s",
+                time.perf_counter() - t0)
+            timing["eager_images_per_s"] = DATA["batch"] * steps / eager_s
+            log("data (a): 20 eager run() steps %.3f s = %.1f images/s "
+                "(graphs not yet captured; includes the first step's "
+                "warm-up); %s", eager_s, timing["eager_images_per_s"], smi)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    timing["feed_plans"] = dict(plans, host_us=cost)
+    return mm, timing
+
+
+def _log_plans(what, plans, cost, n, smi):
+    """The feed-plan caches' (hits, misses, buffer reuses) by route, and
+    the host time a feed dict to normalize with and without a cache."""
+    log("%s: feed-plan cache (hits, misses, buffer reuses) by route: %s; "
+        "the DataFeeder's arrays are writeable, so none is committed",
+        what, ", ".join("%s %s" % kv for kv in plans.items()))
+    log("%s: normalizing a feed dict on the host (%d feeds, %d "
+        "signatures; medians of 20 rounds): derived every call %.2f us, "
+        "through a fresh cache %.2f us, through a cache that has seen "
+        "them %.2f us; %s", what, n, cost["signatures"], cost["derived"],
+        cost["cache_first_pass"], cost["cache_seen"], smi)
+
+
+def _data_timing(torch, fluid, exe, main, avg_cost, init, feeds, smi, tmp):
+    """images/s fed by the loader and by the host lists, DATA_PAIRS
+    pairs in turns (medians); then one traced run of each: the device
+    busy share of the whole run and of its steady part (from the second
+    dispatch's issue), and which streams the host-to-device copies ran
+    on."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    n = DATA["batch"] * len(feeds)
+    routes = {
+        "loader": lambda s, mark=None: _loader_dispatches(
+            torch, fluid, exe, main, avg_cost, s, feeds, mark)[0],
+        "list": lambda s, mark=None: _list_dispatches(
+            torch, exe, main, avg_cost, s, feeds, mark)}
+    scopes = {r: _scope_from(fluid, init, exe.device) for r in routes}
+    walls = {r: [] for r in routes}
+    for _ in range(DATA_PAIRS):
+        for r, fn in routes.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(scopes[r])
+            walls[r].append(time.perf_counter() - t0)
+    out = {}
+    for r, fn in routes.items():
+        # the whole run traced; its steady part starts where the second
+        # dispatch is issued (the loader's worker running and ahead)
+        steady = []
+
+        def mark():
+            steady.append(record_function("chip_smoke.steady"))
+            steady[0].__enter__()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("chip_smoke.run"):
+                t0 = time.perf_counter()
+                fn(scopes[r], mark)
+                wall = time.perf_counter() - t0
+                steady[0].__exit__(None, None, None)
+        t1 = time.perf_counter()
+        trace = _trace_summary(prof, tmp)
+        log("data (a): reading the trace took %.1f s",
+            time.perf_counter() - t1)
+        busy = trace and trace["busy"]["steady"]
+        if trace is None:
+            log("data (a) profile, fed by the %s: the trace held no "
+                "device work (busy share and the copies' streams not "
+                "measured)", r)
+        else:
+            log("data (a) profile (traced, %d steps fed by the %s, %.3f ms "
+                "a step): device busy %s of the whole run, %s from the "
+                "second dispatch's issue to the end (the steady state); "
+                "%s", len(feeds), r, 1e3 * wall / len(feeds),
+                *("not measured" if b is None else "%.1f%%" % (100 * b)
+                  for b in (trace["busy"]["run"], busy)), smi)
+            for ms, count, name in trace["top"]:
+                log("  %9.3f ms  x%-6d %s", ms, count, name[:70])
+        rates = [n / w for w in walls[r]]
+        out[r] = {"images_per_s": _median(rates), "busy": busy,
+                  "busy_whole_run": trace and trace["busy"]["run"],
+                  "step_ms": _median([1e3 * w / len(feeds)
+                                      for w in walls[r]]),
+                  "traced_step_ms": 1e3 * wall / len(feeds)}
+        log("data (a) timing, fed by the %s (%d pairs in turns): images/s "
+            "%s (median %.1f), step ms %.3f; device busy %s; %s", r,
+            DATA_PAIRS, " ".join("%.1f" % x for x in rates),
+            out[r]["images_per_s"], out[r]["step_ms"], "not measured"
+            if busy is None else "%.1f%%" % (100 * busy), smi)
+        if trace is None:
+            continue
+        copies, kernels = trace["copies"], trace["kernel_streams"]
+        big = {s: b for s, b in copies.items() if b >= 1 << 20}
+        log("data (a), fed by the %s: host-to-device bytes by stream %s; "
+            "kernels ran on %d streams (a graph's replay spreads over "
+            "several); the copies of 1 MiB or more ran on %s", r, copies,
+            len(kernels), "streams that ran no kernel" if big and not
+            set(big) & kernels else "a kernel stream" if big else
+            "no stream (none that large)")
+        out[r]["copy_streams"] = {str(s): b for s, b in copies.items()}
+        out[r]["copies_off_compute_stream"] = bool(big) and not (
+            set(big) & kernels)
+    return out
+
+
+def data_mm_phase(torch):
+    """Phase 17 (b): matmul_stats at the two shortcut shapes, fp32, held
+    against its plain version at phase 7's tolerances and timed as phase
+    7 times a shape."""
+    from paddle_tpu_torch.ops import matmul_stats as MS
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    worst, rows = 0.0, []
+    for i, (m, k, n) in enumerate(DATA_SHORTCUTS):
+        e = _mm_case(torch, MS, m, k, n, torch.float32, seed=170 + i,
+                     grads=True)
+        worst = max(worst, e["y"], e["s1"], e["s2"])
+        x, w_nk, c = _mm_inputs(torch, m, k, n, torch.float32, seed=m + n)
+        w = w_nk.t()
+        t = {"ms": _events_ms(torch, lambda i: MS._fwd_cuda(x, w, c), 20,
+                              hide_host=True),
+             "plain_ms": _events_ms(
+                 torch, lambda i: MS._dense_matmul_stats(x, w, c), 10,
+                 hide_host=True),
+             "library_ms": _events_ms(torch, lambda i: torch.matmul(x, w),
+                                      20, hide_host=True),
+             "ms_with_host_gaps": _events_ms(
+                 torch, lambda i: MS._fwd_cuda(x, w, c), 20)}
+        flops, nbytes = _mm_work(m, k, n)
+        ops_ms = flops / TF32_FLOPS * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        t["bound_ms"] = max(ops_ms, bytes_ms)
+        t["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+        bm, bn, blocks = MS._tile(m, n)
+        check(blocks >= sms or t["bound_by"] == "bytes", "matmul_stats "
+              "M=%d N=%d: %d blocks of %dx%d for %d SMs, and not bound by "
+              "bytes", m, n, blocks, bm, bn, sms)
+        t.update(m=m, k=k, n=n, max_abs_err=max(e["y"], e["s1"], e["s2"]))
+        rows.append(t)
+        log("data (b): matmul_stats M=%d K=%d N=%d fp32: max_abs_err y "
+            "%.2e s1 %.2e s2 %.2e dx %.2e dw %.2e  ok; device time alone "
+            "kernel_ms=%.5f bound_ms=%.5f (%s: %d flops, %d bytes) "
+            "plain_ms=%.5f library_ms=%.5f (torch.matmul, product only); "
+            "with the host's gaps kernel_ms=%.5f; tile %dx%d, %d blocks "
+            "for %d SMs", m, k, n, e["y"], e["s1"], e["s2"], e["dx"],
+            e["dw"], t["ms"], t["bound_ms"], t["bound_by"], flops, nbytes,
+            t["plain_ms"], t["library_ms"], t["ms_with_host_gaps"], bm, bn,
+            blocks, sms)
+    return worst, rows
+
+
+def _sentiment_program(fluid):
+    """The book's understand_sentiment stacked_lstm_net at the reference
+    function's defaults (emb 128, hid 512: dynamic_lstm of 128 units, 3
+    stacked, the later pairs reversed), max pools, softmax over 2
+    classes, Adam 2e-3."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        L = fluid.layers
+        data = L.data("words", [1], dtype="int64", lod_level=1)
+        label = L.data("label", [1], dtype="int64")
+        emb = L.embedding(data, size=[fluid.dataset.imdb.VOCAB_SIZE,
+                                      SENTI["emb"]])
+        fc1 = L.fc(emb, SENTI["hid"])
+        lstm1, _ = L.dynamic_lstm(fc1, size=SENTI["hid"])
+        inputs = [fc1, lstm1]
+        for _ in range(2, SENTI["stacked"] + 1):
+            fc = L.fc(L.concat(inputs, axis=1), SENTI["hid"])
+            lstm, _ = L.dynamic_lstm(fc, size=SENTI["hid"], is_reverse=True)
+            inputs = [fc, lstm]
+        pred = L.fc(L.concat([L.sequence_pool(inputs[0], "max"),
+                              L.sequence_pool(inputs[1], "max")], axis=1),
+                    2, act="softmax")
+        loss = L.mean(L.cross_entropy(pred, label))
+        fluid.optimizer.Adam(learning_rate=0.002).minimize(loss)
+    return main, startup, loss, [data, label]
+
+
+def data_lod_phase(torch, smi):
+    """Phase 17 (c)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import lstm_cell as LC
+    from paddle_tpu_torch.reader import DeviceLoader
+    main, startup, loss, feed_vars = _sentiment_program(fluid)
+    reader = fluid.batch(fluid.dataset.imdb.train(
+        n=SENTI["batch"] * SENTI["batches"]), SENTI["batch"])
+    feeder = fluid.DataFeeder(feed_vars, fluid.CPUPlace(), program=main)
+    feeds = [feeder.feed(b) for b in reader()]
+    lens = [f["words"].recursive_sequence_lengths()[0] for f in feeds]
+
+    def bucket(i):
+        """(bucketed token total, @MAXLEN) of batch i: run_steps'
+        signature of a LoD feed"""
+        return (1 << (sum(lens[i]) - 1).bit_length(),
+                1 << (max(lens[i]) - 1).bit_length())
+    # the K=5 dispatch takes the first K batches of the first batch's
+    # signature (run_steps captures one signature; a batch of another
+    # bucket is run() on its own, as its error message says)
+    group = [i for i in range(len(feeds)) if bucket(i) == bucket(0)]
+    check(len(group) >= SENTI["k"] and all(
+        bucket(i)[1] == bucket(0)[1] for i in range(len(feeds))),
+        "data (c): %d of %d batches share the first one's bucket %s "
+        "(buckets %s)", len(group), len(feeds), bucket(0),
+        [bucket(i) for i in range(len(feeds))])
+    maxlen = bucket(0)[1]
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    s0 = fluid.Scope()
+    exe.run(startup, scope=s0)
+    init = {n: s0.get_numpy(n) for n in s0.local_var_names()
+            if s0.find_var(n) is not None}
+    names = sorted(init)
+    steps = SENTI["run_steps"]
+
+    # run(): fed by the loader's per-batch iterator against direct feeds
+    sd = _scope_from(fluid, init, exe.device)
+    before = _plan_counts(exe._feed_plans)
+    direct = [exe.run(main, feed=f, fetch_list=[loss], scope=sd,
+                      return_numpy=False)[0] for f in feeds[:steps]]
+    plans = {"run": _plan_counts(exe._feed_plans, before)}
+    sl = _scope_from(fluid, init, exe.device)
+    LC.lstm_scan.launches = 0
+    loaded = []
+    before = _plan_counts(exe._feed_plans)
+    loader = DeviceLoader(iter(feeds[:steps]), device=exe.device)
+    for batch in loader:
+        check(isinstance(batch["words"], fluid.LoDTensor) and
+              batch["label"].device == exe.device, "data (c): the loader "
+              "did not pass the LoD feed through (%s) or stage the label "
+              "(%s)", type(batch["words"]).__name__, batch["label"].device)
+        loaded.append(exe.run(main, feed=batch, fetch_list=[loss],
+                              scope=sl, return_numpy=False)[0])
+    torch.cuda.synchronize()
+    eager_launches = LC.lstm_scan.launches
+    plans["loader"] = _plan_counts(loader._plans)
+    plans["loader-fed run"] = _plan_counts(exe._feed_plans, before)
+    _log_plans("data (c)", plans, _plan_cost(feeds, exe.device),
+               len(feeds), smi)
+    per_step = SENTI["stacked"] * maxlen * 2
+    same = all(torch.equal(a, b) for a, b in zip(direct, loaded))
+    differ = _same_state(torch, sd, sl, names)
+    log("data (c): stacked_lstm_net (emb %d, hid %d, %d stacked; imdb, "
+        "batch %d, @MAXLEN %d, tokens a batch %s): %d run() steps fed by "
+        "DeviceLoader (LoD passed through) vs fed the DataFeeder's dicts: "
+        "losses %s (%s); %s; lstm_cell launches %d (%d a step: %d layers x "
+        "%d steps x forward and backward)", SENTI["emb"], SENTI["hid"],
+        SENTI["stacked"], SENTI["batch"], maxlen,
+        [sum(x) for x in lens], steps, " ".join(
+            "%.5f" % float(x) for x in direct),
+        "bitwise equal" if same else "DIFFER", "every state tensor "
+        "bitwise equal" if not differ else "%d state tensors differ"
+        % len(differ), eager_launches, per_step, SENTI["stacked"], maxlen)
+    check(same and not differ, "data (c): run() fed by the loader is not "
+          "bitwise equal to run() fed the DataFeeder's dicts")
+    check(eager_launches == per_step * steps, "data (c): lstm_cell "
+          "launched %d times in %d steps, want %d", eager_launches, steps,
+          per_step * steps)
+
+    # run_steps(k=5): a list of the loader's dicts against the direct list
+    k = SENTI["k"]
+    kfeeds = [feeds[i] for i in group[:k]]
+    log("data (c): batches' (bucketed tokens, @MAXLEN) %s; the K=%d "
+        "dispatch takes batches %s", [bucket(i) for i in range(len(feeds))],
+        k, group[:k])
+    via = list(DeviceLoader(iter(kfeeds), device=exe.device))
+    sg = _scope_from(fluid, init, exe.device)
+    LC.lstm_scan.launches = 0
+    graph = exe.run_steps(main, feeds=via, fetch_list=[loss], scope=sg,
+                          return_numpy=False)
+    torch.cuda.synchronize()
+    graph_launches = LC.lstm_scan.launches
+    sh = _scope_from(fluid, init, exe.device)
+    host = exe.run_steps(main, feeds=kfeeds, fetch_list=[loss],
+                         scope=sh, return_numpy=False)
+    se = _scope_from(fluid, init, exe.device)
+    eager = [exe.run(main, feed=f, fetch_list=[loss], scope=se,
+                     return_numpy=False)[0] for f in kfeeds]
+    torch.cuda.synchronize()
+    for what, got, scope in (("the DataFeeder's dicts as a list", host, sh),
+                             ("%d run() calls" % k, eager, se)):
+        same = all(torch.equal(a[0] if isinstance(a, list) else a,
+                               b[0]) for a, b in zip(got, graph))
+        differ = _same_state(torch, scope, sg, names)
+        log("data (c): run_steps(K=%d) fed a list of the loader's dicts vs "
+            "%s: losses %s; %s", k, what, "bitwise equal" if same else
+            "DIFFER", "every state tensor bitwise equal" if not differ
+            else "%d state tensors differ (first %s)" % (len(differ),
+                                                          differ[0]))
+        check(same and not differ, "data (c): run_steps fed the loader's "
+              "dicts is not bitwise equal to %s", what)
+    check(graph_launches == per_step * (k + 1), "data (c): the K=%d "
+          "dispatch launched lstm_cell %d times, want %d a step and the "
+          "capture's warm-up step", k, graph_launches, per_step)
+    log("data (c): the K=%d dispatch's lstm_cell launches %d: %d a step "
+        "through the replay and the capture's warm-up step", k,
+        graph_launches, per_step)
+    return eager_launches, graph_launches
+
+
+def data_plane_phase(torch, smi):
+    """Phase 17."""
+    import tempfile
+    t0 = time.perf_counter()
+    work = os.path.join(ROOT, "build", "paddle_tpu_torch")
+    os.makedirs(work, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        mm_launches, timing = data_resnet_phase(torch, smi, tmp)
+    t1 = time.perf_counter()
+    mm_err, mm_rows = data_mm_phase(torch)
+    t2 = time.perf_counter()
+    lstm_eager, lstm_graph = data_lod_phase(torch, smi)
+    t3 = time.perf_counter()
+    log("data: phase 17 took %.1f s ((a) %.1f s, (b) %.1f s, (c) %.1f s)",
+        t3 - t0, t1 - t0, t2 - t1, t3 - t2)
+    return {"mm_launches": mm_launches, "mm_err": mm_err,
+            "mm_shapes": mm_rows, "timing": timing,
+            "lstm_launches": lstm_eager, "lstm_graph_launches": lstm_graph}
+
+
 def _report_profile(prof, wall, title, focus=None):
     """Device busy share of ``wall`` and the top kernels; with ``focus``,
     also the share of the kernels whose names hold it. Returns (busy
@@ -5714,6 +6375,7 @@ def main():
         deepfm_phase(torch, smi)
         lstm_launches, lstm_graph, lstm_cell, _ = lstm_phase(torch, smi)
         srl_launches, srl_graph, _ = crf_detection_phase(torch, smi)
+        data = data_plane_phase(torch, smi)
     except SmokeFailure as e:
         print("chip_smoke: FAILED: %s" % e, file=sys.stderr)
         return 1
@@ -5750,8 +6412,10 @@ def main():
         "name": "matmul_stats", "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/matmul_stats.cu",
         "replaces": "paddle_tpu/ops/matmul_stats.py:72",
-        "launches": mm_launches + mm_graph, "graph_launches": mm_graph,
-        "max_abs_err": mm_err}, **mm_times))
+        "launches": mm_launches + mm_graph + data["mm_launches"],
+        "graph_launches": mm_graph, "data_launches": data["mm_launches"],
+        "max_abs_err": max(mm_err, data["mm_err"]),
+        "cifar_shortcut_shapes": data["mm_shapes"]}, **mm_times))
     kernels.append(dict({
         "name": "dropout", "route": "cuda", "tpu_kernel": False,
         "source": "paddle_tpu_torch/ops/csrc/dropout.cu",
@@ -5765,9 +6429,11 @@ def main():
         "source": "paddle_tpu_torch/ops/csrc/lstm_cell.cu",
         "replaces": "paddle_tpu/ops/rnn_ops.py:111-131 (lax.scan body, "
                     "fused by XLA: no Pallas kernel)",
-        "launches": lstm_launches + srl_launches,
+        "launches": lstm_launches + srl_launches + data["lstm_launches"],
         "graph_launches": lstm_graph, "srl_launches": srl_launches,
-        "srl_graph_launches": srl_graph}, **lstm_cell))
+        "srl_graph_launches": srl_graph,
+        "data_launches": data["lstm_launches"],
+        "data_graph_launches": data["lstm_graph_launches"]}, **lstm_cell))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -43,7 +43,13 @@ Ported so far:
     (``ops/beam_search.py``, ``layers.beam_search``/
     ``beam_search_decode``, ``models/decoding.py``) and the decode models'
     whole decodes, ``TransformerInfer.translate``/``translate_greedy``
-    and ``TransformerLMInfer.generate``, each one CUDA graph on the card.
+    and ``TransformerLMInfer.generate``, each one CUDA graph on the card;
+  * the data plane: ``dataset`` (seeded synthetic readers), ``reader``
+    (the decorators, ``batch``, ``open_files``, ``DeviceLoader``, which
+    stages feeds on the card from a worker thread, and its
+    ``megabatches(k)`` for ``Executor.run_steps``), ``DataFeeder``,
+    ``recordio`` (over a C++ library built with g++ and zlib at first
+    use) and the reader layers.
 
 Used as ``import paddle_tpu_torch as fluid``, as scripts use
 ``paddle_tpu``.
@@ -62,10 +68,26 @@ from . import metrics  # noqa: F401
 from . import evaluator  # noqa: F401
 from . import nets  # noqa: F401
 from .core import (  # noqa: F401
-    CPUPlace, CUDAPlace, Executor, LoDTensor, Program, Scope, TPUPlace,
-    append_backward, calc_gradient, create_lod_tensor, default_main_program,
-    default_startup_program, global_scope, gradients, load_numpy_state,
-    program_guard, scope_guard, unique_name,
+    Block, CPUPlace, CUDAPinnedPlace, CUDAPlace, Executor, LoDTensor,
+    Operator, Parameter, Program, Scope, TPUPlace, Variable, append_backward,
+    calc_gradient, create_lod_tensor, default_main_program,
+    default_startup_program, global_scope, gradients, is_compiled_with_cuda,
+    is_compiled_with_tpu, load_numpy_state, pack_sequences, program_guard,
+    scope_guard, switch_main_program, switch_startup_program, unique_name,
 )
 from .core import backward  # noqa: F401
-from .param_attr import ParamAttr  # noqa: F401
+from .core.selected_rows import SelectedRows  # noqa: F401
+from .param_attr import ParamAttr, WeightNormParamAttr  # noqa: F401
+from . import flags  # noqa: F401
+from .data_feeder import DataFeeder  # noqa: F401
+from . import dataset  # noqa: F401
+from . import reader  # noqa: F401
+from .reader import batch  # noqa: F401
+from . import recordio  # noqa: F401
+
+# `import paddle_tpu_torch as paddle; paddle.fluid...` and `import
+# paddle_tpu_torch.fluid as fluid`: the package itself is the fluid
+# namespace, as in the JAX package
+import sys as _sys
+fluid = _sys.modules[__name__]
+_sys.modules[__name__ + ".fluid"] = fluid

@@ -1,8 +1,11 @@
 from . import unique_name  # noqa: F401
 from .backward import append_backward, calc_gradient, gradients  # noqa: F401
 from .executor import Executor, as_numpy  # noqa: F401
-from .lod import LoDTensor, create_lod_tensor  # noqa: F401
-from .places import CPUPlace, CUDAPlace, TPUPlace, resolve_device  # noqa: F401
+from .lod import LoDTensor, create_lod_tensor, pack_sequences  # noqa: F401
+from .places import (  # noqa: F401
+    CPUPlace, CUDAPinnedPlace, CUDAPlace, TPUPlace, is_compiled_with_cuda,
+    is_compiled_with_tpu, resolve_device,
+)
 from .program import (  # noqa: F401
     Block, Operator, Parameter, Program, Variable,
     default_main_program, default_startup_program, program_guard,

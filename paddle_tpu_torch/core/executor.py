@@ -49,11 +49,19 @@ ops (the SelectedRows and tensor-array host ops run, in ``run`` only),
 NaN guards, the transform pipeline, the monitor, and draws from a
 ``torch.Generator`` (the initializers) inside a ``run_steps`` graph on
 the card. Gradient accumulation is a ``ParallelExecutor`` build option
-in the JAX package and the feed-plan cache a serving-path speed cache;
-neither is ported, so nothing here can ask for them.
+in the JAX package (ROADMAP.md, queue 1 item 9), so nothing here can ask
+for it.
+
+Feeds normalize through a ``FeedPlanCache`` (the JAX package's
+zero-copy host feed path): a repeated feed
+signature skips the derivation, and a frozen (``writeable=False``) dense
+numpy feed is committed once to a tensor on the executor's device and
+reused while it is the same object.
 """
 
+import collections
 import contextlib
+import threading
 import weakref
 
 import numpy as np
@@ -70,7 +78,7 @@ from .program import Variable, default_main_program
 from .scope import global_scope, to_tensor, torch_dtype
 from .selected_rows import SelectedRows
 
-__all__ = ["Executor", "as_numpy"]
+__all__ = ["Executor", "FeedPlanCache", "as_numpy"]
 
 # the JAX package's host (IO) ops the port does not lower: distributed
 # send/recv/prefetch (the wire). The SelectedRows host ops
@@ -124,34 +132,170 @@ def _is_lod(value):
         hasattr(value, "recursive_sequence_lengths")
 
 
-def _normalize_feeds(feed):
+def _normalize_feeds(feed, plan_cache=None, commit=True):
     """Feeds as host values -> (``{name: array or tensor}``, static_info),
     the JAX package's ``_normalize_feeds``: a LoDTensor with a LoD
     becomes its flat rows, zero-padded at the tail to the next power of
     two under the ``lod_bucketing`` flag, and ``<name>@LOD``, its
     innermost lengths (int32); static_info gets ``<name>@MAXLEN``, the
     next power of two of the longest length. A LoDTensor without a LoD
-    is its data."""
+    is its data; a dense value passes through.
+
+    ``plan_cache`` (a ``FeedPlanCache``) skips the derivation on a feed
+    signature it has seen, and commits a frozen dense numpy feed to a
+    tensor on its device once (``commit=False`` leaves every value on
+    the host)."""
+    if plan_cache is not None:
+        return plan_cache.normalize(feed, commit=commit)
+    return _apply_feed_plan(_derive_feed_plan(feed), feed, None)
+
+
+class _FeedPlan:
+    """One cached ``_normalize_feeds`` derivation: the per-feed transform
+    instructions, the static_info, the derived length vectors (valid
+    because the LoD lengths are part of the cache key), and any
+    committed device buffers."""
+
+    __slots__ = ("instrs", "static_info", "lods", "buffers")
+
+    def __init__(self):
+        self.instrs = []       # (kind, feed_name, *params)
+        self.static_info = {}
+        self.lods = {}         # <name>@LOD arrays
+        self.buffers = {}      # feed_name -> (source object, tensor)
+
+
+def _derive_feed_plan(feed):
+    """The full normalization derivation (the cache's miss path); see
+    ``_normalize_feeds`` for what each instruction does."""
+    plan = _FeedPlan()
     bucket_on = bool(flags.get_flag("lod_bucketing"))
-    arrays, static_info = {}, {}
     for name, v in feed.items():
         if not _is_lod(v):
-            arrays[name] = v
-            continue
-        arr = np.asarray(v.data)
-        if v.lod:
+            plan.instrs.append(("dense", name))
+        elif v.lod:
             lengths = np.asarray(v.recursive_sequence_lengths()[-1],
                                  np.int32)
             mx = max(1, int(lengths.max(initial=1)))
-            static_info[name + "@MAXLEN"] = 1 << (mx - 1).bit_length()
-            total = int(arr.shape[0])
+            plan.static_info[name + "@MAXLEN"] = 1 << (mx - 1).bit_length()
+            total = int(np.shape(v.data)[0])
             bucket = 1 << max(0, (total - 1).bit_length())
-            if bucket_on and bucket > total:
+            plan.lods[name + "@LOD"] = lengths
+            plan.instrs.append(("lod_pad", name, bucket
+                                if bucket_on and bucket > total else None))
+        else:
+            plan.instrs.append(("lod_data", name))
+    return plan
+
+
+def _apply_feed_plan(plan, feed, cache):
+    """A plan's transforms over this call's values."""
+    arrays = {}
+    for instr in plan.instrs:
+        kind, name = instr[0], instr[1]
+        v = feed[name]
+        if kind == "dense":
+            dev = cache._committed(plan, name, v) \
+                if cache is not None else None
+            arrays[name] = v if dev is None else dev
+        elif kind == "lod_data":
+            arrays[name] = np.asarray(v.data)
+        else:                   # lod_pad
+            arr, pad_to = np.asarray(v.data), instr[2]
+            if pad_to is not None:
                 arr = np.concatenate([arr, np.zeros(
-                    (bucket - total,) + arr.shape[1:], arr.dtype)])
-            arrays[name + "@LOD"] = lengths
-        arrays[name] = arr
-    return arrays, static_info
+                    (pad_to - arr.shape[0],) + arr.shape[1:], arr.dtype)])
+            arrays[name] = arr
+    arrays.update(plan.lods)
+    return arrays, dict(plan.static_info)
+
+
+class FeedPlanCache:
+    """The JAX package's zero-copy host feed path: normalization plans
+    cached by feed signature (names, shapes, dtypes, LoD lengths, the
+    bucketing flag), least recently used first out past ``capacity``,
+    and committed device buffers.
+
+    On a plan hit only the per-call work runs. A dense numpy feed with
+    ``writeable=False`` is committed once to a tensor on
+    ``device_fn()``'s device and reused while it is the SAME object:
+    freezing is the caller's contract that its contents are final
+    (re-enabling writeable, mutating and freezing again serves the stale
+    buffer, as with any zero-copy API). Writeable feeds are never
+    committed, so an in-place mutation between calls is honored; a value
+    that is a tensor already passes through.
+
+    ``hits``, ``misses`` and ``buffer_reuses`` count for tests. The
+    monitor counters the JAX package ticks here
+    (``ptpu_feed_normalizations_total``, ``ptpu_feed_plan_hits_total``)
+    come with the monitor (ROADMAP.md, queue 1 item 10)."""
+
+    def __init__(self, capacity=64, device_fn=None):
+        self._plans = collections.OrderedDict()
+        self._lock = threading.Lock()
+        self._capacity = int(capacity)
+        self._device_fn = device_fn
+        self.hits = 0
+        self.misses = 0
+        self.buffer_reuses = 0
+
+    def normalize(self, feed, commit=True):
+        key = self._key(feed)
+        with self._lock:
+            plan = self._plans.get(key)
+            if plan is not None:
+                self._plans.move_to_end(key)
+                self.hits += 1
+        if plan is None:
+            plan = _derive_feed_plan(feed)
+            with self._lock:
+                self.misses += 1
+                self._plans[key] = plan
+                while len(self._plans) > self._capacity:
+                    self._plans.popitem(last=False)
+        return _apply_feed_plan(plan, feed, self if commit else None)
+
+    @staticmethod
+    def _key(feed):
+        # dtype objects, not their names: str(np.dtype) costs more than
+        # the derivation a hit skips
+        items = []
+        for name, v in feed.items():
+            if _is_lod(v):
+                data = np.asarray(v.data)
+                items.append((name, "lod" if v.lod else "lodd", data.shape,
+                              data.dtype, tuple(
+                                  v.recursive_sequence_lengths()[-1])
+                              if v.lod else None))
+            else:
+                dt = getattr(v, "dtype", None)
+                if dt is None:
+                    v = np.asarray(v)
+                    dt = v.dtype
+                items.append((name, "d", tuple(v.shape), dt))
+        return (bool(flags.get_flag("lod_bucketing")), tuple(sorted(
+            items, key=lambda item: item[0])))
+
+    def _committed(self, plan, name, src):
+        """The device tensor of a frozen dense numpy feed, reused by
+        identity; None when the value is not committable (writeable, not
+        numpy, or no device)."""
+        if not isinstance(src, np.ndarray) or src.flags.writeable \
+                or self._device_fn is None:
+            return None
+        ent = plan.buffers.get(name)
+        if ent is not None and ent[0] is src:
+            with self._lock:
+                self.buffer_reuses += 1
+            return ent[1]
+        # a copy: the tensor must not alias the caller's array
+        dev = to_tensor(np.array(src), self._device_fn())
+        plan.buffers[name] = (src, dev)
+        return dev
+
+    def clear(self):
+        with self._lock:
+            self._plans.clear()
 
 
 def _trim_fetches(fetch_names, fetches, fetch_lods):
@@ -191,6 +335,9 @@ class Executor:
         self.constants = weakref.WeakKeyDictionary()
         self.stats = {"megastep_dispatches": 0, "graph_captures": 0,
                       "graph_replays": 0}
+        # normalization plans of run()'s and run_steps' list feeds; a
+        # frozen feed's tensor is committed on this executor's device
+        self._feed_plans = FeedPlanCache(device_fn=lambda: self.device)
 
     def run(self, program=None, feed=None, fetch_list=None,
             feed_var_name="feed", fetch_var_name="fetch", scope=None,
@@ -201,7 +348,8 @@ class Executor:
             f.name if isinstance(f, Variable) else str(f)
             for f in (fetch_list or []))
         _refuse_left_out_flags()
-        arrays, static_info = _normalize_feeds(feed or {})
+        arrays, static_info = _normalize_feeds(feed or {},
+                                               plan_cache=self._feed_plans)
         feeds = {k: self._feed_tensor(k, v) for k, v in arrays.items()}
         persistable = [v.name for v in program.global_block().vars.values()
                        if v.persistable]
@@ -291,7 +439,8 @@ class Executor:
                 "send/recv/prefetch must hit the wire once per step; "
                 "use run() per step")
         _refuse_left_out_flags()
-        staged, feed_sig, static_info = _stack_feeds(feeds, k)
+        staged, feed_sig, static_info = _stack_feeds(feeds, k,
+                                                     self._feed_plans)
         state_sig = []
         for v in program.global_block().vars.values():
             value = scope.find_var(v.name) if v.persistable else None
@@ -562,12 +711,12 @@ def _signature(value):
     return tuple(value.shape), torch_dtype(value.dtype)
 
 
-def _stack_feeds(feeds, k):
+def _stack_feeds(feeds, k, plan_cache=None):
     """(``{name: [k, ...] host or device tensor}``, the per-step feed
     signature ``((name, shape, dtype), ...)``, the static table) from K
     per-step feed dicts, each normalized as ``run()`` normalizes it (LoD
-    feeds and their ``@LOD`` lengths included), or from one pre-stacked
-    dict of dense feeds."""
+    feeds and their ``@LOD`` lengths included, through ``plan_cache``),
+    or from one pre-stacked dict of dense feeds."""
     if isinstance(feeds, dict):
         stacked = {}
         for name, value in feeds.items():
@@ -592,7 +741,7 @@ def _stack_feeds(feeds, k):
         sig0 = info0 = None
         normed = []
         for i, feed in enumerate(feeds):
-            arrays, info = _normalize_feeds(feed)
+            arrays, info = _normalize_feeds(feed, plan_cache=plan_cache)
             normed.append(arrays)
             sig = tuple(sorted((n,) + _signature(v)
                                for n, v in arrays.items()))
@@ -609,8 +758,12 @@ def _stack_feeds(feeds, k):
         stacked = {}
         for name in normed[0]:
             values = [a[name] for a in normed]
-            if all(isinstance(v, torch.Tensor) for v in values):
-                stacked[name] = torch.stack(values)
+            tensors = [v for v in values if isinstance(v, torch.Tensor)]
+            if tensors:
+                # a committed (frozen) feed is a tensor already: the
+                # others join it on its device, narrowed as it is
+                stacked[name] = torch.stack(
+                    [to_tensor(v, tensors[0].device) for v in values])
             else:
                 stacked[name] = torch.from_numpy(np.ascontiguousarray(
                     np.stack([np.asarray(v) for v in values])))

@@ -19,11 +19,21 @@ The kernel wrappers count a launch when they are called, which under
 capture records a launch instead of running one. ``StepGraph`` takes the
 launches a capture recorded back out of the counts and adds them at every
 replay, so the counts stay the number of launches that ran on the card.
+
+A capture holds ``capture_lock`` from its start to its end. Work that
+enqueues on the card from another thread (``reader.DeviceLoader``'s
+staging thread) holds it too, so none of its allocations, copies or
+waits can fall inside a capture.
 """
+
+import threading
 
 import torch
 
-__all__ = ["StepGraph", "launch_counts"]
+__all__ = ["StepGraph", "launch_counts", "capture_lock"]
+
+# held by every capture, and by other threads' device work meanwhile
+capture_lock = threading.RLock()
 
 
 def _kernel_modules():
@@ -92,7 +102,7 @@ class StepGraph:
         pa.take_workspace(dev, stream.cuda_stream)
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(stream):
+        with capture_lock, torch.cuda.stream(stream):
             graph.capture_begin()
             try:
                 body()

@@ -7,7 +7,9 @@ question: which ``torch.device`` a program executes on.
     is accepted as its alias, so scripts written for the JAX package
     (``fluid.TPUPlace(0)``) run unchanged — mirroring how the JAX package
     aliases ``CUDAPlace`` to its accelerator.
-  * ``CPUPlace()`` is the CPU, taken only when the caller asks for it.
+  * ``CPUPlace()`` is the CPU, taken only when the caller asks for it;
+    ``CUDAPinnedPlace()`` is its alias, as in the JAX package (pinned
+    staging is ``reader.DeviceLoader``'s business).
 
 Resolving an accelerator place without a card raises: the port never
 falls back to the CPU on its own.
@@ -15,7 +17,8 @@ falls back to the CPU on its own.
 
 import torch
 
-__all__ = ["Place", "CPUPlace", "CUDAPlace", "TPUPlace", "resolve_device"]
+__all__ = ["Place", "CPUPlace", "CUDAPlace", "TPUPlace", "CUDAPinnedPlace",
+           "resolve_device", "is_compiled_with_cuda", "is_compiled_with_tpu"]
 
 
 def resolve_device(device=None):
@@ -68,3 +71,16 @@ class CUDAPlace(Place):
 class TPUPlace(CUDAPlace):
     """Alias of the accelerator place for scripts written against the
     JAX package."""
+
+
+class CUDAPinnedPlace(CPUPlace):
+    """Reference-compat alias of the host place."""
+
+
+def is_compiled_with_cuda():
+    """Whether this PyTorch build has CUDA (a card may still be absent)."""
+    return bool(torch.backends.cuda.is_built())
+
+
+def is_compiled_with_tpu():
+    return False

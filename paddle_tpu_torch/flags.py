@@ -7,7 +7,7 @@ from the ``PADDLE_TPU_<NAME>`` environment variable (gflags booleans:
 configures both packages. Registered here: the ``serving_*`` flags the
 port's engine reads, ``fuse_conv_bn`` (the conv lowering's),
 ``megastep_inflight`` (``Executor.run_steps``'s), ``lod_bucketing``
-(the LoD feeds'), and the
+(the LoD feeds'), ``data_home`` (``dataset.common``'s), and the
 Executor switches of features not ported yet, so that setting one fails
 loudly instead of being ignored.
 """
@@ -132,6 +132,9 @@ _register("lod_bucketing", bool, True,
           "pad rows at the tail, which every reduction masks), so the "
           "step's shapes stay the same across batches whose token totals "
           "differ")
+_register("data_home", str,
+          os.path.expanduser("~/.cache/paddle_tpu/dataset"),
+          "dataset cache directory")
 _register("check_nan_inf", bool, False,
           "per-op NaN/Inf guards in the Executor. Not ported yet; 1 "
           "makes Executor.run raise (see ROADMAP.md)")

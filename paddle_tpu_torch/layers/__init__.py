@@ -1,6 +1,6 @@
 """fluid.layers-compatible DSL surface: the layers whose ops the port
-lowers. The others (the parallel tier, the readers, ...) come with
-their lowerings (ROADMAP.md, queue 1)."""
+lowers, and the reader-layer API as host readers. The others (the
+parallel tier, ...) come with their lowerings (ROADMAP.md, queue 1)."""
 
 from . import ops  # noqa: F401
 from .compat import *  # noqa: F401,F403

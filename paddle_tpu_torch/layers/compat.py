@@ -6,12 +6,14 @@ sums/sum, pad, multiplex, smooth_l1, lrn, im2sequence, the random layers
 ctc_greedy_decoder), edit_distance, chunk_eval, the two beam-search
 builders, the detection builders (bipartite_match, target_assign,
 prior_box, box_coder, multiclass_nms, detection_output, detection_map,
-multi_box_head, ssd_loss), shrink_memory, reorder_lod_tensor_by_rank
-and ConditionalBlock. Its reader wrappers wait for the wire (ROADMAP.md,
-queue 1 item 10).
+multi_box_head, ssd_loss), create_parameter,
+autoincreased_step_counter, shrink_memory, reorder_lod_tensor_by_rank,
+ConditionalBlock, and the reader-layer API (batch, shuffle,
+double_buffer, open_recordio_file, open_files) as host readers.
 """
 
 from .layer_helper import LayerHelper
+from ..param_attr import ParamAttr
 
 __all__ = [
     "Print", "mul", "sums", "sum", "pad", "multiplex", "smooth_l1", "lrn",
@@ -21,7 +23,9 @@ __all__ = [
     "reorder_lod_tensor_by_rank", "ConditionalBlock", "warpctc",
     "ctc_greedy_decoder", "chunk_eval", "bipartite_match", "target_assign",
     "prior_box", "box_coder", "multiclass_nms", "detection_output",
-    "detection_map", "multi_box_head", "ssd_loss",
+    "detection_map", "multi_box_head", "ssd_loss", "create_parameter",
+    "autoincreased_step_counter", "batch", "shuffle", "double_buffer",
+    "open_recordio_file", "open_files",
 ]
 
 
@@ -352,6 +356,21 @@ def detection_map(detect_res, label, class_num=None, background_label=0,
     return m
 
 
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    helper = LayerHelper("create_parameter")
+    attr = attr or ParamAttr(name=name)
+    return helper.create_parameter(attr, list(shape), dtype,
+                                   is_bias=is_bias,
+                                   default_initializer=default_initializer)
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    from .learning_rate_scheduler import _decay_step_counter
+    assert step == 1, "only step=1 counters are emitted"
+    return _decay_step_counter(begin=begin)
+
+
 def shrink_memory(x, i, table):
     return _simple("shrink_rnn_memory", {"X": [x]}, {}, dtype=x.dtype)
 
@@ -360,6 +379,53 @@ def reorder_lod_tensor_by_rank(x, rank_table):
     return _simple("reorder_lod_tensor_by_rank",
                    {"X": [x], "RankTable": [rank_table]}, {},
                    dtype=x.dtype)
+
+
+# -- reader-layer API (layers/io.py) ---------------------------------------
+# The reference's graph-reader ops (READER variables consumed by a `read`
+# op) are HOST readers in this design, as in the JAX package: the data
+# plane stays on the host and reader.DeviceLoader overlaps the upload.
+# These aliases keep reference scripts working: each takes/returns a host
+# reader callable.
+
+def batch(reader, batch_size, drop_last=False):
+    from ..reader import batch as _batch
+    return _batch(reader, batch_size, drop_last=drop_last)
+
+
+def shuffle(reader, buffer_size):
+    from ..reader import shuffle as _shuffle
+    return _shuffle(reader, buffer_size)
+
+
+def double_buffer(reader, place=None, name=None):
+    """Host-side prefetch decorator (create_double_buffer_reader_op
+    capability; device-side overlap is reader.DeviceLoader)."""
+    from ..reader import buffered
+    return buffered(reader, 2)
+
+
+def open_recordio_file(filename, shapes=None, lod_levels=None,
+                       dtypes=None):
+    """Host reader over the native chunked record format
+    (create_recordio_file_reader_op capability)."""
+    from .. import recordio
+    return recordio.reader(filename)
+
+
+def open_files(filenames, shapes=None, lod_levels=None, dtypes=None,
+               thread_num=1, buffer_size=64, pass_num=1, **kwargs):
+    """Multi-file threaded recordio ingestion (layers/io.py:360 +
+    operators/reader/open_files_op.cc capability): returns a host
+    reader-creator scanning the files with `thread_num` prefetch
+    threads; shapes/lod_levels/dtypes are accepted for signature parity
+    (samples carry their own shapes in the record codec). File-shard
+    kwargs (shard_id/num_shards) pass through — the multi-host input
+    path where each host reads its file subset."""
+    from ..reader import open_files as _open_files
+    return _open_files(filenames, thread_num=thread_num,
+                       buffer_size=buffer_size, pass_num=pass_num,
+                       **kwargs)
 
 
 class ConditionalBlock:

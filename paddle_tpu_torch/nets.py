@@ -1,10 +1,9 @@
 """Composite network pieces.
 
 The counterpart of ``paddle_tpu/nets.py``: ``simple_img_conv_pool``,
-``img_conv_group`` (VGG's blocks), ``glu`` and
-``scaled_dot_product_attention``, built through the port's ``layers`` so
-they emit the JAX package's ops. ``sequence_conv_pool`` needs LoD
-sequences, which the port does not have yet.
+``img_conv_group`` (VGG's blocks), ``sequence_conv_pool`` (over LoD
+sequences), ``glu`` and ``scaled_dot_product_attention``, built through
+the port's ``layers`` so they emit the JAX package's ops.
 """
 
 from . import layers
@@ -59,10 +58,10 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
 
 def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
                        act="sigmoid", pool_type="max"):
-    raise NotImplementedError(
-        "nets.sequence_conv_pool needs LoD sequences (sequence_conv, "
-        "sequence_pool), which the port does not have yet (ROADMAP.md, "
-        "queue 1 item 7)")
+    conv_out = layers.sequence_conv(input, num_filters=num_filters,
+                                    filter_size=filter_size,
+                                    param_attr=param_attr, act=act)
+    return layers.sequence_pool(conv_out, pool_type=pool_type)
 
 
 def glu(input, dim=-1):

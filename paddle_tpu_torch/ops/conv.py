@@ -15,7 +15,7 @@ and hands BN its statistics through ``ctx.env[<out> + "@BNSTATS"]``.
 edge rules (padded cells never win a max; ``ceil_mode`` pads the right
 edge so the last partial window counts; ``exclusive`` divides by the
 real cells; adaptive bins span [floor(i S / o), ceil((i + 1) S / o))).
-``row_conv`` over LoD sequences waits for ROADMAP.md queue 1 item 7.
+``row_conv`` over LoD sequences convolves each sequence on its own.
 """
 
 import torch

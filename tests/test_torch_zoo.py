@@ -75,8 +75,8 @@ def test_unported_zoo_entries_raise(name):
 
 
 def test_nets_pieces_build_the_jax_ops():
-    """glu and scaled_dot_product_attention emit the JAX package's
-    Program; sequence_conv_pool waits for LoD."""
+    """glu, scaled_dot_product_attention and sequence_conv_pool emit the
+    JAX package's Program (main and startup)."""
     def build(pkg, nets_mod):
         main, startup = pkg.Program(), pkg.Program()
         with pkg.program_guard(main, startup), pkg.unique_name.guard():
@@ -86,8 +86,48 @@ def test_nets_pieces_build_the_jax_ops():
         return main
     from paddle_tpu import nets as jnets
     assert build(tfluid, nets).to_json() == build(jfluid, jnets).to_json()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        nets.sequence_conv_pool(None, 4, 3)
+    jmain, jstart, _ = _seq_conv_pool_net(jfluid, jnets)
+    tmain, tstart, _ = _seq_conv_pool_net(tfluid, nets)
+    assert tmain.to_json() == jmain.to_json()
+    assert tstart.to_json() == jstart.to_json()
+    assert [op.type for op in tmain.global_block().ops] == [
+        "sequence_conv", "elementwise_add", "sigmoid", "sequence_pool"]
+
+
+def _seq_conv_pool_net(pkg, nets_mod):
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.program_guard(main, startup), pkg.unique_name.guard():
+        x = pkg.layers.data("x", [5], lod_level=1)
+        out = nets_mod.sequence_conv_pool(x, num_filters=4, filter_size=3)
+    return main, startup, out
+
+
+def test_sequence_conv_pool_matches_jax():
+    """The forward over a LoD feed of 3 sequences (lengths 4, 1, 6)
+    from the JAX package's startup values, at rtol 1e-5."""
+    from paddle_tpu import nets as jnets
+    rng = np.random.RandomState(5)
+    lens = [4, 1, 6]
+    data = rng.randn(sum(lens), 5).astype(np.float32)
+    jmain, jstart, jout = _seq_conv_pool_net(jfluid, jnets)
+    tmain, _, tout = _seq_conv_pool_net(tfluid, nets)
+    jscope = jfluid.Scope()
+    jexe = jfluid.Executor(jfluid.CPUPlace())
+    with jfluid.scope_guard(jscope):
+        jexe.run(jstart)
+        want, = jexe.run(jmain, feed={"x": jfluid.create_lod_tensor(
+            data, [lens])}, fetch_list=[jout])
+    state = {v.name: np.asarray(jscope.find_var(v.name))
+             for v in jmain.list_vars() if v.persistable
+             and jscope.find_var(v.name) is not None}
+    tscope = tfluid.Scope()
+    tfluid.load_numpy_state(tscope, state, "cpu")
+    got, = tfluid.Executor(tfluid.CPUPlace()).run(
+        tmain, feed={"x": tfluid.create_lod_tensor(data, [lens])},
+        fetch_list=[tout], scope=tscope)
+    assert np.asarray(got).shape == (3, 4)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=1e-5, atol=1e-6)
 
 
 def test_glu_and_attention_match_jax():

@@ -230,8 +230,11 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
      proximal_adagrad, ModelAverage's average_accumulates, and the three
      gradient clips with L2 decay, 2 steps on the card against the port's
      CPU path from one startup scope, losses and persistables within
-     2e-4 of max(1, max|w|); ModelAverage's apply / restore round trip
-     bitwise;
+     2e-4 of max(1, max|w|) (ftrl, whose rule carries the paths'
+     gradient rounding into some weights many times over: each path
+     within 2e-4 of the float64 rule along its own gradients, and the
+     card from the CPU within the float64 rule's own gap plus 2e-4 a
+     path); ModelAverage's apply / restore round trip bitwise;
  13. mt      — the encoder-decoder MT transformer, beam search and the
      decode graphs, the mnist models and VGG-16. (a)
      ``transformer(packed=True)`` at its own widths (vocab 4096/4096,
@@ -314,7 +317,11 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
      4,096, @MAXLEN 128) with Adam 1e-3: the card's first step against
      the port's CPU path from one startup scope, the loss and the norm
      of the weights' difference within 4 x the gap of the control (the
-     plain steps on the card); 20 eager steps on the fixed batch, losses
+     plain steps on the card); where the max pool's choice parts from
+     the CPU's at a near-tie (two rows within rounding), the forward
+     kernel's pool input and the step through the plain forward and the
+     backward kernel are held so instead, and a parting that is no
+     near-tie fails; 20 eager steps on the fixed batch, losses
      falling, lstm_cell launches exactly 3 x 128 x 2 a step and no other
      kernel of the port; 5 ``run()`` calls against one ``run_steps(K=5)``
      dispatch bitwise; ms per batch eager and under the graph A/B/A/B (3
@@ -390,7 +397,40 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
      DataFeeder's dicts fed directly, lstm_cell launches exactly 3 x
      @MAXLEN x 2 a step; ``run_steps(K=5)`` given a list of the loader's
      dicts bitwise equal to the DataFeeder's list and to 5 ``run()``
-     calls.
+     calls;
+ 18. front — the rest of the front end on the card. (a) In a process of
+     its own (``chip_smoke.py --front-profile DIR``), 3 steps of the
+     packed LM (phase 6's program, batch 32, Adam) under
+     ``fluid.profiler.profiler("All", "total", <dir>)`` with the flag
+     ``profile_memory`` on: the host table has 3 ``exe.run(compiled)``
+     calls and n_layer x 3 ``op:sp_attention`` rows, the device trace
+     (``<dir>/device_trace.json``) names ``flash_fwd_kernel``,
+     ``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel`` as many times
+     as their launch counters, and so does the profiler's own trace
+     check (``last_device_trace_check``), the recorded peak lies between
+     0 and the card's memory; profiled and unprofiled step ms. (a') The
+     same 3 steps in the script's own process, after its earlier
+     profiler sessions: the counters are n_layer x 3, and a trace that
+     holds fewer flash launches than counted must have made the profiler
+     warn; the reading, and when a lost record was launched. (b) 10 LM steps
+     with ``check_nan_inf`` on bitwise equal to 10 with it off (losses
+     and every state tensor), one guard read a run, both step ms; a NaN
+     in ``mask`` trips the same op and variable on the card and on the
+     CPU (2 rows of the batch), and ``run_steps(K=5)`` with the NaN in
+     step 3 names ``logical step 3 of 5``. (c) An nce net at the
+     word2vec book's widths (4 context words over the imikolov
+     dictionary, embedding 32, hidden 256, batch 64): ``run_steps(K=5)``
+     as one CUDA graph bitwise equal to 5 ``run()`` calls; the LM's
+     startup program's Philox words bitwise equal on the card and the
+     CPU, its values within 2 ulp, and both startups' seconds. (d)
+     ResNet-50 inference at batch 32 (phase 8's net cloned
+     ``for_test``, pruned to the logits) from weights after 3 fused
+     training steps: after ``InferenceTranspiler`` no ``batch_norm`` op
+     is left and the logits stay within 1e-4 of the largest unfused
+     logit; both forwards' ms. (e) The recognize_digits convnet (20 and
+     50 filters) trained 2 passes through ``v2.trainer.SGD`` after
+     ``paddle.init(use_gpu=True)``, its executor on the card, the cost
+     falling; ``paddle.infer`` equal to an executor run.
 
 The last three lines of standard output are the kernels' JSON line, the
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device": ...}``.
@@ -407,8 +447,11 @@ counts phase 12's configuration-B runs and phase 13's eager VGG steps
 attention-weight shape [32, 8, 256, 256] f32 and its ``max_abs_err``
 is the largest difference over its comparisons (0: they must be
 bitwise).
-The ``matmul_stats`` entry adds phase 17 (a)'s launches through the
-loader's graphs (``data_launches``) and carries ``cifar_shortcut_shapes``,
+The flash entries add phase 18's profiled and guarded LM steps and its
+K=5 dispatch (``front_launches``). The ``matmul_stats`` entry adds phase
+17 (a)'s launches through the loader's graphs (``data_launches``) and
+phase 18 (d)'s 3 fused training steps (``front_launches``), and carries
+``cifar_shortcut_shapes``,
 its times, bound and error at the two ResNet-CIFAR shortcut shapes.
 The ``lstm_cell`` entry (``"tpu_kernel": false``: the JAX package's
 LSTM step is a ``lax.scan`` body XLA fuses) counts phase 15's 20 eager
@@ -440,6 +483,7 @@ prints no result.
 """
 
 import contextlib
+import io
 import json
 import os
 import re
@@ -3572,13 +3616,71 @@ def _proximal_lm(fluid, T, op_type):
     return main, startup, avg_cost
 
 
+def _ftrl64(p, sq, lin, g, lr, l1, l2, power):
+    """One ftrl update in float64 (``ops/optimizer_ops.py``'s rule)."""
+    sq_new = sq + g * g
+    lin_new = lin + g - (sq_new ** -power - sq ** -power) / lr * p
+    y = sq_new ** -power / lr + 2 * l2
+    p_new = np.where(np.abs(lin_new) > l1,
+                     (l1 * np.sign(lin_new) - lin_new) / y, 0.0)
+    return p_new, sq_new, lin_new
+
+
+def _ftrl_witness(fluid, cuda, cpu, prog, init, batches):
+    """ftrl's control. Each path (the card, the CPU) runs the steps from
+    ``init`` with every gradient fetched, and the float64 rule is applied
+    along that path's own gradients from the same start. Returns {path:
+    (losses, scope, {param: (the path's fp32 weight, its float64
+    witness)})}."""
+    main, _, avg_cost = prog
+    ops = [op for op in main.global_block().ops if op.type == "ftrl"]
+    grads = [op.input("Grad")[0] for op in ops]
+    out = {}
+    for path, exe in (("card", cuda), ("cpu", cpu)):
+        scope = _scope_from(fluid, init, exe.device)
+        state = {op.input("Param")[0]: [
+            init[op.input(k)[0]].astype(np.float64)
+            for k in ("Param", "SquaredAccumulator", "LinearAccumulator")]
+            for op in ops}
+        losses = []
+        for b in batches:
+            got = exe.run(main, feed=b, fetch_list=[avg_cost] + grads,
+                          scope=scope)
+            losses.append(float(got[0]))
+            for op, g in zip(ops, got[1:]):
+                p = op.input("Param")[0]
+                lr = float(init[op.input("LearningRate")[0]].reshape(-1)[0])
+                state[p] = list(_ftrl64(
+                    *state[p], np.asarray(g, np.float64), lr,
+                    op.attr("l1", 0.0), op.attr("l2", 0.0),
+                    op.attr("lr_power", -0.5)))
+        out[path] = (losses, scope, {p: (scope.get_numpy(p), s[0])
+                                     for p, s in state.items()})
+    return out
+
+
+def _ftrl_limits(witness):
+    """({path: the largest gap of its fp32 weights from its float64
+    witness}, the float64 rule's own gap between the two paths' gradients,
+    the limit for the card against the CPU: that gap plus OPT_TOL for
+    each path), every gap over max(1, max|w|) of a tensor."""
+    def gap(a, b):
+        return float(np.abs(a - b).max()) / max(1.0, float(np.abs(b).max()))
+    own = {path: max(gap(w32, w64) for w32, w64 in w[2].values())
+           for path, w in witness.items()}
+    card, cpu = witness["card"][2], witness["cpu"][2]
+    rule = max(gap(card[p][1], cpu[p][1]) for p in cpu)
+    return own, rule, rule + 2 * OPT_TOL
+
+
 def options_optimizer_phase(torch):
     """(d) The optimizer family on the reduced LM (2 layers, d_model 128,
     T 64, batch 8, vocab 4096): each of the nine update rules and the
     three gradient clips with L2 decay, 2 steps on the card against the
     port's CPU path from the same startup values, losses and every
-    persistable within 2e-4 of max(1, max|w|); ModelAverage's apply /
-    restore round trip bitwise."""
+    persistable within 2e-4 of max(1, max|w|) (ftrl against its float64
+    witness: ``_ftrl_witness``); ModelAverage's apply / restore round trip
+    bitwise."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import transformer as T
     cuda = fluid.Executor(fluid.CUDAPlace(0))
@@ -3606,6 +3708,12 @@ def options_optimizer_phase(torch):
         ("decayed_adagrad", lambda f: f.optimizer.DecayedAdagrad(0.01)),
         ("adadelta", lambda f: f.optimizer.Adadelta(1.0)),
         ("rmsprop", lambda f: f.optimizer.RMSProp(0.01, momentum=0.5)),
+        # ftrl divides its linear accumulator by sqrt(n) / lr + 2 l2: an
+        # element with a tiny gradient carries the card's and the CPU's
+        # rounding of that gradient into its weight many times over, so
+        # each path is held to the float64 rule along its own gradients,
+        # and the gap between them to the float64 rule's own gap
+        # (_ftrl_witness)
         ("ftrl", lambda f: f.optimizer.Ftrl(0.05, l1=1e-3, l2=1e-3)),
         ("proximal_gd", None), ("proximal_adagrad", None),
         ("average_accumulates", lambda f: f.optimizer.SGD(0.1)),
@@ -3645,11 +3753,16 @@ def options_optimizer_phase(torch):
         check(want in types, "optimizer %s: no %s op in the program", name,
               want)
         init = _init_of(fluid, cpu, prog[1])
-        sg = _scope_from(fluid, init, cuda.device)
-        sc = _scope_from(fluid, init, cpu.device)
-        lg, _ = _counted_steps(torch, cuda, prog, sg, batches)
-        lc = [float(cpu.run(prog[0], feed=b, fetch_list=[prog[2]],
-                            scope=sc)[0]) for b in batches]
+        witness = None
+        if name == "ftrl":
+            witness = _ftrl_witness(fluid, cuda, cpu, prog, init, batches)
+            (lg, sg, _), (lc, sc, _) = witness["card"], witness["cpu"]
+        else:
+            sg = _scope_from(fluid, init, cuda.device)
+            sc = _scope_from(fluid, init, cpu.device)
+            lg, _ = _counted_steps(torch, cuda, prog, sg, batches)
+            lc = [float(cpu.run(prog[0], feed=b, fetch_list=[prog[2]],
+                                scope=sc)[0]) for b in batches]
         apart = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(lg, lc))
         for n in init:
             a, b = sg.get_numpy(n), sc.get_numpy(n)
@@ -3659,10 +3772,20 @@ def options_optimizer_phase(torch):
             else:
                 check(np.array_equal(a, b), "optimizer %s: %s differs", name,
                       n)
-        check(apart <= OPT_TOL, "optimizer %s: the card is %g apart from "
-              "the CPU path (limit %g)", name, apart, OPT_TOL)
+        msg, limit = "", OPT_TOL
+        if witness is not None:
+            own, rule, limit = _ftrl_limits(witness)
+            msg = ("; each path within %.3g (card) and %.3g (CPU) of float64 "
+                   "ftrl along its own gradients (limit %g), the float64 "
+                   "rule's own gap %.3g" % (own["card"], own["cpu"], OPT_TOL,
+                                            rule))
+            for path, gap in own.items():
+                check(gap <= OPT_TOL, "optimizer ftrl: the %s path is %g "
+                      "from float64 ftrl along its own gradients (limit %g)",
+                      path, gap, OPT_TOL)
+        check(apart <= limit, "optimizer %s: the card is %g apart from "
+              "the CPU path (limit %g)", name, apart, limit)
         worst = max(worst, apart)
-        msg = ""
         if average is not None:
             params = [p.name for p, _ in average.params_grads]
             before = {n: sg.find_var(n).clone() for n in params}
@@ -3682,7 +3805,7 @@ def options_optimizer_phase(torch):
                       and torch.equal(held[n], before[n]) for n in params),
                   "ModelAverage.restore did not give back the parameters "
                   "bitwise")
-            msg = "; ModelAverage apply/restore round trip bitwise (%d " \
+            msg += "; ModelAverage apply/restore round trip bitwise (%d " \
                 "params)" % len(params)
         log("optimizer %s: %d steps on the card, losses %s, within %.3g of "
             "the CPU path (limit %g)%s", name, OPT_STEPS,
@@ -4899,27 +5022,64 @@ def _traced_kernels(torch, fn, title):
             "gemm": sum(n for _, n, k in rows if "gemm" in k.lower())}
 
 
-def _first_step_gaps(fluid, LC, exe, prog, init, batch, what):
+def _pool_partings(h_k, h_c, lens):
+    """[(near-tie, sequence, unit, the card's argmax, the CPU's, margin,
+    rounding)] of the max pool's choices over each sequence's rows of
+    ``h_k`` (the card's pool input) and ``h_c`` (the CPU's) that part. The
+    margin is the CPU's value at its argmax less its value at the card's;
+    the rounding is the most the two correct fp32 computations part on
+    that sequence and unit, max_t |h_k - h_c|, plus the fp32 rounding of
+    the value. A near-tie's margin is at most NEAR_TIE_X times that."""
+    out, start = [], 0
+    eps32 = float(np.finfo(np.float32).eps)
+    for n, length in enumerate(lens):
+        hk, hc = h_k[start:start + length], h_c[start:start + length]
+        ak, ac = hk.argmax(0), hc.argmax(0)
+        for u in np.nonzero(ak != ac)[0]:
+            margin = float(hc[ac[u], u] - hc[ak[u], u])
+            eps = float(np.abs(hk[:, u] - hc[:, u]).max()) + \
+                eps32 * float(np.abs(hc[:, u]).max())
+            out.append((margin <= NEAR_TIE_X * eps, n, int(u), int(ak[u]),
+                        int(ac[u]), margin, eps))
+        start += length
+    return out
+
+
+def _first_step_gaps(fluid, LC, exe, prog, init, batch, what, pool=None):
     """The first step from ``init`` on the CPU, and on the card through
     the step kernels and through the plain steps (the control): the
     kernel route's loss and the norm of its weights' difference to the
     CPU's, each within LSTM_CONTROL x the control's. Returns (the
-    kernel's loss gap, the control's)."""
+    kernel's loss gap, the control's).
+
+    With ``pool`` = (the max pool's input, the sequence lengths), a
+    pooled choice where the kernel route and the CPU part at a near-tie
+    (``_pool_partings``: two rows equal, or within rounding, on the CPU)
+    sends that sequence's gradient through another row, which no limit
+    on the weights can hold. Then the weights are held on the two
+    kernels apart: the kernel forward's pool input within LSTM_CONTROL x
+    the control's, and the step through the plain forward and the
+    kernel backward in the weights; a parting that is no near-tie
+    fails."""
     main, _, loss = prog
     names = sorted(init)
+    fetch = [loss] + ([pool[0]] if pool else [])
 
-    def first_step(executor, plain=False):
+    def first_step(executor, route=None):
         scope = _scope_from(fluid, init, executor.device)
-        with (_plain_steps(LC) if plain else contextlib.nullcontext()):
-            lv, = executor.run(main, feed=batch, fetch_list=[loss],
+        with (_patched(LC, "_steps_for", lambda real: lambda device: route)
+              if route else contextlib.nullcontext()):
+            out = executor.run(main, feed=batch, fetch_list=fetch,
                                scope=scope)
-        return float(lv), {n: scope.get_numpy(n) for n in names}
+        return float(out[0]), {n: scope.get_numpy(n) for n in names}, \
+            out[1:]
 
+    plain = (LC._lstm_step_plain, LC._lstm_step_bwd_plain)
     t0 = time.perf_counter()
-    cpu_loss, cpu_w = first_step(fluid.Executor(fluid.CPUPlace()))
+    cpu_loss, cpu_w, cpu_h = first_step(fluid.Executor(fluid.CPUPlace()))
     cpu_s = time.perf_counter() - t0
-    k_loss, k_w = first_step(exe)
-    p_loss, p_w = first_step(exe, plain=True)
+    k_loss, k_w, k_h = first_step(exe)
+    p_loss, p_w, p_h = first_step(exe, plain)
     k_gap = abs(k_loss - cpu_loss) / abs(cpu_loss)
     p_gap = abs(p_loss - cpu_loss) / abs(cpu_loss)
     k_norm = _apart(k_w, cpu_w)[2]
@@ -4934,9 +5094,33 @@ def _first_step_gaps(fluid, LC, exe, prog, init, batch, what):
     check(k_gap <= max(LSTM_CONTROL * p_gap, 1e-6), "%s first step: the "
           "kernel's loss is %g from the CPU's, the plain steps' %g", what,
           k_gap, p_gap)
-    check(k_norm <= max(LSTM_CONTROL * p_norm, 1e-6), "%s first step: the "
-          "kernel's weights are %g from the CPU's, the plain steps' %g",
-          what, k_norm, p_norm)
+    partings = _pool_partings(k_h[0], cpu_h[0], pool[1]) if pool else []
+    if not partings:
+        check(k_norm <= max(LSTM_CONTROL * p_norm, 1e-6), "%s first step: "
+              "the kernel's weights are %g from the CPU's, the plain "
+              "steps' %g", what, k_norm, p_norm)
+        return k_gap, p_gap
+    log("%s first step: the max pool parts from the CPU's at %d choice(s) "
+        "(near-tie, sequence, unit, card row, CPU row, margin, rounding): "
+        "%s", what, len(partings), partings[:4])
+    check(all(p[0] for p in partings), "%s first step: the max pool parts "
+          "from the CPU's where no near-tie explains it: %s", what,
+          [p for p in partings if not p[0]][:4])
+    h_gap = [float(np.abs(h - c).max()) / float(np.abs(c).max())
+             for h, c in ((k_h[0], cpu_h[0]), (p_h[0], cpu_h[0]))]
+    check(h_gap[0] <= max(LSTM_CONTROL * h_gap[1], 1e-6), "%s first step: "
+          "the kernel forward's pool input is %g from the CPU's, the plain "
+          "steps' %g", what, h_gap[0], h_gap[1])
+    _, b_w, _ = first_step(exe, (LC._lstm_step_plain,
+                                 LC._lstm_step_bwd_cuda))
+    b_norm = _apart(b_w, cpu_w)[2]
+    log("%s first step, the kernels apart: the forward's pool input %.3g "
+        "from the CPU's (control %.3g); the plain forward with the kernel "
+        "backward %.3g from the CPU's weights (control %.3g)", what,
+        h_gap[0], h_gap[1], b_norm, p_norm)
+    check(b_norm <= max(LSTM_CONTROL * p_norm, 1e-6), "%s first step: "
+          "through the plain forward the kernel backward's weights are %g "
+          "from the CPU's, the plain steps' %g", what, b_norm, p_norm)
     return k_gap, p_gap
 
 
@@ -4944,7 +5128,9 @@ def lstm_train_phase(torch, smi):
     """(b) The stacked LSTM at full width: the card's first step against
     the port's CPU path from one startup scope, at LSTM_CONTROL times the
     gap of the control (the plain steps on the card) in the loss and in
-    the norm of the weights' difference; LSTM_STEPS eager steps on the
+    the norm of the weights' difference (where the max pool parts from
+    the CPU's at a near-tie, the two kernels held apart:
+    ``_first_step_gaps``); LSTM_STEPS eager steps on the
     fixed batch with losses falling and lstm_cell launches exactly 3
     layers x @MAXLEN steps x 2 (forward, backward) a step (reset just
     before, read just after); 5 run() calls against one run_steps(K=5)
@@ -4969,7 +5155,9 @@ def lstm_train_phase(torch, smi):
         "lstm (vocab %d, hidden %d, %d layers, batch %d, %d tokens in a "
         "bucket of %d, @MAXLEN %d)" % (
             LSTM["vocab"], LSTM["hidden"], LSTM["stacked"], LSTM["batch"],
-            tokens, 1 << (tokens - 1).bit_length(), maxlen))
+            tokens, 1 << (tokens - 1).bit_length(), maxlen),
+        pool=([op for op in main.global_block().ops
+               if op.type == "sequence_pool"][0].input("X")[0], lens))
     _reset_launches()
     losses, wall, _ = _train(torch, fluid, exe, prog, init, [batch],
                              LSTM_STEPS)
@@ -6299,6 +6487,543 @@ def data_plane_phase(torch, smi):
             "lstm_launches": lstm_eager, "lstm_graph_launches": lstm_graph}
 
 
+# -- phase 18 ------------------------------------------------------------
+FRONT_STEPS = 3          # profiled LM steps
+GUARD_STEPS = 10         # LM steps with the NaN guards on and off
+GUARD_K, GUARD_BAD = 5, 3
+NCE = dict(context=4, emb=32, hidden=256, batch=64, k=5)
+TRANSPILE_RTOL = 1e-4
+V2_PASSES = 2
+FLASH_KERNELS = {"flash_fwd": "flash_fwd_kernel",
+                 "flash_bwd_dq": "flash_bwd_dq_kernel",
+                 "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
+
+
+def _flash_reset(F):
+    for key in F.flash_attention.launches:
+        F.flash_attention.launches[key] = 0
+
+
+def _flash_read(F):
+    return {"flash_" + k: v for k, v in F.flash_attention.launches.items()}
+
+
+def _timed_steps(torch, exe, main, avg_cost, scope, batches):
+    """(losses, mean step ms) of one run() a batch, synced."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [exe.run(main, feed=b, fetch_list=[avg_cost], scope=scope)[0]
+              for b in batches]
+    torch.cuda.synchronize()
+    return losses, 1e3 * (time.perf_counter() - t0) / len(batches)
+
+
+def _trace_kernels(path, names):
+    """{name: kernel events in the chrome trace at ``path`` whose name
+    holds it}."""
+    with open(path) as f:
+        events = json.load(f)
+    events = events.get("traceEvents", events) \
+        if isinstance(events, dict) else events
+    out = {n: 0 for n in names}
+    for ev in events:
+        if str(ev.get("cat", "")) != "kernel":
+            continue
+        for n in names:
+            if n in str(ev.get("name", "")):
+                out[n] += 1
+    return out
+
+
+FRONT_CHILD = "--front-profile"     # phase 18 (a)'s own process
+
+
+def _front_profile_child(tmp):
+    """Phase 18 (a)'s measurements, run as ``chip_smoke.py --front-profile
+    DIR``: FRONT_STEPS LM steps unprofiled, then FRONT_STEPS under
+    fluid.profiler with profile_memory on (the device trace under DIR);
+    prints one JSON line of what they counted and took."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.ops import flash_attention as F
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    main, startup, avg_cost = _lm_program(fluid, T, True)
+    scope = _scope_from(fluid, _init_of(fluid, exe, startup), exe.device)
+    batches = [T.make_lm_batch(np.random.RandomState(seed), TRAIN_BATCH,
+                               MAX_LEN, VOCAB)
+               for seed in range(FRONT_STEPS)]
+    exe.run(main, feed=batches[0], fetch_list=[avg_cost], scope=scope)
+    _, plain_ms = _timed_steps(torch, exe, main, avg_cost, scope, batches)
+    path = os.path.join(tmp, "profile")
+    torch.cuda.reset_peak_memory_stats()
+    flags.set_flag("profile_memory", True)
+    table = io.StringIO()
+    _flash_reset(F)
+    with contextlib.redirect_stdout(table), \
+            fluid.profiler.profiler("All", "total", path):
+        _, prof_ms = _timed_steps(torch, exe, main, avg_cost, scope,
+                                  batches)
+    trace = os.path.join(path, "device_trace.json")
+    print(json.dumps({
+        "launches": _flash_read(F), "plain_ms": plain_ms,
+        "prof_ms": prof_ms, "table": table.getvalue().splitlines()[:12],
+        "events": {k: v for k, v in fluid.profiler._events.items()
+                   if k in ("exe.run(compiled)", "op:sp_attention")},
+        "trace": _trace_kernels(trace, list(FLASH_KERNELS.values()))
+        if os.path.exists(trace) else None,
+        "check": fluid.profiler.last_device_trace_check(),
+        "total": torch.cuda.get_device_properties(0).total_memory}))
+    return 0
+
+
+def front_profiler_phase(torch, smi, tmp):
+    """Phase 18 (a), in a process of its own (``_front_profile_child``):
+    the host table, the device trace against the launch counters, the
+    peak, the profiled and unprofiled step ms. A process that has run the
+    script's earlier phases (some twenty traces) saw its device trace
+    miss one flash_fwd_kernel of 12 (PERF.md section 7); a fresh process
+    has never missed one. Returns the flash launches."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           FRONT_CHILD, tmp], capture_output=True,
+                          text=True, timeout=600, cwd=ROOT)
+    check(proc.returncode == 0 and proc.stdout.strip(), "front (a): the "
+          "profiled process failed (%d): %s", proc.returncode,
+          proc.stderr[-3000:])
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    for line in out["table"]:
+        log("front (a): | %s", line)
+    launches = out["launches"]
+    run_ev = out["events"].get("exe.run(compiled)")
+    check(run_ev is not None and run_ev[0] == FRONT_STEPS,
+          "front (a): the host table has %s exe.run(compiled) calls, want "
+          "%d", run_ev and run_ev[0], FRONT_STEPS)
+    attn = out["events"].get("op:sp_attention")
+    check(attn is not None and attn[0] == N_LAYER * FRONT_STEPS,
+          "front (a): op:sp_attention rows %s, want n_layer x steps = %d",
+          attn and attn[0], N_LAYER * FRONT_STEPS)
+    for key, n in launches.items():
+        check(n == N_LAYER * FRONT_STEPS, "front (a): %s launches %d != "
+              "n_layer x steps = %d", key, n, N_LAYER * FRONT_STEPS)
+    in_trace = out["trace"]
+    check(in_trace is not None, "front (a): no device trace")
+    for key, kname in FLASH_KERNELS.items():
+        check(in_trace[kname] == launches[key], "front (a): the device "
+              "trace holds %d %s launches, the counter %d", in_trace[kname],
+              kname, launches[key])
+    mine = out["check"]["kernels"]
+    check(all(mine[k] == {"launched": launches[k], "traced": in_trace[kn]}
+              for k, kn in FLASH_KERNELS.items()), "front (a): the "
+          "profiler's own trace check %s disagrees with the counters %s "
+          "and the trace %s", mine, launches, in_trace)
+    total, peak = out["total"], run_ev[3]
+    check(0 < peak < total, "front (a): peak %d bytes not in (0, %d)",
+          peak, total)
+    log("front (a): %d LM steps profiled in a process of their own; "
+        "exe.run(compiled) %d, op:sp_attention %d; device trace %s = "
+        "counters %s; peak %.1f MB of %.1f GB; step %.3f ms profiled, %.3f "
+        "ms unprofiled (%s); the profiler's trace check: %s",
+        FRONT_STEPS, run_ev[0], attn[0], in_trace, launches, peak / 1e6,
+        total / 1e9, out["prof_ms"], out["plain_ms"], smi, out["check"])
+    return launches
+
+
+def front_profiler_inprocess(torch, fluid, F, exe, prog, init, batches,
+                             tmp, smi):
+    """Phase 18 (a'): the same FRONT_STEPS profiled LM steps in the
+    script's own process, after its earlier phases' profiler sessions,
+    where a trace once lost a flash_fwd_kernel (PERF.md section 7). The
+    profiler checks each trace it closes against the launch counters and
+    against the runtime's own launch records, and warns when it falls
+    short: this fails if a trace holds fewer flash launches than counted
+    and the profiler did not say so. Logs the reading, and where a
+    kernel record was lost, when (the first 25-32 kernel records of the
+    block, one flash_fwd_kernel among them, whether the block starts at
+    once or 25 ms after the trace opens). Returns the flash launches."""
+    import warnings
+    main, _, avg_cost = prog
+    scope = _scope_from(fluid, init, exe.device)
+    path = os.path.join(tmp, "profile_inprocess")
+    _flash_reset(F)
+    with warnings.catch_warnings(record=True) as caught, \
+            contextlib.redirect_stdout(io.StringIO()):
+        warnings.simplefilter("always")
+        with fluid.profiler.profiler("All", "total", path):
+            _timed_steps(torch, exe, main, avg_cost, scope,
+                         batches[:FRONT_STEPS])
+    launches = _flash_read(F)
+    in_trace = _trace_kernels(os.path.join(path, "device_trace.json"),
+                              list(FLASH_KERNELS.values()))
+    got = fluid.profiler.last_device_trace_check()
+    warned = [str(w.message) for w in caught
+              if issubclass(w.category, RuntimeWarning)
+              and "incomplete" in str(w.message)]
+    for key, kname in FLASH_KERNELS.items():
+        check(launches[key] == N_LAYER * FRONT_STEPS and got["kernels"][key]
+              == {"launched": launches[key], "traced": in_trace[kname]},
+              "front (a'): %s: counter %d, the profiler's check %s, the "
+              "trace %d", key, launches[key], got["kernels"].get(key),
+              in_trace[kname])
+    check(bool(warned) == (not got["complete"]), "front (a'): the trace "
+          "check says complete=%s and the profiler warned %d times",
+          got["complete"], len(warned))
+    short = {k: launches[k] - in_trace[kn]
+             for k, kn in FLASH_KERNELS.items() if in_trace[kn] < launches[k]}
+    check(not short or warned, "front (a'): the trace lost %s silently",
+          short)
+    log("front (a'): %d LM steps profiled in the script's process: device "
+        "trace %s, counters %s; %s; unmatched runtime launches %d (the "
+        "earliest and the latest at %s ms from the trace's start); %s", FRONT_STEPS, in_trace, launches,
+        "complete" if got["complete"] else "INCOMPLETE, and the profiler "
+        "warned", got["unmatched_launches"], got["unmatched_at_ms"], smi)
+    return launches
+
+
+def _nan_batch(batch, rows=None):
+    out = {k: (v[:rows] if rows else v).copy() for k, v in batch.items()}
+    out["mask"][0, 1] = np.nan
+    return out
+
+
+def _nan_message(exe, main, avg_cost, scope, feed=None, steps=None):
+    try:
+        if steps is None:
+            exe.run(main, feed=feed, fetch_list=[avg_cost], scope=scope)
+        else:
+            exe.run_steps(main, feeds=steps, fetch_list=[avg_cost],
+                          scope=scope)
+    except FloatingPointError as e:
+        return str(e)
+    return None
+
+
+def front_guard_phase(torch, fluid, F, exe, prog, init, batches, smi):
+    """Phase 18 (b): GUARD_STEPS LM steps guarded and unguarded, bitwise;
+    a NaN feed named as the CPU port names it; run_steps naming its
+    logical step. Returns the flash launches of the guarded run."""
+    from paddle_tpu_torch import flags
+    main, _, avg_cost = prog
+    runs = {}
+    launches = None
+    for on in (False, True):
+        scope = _scope_from(fluid, init, exe.device)
+        flags.set_flag("check_nan_inf", on)
+        try:
+            exe.run(main, feed=batches[0], fetch_list=[avg_cost],
+                    scope=scope)
+            scope = _scope_from(fluid, init, exe.device)
+            reads = exe.stats["guard_reads"]
+            _flash_reset(F)
+            losses, ms = _timed_steps(
+                torch, exe, main, avg_cost, scope,
+                [batches[i % len(batches)] for i in range(GUARD_STEPS)])
+            if on:
+                launches = _flash_read(F)
+                reads = exe.stats["guard_reads"] - reads
+        finally:
+            flags.set_flag("check_nan_inf", None)
+        runs[on] = (losses, ms, scope)
+    same = all(np.array_equal(a, b) for a, b in zip(runs[0][0], runs[1][0]))
+    names = [n for n in init]
+    differ = _same_state(torch, runs[0][2], runs[1][2], names)
+    check(same and not differ, "front (b): the guarded steps are not "
+          "bitwise the unguarded ones (%s)", differ[:3])
+    check(reads == GUARD_STEPS, "front (b): %d guard reads in %d guarded "
+          "steps", reads, GUARD_STEPS)
+    for key, n in launches.items():
+        check(n == N_LAYER * GUARD_STEPS, "front (b): %s launches %d != %d",
+              key, n, N_LAYER * GUARD_STEPS)
+    log("front (b): %d LM steps guarded vs unguarded: losses and %d state "
+        "tensors bitwise equal; step %.3f ms guarded, %.3f ms unguarded "
+        "(%s); one guard read a run", GUARD_STEPS, len(names), runs[1][1],
+        runs[0][1], smi)
+    # one NaN in a feed: the card names what the CPU port names
+    flags.set_flag("check_nan_inf", True)
+    try:
+        bad = _nan_batch(batches[0], rows=2)
+        card = _nan_message(exe, main, avg_cost,
+                            _scope_from(fluid, init, exe.device), feed=bad)
+        cpu_exe = fluid.Executor(fluid.CPUPlace())
+        cpu = _nan_message(cpu_exe, main, avg_cost,
+                           _scope_from(fluid, init, "cpu"), feed=bad)
+        check(card is not None and card == cpu, "front (b): a NaN feed "
+              "tripped %r on the card, %r on the CPU", card, cpu)
+        log("front (b): a NaN in mask[0, 1]: the card and the CPU both "
+            "raise %r", card)
+        steps = [batches[i % len(batches)] for i in range(GUARD_K)]
+        steps[GUARD_BAD] = _nan_batch(steps[GUARD_BAD])
+        _flash_reset(F)
+        msg = _nan_message(exe, main, avg_cost,
+                           _scope_from(fluid, init, exe.device),
+                           steps=steps)
+        graph = _flash_read(F)
+    finally:
+        flags.set_flag("check_nan_inf", None)
+    want = "logical step %d of %d" % (GUARD_BAD, GUARD_K)
+    check(msg is not None and want in msg and msg.startswith(card),
+          "front (b): run_steps(K=%d) with the NaN in step %d raised %r",
+          GUARD_K, GUARD_BAD, msg)
+    log("front (b): run_steps(K=%d), the NaN in step %d: %r", GUARD_K,
+        GUARD_BAD, msg)
+    return {k: launches[k] + graph[k] for k in launches}
+
+
+def _nce_program(fluid):
+    from paddle_tpu_torch.dataset import imikolov
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = 11
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        words = [fluid.layers.data("w%d" % i, [1], dtype="int64")
+                 for i in range(NCE["context"])]
+        target = fluid.layers.data("target", [1], dtype="int64")
+        embeds = [fluid.layers.embedding(
+            w, size=[imikolov.VOCAB_SIZE, NCE["emb"]],
+            param_attr=fluid.ParamAttr(name="shared_w")) for w in words]
+        hidden = fluid.layers.fc(fluid.layers.concat(embeds, axis=1),
+                                 NCE["hidden"], act="sigmoid")
+        cost = fluid.layers.nce(hidden, target,
+                                num_total_classes=imikolov.VOCAB_SIZE)
+        avg_cost = fluid.layers.mean(cost)
+        fluid.optimizer.SGD(learning_rate=0.5).minimize(avg_cost)
+    return main, startup, avg_cost
+
+
+def _ulps(a, b):
+    """The largest distance in float32 units in the last place."""
+    def ordered(x):
+        i = np.ascontiguousarray(x, np.float32).view(np.int32).astype(
+            np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int(np.max(np.abs(ordered(a) - ordered(b)), initial=0))
+
+
+def front_draws_phase(torch, fluid, exe, prog, smi):
+    """Phase 18 (c): an nce net at word2vec widths under run_steps(K) vs K
+    run() calls; the LM's startup draws on the card and on the CPU."""
+    from paddle_tpu_torch.core import philox, registry
+    from paddle_tpu_torch.dataset import imikolov
+    main, startup, avg_cost = _nce_program(fluid)
+    init = _init_of(fluid, exe, startup)
+    rng = np.random.RandomState(5)
+    feeds = [{**{"w%d" % i: rng.randint(0, imikolov.VOCAB_SIZE, (
+        NCE["batch"], 1)).astype(np.int64) for i in range(NCE["context"])},
+        "target": rng.randint(0, imikolov.VOCAB_SIZE, (
+            NCE["batch"], 1)).astype(np.int64)} for _ in range(NCE["k"])]
+    # two fresh executors: both runs draw from run counters 0..K-1
+    se = _scope_from(fluid, init, exe.device)
+    eexe = fluid.Executor(fluid.CUDAPlace(0))
+    eager = [eexe.run(main, feed=f, fetch_list=[avg_cost], scope=se)[0]
+             for f in feeds]
+    sg = _scope_from(fluid, init, exe.device)
+    gexe = fluid.Executor(fluid.CUDAPlace(0))
+    graph = [o[0] for o in gexe.run_steps(main, feeds=feeds,
+                                          fetch_list=[avg_cost], scope=sg)]
+    torch.cuda.synchronize()
+    differ = _same_state(torch, se, sg, list(init))
+    same = all(np.array_equal(a, b) for a, b in zip(eager, graph))
+    check(gexe.stats["graph_captures"] == 1, "front (c): the nce "
+          "dispatch was not captured into a graph")
+    check(same and not differ, "front (c): nce run_steps(K=%d) is not "
+          "bitwise %d run() calls (%s)", NCE["k"], NCE["k"], differ[:3])
+    check(len(set(float(x) for x in eager)) == NCE["k"],
+          "front (c): the nce losses repeat: %s", eager)
+    log("front (c): nce (vocab %d, emb %d, hidden %d, batch %d) "
+        "run_steps(K=%d) as one graph: losses %s and %d state tensors "
+        "bitwise the %d run() calls'", imikolov.VOCAB_SIZE, NCE["emb"],
+        NCE["hidden"], NCE["batch"], NCE["k"],
+        " ".join("%.5f" % float(x) for x in graph), len(init), NCE["k"])
+    # the LM's startup: Philox words and values, card against CPU
+    _, lm_start, _ = prog
+    seed = torch.tensor(lm_start.random_seed * 1000003, dtype=torch.int64)
+    keys = registry.random_op_keys(lm_start.global_block())
+    words = 0
+    for op in lm_start.global_block().ops:
+        if id(op) not in keys:
+            continue
+        n = int(np.prod(op.attr("shape")))
+        n += n % 2
+        a = philox.words(n, seed.cuda(), keys[id(op)], "cuda").cpu()
+        b = philox.words(n, seed, keys[id(op)], "cpu")
+        check(torch.equal(a, b), "front (c): the Philox words of %s differ "
+              "on the card", op.type)
+        words += n
+    t0 = time.perf_counter()
+    card = _init_of(fluid, fluid.Executor(fluid.CUDAPlace(0)), lm_start)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = _init_of(fluid, fluid.Executor(fluid.CPUPlace()), lm_start)
+    cpu_s = time.perf_counter() - t0
+    worst = max(_ulps(card[n], cpu[n]) for n in cpu)
+    equal = sum(np.array_equal(card[n], cpu[n]) for n in cpu)
+    check(sorted(card) == sorted(cpu) and worst <= 2, "front (c): the LM's "
+          "startup values part by %d ulp between the card and the CPU",
+          worst)
+    log("front (c): the LM's startup: %d Philox words bitwise equal on the "
+        "card and the CPU; %d of %d values bitwise equal, the rest within "
+        "%d ulp; startup %.3f s on the card, %.3f s on the CPU (%s)", words,
+        equal, len(cpu), worst, card_s, cpu_s, smi)
+
+
+def front_transpile_phase(torch, fluid, R, exe, smi):
+    """Phase 18 (d): ResNet-50 inference (batch 32) before and after
+    InferenceTranspiler, from weights trained 3 steps with fuse_conv_bn
+    on; returns those steps' matmul_stats launches."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.ops import matmul_stats as MS
+    (main, startup, avg_cost), _ = _resnet_program(fluid, R)
+    init = _init_of(fluid, exe, startup)
+    batches = _resnet_batches()
+    scope = _scope_from(fluid, init, exe.device)
+    with _fuse(flags, True):
+        MS.matmul_colstats.launches = 0
+        losses = _eager_steps(torch, exe, main, avg_cost, scope,
+                              [batches[i % 2] for i in range(3)])
+        launches = MS.matmul_colstats.launches
+    check(launches == 3 * RESNET_FUSED_PER_STEP, "front (d): %d "
+          "matmul_stats launches in 3 fused steps", launches)
+    trained = {n: scope.get_numpy(n) for n in scope.local_var_names()}
+    block = main.global_block()
+    xent = [op for op in block.ops if op.type == "cross_entropy"][0]
+    prob = xent.input("X")[0]
+    soft = [op for op in block.ops if op.type == "softmax"
+            and op.output("Out")[0] == prob][0]
+    logits = soft.input("X")[0]
+    infer = main.clone(for_test=True).prune([logits])
+    n_bn = sum(op.type == "batch_norm" for op in infer.global_block().ops)
+    feed = {"data": batches[0]["data"]}
+    outs, times = {}, {}
+    for name in ("unfused", "fused"):
+        sc = _scope_from(fluid, trained, exe.device)
+        if name == "fused":
+            fluid.InferenceTranspiler().transpile(infer, exe.place,
+                                                  scope=sc)
+        out, = exe.run(infer, feed=feed, fetch_list=[logits], scope=sc)
+        _, times[name] = _timed_steps(torch, exe, infer, logits, sc,
+                                      [feed] * 5)
+        outs[name] = np.asarray(out)
+    left = sum(op.type == "batch_norm" for op in infer.global_block().ops)
+    check(n_bn > 0 and left == 0, "front (d): %d of %d batch_norm ops left "
+          "after the transpiler", left, n_bn)
+    rel = float(np.max(np.abs(outs["fused"] - outs["unfused"]))
+                / np.max(np.abs(outs["unfused"])))
+    check(np.isfinite(outs["fused"]).all() and rel <= TRANSPILE_RTOL,
+          "front (d): the fused logits part by %.3g of the largest, over "
+          "%g", rel, TRANSPILE_RTOL)
+    log("front (d): ResNet-50 inference, batch %d, weights after 3 fused "
+        "steps (losses %s, matmul_stats %d launches): %d batch_norm ops "
+        "folded; logits within %.3g of the largest; %.3f ms fused, %.3f "
+        "ms unfused (%s)", RESNET_BATCH, " ".join(
+            "%.4f" % float(x) for x in losses), launches, n_bn, rel,
+        times["fused"], times["unfused"], smi)
+    return launches
+
+
+def front_v2_phase(torch, fluid, smi):
+    """Phase 18 (e): the recognize_digits convnet through paddle.v2 on the
+    card."""
+    import paddle_tpu_torch.v2 as paddle
+    old = (fluid.switch_main_program(fluid.Program()),
+           fluid.switch_startup_program(fluid.Program()))
+    try:
+        with fluid.unique_name.guard():
+            paddle.init(use_gpu=True, trainer_count=1)
+            images = paddle.layer.data(
+                name="pixel", type=paddle.data_type.dense_vector(784))
+            label = paddle.layer.data(
+                name="label", type=paddle.data_type.integer_value(10))
+            conv1 = paddle.networks.simple_img_conv_pool(
+                input=images, filter_size=5, num_filters=20, num_channel=1,
+                pool_size=2, pool_stride=2, act=paddle.activation.Relu())
+            conv2 = paddle.networks.simple_img_conv_pool(
+                input=conv1, filter_size=5, num_filters=50, num_channel=20,
+                pool_size=2, pool_stride=2, act=paddle.activation.Relu())
+            predict = paddle.layer.fc(input=conv2, size=10,
+                                      act=paddle.activation.Softmax())
+            cost = paddle.layer.classification_cost(input=predict,
+                                                    label=label)
+            parameters = paddle.parameters.create(cost)
+            trainer = paddle.trainer.SGD(
+                cost=cost, parameters=parameters,
+                update_equation=paddle.optimizer.Momentum(
+                    learning_rate=0.1 / 128.0, momentum=0.9,
+                    regularization=paddle.optimizer.L2Regularization(
+                        rate=5e-4)))
+            check(trainer.__exe__.device.type == "cuda", "front (e): the "
+                  "v2 trainer is not on the card")
+            costs = []
+            t0 = time.perf_counter()
+            trainer.train(
+                reader=paddle.batch(paddle.reader.shuffle(
+                    paddle.dataset.mnist.train(n=1024), buf_size=1024),
+                    batch_size=64), num_passes=V2_PASSES,
+                event_handler=lambda e: costs.append(e.cost)
+                if isinstance(e, paddle.event.EndPass) else None)
+            wall = time.perf_counter() - t0
+            check(costs[-1] < costs[0], "front (e): the v2 cost did not "
+                  "fall: %s", costs)
+            test = [(s[0],) for s in paddle.dataset.mnist.test(n=64)()]
+            probs = paddle.infer(output_layer=predict,
+                                 parameters=parameters, input=test)
+            prog = predict.block.program.prune([predict])
+            feeder = fluid.DataFeeder([images], fluid.CUDAPlace(0),
+                                      program=prog)
+            exe = fluid.Executor(fluid.CUDAPlace(0))
+            want, = exe.run(prog, feed=feeder.feed(test),
+                            fetch_list=[predict], scope=parameters._scope)
+    finally:
+        fluid.switch_main_program(old[0])
+        fluid.switch_startup_program(old[1])
+        paddle.init()
+    check(probs.shape == (64, 10) and np.allclose(
+        probs, want, rtol=1e-5, atol=1e-7), "front (e): paddle.infer "
+        "parts from the executor's run by %.3g",
+        float(np.max(np.abs(probs - want))))
+    log("front (e): v2 recognize_digits convnet on the card: %d passes of "
+        "16 batches of 64, pass costs %s, %.1f s; paddle.infer equals an "
+        "executor run (%s)", V2_PASSES, " ".join("%.4f" % c for c in costs),
+        wall, smi)
+
+
+def frontend_phase(torch, smi):
+    """Phase 18."""
+    import tempfile
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import resnet as R
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.ops import flash_attention as F
+    t0 = time.perf_counter()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    prog = _lm_program(fluid, T, True)
+    init = _init_of(fluid, exe, prog[1])
+    batches = [T.make_lm_batch(np.random.RandomState(seed), TRAIN_BATCH,
+                               MAX_LEN, VOCAB) for seed in (0, 1, 2)]
+    work = os.path.join(ROOT, "build", "paddle_tpu_torch")
+    os.makedirs(work, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        prof = front_profiler_phase(torch, smi, tmp)
+        here = front_profiler_inprocess(torch, fluid, F, exe, prog, init,
+                                        batches, tmp, smi)
+    t1 = time.perf_counter()
+    guard = front_guard_phase(torch, fluid, F, exe, prog, init, batches,
+                              smi)
+    t2 = time.perf_counter()
+    front_draws_phase(torch, fluid, exe, prog, smi)
+    t3 = time.perf_counter()
+    mm = front_transpile_phase(torch, fluid, R, exe, smi)
+    t4 = time.perf_counter()
+    front_v2_phase(torch, fluid, smi)
+    t5 = time.perf_counter()
+    log("front: phase 18 took %.1f s ((a) %.1f, (b) %.1f, (c) %.1f, (d) "
+        "%.1f, (e) %.1f)", t5 - t0, t1 - t0, t2 - t1, t3 - t2, t4 - t3,
+        t5 - t4)
+    return {"flash": {k: prof[k] + here[k] + guard[k] for k in prof},
+            "mm_launches": mm}
+
+
 def _report_profile(prof, wall, title, focus=None):
     """Device busy share of ``wall`` and the top kernels; with ``focus``,
     also the share of the kernels whose names hold it. Returns (busy
@@ -6347,6 +7072,8 @@ def main():
         print("chip_smoke: the port is not importable from %s: %s"
               % (ROOT, e), file=sys.stderr)
         return 2
+    if sys.argv[1:2] == [FRONT_CHILD]:
+        return _front_profile_child(sys.argv[2])
     try:
         smi = device_phase(torch)
         build_phase()
@@ -6376,6 +7103,7 @@ def main():
         lstm_launches, lstm_graph, lstm_cell, _ = lstm_phase(torch, smi)
         srl_launches, srl_graph, _ = crf_detection_phase(torch, smi)
         data = data_plane_phase(torch, smi)
+        front = frontend_phase(torch, smi)
     except SmokeFailure as e:
         print("chip_smoke: FAILED: %s" % e, file=sys.stderr)
         return 1
@@ -6401,8 +7129,9 @@ def main():
             "replaces": "paddle_tpu/ops/flash_attention.py:%d" % line,
             "launches": (flash_launches[name] + lm_counts[name]
                          + io_launches[name] + options_flash[name]
-                         + mt_launches[name]),
+                         + mt_launches[name] + front["flash"][name]),
             "graph_launches": lm_counts[name],
+            "front_launches": front["flash"][name],
             "io_launches": io_launches[name],
             "options_launches": options_flash[name],
             "mt_launches": mt_launches[name],
@@ -6412,8 +7141,10 @@ def main():
         "name": "matmul_stats", "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/matmul_stats.cu",
         "replaces": "paddle_tpu/ops/matmul_stats.py:72",
-        "launches": mm_launches + mm_graph + data["mm_launches"],
+        "launches": (mm_launches + mm_graph + data["mm_launches"]
+                     + front["mm_launches"]),
         "graph_launches": mm_graph, "data_launches": data["mm_launches"],
+        "front_launches": front["mm_launches"],
         "max_abs_err": max(mm_err, data["mm_err"]),
         "cifar_shortcut_shapes": data["mm_shapes"]}, **mm_times))
     kernels.append(dict({

@@ -49,7 +49,12 @@ Ported so far:
     stages feeds on the card from a worker thread, and its
     ``megabatches(k)`` for ``Executor.run_steps``), ``DataFeeder``,
     ``recordio`` (over a C++ library built with g++ and zlib at first
-    use) and the reader layers.
+    use) and the reader layers;
+  * the rest of the front end: ``profiler`` (host events and tables, the
+    card traced through ``torch.profiler``), ``InferenceTranspiler``,
+    ``memory_optimize``/``release_memory``, ``average``, ``debugger``,
+    ``concurrency`` and the ``v2`` API (``paddle_tpu_torch.v2``), with the
+    Executor's NaN/Inf guards (flag ``check_nan_inf``).
 
 Used as ``import paddle_tpu_torch as fluid``, as scripts use
 ``paddle_tpu``.
@@ -84,6 +89,13 @@ from . import dataset  # noqa: F401
 from . import reader  # noqa: F401
 from .reader import batch  # noqa: F401
 from . import recordio  # noqa: F401
+from . import average  # noqa: F401
+from . import profiler  # noqa: F401
+from . import debugger  # noqa: F401
+from . import concurrency  # noqa: F401
+from .transpiler import (  # noqa: F401
+    InferenceTranspiler, memory_optimize, release_memory,
+)
 
 # `import paddle_tpu_torch as paddle; paddle.fluid...` and `import
 # paddle_tpu_torch.fluid as fluid`: the package itself is the fluid

@@ -11,11 +11,11 @@ order ``_build`` traces them there, and one ``run`` is one step:
     state; the values the step leaves under those names, and any new
     persistable value (startup initializers), are committed back;
   * each run has a seed, ``program.random_seed * 1000003 + run
-    counter`` (the JAX package's per-run key derivation). Dropout draws
-    counter-keyed Philox bits from it (an int64 device scalar) and its
-    op's key, the op's ordinal among the program's random ops
-    (``registry.random_op_keys``); the initializers draw from one
-    ``torch.Generator`` seeded with it. The draws differ from threefry's;
+    counter`` (the JAX package's per-run key derivation). Every random op
+    (dropout, the initializers, ``nce``) draws counter-keyed Philox bits
+    (``core/philox.py``) from it (an int64 device scalar) and its op's
+    key, the op's ordinal among the program's random ops
+    (``registry.random_op_keys``). The draws differ from threefry's;
   * a ``backward_marker`` (``append_backward``) runs the forward segment
     under ``torch.autograd`` in place of ``jax.value_and_grad``, binds
     every ``P@GRAD``, then runs the optimizer ops without autograd. With
@@ -41,16 +41,25 @@ its real total. Every reduction drops the pad rows
 K step bodies are captured once into a CUDA graph (``core/graphs.py``)
 over static feed, state, seed and fetch buffers and replayed; on the CPU
 the same bodies run in a loop over the same buffers. The K run seeds are
-staged into a ``[K]`` buffer with one copy a dispatch, so dropout inside
-a graph draws what K ``run()`` calls draw.
+staged into a ``[K]`` buffer with one copy a dispatch, so every random op
+inside a graph draws what K ``run()`` calls draw.
+
+With the ``check_nan_inf`` flag on, every float output of every op gets a
+NaN/Inf guard, its minimum and maximum on the device (``_Guards``), and
+every float fetch one more; a step turns them into one bool tensor,
+read with one device-to-host copy a ``run()`` or a ``run_steps``
+dispatch, and the first failing op in program order is named with the
+JAX package's error text. Under the profiler (``profiler.py``) a run is
+one ``exe.run(compiled)`` event, a ``run_steps`` dispatch one
+``exe.run_steps(compiled)`` event, each op one ``op:<type>`` event (and,
+under a device trace, one ``record_function("<type>.<seq>")`` range);
+with the profiler off none of this runs.
 
 What the port leaves out raises, naming ROADMAP.md: the wire's host (IO)
 ops (the SelectedRows and tensor-array host ops run, in ``run`` only),
-NaN guards, the transform pipeline, the monitor, and draws from a
-``torch.Generator`` (the initializers) inside a ``run_steps`` graph on
-the card. Gradient accumulation is a ``ParallelExecutor`` build option
-in the JAX package (ROADMAP.md, queue 1 item 9), so nothing here can ask
-for it.
+the transform pipeline and the monitor. Gradient accumulation is a
+``ParallelExecutor`` build option in the JAX package (ROADMAP.md, queue 1
+item 9), so nothing here can ask for it.
 
 Feeds normalize through a ``FeedPlanCache`` (the JAX package's
 zero-copy host feed path): a repeated feed
@@ -69,6 +78,7 @@ import torch
 from torch.utils import checkpoint as _checkpoint
 
 from .. import flags
+from .. import profiler as _prof
 from . import graphs as _graphs
 from . import registry
 from .enforce import EnforceError, op_error
@@ -95,7 +105,6 @@ def _is_host_op(type):
 # flags that switch on a JAX-package feature this slice does not port
 # (flag name: what it switches on, ROADMAP.md queue 1 item)
 _LEFT_OUT_FLAGS = {
-    "check_nan_inf": ("NaN/Inf guards", "2"),
     "transform": ("the program-transform pipeline", "11"),
     "monitor": ("the runtime monitor", "10"),
 }
@@ -334,7 +343,7 @@ class Executor:
         # constants (assign_value) made on this executor's device
         self.constants = weakref.WeakKeyDictionary()
         self.stats = {"megastep_dispatches": 0, "graph_captures": 0,
-                      "graph_replays": 0}
+                      "graph_replays": 0, "guard_reads": 0}
         # normalization plans of run()'s and run_steps' list feeds; a
         # frozen feed's tensor is committed on this executor's device
         self._feed_plans = FeedPlanCache(device_fn=lambda: self.device)
@@ -359,9 +368,9 @@ class Executor:
             if v is not None:
                 state[n] = to_tensor(v, self.device)
         step = self._build(program, tuple(sorted(feeds)), fetch_names,
-                           tuple(sorted(state)), static_info)
+                           tuple(sorted(state)), static_info,
+                           check_nan=bool(flags.get_flag("check_nan_inf")))
         seed = self._seed(program, self._rng_counter)
-        gen = self._generator(program, self._rng_counter)
         self._rng_counter += 1
         seed_t = []
 
@@ -372,12 +381,14 @@ class Executor:
                                          device=self.device))
             return seed_t[0]
 
-        with _tf32_off():
-            fetches, new_state, fetch_lods = step(state, feeds, lambda: gen,
-                                                  seed_fn)
+        with _tf32_off(), _prof.run_event("exe.run(compiled)", self.device):
+            out = step(state, feeds, seed_fn)
+        fetches, new_state, fetch_lods, guards = out
         for n, v in new_state.items():
             scope.set(n, v)
         fetches = _trim_fetches(fetch_names, fetches, fetch_lods)
+        if guards is not None:
+            _raise_first_nan(guards[0], self._read_guards(guards[1])[None])
         if return_numpy:
             return [as_numpy(v) for v in fetches]
         return list(fetches)
@@ -387,10 +398,11 @@ class Executor:
         """The run seed of the run at ``counter``."""
         return program.random_seed * 1000003 + counter
 
-    def _generator(self, program, counter):
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(self._seed(program, counter))
-        return gen
+    def _read_guards(self, guards):
+        """The one device-to-host copy of a run's or a dispatch's stacked
+        NaN guards, counted in ``stats["guard_reads"]``."""
+        self.stats["guard_reads"] += 1
+        return guards.cpu().numpy()
 
     # -- megastep -------------------------------------------------------
     def run_steps(self, program=None, feeds=None, fetch_list=None,
@@ -420,10 +432,13 @@ class Executor:
         place at the end of each step, and each step's fetches are
         copied out so that no later dispatch overwrites what a caller
         holds. The K run seeds go into a ``[K]`` buffer the same way, so
-        dropout draws what K ``run()`` calls draw. Refused: programs with
-        host (IO) ops, steps that make new persistables (startup
-        programs: ``run()`` those), and, on the card, draws from a
-        ``torch.Generator`` (the initializers)."""
+        every random op draws what K ``run()`` calls draw. With the
+        ``check_nan_inf`` flag on, the K steps' guards fill a ``[K,
+        n_guards]`` buffer, read once after the dispatch; a failure names
+        its logical step, the state having advanced all K steps (the JAX
+        package's semantics). Refused: programs with host (IO) ops and
+        steps that make new persistables (startup programs: ``run()``
+        those)."""
         feeds, k = self._check_run_steps_args(feeds, k)
         program = program or default_main_program()
         scope = scope or global_scope()
@@ -447,18 +462,20 @@ class Executor:
             if value is not None:
                 state_sig.append((v.name,) + _signature(value))
         state_sig = tuple(sorted(state_sig))
+        check_nan = bool(flags.get_flag("check_nan_inf"))
         # what picks the kernels a capture holds is part of the key too:
         # the conv fusion flag and cuDNN's algorithm switches
         key = (program, program._version, feed_sig,
                tuple(sorted(static_info.items())), fetch_names,
-               state_sig, k, bool(flags.get_flag("fuse_conv_bn")),
+               state_sig, k, check_nan, bool(flags.get_flag("fuse_conv_bn")),
                torch.backends.cudnn.deterministic,
                torch.backends.cudnn.benchmark)
         mega = self._megasteps.get(key) if use_program_cache else None
         if mega is None:
             step = self._build(program, tuple(n for n, _, _ in feed_sig),
                                fetch_names, tuple(n for n, _, _ in
-                                                  state_sig), static_info)
+                                                  state_sig), static_info,
+                               check_nan=check_nan)
             mega = _Megastep(self.device, step, feed_sig, state_sig, k,
                              "Executor.run_steps(k=%d)" % k)
             if use_program_cache:
@@ -473,7 +490,8 @@ class Executor:
         mega.stage(staged, [self._seed(program, base + i)
                             for i in range(k)])
         mega.bind(scope)
-        with _tf32_off():
+        with _tf32_off(), _prof.run_event("exe.run_steps(compiled)",
+                                          self.device):
             if self.device.type == "cuda":
                 if mega.graph is None:
                     mega.capture()
@@ -481,8 +499,11 @@ class Executor:
                 mega.graph.replay()
                 self.stats["graph_replays"] += 1
             else:
-                mega.run(lambda i: self._generator(program, base + i))
+                mega.run()
         self.stats["megastep_dispatches"] += 1
+        if mega.guards is not None:
+            _raise_first_nan(mega.guard_names,
+                             self._read_guards(mega.guards), steps=k)
         outs = [b.clone() for b in mega.fetches]
         if mega.fetch_lods:
             # each step's LoD fetches cut to that step's real total (a
@@ -529,17 +550,17 @@ class Executor:
 
     # ------------------------------------------------------------------
     def _build(self, program, feed_names, fetch_names, state_keys,
-               static_info=None):
-        """The step function ``step(state, feeds, rng, seed) ->
-        (fetches, new_state, fetch_lods)`` for one program, as the JAX
+               static_info=None, check_nan=False):
+        """The step function ``step(state, feeds, seed) -> (fetches,
+        new_state, fetch_lods, guards)`` for one program, as the JAX
         package's ``_build`` returns it (there it is traced and jitted;
-        here it runs the lowerings eagerly each call). ``rng()`` hands
-        the initializers the step's ``torch.Generator`` and ``seed()``
-        the dropout draws the step's seed, an int64 device scalar.
+        here it runs the lowerings eagerly each call). ``seed()`` hands
+        the random ops the step's seed, an int64 device scalar.
         ``static_info`` is the feeds' static table (``@MAXLEN``); each
         step works on a copy, which the lowerings extend.
         ``fetch_lods`` holds the lengths of each fetch that carries
-        them."""
+        them. ``guards`` is None, or with ``check_nan`` (the guard
+        names, one bool device tensor of the step's NaN guards)."""
         static_info = dict(static_info or {})
         block = program.global_block()
         ops = list(block.ops)
@@ -560,16 +581,18 @@ class Executor:
                 bwd_idx = i
                 break
 
-        def step(state, feeds, rng, seed):
+        def step(state, feeds, seed):
             env = {}
             env.update(state)
             env.update(feeds)
-            ctx = registry.LowerContext(env, rng, self.device,
+            guards = _Guards() if check_nan else None
+            ctx = registry.LowerContext(env, self.device,
                                         executor=self, block=block,
                                         fetch_names=fetch_names,
                                         read_names=read_names,
                                         seed_fn=seed, rng_keys=rng_keys,
-                                        static_info=dict(static_info))
+                                        static_info=dict(static_info),
+                                        guards=guards)
             if bwd_idx is None:
                 with torch.no_grad():
                     for op in ops:
@@ -585,7 +608,11 @@ class Executor:
                     new_state[n] = env[n].detach()
             fetch_lods = {n: env[n + "@LOD"] for n in fetch_names
                           if env.get(n + "@LOD") is not None}
-            return fetches, new_state, fetch_lods
+            if guards is not None:
+                for n, v in zip(fetch_names, fetches):
+                    guards.record_fetch(n, v, fetch_lods.get(n))
+                guards = guards.stacked(self.device)
+            return fetches, new_state, fetch_lods, guards
 
         return step
 
@@ -635,9 +662,13 @@ class Executor:
                 for op in ops[:bwd_idx]:
                     _lower_op(ctx, op)
                 total = _objective(ctx.env, target_names)
-            grads = torch.autograd.grad(
-                total, [leaves[n] for n in names],
-                allow_unused=True) if names else ()
+            # a recompute in the backward runs guarded ops again: they
+            # were guarded once, in the forward
+            with (ctx.guards.paused() if ctx.guards is not None
+                  else contextlib.nullcontext()):
+                grads = torch.autograd.grad(
+                    total, [leaves[n] for n in names],
+                    allow_unused=True) if names else ()
         if marker.type == "backward_marker":
             loss_val = ctx.env[target_names[0]]
             ctx.env[target_names[0] + "@GRAD"] = torch.ones_like(
@@ -666,7 +697,7 @@ class Executor:
         def forward(*leaf_vals):
             env = dict(base_env)
             env.update(zip(names, leaf_vals))
-            fctx = ctx.sub_context(env, block)
+            fctx = ctx.sub_context(env, block, guarded=True)
             for op in ops[:bwd_idx]:
                 _lower_op(fctx, op)
             return (_objective(env, target_names),
@@ -771,22 +802,14 @@ def _stack_feeds(feeds, k, plan_cache=None):
     return stacked, sig, info0
 
 
-def _no_draws():
-    raise NotImplementedError(
-        "a random op drawing from a torch.Generator (uniform_random, "
-        "gaussian_random, truncated_gaussian_random) inside an "
-        "Executor.run_steps step on the card: the CUDA graph would replay "
-        "one draw K times (dropout's counter-keyed draws are not affected; "
-        "ROADMAP.md, queue 1 item 2); run() the initializers")
-
-
 class _Megastep:
     """K step bodies of one program over static buffers: the feeds as
     ``[K, ...]`` tensors, the state (tensors of its own, lent to the
     scope it last ran for), and each step's fetches copied into ``[K,
     ...]`` tensors. On the CPU ``run`` runs the K bodies in a loop; on
     the card ``capture`` captures them once, unrolled into one CUDA
-    graph, and ``graph.replay()`` runs them."""
+    graph, and ``graph.replay()`` runs them. With NaN guards, step i
+    writes its stacked guards into row i of ``guards``."""
 
     def __init__(self, device, step, feed_sig, state_sig, k, what):
         self.device = device
@@ -801,6 +824,8 @@ class _Megastep:
         self.seeds = torch.empty((k,), dtype=torch.int64, device=device)
         self.fetches = None      # made at the first step, from its fetches
         self.fetch_lods = None   # {fetch name: [K, n] lengths}, likewise
+        self.guards = None       # [K, n_guards] bool, likewise
+        self.guard_names = None
         self.graph = None
         self._owner = None       # weakref to the scope holding the state
 
@@ -838,12 +863,10 @@ class _Megastep:
                 scope.set(n, t)
         self._owner = weakref.ref(scope)
 
-    def run(self, gen_of_step):
-        """The K bodies in a loop (the CPU path): step i draws from
-        ``gen_of_step(i)``."""
+    def run(self):
+        """The K bodies in a loop (the CPU path)."""
         for i in range(self.k):
-            gen = gen_of_step(i)
-            self._body(self.state, i, lambda: gen)
+            self._body(self.state, i)
 
     def capture(self):
         """Warm up on copies of the state (one step), then capture the K
@@ -852,21 +875,21 @@ class _Megastep:
 
         def warmup():
             state = {n: t.clone() for n, t in self.state.items()}
-            self._body(state, 0, _no_draws)
+            self._body(state, 0)
 
         def body():
             for i in range(self.k):
-                self._body(self.state, i, _no_draws)
+                self._body(self.state, i)
 
         graph.capture(warmup, body)
         self.graph = graph
 
-    def _body(self, state, i, rng):
-        """Step ``i``: read feed row i, write fetch row i, update
-        ``state`` in place."""
+    def _body(self, state, i):
+        """Step ``i``: read feed row i, write fetch (and guard) row i,
+        update ``state`` in place."""
         seed = self.seeds[i]
-        fetches, new, lods = self.step(
-            state, {n: b[i] for n, b in self.feeds.items()}, rng,
+        fetches, new, lods, guards = self.step(
+            state, {n: b[i] for n, b in self.feeds.items()},
             lambda: seed)
         extra = sorted(set(new) - set(state))
         if extra:
@@ -883,6 +906,12 @@ class _Megastep:
             self.fetch_lods = {
                 n: torch.empty((self.k,) + tuple(v.shape), dtype=v.dtype,
                                device=self.device) for n, v in lods.items()}
+        if guards is not None:
+            if self.guards is None:
+                self.guard_names = guards[0]
+                self.guards = torch.empty((self.k,) + tuple(
+                    guards[1].shape), dtype=torch.bool, device=self.device)
+            self.guards[i].copy_(guards[1])
         for buf, v in zip(self.fetches, fetches):
             buf[i].copy_(v)
         for n, v in lods.items():
@@ -923,6 +952,13 @@ def _lower_op(ctx, op):
     if op.type in ("feed", "fetch"):
         _lower_feed_fetch(ctx, op)
         return
+    with _prof.op_event(ctx, op):
+        _lower_op_body(ctx, op)
+    if ctx.guards is not None:
+        ctx.guards.record(op, ctx.env)
+
+
+def _lower_op_body(ctx, op):
     info = registry.lookup(op.type)
     if info is None:
         raise NotImplementedError(
@@ -936,6 +972,107 @@ def _lower_op(ctx, op):
     except Exception as e:  # annotate with op context (enforce.h:203 parity)
         raise op_error(op, ctx.env, e) from e
     _propagate_lod(ctx, op)
+
+
+def _extremes(v, lod):
+    """(min, max) of ``v`` as device scalars, one reduction: both are
+    finite exactly when every element is (a NaN propagates through both,
+    an inf shows in one). With LoD lengths the bucket's pad rows past
+    sum(lengths) read as zero: they are filler, and may go non-finite
+    downstream of a log or a division. Read off the autograd graph: a
+    guard saves nothing for the backward, so a checkpointed forward saves
+    the same tensors when the backward recomputes it unguarded, and no
+    guarded activation is kept alive past its own use."""
+    v = v.detach()
+    with torch.no_grad():
+        if lod is not None and v.dim() >= 1:
+            valid = torch.arange(v.shape[0], device=v.device) < lod.sum()
+            v = torch.where(valid.reshape((-1,) + (1,) * (v.dim() - 1)), v,
+                            v.new_zeros(()))
+        return torch.aminmax(v)
+
+
+class _Guards:
+    """The NaN/Inf guards of one step (flag ``check_nan_inf``; the
+    reference's every-op-output scan, executor.cc:27-94): the extremes of
+    each float output of each op (``_extremes``), in program order
+    (forward ops, then the ops after the grad marker), and of each float
+    fetch, all kept on the device: one reduction a guard, and a few
+    launches a step to turn them into one bool vector. ``paused`` while
+    the backward recomputes a checkpointed forward or region, whose ops
+    were guarded once."""
+
+    def __init__(self):
+        # (position, "op", op type, var) or (position, "fetch", var)
+        self.names = []
+        self.groups = {}     # dtype -> ([name index], [min, max, ...])
+        self._paused = False
+
+    def _add(self, name, v, lod):
+        if v.numel() == 0:
+            return           # nothing to check: all() of nothing holds
+        idx, vals = self.groups.setdefault(v.dtype, ([], []))
+        idx.append(len(self.names))
+        vals.extend(_extremes(v, lod))
+        self.names.append((len(self.names),) + name)
+
+    def record(self, op, env):
+        if self._paused:
+            return
+        for name in op.output_names:
+            v = env.get(name)
+            if isinstance(v, torch.Tensor) and v.is_floating_point():
+                self._add(("op", op.type, name), v, env.get(name + "@LOD"))
+
+    def record_fetch(self, name, v, lod):
+        if v.is_floating_point():
+            self._add(("fetch", name), v, lod)
+
+    @contextlib.contextmanager
+    def paused(self):
+        self._paused = True
+        try:
+            yield
+        finally:
+            self._paused = False
+
+    def stacked(self, device):
+        """(the guard names, the guards as one bool [n] tensor in the
+        names' order: grouped by dtype, each name led by its position in
+        program order)."""
+        order, parts = [], []
+        for idx, vals in self.groups.values():
+            order += idx
+            parts.append(torch.isfinite(torch.stack(vals)).view(-1, 2)
+                         .all(dim=1))
+        if not parts:
+            return (), torch.ones((0,), dtype=torch.bool, device=device)
+        return (tuple(self.names[i] for i in order),
+                parts[0] if len(parts) == 1 else torch.cat(parts))
+
+
+def _raise_first_nan(names, rows, steps=None):
+    """Raise the JAX package's FloatingPointError for the first failing
+    guard of ``rows`` (host bool [n_steps, n]) in program order: an op
+    output before any fetch, the first step first; under ``run_steps``
+    (``steps`` = K) an op's error names its logical step."""
+    by_pos = sorted(range(len(names)), key=lambda j: names[j][0])
+    for kind in ("op", "fetch"):
+        for i, row in enumerate(rows):
+            for j in by_pos:
+                name = names[j]
+                if name[1] != kind or row[j]:
+                    continue
+                if kind == "fetch":
+                    raise FloatingPointError(
+                        "NaN/Inf detected in fetched var %r" % name[2])
+                msg = ("NaN/Inf detected in output %r of op %r "
+                       "(PADDLE_TPU_CHECK_NAN_INF)" % (name[3], name[2]))
+                if steps is not None:
+                    msg = ("%s (at megastep logical step %d of %d; state "
+                           "has advanced the full megastep)"
+                           % (msg, i, steps))
+                raise FloatingPointError(msg)
 
 
 def _propagate_lod(ctx, op):

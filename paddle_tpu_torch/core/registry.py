@@ -12,11 +12,13 @@ An op registered with ``host=True`` runs on the host's view of its
 values (the SelectedRows ops of ``distributed/ops.py``); a program that
 holds one runs op by op through ``Executor.run`` only.
 
-An op registered with ``stateful_rng=True`` draws random numbers. The
-initializers (``uniform_random``, ``gaussian_random``, ...) draw from the
-run's ``torch.Generator`` (``ctx.rng()``); dropout draws counter-keyed
-Philox bits (``ctx.draw_key(op)``): the run's seed, a device scalar, and
-the op's ordinal among the program's random ops (``random_op_keys``).
+An op registered with ``stateful_rng=True`` draws random numbers: the
+initializers (``uniform_random``, ``gaussian_random``, ...), ``nce``'s
+negatives and dropout all draw counter-keyed Philox bits
+(``core/philox.py``) keyed by ``ctx.draw_key(op)``: the run's seed, a
+device scalar, and the op's ordinal among the program's random ops
+(``random_op_keys``). No op draws from a ``torch.Generator``, so a CUDA
+graph of K steps draws what K runs draw.
 """
 
 
@@ -95,24 +97,25 @@ class LowerContext:
     """Environment handed to lowering rules.
 
     ``env`` maps var name -> torch tensor. ``device`` is where the run's
-    tensors live (lowerings that create tensors put them there);
-    ``rng()`` hands out the run's ``torch.Generator`` on that device, so
-    every random op of one run draws from one seeded stream in program
-    order. ``seed_fn()`` hands out the run's seed (an int64 device
-    scalar) and ``rng_keys`` the program's ``random_op_keys``: together
-    they key the counter-based draws (``draw_key``). ``mesh`` is always
+    tensors live (lowerings that create tensors put them there).
+    ``seed_fn()`` hands out the run's seed (an int64 device scalar) and
+    ``rng_keys`` the program's ``random_op_keys``: together they key the
+    counter-based draws (``draw_key``). ``guards`` is the step's NaN/Inf
+    guard recorder (the executor's, under the ``check_nan_inf`` flag) or
+    None. ``mesh`` is always
     None in the port: no op runs across cards yet. ``static_info`` is the
     run's static table, host values the feeds fix for the whole run:
     ``<name>@MAXLEN``, the bound of a LoD value's sequence lengths,
     which the RNN scans loop to.
     """
 
-    def __init__(self, env, rng_fn, device, is_test=False, executor=None,
+    def __init__(self, env, device, is_test=False, executor=None,
                  block=None, mesh=None, fetch_names=(), read_names=None,
-                 seed_fn=None, rng_keys=None, static_info=None):
+                 seed_fn=None, rng_keys=None, static_info=None,
+                 guards=None):
         self.env = env
         self.static_info = static_info if static_info is not None else {}
-        self._rng_fn = rng_fn      # () -> the run's torch.Generator
+        self.guards = guards
         self._seed_fn = seed_fn    # () -> the run's seed, int64 [] tensor
         self.rng_keys = rng_keys if rng_keys is not None else {}
         self.device = device
@@ -161,9 +164,6 @@ class LowerContext:
         if name is not None:
             self.env[name] = value
 
-    def rng(self):
-        return self._rng_fn()
-
     def draw_key(self, op):
         """(the run's seed as an int64 device scalar, the op's key) for a
         counter-keyed draw of random op ``op``."""
@@ -174,13 +174,17 @@ class LowerContext:
                 "program" % op.type)
         return self._seed_fn(), self.rng_keys[id(op)]
 
-    def sub_context(self, env, block):
+    def sub_context(self, env, block, guarded=False):
         """A context for the ops of sub-block ``block`` over ``env``,
-        drawing as this one does."""
-        return LowerContext(env, self._rng_fn, self.device,
+        drawing as this one does. ``guarded`` shares this context's NaN
+        guards (a recompute region and the checkpointed forward, as the
+        JAX package guards them); other sub-blocks (loops, branches) are
+        guarded through the op that holds them."""
+        return LowerContext(env, self.device,
                             is_test=self.is_test, executor=self.executor,
                             block=block, mesh=self.mesh,
                             fetch_names=self.fetch_names,
                             read_names=self._read_names,
                             seed_fn=self._seed_fn, rng_keys=self.rng_keys,
-                            static_info=self.static_info)
+                            static_info=self.static_info,
+                            guards=self.guards if guarded else None)

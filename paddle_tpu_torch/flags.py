@@ -7,9 +7,10 @@ from the ``PADDLE_TPU_<NAME>`` environment variable (gflags booleans:
 configures both packages. Registered here: the ``serving_*`` flags the
 port's engine reads, ``fuse_conv_bn`` (the conv lowering's),
 ``megastep_inflight`` (``Executor.run_steps``'s), ``lod_bucketing``
-(the LoD feeds'), ``data_home`` (``dataset.common``'s), and the
-Executor switches of features not ported yet, so that setting one fails
-loudly instead of being ignored.
+(the LoD feeds'), ``data_home`` (``dataset.common``'s),
+``check_nan_inf`` (the Executor's NaN/Inf guards), ``profile_memory``
+(the profiler's), and the Executor switches of features not ported yet,
+so that setting one fails loudly instead of being ignored.
 """
 
 import os
@@ -136,8 +137,10 @@ _register("data_home", str,
           os.path.expanduser("~/.cache/paddle_tpu/dataset"),
           "dataset cache directory")
 _register("check_nan_inf", bool, False,
-          "per-op NaN/Inf guards in the Executor. Not ported yet; 1 "
-          "makes Executor.run raise (see ROADMAP.md)")
+          "scan every op output for NaN/Inf inside the compiled step")
+_register("profile_memory", bool, False,
+          "record device live/peak bytes on every profiler event "
+          "(FLAGS_benchmark memory-logging parity, operator.cc:576-578)")
 _register("transform", bool, False,
           "run the program-transform pass pipeline before execution. "
           "Not ported yet; 1 makes Executor.run raise (see ROADMAP.md)")

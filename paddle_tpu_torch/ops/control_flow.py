@@ -284,7 +284,10 @@ def _recompute_block(ctx, op):
     def region(*vals):
         env = dict(base_env)
         env.update(zip(in_names, vals))
-        sctx = ctx.sub_context(env, block)
+        # the region's ops are guarded in program order, as the JAX
+        # package guards them; the executor pauses the guards while the
+        # backward recomputes the region
+        sctx = ctx.sub_context(env, block, guarded=True)
         for op2 in block.ops:
             _lower_op(sctx, op2)
         return tuple(env[n] for n in out_names)

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from . import _build
-from ..core.philox import MASK32, philox4x32
+from ..core.philox import words as _bits
 
 __all__ = ["dropout", "keep_threshold", "upscale"]
 
@@ -58,16 +58,6 @@ def upscale(p):
     """The f32 factor ``upscale_in_train`` multiplies kept elements by:
     the f32 reciprocal of the f32 keep probability, as a Python float."""
     return float(np.float32(1.0) / np.float32(1.0 - float(p)))
-
-
-def _bits(n, seed, key, device):
-    """The n 32-bit words of the draw, as int64 [n]."""
-    ctr = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
-    zero = torch.zeros_like(ctr)
-    k0 = (seed.to(device=device, dtype=torch.int64) & MASK32).expand_as(ctr)
-    k1 = torch.full_like(ctr, int(key))
-    words = philox4x32((ctr & MASK32, ctr >> 32, zero, zero), (k0, k1))
-    return torch.stack(words, dim=1).reshape(-1)[:n]
 
 
 def _dropout_plain(x, seed, key, p, scale, want_mask):

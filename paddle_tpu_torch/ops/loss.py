@@ -7,6 +7,7 @@ import math
 
 import torch
 
+from ..core import philox
 from ..core.registry import register
 
 
@@ -155,9 +156,10 @@ def _modified_huber_loss(ctx, op):
 def _nce(ctx, op):
     """Noise-contrastive estimation (operators/nce_op.cc), as the JAX
     package lowers it: ``num_neg_samples`` negatives per row drawn
-    uniformly from the run's generator, logits of the true and sampled
-    classes shifted by log(num_total_classes) (the uniform noise), and
-    per row the sum of their sigmoid cross entropies, times
+    uniformly, each a counter-keyed Philox word w mapped to ``(w *
+    num_total_classes) >> 32`` (``core/philox.py``), logits of the true
+    and sampled classes shifted by log(num_total_classes) (the uniform
+    noise), and per row the sum of their sigmoid cross entropies, times
     SampleWeight. The draws differ from threefry's; SampleLabels holds
     them."""
     x = ctx.in1(op, "Input")            # [B, D]
@@ -170,13 +172,16 @@ def _nce(ctx, op):
     if label.dim() == 1:
         label = label[:, None]
     num_true = label.shape[1]
-    neg = torch.randint(0, num_classes, (batch, num_neg),
-                        generator=ctx.rng(), device=ctx.device)
+    seed, key = ctx.draw_key(op)
+    words = philox.words(batch * num_neg, seed, key, ctx.device)
+    neg = ((words * int(num_classes)) >> 32).reshape(batch, num_neg)
     samples = torch.cat([label.to(torch.int32), neg.to(torch.int32)], dim=1)
     idx = samples.long()
     logits = torch.einsum("bd,bkd->bk", x, w[idx])
     if b is not None:
-        logits = logits + b[idx]
+        # the layer makes Bias [C, 1]; jnp.take without an axis indexes
+        # the flat array
+        logits = logits + b.reshape(-1)[idx]
     labels01 = torch.cat([torch.ones((batch, num_true), device=x.device),
                           torch.zeros((batch, num_neg), device=x.device)],
                          dim=1)

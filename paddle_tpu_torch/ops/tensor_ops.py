@@ -14,10 +14,13 @@ and kept by the executor, so a CUDA graph holds no host-to-device copy.
 ``range`` and ``print`` read the host, and raise inside a CUDA graph
 capture (``Executor.run_steps`` on the card).
 
-Random ops (``stateful_rng``) draw from the run's ``torch.Generator``
-(``ctx.rng()``), in program order. Index tensors arrive as int32 (64-bit feeds are narrowed
-as in the JAX package); torch indexing wants int64, so lowerings widen
-them where they index, never in the scope.
+Random ops (``stateful_rng``) draw counter-keyed Philox words
+(``core/philox.py``) from the run's seed and the op's key
+(``ctx.draw_key(op)``), so a ``run_steps`` graph draws what K ``run()``
+calls draw and the card gives the CPU's words. Index tensors arrive as
+int32 (64-bit feeds are narrowed as in the JAX package); torch indexing
+wants int64, so lowerings widen them where they index, never in the
+scope.
 """
 
 import math
@@ -25,6 +28,7 @@ import math
 import numpy as np
 import torch
 
+from ..core import philox
 from ..core.program import runtime_dtype
 from ..core.registry import register
 from ..core.scope import torch_dtype
@@ -212,27 +216,48 @@ def _batch_shape(ctx, op):
     return tuple(shape)
 
 
+def _draw(ctx, op, n):
+    """The n Philox words of random op ``op``'s draw in this run, keyed by
+    the run's seed and the op's key (``LowerContext.draw_key``)."""
+    seed, key = ctx.draw_key(op)
+    return philox.words(n, seed, key, ctx.device)
+
+
 @register("uniform_random", stateful_rng=True)
 @register("uniform_random_batch_size_like", stateful_rng=True)
 def _uniform_random(ctx, op):
+    """min + (max - min) * u, u the top 24 bits of a word over 2**24, in
+    float64 rounded once to float32 (so the CPU and the card agree bit
+    for bit)."""
     shape = _batch_shape(ctx, op)
     dtype = torch_dtype(op.attr("dtype", "float32"))
     lo = op.attr("min", -1.0)
     hi = op.attr("max", 1.0)
-    out = torch.empty(shape, dtype=torch.float32, device=ctx.device)
-    out.uniform_(lo, hi, generator=ctx.rng())
+    u = philox.unit24(_draw(ctx, op, math.prod(shape)))
+    out = u.mul_(hi - lo).add_(lo).to(torch.float32).reshape(shape)
     ctx.set_out(op, "Out", out.to(dtype))
 
 
 @register("gaussian_random", stateful_rng=True)
 @register("gaussian_random_batch_size_like", stateful_rng=True)
 def _gaussian_random(ctx, op):
+    """mean + std * z, z standard normals by Box-Muller over word pairs:
+    words 2j and 2j+1 give values 2j (the cosine) and 2j+1 (the sine),
+    in float64 rounded once to float32."""
     shape = _batch_shape(ctx, op)
     dtype = torch_dtype(op.attr("dtype", "float32"))
     mean = op.attr("mean", 0.0)
     std = op.attr("std", 1.0)
-    out = mean + std * torch.randn(shape, generator=ctx.rng(),
-                                   dtype=torch.float32, device=ctx.device)
+    n = math.prod(shape)
+    u = philox.unit24(_draw(ctx, op, n + n % 2)).reshape(-1, 2)
+    # in place where a value is made: the same roundings, fewer buffers
+    r = u[:, 0].neg().log1p_().mul_(-2.0).sqrt_()  # log of 1 - u in (0, 1]
+    theta = u[:, 1].mul(2.0 * math.pi)
+    z = torch.empty_like(u)
+    torch.cos(theta, out=z[:, 0])
+    torch.sin(theta, out=z[:, 1])
+    z = z.mul_(r[:, None]).view(-1)[:n]
+    out = z.mul_(std).add_(mean).to(torch.float32).reshape(shape)
     ctx.set_out(op, "Out", out.to(dtype))
 
 
@@ -240,17 +265,18 @@ def _gaussian_random(ctx, op):
 def _truncated_gaussian_random(ctx, op):
     """mean + std * a standard normal truncated to [-2, 2] (as
     ``jax.random.truncated_normal(key, -2, 2)``), by the inverse CDF of
-    a uniform drawn between the two tails' masses."""
+    a uniform between the two tails' masses, in float64 rounded once to
+    float32."""
     shape = tuple(op.attr("shape"))
     dtype = torch_dtype(op.attr("dtype", "float32"))
     mean = op.attr("mean", 0.0)
     std = op.attr("std", 1.0)
     lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
-    u = torch.empty(shape, dtype=torch.float32, device=ctx.device)
-    u.uniform_(lo, 1.0 - lo, generator=ctx.rng())
-    z = math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)
-    out = mean + std * torch.clamp(z, -2.0, 2.0)
-    ctx.set_out(op, "Out", out.to(dtype))
+    u = philox.unit24(_draw(ctx, op, math.prod(shape)))
+    u = u.mul_(1.0 - 2.0 * lo).add_(lo)
+    z = u.mul_(2.0).sub_(1.0).erfinv_().mul_(math.sqrt(2.0))
+    out = z.clamp_(-2.0, 2.0).mul_(std).add_(mean).to(torch.float32)
+    ctx.set_out(op, "Out", out.reshape(shape).to(dtype))
 
 
 @register("lookup_table")

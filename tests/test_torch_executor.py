@@ -226,7 +226,7 @@ def _small_step():
     return exe, tmain, tavg, scope, feed
 
 
-@pytest.mark.parametrize("flag", ["check_nan_inf", "transform", "monitor"])
+@pytest.mark.parametrize("flag", ["transform", "monitor"])
 def test_left_out_flags_raise(flag, monkeypatch):
     exe, main, avg, scope, feed = _small_step()
     monkeypatch.setenv("PADDLE_TPU_" + flag.upper(), "1")
@@ -301,7 +301,7 @@ def test_sp_attention_on_a_mesh_raises():
         tfluid.layers.sequence_parallel_attention(q, q, q, causal=True)
     op = main.global_block().ops[-1]
     t = torch.zeros((1, 2, 8, 8))
-    ctx = registry.LowerContext({"q": t}, None, torch.device("cpu"),
+    ctx = registry.LowerContext({"q": t}, torch.device("cpu"),
                                 mesh=object())
     with pytest.raises(NotImplementedError, match="mesh.*item 9"):
         registry.lookup("sp_attention").lower(ctx, op)

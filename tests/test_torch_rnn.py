@@ -174,7 +174,7 @@ def test_stacked_lstm_passes_the_maxlen_bound():
 
     LC._lstm_step_plain = counting
     try:
-        ctx = registry.LowerContext(env, None, torch.device("cpu"),
+        ctx = registry.LowerContext(env, torch.device("cpu"),
                                     block=main.global_block(),
                                     static_info=dict(static))
         with torch.no_grad():

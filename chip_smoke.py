@@ -431,6 +431,39 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
      50 filters) trained 2 passes through ``v2.trainer.SGD`` after
      ``paddle.init(use_gpu=True)``, its executor on the card, the cost
      falling; ``paddle.infer`` equal to an executor run.
+ 19. parallel — the parallel tier (``parallel/``, ``ParallelExecutor``,
+     ``distributed/launch.py``). (a) ``tools/op_sweep.py``'s parallel
+     part: the 9 op types without a mesh on the card against the CPU;
+     ``transformer_lm_parallel`` at the
+     flagship's widths (batch 32 x 256, SGD 0.1) through
+     ``ParallelExecutor`` on a one-rank mesh: 3 steps bitwise equal to
+     ``Executor.run`` (losses and every state tensor), ``run_steps(K=5)``
+     one CUDA graph bitwise equal to 5 ``run()`` calls, each flash kernel
+     launched exactly n_layer a step (and n_layer x 5 through the
+     replay); the same for ``num_experts=4`` (the MoE fallback) and
+     ``pp=2`` in the strategy (the loop over layers); step ms of both
+     executors. (b) Two rank processes on the one card
+     (``chip_smoke.py --parallel-rank b 2 R STORE``) over a gloo group,
+     the port's collectives staged through pinned host memory: ring and
+     Ulysses attention over sp=2 at [32, 8, 256, 64] fp32, causal and
+     not, forward and backward, against ``flash_attention_lse`` over the
+     whole sequence in one process at phase 5's limits, each rank's flash
+     launches exact (causally rank 0 runs its diagonal only, rank 1 its
+     diagonal and one full block); ``gpipe`` over pp=2 on the LM's
+     4-layer stack (3 SGD steps) against the one-rank loop (2e-4, weights
+     50 x), and the same steps as one ``run_steps`` call: 3 ``run``
+     calls over the two ranks, no graph captured, bitwise equal to them;
+     ``moe_ffn`` over ep=2 with 4 experts, top-1 and top-2, on
+     8,192 tokens: routing (overflow, aux) identical to one rank, the
+     output at rtol 1e-4 / atol 1e-5. (c) Four rank processes: which of
+     DTensor's collectives gloo carries for CUDA tensors here (probed; a
+     probe that fails otherwise than by gloo's refusal, or times out,
+     fails the phase), then each dryrun_multichip(4) combo (dp x tp, dp x
+     sp, dp x pp, dp x ep) whose collectives it carries (dp x sp, dp x pp
+     and dp x ep must run), at (a)'s widths, 3 SGD steps
+     against the one-rank run at the dryrun's limits (losses 2e-4, 2e-3
+     with sp or ep; weights 50 x). It logs the seconds, each rank's
+     staged bytes and step ms, and the flash launches.
 
 The last three lines of standard output are the kernels' JSON line, the
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device": ...}``.
@@ -448,7 +481,8 @@ attention-weight shape [32, 8, 256, 256] f32 and its ``max_abs_err``
 is the largest difference over its comparisons (0: they must be
 bitwise).
 The flash entries add phase 18's profiled and guarded LM steps and its
-K=5 dispatch (``front_launches``). The ``matmul_stats`` entry adds phase
+K=5 dispatch (``front_launches``), and phase 19's runs, every rank's
+(``par_launches``). The ``matmul_stats`` entry adds phase
 17 (a)'s launches through the loader's graphs (``data_launches``) and
 phase 18 (d)'s 3 fused training steps (``front_launches``), and carries
 ``cifar_shortcut_shapes``,
@@ -7024,6 +7058,556 @@ def frontend_phase(torch, smi):
             "mm_launches": mm}
 
 
+# -- phase 19 ------------------------------------------------------------
+PAR_CHILD = "--parallel-rank"       # phase 19 (b) and (c): one rank
+PAR_STEPS, PAR_K = 3, 5
+PAR_ATTN = (32, 8, MAX_LEN, 64)     # [B, H, T, D] of (b)'s attention
+# (b)'s MoE: the LM's batch of tokens, d_model, 4 experts, d_inner
+PAR_MOE = (TRAIN_BATCH * MAX_LEN, D_MODEL, 4, D_INNER)
+# dryrun_multichip(4)'s combos: (name, axes, seed, loss limit, experts)
+PAR_COMBOS = (("dp_tp", (("dp", 2), ("tp", 2)), 0, 2e-4, 0),
+              ("dp_sp", (("dp", 2), ("sp", 2)), 1, 2e-3, 0),
+              ("dp_pp", (("dp", 2), ("pp", 2)), 3, 2e-4, 0),
+              ("dp_ep", (("dp", 2), ("ep", 2)), 4, 2e-3, 4))
+# the collectives DTensor's own ops make over the dp x tp sub-mesh in
+# each combo, as counted on the CPU at the dryrun's sizes (the shard_map
+# regions and their gradients move layouts with the port's collectives,
+# which stage through host memory)
+PAR_NEEDS = {"dp_tp": ("all_reduce", "all_gather", "reduce_scatter"),
+             "dp_sp": ("all_reduce",), "dp_pp": ("all_reduce",),
+             "dp_ep": ("all_reduce",)}
+# the combos (c) must run: all of them but dp x tp, whose DTensor
+# all-gather gloo kills on this card (ROADMAP.md, queue 3)
+PAR_REQUIRED = ("dp_sp", "dp_pp", "dp_ep")
+# what counts as gloo refusing a probe's collective, on every rank that
+# failed: an exception naming gloo or the device's missing backend (a
+# peer of a rank that died gets one too: gloo's closed connection, or its
+# PAR_PROBE_TIMEOUT_S timeout), or a segmentation fault after the probe
+# issued the collective on CUDA tensors (PAR_ISSUED on its standard
+# error; the same call on CPU tensors carried just before); any other
+# exit, a kill at the probes' own time limit included, fails the phase
+PAR_REFUSAL = (r"(?i)^(\[rank\d+\]:\s*)?[\w.]*(Error|Exception)\b"
+               r".*(gloo|no backend type)")
+PAR_ISSUED = "chip_smoke: probe issued on CUDA tensors: "
+PAR_PROBE_TIMEOUT_S = 60      # gloo's, on each probe rank
+# a probe's message: the LM's [32, 256, 512] fp32 activation, 16 MB
+PAR_PROBE_FLOATS = TRAIN_BATCH * MAX_LEN * D_MODEL
+
+
+def _par_program(fluid, T, strategy, experts):
+    """transformer_lm_parallel at the flagship's widths with SGD(0.1),
+    the dryrun's optimizer."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        avg_cost, _ = T.transformer_lm_parallel(
+            vocab_size=VOCAB, max_len=MAX_LEN, n_layer=N_LAYER,
+            n_head=N_HEAD, d_model=D_MODEL, d_inner=D_INNER,
+            strategy=strategy, num_experts=experts)
+        fluid.optimizer.SGD(learning_rate=0.1).minimize(avg_cost)
+    return main, startup, avg_cost
+
+
+def _par_batches(seed, n):
+    from paddle_tpu_torch.models import transformer as T
+    return [T.make_lm_batch(np.random.RandomState(seed + 100 * i),
+                            TRAIN_BATCH, MAX_LEN, VOCAB) for i in range(n)]
+
+
+def _par_gap(fluid, a, b, names, rank):
+    """On rank 0 the largest |a - b| / max(1, max|b|) over ``names``
+    (None elsewhere); ``a``'s sharded values are gathered first, a
+    collective every rank makes."""
+    from paddle_tpu_torch.core.executor import as_numpy
+    out = 0.0
+    for n in names:
+        x = as_numpy(a.find_var(n))
+        if rank == 0:
+            y = as_numpy(b.find_var(n))
+            out = max(out, float(np.abs(x - y).max())
+                      / max(1.0, float(np.abs(y).max())))
+    return out if rank == 0 else None
+
+
+def par_one_rank_phase(torch, smi):
+    """Phase 19 (a): ParallelExecutor on a one-rank mesh at full width,
+    the dense LM, the MoE fallback and the pp=2 scan fallback. Returns
+    the flash launches (eager and through the K=5 replay)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.tools import op_sweep
+    held, worst = op_sweep.run("cuda", part="parallel")
+    check(len(held) == 9, "par (a): the op sweep held %d parallel op types, "
+          "expected 9", len(held))
+    log("par (a): the 9 op types of the parallel tier without a mesh (the "
+        "collectives, moe_ffn, pipeline_stack) on the card against the "
+        "CPU, largest forward difference %.3g", worst)
+    mesh = parallel.make_mesh({"dp": 1})
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    total = {k: 0 for k in FLASH_KERNELS}
+    for label, strategy, experts in (
+            ("dense", parallel.DistributedStrategy(), 0),
+            ("moe", parallel.DistributedStrategy(), 4),
+            ("pp=2", parallel.DistributedStrategy(pp=2), 0)):
+        prog = _par_program(fluid, T, strategy, experts)
+        main, _, avg_cost = prog
+        init = _init_of(fluid, exe, prog[1])
+        batches = _par_batches(0, PAR_STEPS)
+        sa = _scope_from(fluid, init, exe.device)
+        le, _ = _counted_steps(torch, exe, prog, sa, batches)
+        sb = _scope_from(fluid, init, exe.device)
+        pexe = fluid.ParallelExecutor(loss_name=avg_cost.name,
+                                      main_program=main, mesh=mesh,
+                                      scope=sb, strategy=strategy)
+        _reset_launches()
+        lp = [float(pexe.run([avg_cost], feed=b)[0]) for b in batches]
+        torch.cuda.synchronize()
+        counts = _launches()
+        differ = _same_state(torch, sa, sb, sorted(init))
+        check(lp == le and not differ, "par (a) %s: ParallelExecutor is "
+              "not bitwise equal to Executor: losses %s vs %s, %d state "
+              "tensors differ (first %s)", label, lp, le, len(differ),
+              differ[:1])
+        for name in FLASH_KERNELS:
+            check(counts[name] == N_LAYER * PAR_STEPS, "par (a) %s: %s "
+                  "launched %d times in %d steps, expected %d", label,
+                  name, counts[name], PAR_STEPS, N_LAYER * PAR_STEPS)
+        five = _par_batches(10, PAR_K)
+        sc = _scope_from(fluid, init, exe.device)
+        graph = fluid.ParallelExecutor(loss_name=avg_cost.name,
+                                       main_program=main, mesh=mesh,
+                                       scope=sc, strategy=strategy)
+        graph.run_steps([avg_cost], feeds=five)   # capture
+        check(graph.stats["graph_captures"] == 1, "par (a) %s: no graph "
+              "captured", label)
+        fluid.load_numpy_state(sc, init, exe.device)
+        graph._exe._rng_counter = 0
+        eager = fluid.Executor(fluid.CUDAPlace(0))
+        sd = _scope_from(fluid, init, eager.device)
+        le5 = [float(eager.run(main, feed=b, fetch_list=[avg_cost],
+                               scope=sd)[0]) for b in five]
+        _reset_launches()
+        lg5 = [float(o[0]) for o in graph.run_steps([avg_cost],
+                                                     feeds=five)]
+        torch.cuda.synchronize()
+        counts5 = _launches()
+        differ = _same_state(torch, sc, sd, sorted(init))
+        check(graph.stats["graph_replays"] == 2 and lg5 == le5
+              and not differ, "par (a) %s: run_steps(K=%d) (%d replays) "
+              "is not bitwise equal to %d run() calls: losses %s vs %s, "
+              "%d state tensors differ (first %s)", label, PAR_K,
+              graph.stats["graph_replays"], PAR_K, lg5, le5, len(differ),
+              differ[:1])
+        for name in FLASH_KERNELS:
+            check(counts5[name] == N_LAYER * PAR_K, "par (a) %s: %s "
+                  "launched %d times through the K=%d replay, expected %d",
+                  label, name, counts5[name], PAR_K, N_LAYER * PAR_K)
+            total[name] += counts[name] + counts5[name]
+        _, exe_ms = _timed_steps(torch, exe, main, avg_cost, sa, batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            pexe.run([avg_cost], feed=b)
+        torch.cuda.synchronize()
+        pexe_ms = 1e3 * (time.perf_counter() - t0) / len(batches)
+        log("par (a) %s: ParallelExecutor on a one-rank mesh, %d SGD steps "
+            "bitwise equal to Executor.run (losses %s), run_steps(K=%d) "
+            "one CUDA graph bitwise equal to %d run() calls; flash "
+            "launches %s a step, %s through the replay; step ms "
+            "ParallelExecutor %.2f, Executor %.2f (batch %d x %d; %s)",
+            label, PAR_STEPS, " ".join("%.6f" % x for x in lp), PAR_K,
+            PAR_K, N_LAYER, {k: counts5[k] for k in FLASH_KERNELS},
+            pexe_ms, exe_ms, TRAIN_BATCH, MAX_LEN, smi)
+    return total
+
+
+def _par_attn(torch, parallel, F, C, rank, variant, causal):
+    """Phase 19 (b): ring or Ulysses over sp=2, forward and backward, on
+    this rank; held against flash_attention_lse over the whole sequence
+    in this process (after the launch counters are read)."""
+    mesh = parallel.make_mesh({"sp": 2})
+    b, h, t, d = PAR_ATTN
+    g = torch.Generator().manual_seed(7)
+    q, k, v, w = [torch.randn(b, h, t, d, generator=g).to("cuda")
+                  for _ in range(4)]
+    for x in (q, k, v):
+        x.requires_grad_(True)
+    fn = parallel.ring_attention if variant == "ring" else \
+        parallel.ulysses_attention
+    staged = C.staged_bytes
+    torch.cuda.synchronize()
+    _flash_reset(F)
+    t0 = time.perf_counter()
+    out = fn(q, k, v, mesh, causal=causal)
+    (out * w).sum().backward()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    counts = _flash_read(F)
+    if variant == "ulysses":
+        want = 1
+    else:
+        want = 1 + rank if causal else 2
+    what = "par (b) %s %s rank %d" % (variant, "causal" if causal
+                                      else "full", rank)
+    for name in FLASH_KERNELS:
+        check(counts[name] == want, "%s: %s launched %d times, expected "
+              "%d", what, name, counts[name], want)
+    qr, kr, vr = [x.detach().clone().requires_grad_(True)
+                  for x in (q, k, v)]
+    ro, _ = F.flash_attention_lse(qr, kr, vr, causal=causal)
+    (ro * w).sum().backward()
+    err = float((out - ro).abs().max())
+    check(torch.allclose(out, ro, rtol=RTOL, atol=ATOL), "%s: the output "
+          "is %.3g from flash_attention_lse over the whole sequence",
+          what, err)
+    for name, got, ref in (("dq", q.grad, qr.grad), ("dk", k.grad,
+                                                      kr.grad),
+                           ("dv", v.grad, vr.grad)):
+        scale = float(ref.abs().max())
+        gerr = float((got - ref).abs().max())
+        check(gerr <= ATOL * scale + RTOL * scale, "%s: %s is %.3g from "
+              "the whole sequence's (largest %.3g)", what, name, gerr,
+              scale)
+        err = max(err, gerr / max(scale, 1e-30))
+    return {"what": what, "launches": counts, "ms": ms, "err": err,
+            "staged": C.staged_bytes - staged}
+
+
+def _par_lm(torch, fluid, parallel, T, axes, seed, tol, experts, rank,
+            what, steps=False):
+    """One of the LM runs of (b) and (c): transformer_lm_parallel at full
+    width over ``axes`` through ParallelExecutor, PAR_STEPS SGD steps,
+    against the same program's one-rank run on rank 0 (the fallbacks: the
+    flash attention over the whole sequence, the loop over layers, the
+    MoE's dense routing). With ``steps``, the same steps again as one
+    ``run_steps`` call from the same state: over several ranks it runs
+    them as PAR_STEPS ``run`` calls, no graph captured, bitwise equal."""
+    from paddle_tpu_torch.ops import flash_attention as F
+    from paddle_tpu_torch.parallel import collective as C
+    strategy = parallel.DistributedStrategy(
+        dp=axes.get("dp", 1), tp=axes.get("tp", 1), sp=axes.get("sp", 1),
+        pp=axes.get("pp", 1), ep=axes.get("ep", 1))
+    prog = _par_program(fluid, T, strategy, experts)
+    main, _, avg_cost = prog
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    init = _init_of(fluid, exe, prog[1])
+    batches = _par_batches(seed, PAR_STEPS)
+    sa = _scope_from(fluid, init, exe.device)
+    le = [float(exe.run(main, feed=b, fetch_list=[avg_cost],
+                        scope=sa)[0]) for b in batches] \
+        if rank == 0 else None
+    mesh = parallel.make_mesh(axes)
+    sb = _scope_from(fluid, init, exe.device)
+    pexe = fluid.ParallelExecutor(loss_name=avg_cost.name,
+                                  main_program=main, mesh=mesh, scope=sb,
+                                  strategy=strategy)
+    staged = C.staged_bytes
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lp = [float(pexe.run([avg_cost], feed=b)[0]) for b in batches]
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / PAR_STEPS
+    counts = _flash_read(F)
+    staged = C.staged_bytes - staged
+    if steps:
+        sc = _scope_from(fluid, init, exe.device)
+        again = fluid.ParallelExecutor(loss_name=avg_cost.name,
+                                       main_program=main, mesh=mesh,
+                                       scope=sc, strategy=strategy)
+        _reset_launches()
+        ls = [float(o[0]) for o in again.run_steps([avg_cost],
+                                                   feeds=batches)]
+        torch.cuda.synchronize()
+        counts = {k: v + _flash_read(F)[k] for k, v in counts.items()}
+        differ = _same_state(torch, sb, sc, sorted(init))
+        st = again.stats
+        check(ls == lp and not differ and st["graph_captures"] == 0
+              and st["megastep_dispatches"] == 0, "%s: run_steps(K=%d) "
+              "is not %d bitwise run() calls: losses %s vs %s, %d state "
+              "tensors differ, %d captures, %d megasteps", what, PAR_STEPS,
+              PAR_STEPS, ls, lp, len(differ), st["graph_captures"],
+              st["megastep_dispatches"])
+    gap = _par_gap(fluid, sb, sa, sorted(init), rank)
+    if rank == 0:
+        for i, (a, b) in enumerate(zip(lp, le)):
+            check(np.isfinite(a) and abs(a - b) <= tol * max(1.0, abs(b)),
+                  "%s: step %d loss %r, one rank %r (limit %g)", what, i,
+                  a, b, tol)
+        check(gap <= 50 * tol, "%s: final weights %.3g from the one-rank "
+              "run (limit %g)", what, gap, 50 * tol)
+    return {"what": what, "losses": lp, "one_rank": le, "gap": gap,
+            "ms": ms, "staged": staged, "launches": counts,
+            "run_steps": steps}
+
+
+def _par_moe(torch, parallel, C, top_k, rank):
+    """Phase 19 (b): moe_ffn over ep=2 against the same call without a
+    mesh, on this rank: the routing (overflow, aux) identical, the
+    output at rtol 1e-4 / atol 1e-5."""
+    from paddle_tpu_torch.parallel import moe
+    tokens, d, e, hidden = PAR_MOE
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn(tokens, d, generator=g).to("cuda")
+    gate = (torch.randn(d, e, generator=g) * 0.05).to("cuda")
+    up = (torch.randn(e, d, hidden, generator=g) * d ** -0.5).to("cuda")
+    down = (torch.randn(e, hidden, d, generator=g)
+            * hidden ** -0.5).to("cuda")
+    mesh = parallel.make_mesh({"ep": 2})
+    staged = C.staged_bytes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, aux, st = moe.moe_ffn(x, gate, up, down, mesh=mesh, top_k=top_k,
+                               return_stats=True)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    ref, raux, rst = moe.moe_ffn(x, gate, up, down, top_k=top_k,
+                                 return_stats=True)
+    what = "par (b) moe top-%d rank %d" % (top_k, rank)
+    check(float(st["overflow"]) == float(rst["overflow"])
+          and float(aux) == float(raux), "%s: routing differs: overflow "
+          "%r vs %r, aux %r vs %r", what, float(st["overflow"]),
+          float(rst["overflow"]), float(aux), float(raux))
+    err = float((out - ref).abs().max())
+    check(torch.allclose(out, ref, rtol=RTOL, atol=ATOL), "%s: output "
+          "%.3g from the one-rank call", what, err)
+    return {"what": what, "overflow": float(st["overflow"]), "err": err,
+            "ms": ms, "staged": C.staged_bytes - staged}
+
+
+def _par_probe(torch, dist, name):
+    """One of the functional collectives DTensor's own ops call, on CUDA
+    tensors of PAR_PROBE_FLOATS over this gloo group: whether gloo
+    carries it here is this process's exit (a refusal raises, or, as
+    gloo's functional all-gather of CUDA tensors does on the H100's
+    PyTorch 2.11, kills the process; ``_par_refusal``). The same call on
+    a small CPU tensor goes first: it shows the group works and leaves no
+    lazy import for after the CUDA call is issued, so a crash past
+    PAR_ISSUED is the CUDA call's."""
+    import torch.distributed._functional_collectives as funcol
+    group = dist.group.WORLD
+
+    def call(x):
+        if name == "all_reduce":
+            out = funcol.all_reduce(x, "sum", group)
+        elif name == "all_gather":
+            out = funcol.all_gather_tensor(x, 0, group)
+        else:
+            out = funcol.reduce_scatter_tensor(x, "sum", 0, group)
+        return float(out.sum())
+
+    cpu = call(torch.ones(2 * dist.get_world_size()))
+    x = torch.ones(PAR_PROBE_FLOATS, device="cuda")
+    torch.cuda.synchronize()
+    print(PAR_ISSUED + name, file=sys.stderr, flush=True)
+    total = call(x)
+    torch.cuda.synchronize()
+    return {"carried": name, "sum": total, "cpu_sum": cpu}
+
+
+def _par_refusal(rc, err):
+    """A probe rank's exit (``rc``, its standard error) as gloo's
+    documented refusal of the collective, or None when it is some other
+    fault: a segmentation fault once the CUDA call was issued (whichever
+    thread faulthandler finds where: the fault is in gloo's worker
+    thread, and the main thread may be anywhere past the call), or an
+    exception naming gloo or the missing device backend."""
+    if rc == -11 and "Fatal Python error: Segmentation fault" in err \
+            and PAR_ISSUED in err:
+        return "exit -11: segmentation fault once the CUDA call was issued"
+    if rc == 1:
+        for ln in err.strip().splitlines():
+            if re.search(PAR_REFUSAL, ln.strip()):
+                return "exit 1: " + ln.strip()[:200]
+    return None
+
+
+def _par_child(argv):
+    """Phase 19 (b) or (c) as one rank: ``chip_smoke.py --parallel-rank
+    PART WORLD RANK STORE``; prints one JSON line of what it measured."""
+    import faulthandler
+    import torch
+    import torch.distributed as dist
+    faulthandler.enable()       # a crash in a collective names its line
+    part, world, rank, store = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    # argv[4], for (c): the collectives gloo carries here, comma-separated
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.distributed import launch
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.ops import flash_attention as F
+    from paddle_tpu_torch.parallel import collective as C
+    probe = part.startswith("probe:")
+    launch.init_parallel_env("file://" + store, world, rank, device="cuda",
+                             backend="gloo",
+                             timeout=PAR_PROBE_TIMEOUT_S if probe else 300)
+    res = {"rank": rank}
+    try:
+        if part == "b":
+            # gloo connects a pair at its first message: one small ring
+            # call first, so the timed calls below do not pay for it
+            x = torch.zeros(2, 1, 4, 8, device="cuda")
+            parallel.ring_attention(x, x, x, parallel.make_mesh({"sp": 2}))
+            res["attn"] = [_par_attn(torch, parallel, F, C, rank, v, c)
+                           for v in ("ring", "ulysses")
+                           for c in (False, True)]
+            res["lm"] = [_par_lm(torch, fluid, parallel, T, {"pp": 2}, 3,
+                                 2e-4, 0, rank, "par (b) gpipe pp=2",
+                                 steps=True)]
+            res["moe"] = [_par_moe(torch, parallel, C, k, rank)
+                          for k in (1, 2)]
+        elif probe:
+            res["probe"] = _par_probe(torch, dist, part[len("probe:"):])
+        else:
+            carried = set(argv[4].split(","))
+            res["lm"] = [
+                _par_lm(torch, fluid, parallel, T, dict(axes), seed, tol,
+                        experts, rank, "par (c) %s" % name)
+                for name, axes, seed, tol, experts in PAR_COMBOS
+                if set(PAR_NEEDS[name]) <= carried]
+        res["staged"] = C.staged_bytes
+    except SmokeFailure as e:
+        print("chip_smoke: rank %d FAILED: %s" % (rank, e), file=sys.stderr)
+        return 1
+    finally:
+        launch.shutdown()
+    print(json.dumps(res))
+    return 0
+
+
+def _par_run(parts, world, tmp, extra=(), timeout=600):
+    """Run each phase 19 part of ``parts`` as ``world`` rank processes
+    on the one card (gloo through host memory), all at once, within
+    ``timeout`` seconds: {part: each rank's (exit code, standard output,
+    standard error)}."""
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    runs = []
+    for part in parts:
+        store = os.path.join(tmp, "store_" + part.replace(":", "_"))
+        for r in range(world):
+            out = open(os.path.join(tmp, "%s_%d.out" % (part, r)), "w+")
+            err = open(os.path.join(tmp, "%s_%d.err" % (part, r)), "w+")
+            runs.append((part, out, err, subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), PAR_CHILD,
+                 part, str(world), str(r), store] + list(extra),
+                stdout=out, stderr=err, cwd=ROOT, env=env)))
+    deadline = time.monotonic() + timeout
+    try:
+        for _, _, _, p in runs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for _, _, _, p in runs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = {part: [] for part in parts}
+    for part, out, err, p in runs:
+        out.seek(0)
+        err.seek(0)
+        texts[part].append((p.returncode, out.read(), err.read()))
+        out.close()
+        err.close()
+    return texts
+
+
+def _par_spawn(part, world, tmp, extra=()):
+    """``_par_run`` whose every rank must exit 0. Returns each rank's
+    JSON."""
+    texts = _par_run([part], world, tmp, extra)[part]
+    bad = [(r, rc, "\n".join([ln for ln in e.strip().splitlines()
+                               if "]:W" not in ln and "Extension modules"
+                               not in ln][-30:]))
+           for r, (rc, _, e) in enumerate(texts) if rc != 0]
+    check(not bad, "par (%s): %d ranks on the card: %s", part, world,
+          "; ".join("rank %d exited %s: %s" % b for b in bad))
+    return [json.loads(o.strip().splitlines()[-1]) for _, o, _ in texts]
+
+
+def _par_log(res):
+    for r in res:
+        for item in r.get("attn", []) + r.get("moe", []):
+            log("%s: %.1f ms forward and backward, max rel err %.3g, "
+                "staged %d bytes%s", item["what"], item["ms"], item["err"],
+                item["staged"], ", flash launches %s" % item["launches"]
+                if "launches" in item else "")
+        for item in r.get("lm", []):
+            log("%s rank %d: losses %s%s, step ms %.1f, staged %d bytes a "
+                "run of %d steps%s", item["what"], r["rank"],
+                " ".join("%.6f" % x for x in item["losses"]),
+                " (one rank %s, final weights %.3g from it)"
+                % (" ".join("%.6f" % x for x in item["one_rank"]),
+                   item["gap"]) if item["one_rank"] else "", item["ms"],
+                item["staged"], PAR_STEPS,
+                "; run_steps(K=%d): %d run() calls, no graph, bitwise "
+                "equal" % (PAR_STEPS, PAR_STEPS) if item["run_steps"]
+                else "")
+
+
+def parallel_phase(torch, smi):
+    """Phase 19."""
+    import tempfile
+    t0 = time.perf_counter()
+    flash = par_one_rank_phase(torch, smi)
+    t1 = time.perf_counter()
+    work = os.path.join(ROOT, "build", "paddle_tpu_torch")
+    os.makedirs(work, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        two = _par_spawn("b", 2, tmp)
+        t2 = time.perf_counter()
+        # which of DTensor's collectives gloo carries for CUDA tensors
+        # here, one 2-rank process pair a collective (a crash is an
+        # answer, not a failure of the phase)
+        names = ("all_reduce", "all_gather", "reduce_scatter")
+        probes = _par_run(["probe:" + n for n in names], 2, tmp,
+                          timeout=180)
+        refused = {}
+        for name in names:
+            whys = []
+            for r, (rc, _, err) in enumerate(probes["probe:" + name]):
+                if rc == 0:
+                    continue
+                why = _par_refusal(rc, err)
+                lines = [ln for ln in err.strip().splitlines()
+                         if ln.strip() and "]:W" not in ln]
+                check(why is not None, "par (c): the %s probe's rank %d "
+                      "exited %s, which is no refusal of gloo's: %s", name,
+                      r, rc, " | ".join(lines[-12:]))
+                whys.append("rank %d %s" % (r, why))
+            if whys:
+                refused[name] = "; ".join(whys)
+        carried = [n for n in names if n not in refused]
+        t3 = time.perf_counter()
+        four = _par_spawn("c", 4, tmp, extra=[",".join(carried)])
+    t4 = time.perf_counter()
+    _par_log(two)
+    ran = [item["what"] for item in four[0]["lm"]]
+    log("par (c): gloo on this card carries %s for %d MB CUDA tensors%s; "
+        "combos run: %s; not run: %s", carried or "none",
+        PAR_PROBE_FLOATS * 4 >> 20, "; not %s" % refused if refused
+        else "", ran or "none",
+        [n for n, *_ in PAR_COMBOS if "par (c) %s" % n not in ran]
+        or "none")
+    _par_log(four)
+    missing = [n for n in PAR_REQUIRED if "par (c) %s" % n not in ran]
+    check(not missing, "par (c): combos %s did not run (gloo refused %s)",
+          missing, refused or "nothing")
+    for res in (two, four):
+        for r in res:
+            for item in r.get("attn", []) + r.get("lm", []):
+                for name in FLASH_KERNELS:
+                    flash[name] += item["launches"][name]
+    log("par: phase 19 took %.1f s ((a) %.1f, (b) %.1f, probes %.1f, (c) "
+        "%.1f); staged bytes by rank (b) %s (c) %s; flash launches %s "
+        "(%s)", t4 - t0, t1 - t0, t2 - t1, t3 - t2, t4 - t3,
+        [r["staged"] for r in two], [r["staged"] for r in four], flash,
+        smi)
+    return flash
+
+
 def _report_profile(prof, wall, title, focus=None):
     """Device busy share of ``wall`` and the top kernels; with ``focus``,
     also the share of the kernels whose names hold it. Returns (busy
@@ -7074,6 +7658,8 @@ def main():
         return 2
     if sys.argv[1:2] == [FRONT_CHILD]:
         return _front_profile_child(sys.argv[2])
+    if sys.argv[1:2] == [PAR_CHILD]:
+        return _par_child(sys.argv[2:])
     try:
         smi = device_phase(torch)
         build_phase()
@@ -7104,6 +7690,7 @@ def main():
         srl_launches, srl_graph, _ = crf_detection_phase(torch, smi)
         data = data_plane_phase(torch, smi)
         front = frontend_phase(torch, smi)
+        par = parallel_phase(torch, smi)
     except SmokeFailure as e:
         print("chip_smoke: FAILED: %s" % e, file=sys.stderr)
         return 1
@@ -7129,9 +7716,11 @@ def main():
             "replaces": "paddle_tpu/ops/flash_attention.py:%d" % line,
             "launches": (flash_launches[name] + lm_counts[name]
                          + io_launches[name] + options_flash[name]
-                         + mt_launches[name] + front["flash"][name]),
+                         + mt_launches[name] + front["flash"][name]
+                         + par[name]),
             "graph_launches": lm_counts[name],
             "front_launches": front["flash"][name],
+            "par_launches": par[name],
             "io_launches": io_launches[name],
             "options_launches": options_flash[name],
             "mt_launches": mt_launches[name],

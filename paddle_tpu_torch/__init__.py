@@ -54,7 +54,12 @@ Ported so far:
     card traced through ``torch.profiler``), ``InferenceTranspiler``,
     ``memory_optimize``/``release_memory``, ``average``, ``debugger``,
     ``concurrency`` and the ``v2`` API (``paddle_tpu_torch.v2``), with the
-    Executor's NaN/Inf guards (flag ``check_nan_inf``).
+    Executor's NaN/Inf guards (flag ``check_nan_inf``);
+  * the parallel tier: ``distributed.launch`` (one process a rank over
+    ``torch.distributed``), ``parallel`` (the mesh, the collectives, ring
+    and Ulysses attention on the flash kernels, GPipe and interleaved
+    pipelines, MoE) and ``ParallelExecutor`` (the global view over
+    DTensors), with ``models.transformer.transformer_lm_parallel``.
 
 Used as ``import paddle_tpu_torch as fluid``, as scripts use
 ``paddle_tpu``.
@@ -96,6 +101,8 @@ from . import concurrency  # noqa: F401
 from .transpiler import (  # noqa: F401
     InferenceTranspiler, memory_optimize, release_memory,
 )
+from . import parallel  # noqa: F401  (registers the collective ops)
+from .parallel import ParallelExecutor  # noqa: F401
 
 # `import paddle_tpu_torch as paddle; paddle.fluid...` and `import
 # paddle_tpu_torch.fluid as fluid`: the package itself is the fluid

@@ -58,8 +58,10 @@ with the profiler off none of this runs.
 What the port leaves out raises, naming ROADMAP.md: the wire's host (IO)
 ops (the SelectedRows and tensor-array host ops run, in ``run`` only),
 the transform pipeline and the monitor. Gradient accumulation is a
-``ParallelExecutor`` build option in the JAX package (ROADMAP.md, queue 1
-item 9), so nothing here can ask for it.
+``ParallelExecutor`` option, as in the JAX package: ``_build(...,
+accum_steps=k)`` runs the forward and backward once a microbatch and the
+optimizer ops once (``_lower_with_grad_accum``), and ``ParallelExecutor``
+threads its mesh into every lowering's ``ctx.mesh`` (``_mesh``).
 
 Feeds normalize through a ``FeedPlanCache`` (the JAX package's
 zero-copy host feed path): a repeated feed
@@ -131,6 +133,11 @@ def as_numpy(value):
     if isinstance(value, (list, tuple)):
         return [as_numpy(v) for v in value]
     if isinstance(value, torch.Tensor):
+        if hasattr(value, "full_tensor"):
+            # a DTensor (ParallelExecutor's state): its global value, a
+            # collective every rank of its mesh makes
+            from ..parallel.collective import global_value
+            value = global_value(value)
         return value.detach().cpu().numpy()
     return np.asarray(value)
 
@@ -141,7 +148,7 @@ def _is_lod(value):
         hasattr(value, "recursive_sequence_lengths")
 
 
-def _normalize_feeds(feed, plan_cache=None, commit=True):
+def _normalize_feeds(feed, plan_cache=None, commit=True, accum_steps=1):
     """Feeds as host values -> (``{name: array or tensor}``, static_info),
     the JAX package's ``_normalize_feeds``: a LoDTensor with a LoD
     becomes its flat rows, zero-padded at the tail to the next power of
@@ -153,10 +160,20 @@ def _normalize_feeds(feed, plan_cache=None, commit=True):
     ``plan_cache`` (a ``FeedPlanCache``) skips the derivation on a feed
     signature it has seen, and commits a frozen dense numpy feed to a
     tensor on its device once (``commit=False`` leaves every value on
-    the host)."""
+    the host).
+
+    ``accum_steps`` > 1 (gradient accumulation): a LoD feed is split on
+    the host into that many microbatches of equal sequence count, as the
+    JAX package splits it: the flat rows become [k, bucket, ...] (every
+    microbatch zero-padded to one shared bucketed total), the lengths
+    [k, n_seqs/k], ``<name>@ACCUM_TOKENS`` the true token total of each
+    microbatch (the weights of token-normalized losses), and static_info
+    marks the feed ``<name>@ACCUM_LOD``."""
     if plan_cache is not None:
-        return plan_cache.normalize(feed, commit=commit)
-    return _apply_feed_plan(_derive_feed_plan(feed), feed, None)
+        return plan_cache.normalize(feed, commit=commit,
+                                    accum_steps=accum_steps)
+    return _apply_feed_plan(_derive_feed_plan(feed, accum_steps), feed,
+                            None)
 
 
 class _FeedPlan:
@@ -174,11 +191,12 @@ class _FeedPlan:
         self.buffers = {}      # feed_name -> (source object, tensor)
 
 
-def _derive_feed_plan(feed):
+def _derive_feed_plan(feed, accum_steps=1):
     """The full normalization derivation (the cache's miss path); see
     ``_normalize_feeds`` for what each instruction does."""
     plan = _FeedPlan()
     bucket_on = bool(flags.get_flag("lod_bucketing"))
+    k_acc = max(1, int(accum_steps))
     for name, v in feed.items():
         if not _is_lod(v):
             plan.instrs.append(("dense", name))
@@ -187,6 +205,9 @@ def _derive_feed_plan(feed):
                                  np.int32)
             mx = max(1, int(lengths.max(initial=1)))
             plan.static_info[name + "@MAXLEN"] = 1 << (mx - 1).bit_length()
+            if k_acc > 1:
+                _plan_lod_accum(plan, name, lengths, k_acc, bucket_on)
+                continue
             total = int(np.shape(v.data)[0])
             bucket = 1 << max(0, (total - 1).bit_length())
             plan.lods[name + "@LOD"] = lengths
@@ -195,6 +216,25 @@ def _derive_feed_plan(feed):
         else:
             plan.instrs.append(("lod_data", name))
     return plan
+
+
+def _plan_lod_accum(plan, name, lengths, k_acc, bucket_on):
+    """The accumulation split of one LoD feed (see ``_normalize_feeds``)."""
+    if len(lengths) % k_acc:
+        raise ValueError(
+            "feed %r has %d sequences, not divisible into %d "
+            "accumulation microbatches" % (name, len(lengths), k_acc))
+    per = len(lengths) // k_acc
+    offs = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
+    totals = [int(offs[(g + 1) * per] - offs[g * per])
+              for g in range(k_acc)]
+    bucket = max(1, max(totals))
+    if bucket_on:
+        bucket = 1 << max(0, int(bucket - 1).bit_length())
+    plan.lods[name + "@LOD"] = lengths.reshape(k_acc, per)
+    plan.lods[name + "@ACCUM_TOKENS"] = np.asarray(totals, np.float32)
+    plan.static_info[name + "@ACCUM_LOD"] = True
+    plan.instrs.append(("lod_accum", name, bucket, offs, per, totals))
 
 
 def _apply_feed_plan(plan, feed, cache):
@@ -209,6 +249,15 @@ def _apply_feed_plan(plan, feed, cache):
             arrays[name] = v if dev is None else dev
         elif kind == "lod_data":
             arrays[name] = np.asarray(v.data)
+        elif kind == "lod_accum":
+            _, _, bucket, offs, per, totals = instr
+            arr = np.asarray(v.data)
+            stacked = np.zeros((len(totals), bucket) + arr.shape[1:],
+                               arr.dtype)
+            for g in range(len(totals)):
+                stacked[g, :totals[g]] = \
+                    arr[offs[g * per]:offs[(g + 1) * per]]
+            arrays[name] = stacked
         else:                   # lod_pad
             arr, pad_to = np.asarray(v.data), instr[2]
             if pad_to is not None:
@@ -248,15 +297,15 @@ class FeedPlanCache:
         self.misses = 0
         self.buffer_reuses = 0
 
-    def normalize(self, feed, commit=True):
-        key = self._key(feed)
+    def normalize(self, feed, commit=True, accum_steps=1):
+        key = (int(accum_steps), self._key(feed))
         with self._lock:
             plan = self._plans.get(key)
             if plan is not None:
                 self._plans.move_to_end(key)
                 self.hits += 1
         if plan is None:
-            plan = _derive_feed_plan(feed)
+            plan = _derive_feed_plan(feed, accum_steps)
             with self._lock:
                 self.misses += 1
                 self._plans[key] = plan
@@ -550,7 +599,8 @@ class Executor:
 
     # ------------------------------------------------------------------
     def _build(self, program, feed_names, fetch_names, state_keys,
-               static_info=None, check_nan=False):
+               static_info=None, check_nan=False, accum_steps=1,
+               accum_loss_norm=None):
         """The step function ``step(state, feeds, seed) -> (fetches,
         new_state, fetch_lods, guards)`` for one program, as the JAX
         package's ``_build`` returns it (there it is traced and jitted;
@@ -560,7 +610,13 @@ class Executor:
         step works on a copy, which the lowerings extend.
         ``fetch_lods`` holds the lengths of each fetch that carries
         them. ``guards`` is None, or with ``check_nan`` (the guard
-        names, one bool device tensor of the step's NaN guards)."""
+        names, one bool device tensor of the step's NaN guards).
+
+        ``accum_steps`` > 1: gradient accumulation (``ParallelExecutor``
+        asks for it): every feed arrives stacked [k, ...] (dense feeds
+        split by the caller, LoD feeds by ``_normalize_feeds``), the
+        forward and backward run once a microbatch and the optimizer ops
+        once (``_lower_with_grad_accum``)."""
         static_info = dict(static_info or {})
         block = program.global_block()
         ops = list(block.ops)
@@ -580,6 +636,17 @@ class Executor:
             if op.type in ("backward_marker", "calc_gradient_marker"):
                 bwd_idx = i
                 break
+        if accum_steps > 1:
+            if bwd_idx is None:
+                raise ValueError(
+                    "gradient_accumulation_steps=%d needs a grad marker "
+                    "(append_backward/minimize) in the program"
+                    % accum_steps)
+            if ops[bwd_idx].type != "backward_marker":
+                raise NotImplementedError(
+                    "gradient accumulation supports loss training "
+                    "(append_backward) only, not calc_gradient")
+        mesh = getattr(self, "_mesh", None)
 
         def step(state, feeds, seed):
             env = {}
@@ -588,12 +655,17 @@ class Executor:
             guards = _Guards() if check_nan else None
             ctx = registry.LowerContext(env, self.device,
                                         executor=self, block=block,
+                                        mesh=mesh,
                                         fetch_names=fetch_names,
                                         read_names=read_names,
                                         seed_fn=seed, rng_keys=rng_keys,
                                         static_info=dict(static_info),
                                         guards=guards)
-            if bwd_idx is None:
+            if accum_steps > 1:
+                self._lower_with_grad_accum(ctx, ops, bwd_idx, feeds,
+                                            accum_steps, persistable_names,
+                                            accum_loss_norm)
+            elif bwd_idx is None:
                 with torch.no_grad():
                     for op in ops:
                         _lower_op(ctx, op)
@@ -677,6 +749,138 @@ class Executor:
             ctx.env[n + "@GRAD"] = torch.zeros_like(leaves[n]) \
                 if g is None else g
             ctx.env[n] = leaves[n].detach()
+        with torch.no_grad():
+            for op in ops[bwd_idx + 1:]:
+                _lower_op(ctx, op)
+
+    @staticmethod
+    def _lower_with_grad_accum(ctx, ops, bwd_idx, feeds, accum_steps,
+                               persistable_names, loss_norm=None):
+        """Gradient accumulation, the JAX package's
+        ``_lower_with_grad_accum`` (a ``lax.scan`` there, a loop here):
+        each feed arrives [k, ...]; microbatch i runs the forward and
+        backward on row i of every feed, persistable state streams from
+        one microbatch to the next (batch-norm counters), and the grads
+        and the loss are weighted sums over microbatches. The weights
+        follow ``loss_norm``: 1/k for None and ``"sequence"``, the
+        microbatches' true token totals over their sum for ``"token"``
+        / ``"token:<feed>"`` (``<feed>@ACCUM_TOKENS``). The post-marker
+        (optimizer) ops read forward values from microbatch 0 (the JAX
+        package's probe), a counter they read advanced once a step.
+        Microbatch i draws with the run's seed times 4099 plus i, its
+        own stream."""
+        marker = ops[bwd_idx]
+        wrt_names, target_names = Executor._parse_marker(marker)
+        base_env = dict(ctx.env)
+        wrt = {n: base_env[n] for n in wrt_names if n in base_env}
+        names = list(wrt)
+        use_ckpt = bool(marker.attr("checkpoint"))
+        post_in = {n for o in ops[bwd_idx + 1:] for n in o.input_names}
+        k = int(accum_steps)
+        _TOK = "@ACCUM_TOKENS"
+        chunked = {n: base_env[n] for n in feeds if not n.endswith(_TOK)}
+        for n, v in chunked.items():
+            if v.dim() < 1 or v.shape[0] != k:
+                raise ValueError(
+                    "feed %r is not split into %d accumulation "
+                    "microbatches (shape %s)" % (n, k, tuple(v.shape)))
+        pstate = {n: v for n, v in base_env.items()
+                  if n in persistable_names and n not in wrt}
+        tok_arrays = {n[:-len(_TOK)]: base_env[n]
+                      for n in feeds if n.endswith(_TOK)}
+        norm = loss_norm or "sequence"
+        if norm.startswith("token") and not tok_arrays:
+            raise ValueError(
+                "gradient_accumulation_loss_norm=%r: this program has no "
+                "ragged LoD feeds, so per-microbatch token counts are "
+                "unavailable; drop the knob (equal chunks weight equally) "
+                "or feed the sequence data as LoDTensor" % (loss_norm,))
+        if norm.startswith("token"):
+            if ":" in norm:
+                src = norm.split(":", 1)[1]
+                if src not in tok_arrays:
+                    raise ValueError(
+                        "gradient_accumulation_loss_norm=%r: %r is not "
+                        "a ragged LoD feed of this program (have %s)"
+                        % (loss_norm, src, sorted(tok_arrays)))
+                tok = tok_arrays[src]
+            else:
+                tok = next(iter(tok_arrays.values()))
+            weights = [tok[i] / torch.sum(tok) for i in range(k)]
+        else:
+            weights = [1.0 / k] * k
+        loss_name = target_names[0]
+        gsum, lsum, probe = {}, 0.0, None
+        for i in range(k):
+            env = dict(base_env)
+            env.update(pstate)
+            env.update({n: c[i] for n, c in chunked.items()})
+            seed_i = (lambda i=i: ctx._seed_fn() * 4099 + i)
+            mctx = registry.LowerContext(
+                env, ctx.device, is_test=ctx.is_test,
+                executor=ctx.executor, block=ctx.block, mesh=ctx.mesh,
+                fetch_names=ctx.fetch_names, read_names=ctx._read_names,
+                seed_fn=seed_i, rng_keys=ctx.rng_keys,
+                static_info=ctx.static_info, guards=ctx.guards)
+            leaves = {n: wrt[n].detach().requires_grad_(True)
+                      for n in names}
+            env.update(leaves)
+            with torch.enable_grad():
+                if use_ckpt:
+                    total = Executor._checkpointed_forward(
+                        mctx, ops, bwd_idx, names, target_names,
+                        [leaves[n] for n in names])
+                else:
+                    for op in ops[:bwd_idx]:
+                        _lower_op(mctx, op)
+                    total = env[loss_name]
+                if total.dim() != 0:
+                    raise ValueError(
+                        "gradient accumulation requires a SCALAR "
+                        "(mean-reduced) loss; %r has shape %s — "
+                        "accumulating a per-element loss would silently "
+                        "rescale gradients by 1/%d"
+                        % (loss_name, tuple(total.shape), k))
+                with (ctx.guards.paused() if ctx.guards is not None
+                      else contextlib.nullcontext()):
+                    grads = torch.autograd.grad(
+                        total, [leaves[n] for n in names],
+                        allow_unused=True) if names else ()
+            w = weights[i]
+            for n, g in zip(names, grads):
+                if g is None:
+                    g = torch.zeros_like(leaves[n])
+                gsum[n] = g * w if n not in gsum else gsum[n] + g * w
+            lsum = lsum + total.detach() * w
+            pstate = {n: env.get(n, v).detach() for n, v in pstate.items()}
+            if probe is None:
+                probe = {n: (v.detach() if isinstance(v, torch.Tensor)
+                             else v) for n, v in env.items()}
+        ctx.env.update(pstate)
+        # the post-marker ops' forward inputs (a computed learning rate)
+        # and the counters their chain advances come from microbatch 0
+        producers = {}
+        for op in ops[:bwd_idx]:
+            for n in op.output_names:
+                producers[n] = op
+        frontier = [n for n in post_in
+                    if n in producers and n in probe and n not in base_env]
+        seen, stack, counters = set(), list(frontier), set()
+        while stack:
+            op = producers.get(stack.pop())
+            if op is None or id(op) in seen:
+                continue
+            seen.add(id(op))
+            counters.update(n for n in op.output_names
+                            if n in persistable_names)
+            stack.extend(op.input_names)
+        for n in list(frontier) + [n for n in counters if n in probe]:
+            ctx.env[n] = probe[n]
+        ctx.env[loss_name] = lsum
+        ctx.env[loss_name + "@GRAD"] = torch.ones_like(lsum)
+        for n in names:
+            ctx.env[n + "@GRAD"] = gsum[n]
+            ctx.env[n] = wrt[n].detach()
         with torch.no_grad():
             for op in ops[bwd_idx + 1:]:
                 _lower_op(ctx, op)

@@ -102,8 +102,9 @@ class LowerContext:
     ``rng_keys`` the program's ``random_op_keys``: together they key the
     counter-based draws (``draw_key``). ``guards`` is the step's NaN/Inf
     guard recorder (the executor's, under the ``check_nan_inf`` flag) or
-    None. ``mesh`` is always
-    None in the port: no op runs across cards yet. ``static_info`` is the
+    None. ``mesh`` is ``ParallelExecutor``'s ``parallel.Mesh`` (None
+    under ``Executor``): the parallel ops (``ops/parallel_ops.py``) and
+    the collectives (``parallel/collective.py``) read it. ``static_info`` is the
     run's static table, host values the feeds fix for the whole run:
     ``<name>@MAXLEN``, the bound of a LoD value's sequence lengths,
     which the RNN scans loop to.

@@ -75,6 +75,11 @@ def _host(scope, name):
     if val is None:
         raise ValueError("var %r has no value in scope" % name)
     if isinstance(val, torch.Tensor):
+        if hasattr(val, "full_tensor"):
+            # ParallelExecutor's state: the global value, a gather every
+            # rank of the mesh makes
+            from .parallel.collective import global_value
+            val = global_value(val)
         if val.dtype == torch.bfloat16:
             raise TypeError(
                 "var %r is bfloat16, which npy/npz cannot hold; the port "
@@ -106,19 +111,38 @@ def _put(scope, name, value, executor):
     scope.set(name, to_tensor(value, _device(executor, scope, name)))
 
 
+def _writes():
+    """Whether this process writes the files: rank 0 of a process group
+    (every rank gathers a sharded value; one writes it), or a process
+    without one."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _written():
+    """Every rank waits until rank 0 has written."""
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
 def save_vars(executor, dirname, main_program=None, vars=None,
               predicate=None, filename=None, scope=None):
-    """Save scope values of selected vars under ``dirname``."""
+    """Save scope values of selected vars under ``dirname``. A sharded
+    scope (``ParallelExecutor``'s DTensors) is gathered on every rank and
+    written once, by rank 0."""
     scope = scope or global_scope()
     varlist = _collect(main_program, predicate or _is_persistable, vars)
-    os.makedirs(dirname, exist_ok=True)
-    if filename is not None:
-        arrays = {v.name: _host(scope, v.name) for v in varlist}
-        np.savez(os.path.join(dirname, filename), **arrays)
-        return
-    for v in varlist:
-        np.save(os.path.join(dirname, v.name + ".npy"),
-                _host(scope, v.name))
+    arrays = {v.name: _host(scope, v.name) for v in varlist}
+    if _writes():
+        os.makedirs(dirname, exist_ok=True)
+        if filename is not None:
+            np.savez(os.path.join(dirname, filename), **arrays)
+        else:
+            for v in varlist:
+                np.save(os.path.join(dirname, v.name + ".npy"),
+                        arrays[v.name])
+    _written()
 
 
 def save_params(executor, dirname, main_program=None, filename=None,
@@ -388,14 +412,19 @@ def save_checkpoint(dirname, step, main_program=None, scope=None,
                     keep_last=3):
     """Atomic checkpoint of every persistable with a value: npz written
     to tmp + fsync + rename; meta JSON with its CRC32 written last, also
-    atomically."""
+    atomically. A sharded scope is gathered on every rank and written
+    once, by rank 0; loading puts the global values back, under any
+    mesh or none."""
     scope = scope or global_scope()
     main_program = main_program or default_main_program()
     arrays = {v.name: _host(scope, v.name)
               for v in main_program.list_vars()
               if v.persistable and scope.find_var(v.name) is not None}
-    return write_checkpoint_arrays(dirname, step, arrays,
-                                   keep_last=keep_last)
+    path = write_checkpoint_arrays(dirname, step, arrays,
+                                   keep_last=keep_last) \
+        if _writes() else os.path.join(dirname, "ckpt-%d.npz" % step)
+    _written()
+    return path
 
 
 def load_checkpoint(dirname, main_program=None, scope=None, executor=None):

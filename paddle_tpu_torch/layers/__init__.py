@@ -1,6 +1,6 @@
 """fluid.layers-compatible DSL surface: the layers whose ops the port
-lowers, and the reader-layer API as host readers. The others (the
-parallel tier, ...) come with their lowerings (ROADMAP.md, queue 1)."""
+lowers, and the reader-layer API as host readers. The others come with
+their lowerings (ROADMAP.md, queue 1)."""
 
 from . import ops  # noqa: F401
 from .compat import *  # noqa: F401,F403
@@ -26,7 +26,9 @@ from .nn import (  # noqa: F401
     square_error_cost, topk,
 )
 from .ops import *  # noqa: F401,F403
-from .parallel_layers import sequence_parallel_attention  # noqa: F401
+from .parallel_layers import (  # noqa: F401
+    pipelined_decoder_stack, sequence_parallel_attention, sparse_moe,
+)
 from .rnn_layers import *  # noqa: F401,F403
 from .sequence_layers import *  # noqa: F401,F403
 from .tensor import (  # noqa: F401

@@ -4,8 +4,8 @@ The counterpart of ``paddle_tpu/models/__init__.py`` for its Program-level
 zoo. ``TRANSFORM_ZOO`` names each entry's ``zoo_spec*`` factory, a
 ``(build_fn, feed_fn)`` pair, and ``transform_zoo_entry`` stages its
 programs. The port builds mlp, cnn, cnn_infer, resnet, vgg, deepfm, ssd,
-transformer and transformer_mt; every other entry of the JAX package's zoo raises,
-naming the ROADMAP.md queue item it waits for. The analysis zoo
+transformer, transformer_moe and transformer_mt: every entry of the JAX
+package's Program-level zoo. The analysis zoo
 (``ZOO``, ``zoo_entry``) waits for item 11.
 """
 
@@ -20,14 +20,15 @@ TRANSFORM_ZOO = {
     "deepfm": ("paddle_tpu_torch.models.deepfm", "zoo_spec"),
     "ssd": ("paddle_tpu_torch.models.ssd", "zoo_spec"),
     "transformer": ("paddle_tpu_torch.models.transformer", "zoo_spec"),
+    "transformer_moe": ("paddle_tpu_torch.models.transformer",
+                        "zoo_spec_moe"),
     "transformer_mt": ("paddle_tpu_torch.models.transformer",
                        "zoo_spec_mt"),
 }
 
-# the JAX package's other entries -> what they wait for (ROADMAP.md)
-_NOT_PORTED = {
-    "transformer_moe": "queue 1 item 9 (moe_ffn, the parallel tier)",
-}
+# the JAX package's other entries -> what they wait for (ROADMAP.md);
+# none are left
+_NOT_PORTED = {}
 
 
 def transform_zoo_entry(name):

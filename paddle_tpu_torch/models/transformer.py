@@ -6,8 +6,9 @@ The counterpart of ``paddle_tpu/models/transformer.py`` for
 they are built from (``position_encoding_init``, ``multi_head_attention``,
 ``positionwise_feed_forward``, ``pre_post_process_layer``,
 ``encoder_layer``, ``decoder_layer``, ``_embed``, ``make_attn_bias``),
-with ``make_lm_batch`` and the zoo entries ``zoo_spec`` and
-``zoo_spec_mt``. Built through the port's ``layers``, each emits the same
+with ``make_lm_batch``, ``transformer_lm_parallel`` (the flagship LM wired to
+the parallel tier) and the zoo entries ``zoo_spec``, ``zoo_spec_moe``
+and ``zoo_spec_mt``. Built through the port's ``layers``, each emits the same
 Program as the JAX package (``Program.to_json`` is identical under
 ``unique_name.guard()``).
 
@@ -22,9 +23,7 @@ step: in the forward and in the recompute); ``dropout_rate > 0`` adds
 the embedding dropout (LM), the attention-weight dropout (which takes the
 composed path, as in the JAX package) and two residual dropouts a
 layer, all on the CUDA dropout kernel; ``label_smooth_eps > 0`` trains
-on soft labels, ``label_smooth(one_hot(label))``. Not ported yet:
-``transformer_lm_parallel`` and the MoE zoo entry (ROADMAP.md, queue 1
-item 9).
+on soft labels, ``label_smooth(one_hot(label))``.
 """
 
 import contextlib
@@ -294,6 +293,138 @@ def transformer(src_vocab_size=4096, trg_vocab_size=4096, max_len=64,
     return avg_cost, logits
 
 
+def transformer_lm_parallel(vocab_size=4096, max_len=256, n_layer=4,
+                            n_head=8, d_model=512, d_inner=2048,
+                            strategy=None, num_experts=0,
+                            moe_aux_weight=0.01):
+    """Flagship decoder-only LM wired to the parallel subsystem.
+
+    strategy: parallel.DistributedStrategy (or None). The build adapts:
+      * pp > 1  → layers.pipelined_decoder_stack (GPipe or interleaved
+                  virtual stages per strategy.pp_schedule); composes
+                  with tp (Megatron shards + psum inside the stage) and
+                  sp (ring attention inside the stage)
+      * sp > 1  → attention via layers.sequence_parallel_attention
+                  (ring attention over the sp axis)
+      * num_experts > 0 → FFN via layers.sparse_moe (ep axis); with
+                  pp > 1 the MoE rides inside the pipeline stage body
+                  (expert shards per stage, all-to-all over ep)
+      * tp > 1  → Megatron-style sharding hints on attention/FFN weights
+                  (col-shard in-proj, row-shard out-proj; DTensor's
+                  propagation inserts the allreduce)
+    All paths are dense-math-identical off-mesh, so the one-rank loss
+    equals the sharded loss (tests/test_torch_parallel_ranks.py).
+    Feeds: src/pos/mask/label [B, max_len]. Returns (avg_cost, logits)."""
+    from .. import parallel
+
+    st = strategy or parallel.DistributedStrategy()
+    d_key = d_value = d_model // n_head
+    src = layers.data("src", [max_len], dtype="int64")
+    pos = layers.data("pos", [max_len], dtype="int64")
+    mask = layers.data("mask", [max_len], dtype="float32")
+    label = layers.data("label", [max_len], dtype="int64")
+
+    x = _embed(src, vocab_size, d_model, max_len, pos, "lmp")
+    aux_losses = []
+
+    if st.pp > 1:
+        # pp x tp: Megatron col/row shards inside the stage body with one
+        # psum per sublayer; pp x sp: ring attention over sp inside the
+        # stage (ops/parallel_ops._decoder_layer_apply_tp); pp x ep: MoE
+        # FFN with the expert all-to-all nested in the stage body
+        # (per-stage expert placement — parallel/moe.moe_ffn_pp_sharded).
+        # dp shards microbatches throughout. MoE routing is
+        # per-microbatch per dp*ep token group, so M and the group count
+        # are pinned STATICALLY from the strategy (the dense fallback
+        # reproduces the exact routing — the dryrun parity contract).
+        schedule = getattr(st, "pp_schedule", "gpipe") or "gpipe"
+        kwargs = {}
+        if num_experts > 0:
+            # M = pp (not gpipe's 2*pp default): each microbatch must
+            # still split into dp*ep token groups, and the smaller M
+            # keeps that feasible at parity-test batch sizes. dp
+            # resolves through the mesh/device count (effective_dp) so
+            # a dp=None strategy bakes the SAME dp*ep granularity the
+            # mesh will have, instead of tripping _pipeline_stack's
+            # gate_groups validation with a misleading mismatch error.
+            kwargs.update(
+                num_experts=num_experts,
+                moe_gate_groups=st.effective_dp() * st.ep,
+                num_microbatches=st.pp)
+        x = layers.pipelined_decoder_stack(
+            x, n_layer, n_head, d_inner,
+            schedule=schedule,
+            virtual_stages=getattr(st, "pp_virtual_stages", 0),
+            tp_shard=st.tp > 1, **kwargs)
+        if num_experts > 0:
+            x, pp_aux = x
+            aux_losses.append(pp_aux)
+    else:
+        for _ in range(n_layer):
+            x = _parallel_decoder_layer(x, n_head, d_key, d_value, d_model,
+                                        d_inner, st, num_experts,
+                                        aux_losses)
+    logits = layers.fc(x, vocab_size, num_flatten_dims=2, bias_attr=False)
+
+    flat_logits = layers.reshape(logits, [-1, vocab_size])
+    flat_label = layers.reshape(label, [-1, 1])
+    cost = layers.softmax_with_cross_entropy(flat_logits, flat_label)
+    flat_mask = layers.reshape(mask, [-1, 1])
+    masked = layers.elementwise_mul(cost, flat_mask)
+    avg_cost = layers.reduce_sum(masked) / layers.reduce_sum(flat_mask)
+    for aux in aux_losses:
+        avg_cost = layers.elementwise_add(
+            avg_cost, layers.scale(aux, moe_aux_weight))
+    return avg_cost, logits
+
+
+def _parallel_decoder_layer(x, n_head, d_key, d_value, d_model, d_inner,
+                            st, num_experts, aux_losses):
+    """One causal decoder layer routed through sp_attention + (optionally)
+    MoE, with Megatron-style tp hints on explicitly-named weights:
+    in-projections col-sharded, out-projections row-sharded — the sharding
+    propagation derives the single allreduce per sublayer."""
+    from ..core import unique_name
+    from ..parallel import shard
+
+    lid = unique_name.generate("pdl")
+
+    def named_fc(inp, size, suffix, col_spec, act=None):
+        name = "%s_%s.w_0" % (lid, suffix)
+        out = layers.fc(inp, size, num_flatten_dims=2, bias_attr=False,
+                        act=act,
+                        param_attr=ParamAttr(name=name))
+        if st.tp > 1:
+            shard(name, *col_spec)
+        return out
+
+    b, t = x.shape[0], x.shape[1]
+    q = named_fc(x, d_key * n_head, "q", (None, "tp"))
+    k = named_fc(x, d_key * n_head, "k", (None, "tp"))
+    v = named_fc(x, d_value * n_head, "v", (None, "tp"))
+
+    def heads(z, d):
+        z = layers.reshape(z, [b, t, n_head, d])
+        return layers.transpose(z, perm=[0, 2, 1, 3])
+
+    attn = layers.sequence_parallel_attention(
+        heads(q, d_key), heads(k, d_key), heads(v, d_value), causal=True)
+    attn = layers.transpose(attn, perm=[0, 2, 1, 3])
+    attn = layers.reshape(attn, [b, t, n_head * d_value])
+    o = named_fc(attn, d_model, "o", ("tp", None))
+    x = layers.layer_norm(layers.elementwise_add(x, o),
+                          begin_norm_axis=len(x.shape) - 1)
+
+    if num_experts > 0:
+        f, aux = layers.sparse_moe(x, num_experts, d_inner)
+        aux_losses.append(aux)
+    else:
+        h = named_fc(x, d_inner, "ffn1", (None, "tp"), act="relu")
+        f = named_fc(h, d_model, "ffn2", ("tp", None))
+    return layers.layer_norm(layers.elementwise_add(x, f),
+                             begin_norm_axis=len(x.shape) - 1)
+
+
 def zoo_spec():
     """(build_fn, feed_fn): flagship decoder-only LM, SGD train step."""
     vocab, max_len = 256, 32
@@ -303,6 +434,23 @@ def zoo_spec():
                                      n_layer=2, n_head=4, d_model=64,
                                      d_inner=128)
         optimizer.SGD(learning_rate=1e-3).minimize(avg_cost)
+        return (avg_cost,)
+
+    def feeds(rng):
+        return make_lm_batch(rng, 4, max_len, vocab)
+
+    return build, feeds
+
+
+def zoo_spec_moe():
+    """(build_fn, feed_fn): MoE LM (sparse_moe FFN, dense fallback
+    routing on one device)."""
+    vocab, max_len = 256, 32
+
+    def build():
+        avg_cost, _ = transformer_lm_parallel(
+            vocab_size=vocab, max_len=max_len, n_layer=2, n_head=4,
+            d_model=64, d_inner=128, num_experts=2)
         return (avg_cost,)
 
     def feeds(rng):

@@ -55,7 +55,9 @@ def _softmax_xent(ctx, op):
     else:
         if label.dim() == log_sm.dim() and label.shape[-1] == 1:
             label = label.reshape(label.shape[:-1])
-        loss = -torch.gather(log_sm, -1, label.long()[..., None])
+        # the last dim by its index, for DTensor (parallel/mesh.py)
+        loss = -torch.gather(log_sm, log_sm.dim() - 1,
+                             label.long()[..., None])
     sm_name = ctx.out_name(op, "Softmax")
     if ctx.is_read(sm_name):
         # eager execution has no dead-code elimination: the [N, C]

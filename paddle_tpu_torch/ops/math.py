@@ -15,14 +15,14 @@ import torch
 
 from ..core.registry import register
 from ..core.scope import torch_dtype
-from .common import lod_valid_mask
+from .common import lod_valid_mask, reshape
 
 
 def _flatten2d(x, num_col_dims):
     lead = 1
     for s in x.shape[:num_col_dims]:
         lead *= s
-    return x.reshape(lead, -1), tuple(x.shape)
+    return reshape(x, (lead, -1)), tuple(x.shape)
 
 
 @register("mul")
@@ -37,7 +37,7 @@ def _mul(ctx, op):
     x2, xshape = _flatten2d(x, xn)
     y2 = y.reshape(functools.reduce(lambda a, b: a * b, y.shape[:yn], 1), -1)
     out = torch.matmul(x2, y2)
-    ctx.set_out(op, "Out", out.reshape(xshape[:xn] + tuple(y.shape[yn:])))
+    ctx.set_out(op, "Out", reshape(out, xshape[:xn] + tuple(y.shape[yn:])))
 
 
 @register("matmul")

@@ -20,7 +20,9 @@ Random ops (``stateful_rng``) draw counter-keyed Philox words
 calls draw and the card gives the CPU's words. Index tensors arrive as
 int32 (64-bit feeds are narrowed as in the JAX package); torch indexing
 wants int64, so lowerings widen them where they index, never in the
-scope.
+scope. Under ``ParallelExecutor`` ``lookup_table`` gathers on each
+rank's block of ids through ``parallel._shard_map`` (``parallel/mesh.py``
+lists why).
 """
 
 import math
@@ -32,6 +34,7 @@ from ..core import philox
 from ..core.program import runtime_dtype
 from ..core.registry import register
 from ..core.scope import torch_dtype
+from . import common
 
 
 @register("fill_constant")
@@ -161,7 +164,7 @@ def _reshape(ctx, op):
     for i, s in enumerate(shape):
         if s == 0:
             shape[i] = x.shape[i]
-    ctx.set_out(op, "Out", x.reshape(shape))
+    ctx.set_out(op, "Out", common.reshape(x, shape))
 
 
 @register("transpose")
@@ -290,11 +293,27 @@ def _lookup_table(ctx, op):
     if ids.dim() >= 2 and ids.shape[-1] == 1:
         ids = ids.reshape(ids.shape[:-1])
     padding_idx = op.attr("padding_idx", -1)
+    if hasattr(w, "placements") or hasattr(ids, "placements"):
+        # DTensors (ParallelExecutor): the gather and its index_put
+        # gradient on each rank's block, the table whole
+        # (parallel/mesh.py lists why)
+        from ..parallel._shard_map import shard_map
+        from ..parallel.mesh import PartitionSpec as P
+        batch = "dp" if "dp" in ctx.mesh.axis_names else None
+        out = shard_map(lambda w_, i_: _rows(w_, i_, padding_idx),
+                        mesh=ctx.mesh, in_specs=(P(), P(batch)),
+                        out_specs=P(batch))(w, ids)
+    else:
+        out = _rows(w, ids, padding_idx)
+    ctx.set_out(op, "Out", out)
+
+
+def _rows(w, ids, padding_idx):
     idx = torch.clamp(ids.long(), 0, w.shape[0] - 1)
     out = w[idx]
     if padding_idx is not None and padding_idx >= 0:
         out = out * (ids != padding_idx)[..., None].to(out.dtype)
-    ctx.set_out(op, "Out", out)
+    return out
 
 
 @register("concat")

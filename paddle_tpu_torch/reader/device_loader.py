@@ -36,6 +36,15 @@ the stack into its graph's own ``[k, ...]`` buffers, a device-to-device
 copy: the loader cannot write those buffers itself, because the
 dispatch before is still reading them while the next stack is staged.
 
+``sharding=mesh`` (or ``(mesh, batch_dim)``) is the mesh-mode loader of
+one process a rank: each rank stages only its ``dp`` block of every
+batch's batch dim (0 by default) and yields it as a DTensor over the
+mesh's ``dp`` x ``tp`` sub-mesh (Shard on ``dp``), the global view
+``ParallelExecutor`` takes without a copy; ``megabatches(k)`` shards the
+stack's dim ``batch_dim + 1``, as the JAX package's ``_stack_sharding``
+remaps its spec. Over a mesh whose ``dp`` axis holds one rank the
+batches stay whole plain tensors.
+
 No workload yet shows the worker thread and the side stream buying
 overlap: on ``chip_smoke.py`` phase 17's ResNet-cifar10, whose host
 side only hands over ready arrays, the loader runs a few per cent behind
@@ -68,16 +77,15 @@ class DeviceLoader:
     without streams or pinned memory. ``plan_cache=None`` builds a
     private feed-plan cache; pass an existing ``FeedPlanCache`` to share
     plans (e.g. the consuming Executor's ``_feed_plans``), or
-    ``plan_cache=False`` to normalize every batch in full. ``sharding=``
-    waits for the mesh (ROADMAP.md, queue 1 item 9)."""
+    ``plan_cache=False`` to normalize every batch in full. ``sharding``:
+    a ``parallel.Mesh`` or ``(mesh, batch_dim)``; each rank stages its
+    ``dp`` block of every dense value (module docstring)."""
 
     def __init__(self, feed_iterable, capacity=2, device=None,
                  sharding=None, plan_cache=None):
-        if sharding is not None:
-            raise NotImplementedError(
-                "DeviceLoader(sharding=...) needs the device mesh, which "
-                "is not ported to paddle_tpu_torch yet (ROADMAP.md, queue "
-                "1 item 9)")
+        mesh, batch_dim = (sharding if isinstance(sharding, tuple)
+                           else (sharding, 0))
+        self._mesh, self._batch_dim = mesh, int(batch_dim)
         self._src = feed_iterable
         self._capacity = max(1, int(capacity))
         self._device = resolve_device("cuda:0" if device is None
@@ -140,7 +148,41 @@ class DeviceLoader:
 
     def _stage(self, feed, pinned):
         return {k: v if isinstance(v, LoDTensor) else
-                self._upload(v, pinned) for k, v in feed.items()}
+                self._sharded(v, pinned) for k, v in feed.items()}
+
+    def _sharded(self, value, pinned):
+        """``_upload`` of this rank's ``dp`` block of ``value``, as a
+        DTensor over the mesh (no ``sharding``, or one ``dp`` rank: the
+        whole value)."""
+        mesh = self._mesh
+        if mesh is None or mesh.shape.get("dp", 1) <= 1 or \
+                mesh.dtensor_mesh is None or isinstance(value, torch.Tensor):
+            return self._upload(value, pinned)
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        stacked = isinstance(value, _Group)
+        dim = self._batch_dim
+        n, idx = mesh.shape["dp"], mesh.axis_index("dp")
+
+        def block(a):
+            a = np.asarray(a)
+            if a.ndim <= dim or a.shape[dim] % n:
+                raise ValueError(
+                    "DeviceLoader(sharding=): dim %d of a %s feed does "
+                    "not split over dp=%d" % (dim, a.shape, n))
+            c = a.shape[dim] // n
+            return np.take(a, np.arange(idx * c, (idx + 1) * c), axis=dim)
+
+        local = self._upload(_Group(block(a) for a in value) if stacked
+                             else block(value), pinned)
+        gdim = dim + 1 if stacked else dim
+        shape = list(local.shape)
+        shape[gdim] *= n
+        axes = mesh.dtensor_axes
+        pl = [Shard(gdim) if a == "dp" else Replicate() for a in axes]
+        return DTensor.from_local(local, mesh.dtensor_mesh, pl,
+                                  run_check=False, shape=torch.Size(shape),
+                                  stride=torch.empty(
+                                      shape, device="meta").stride())
 
     def _prefetch(self, source, prepare):
         """Yield ``prepare(item)`` for each item of ``source``, staged on

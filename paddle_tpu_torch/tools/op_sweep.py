@@ -1,8 +1,11 @@
 """The op library's sweep on the card: one case (or a few) for each op
 type the dense op library and the SelectedRows host ops added
 (``run(device)``), for each op type the LoD, sequence, RNN and
-control-flow slice added (``run(device, part="lod")``), and for each
-CRF, CTC and detection op type (``run(device, part="detection")``),
+control-flow slice added (``run(device, part="lod")``), for each
+CRF, CTC and detection op type (``run(device, part="detection")``), and
+for each op type of the parallel tier without a mesh (``run(device,
+part="parallel")``: the collectives as identities, ``moe_ffn`` and
+``pipeline_stack`` on their one-device paths),
 each a one-op Program (or, for control flow, a small Program built by
 the layers) run
 through ``Executor(CUDAPlace(0))`` and through ``Executor(CPUPlace())``
@@ -19,7 +22,8 @@ its Cost recomputed from its own SampleLabels. ``print`` and ``range``
 read the host and ``delete_var`` only drops a name: they run, and their
 outputs are held as the others'.
 
-Used by ``chip_smoke.py`` (phases 14 (c), 15 (c) and 16 (d)); ``run``
+Used by ``chip_smoke.py`` (phases 14 (c), 15 (c), 16 (d) and 19 (a));
+``run``
 returns the op types held. On the CPU against itself it is the tests'
 check that every case runs; tests/test_torch_sequence_ops.py holds
 ``lod_cases``, tests/test_torch_crf_ctc.py and
@@ -544,6 +548,38 @@ def detection_cases():
     return out
 
 
+def parallel_cases():
+    """[(op type, inputs, attrs, output slots, wrt slots)] of the parallel
+    tier's op types, run without a mesh."""
+    x = _r(500, 4, 6)
+    out = [(t, {"X": x}, {}, ["Out"], [])
+           for t in ("c_allreduce_sum", "c_allreduce_max", "c_allgather",
+                     "c_reducescatter", "c_broadcast", "all_to_all",
+                     "c_sync_comm_stream")]
+    tok = _r(501, 2, 8, 16)
+    out.append(("moe_ffn", {"X": tok, "GateW": _r(502, 16, 4),
+                            "WUp": _r(503, 4, 16, 32, lo=-0.3, hi=0.3),
+                            "WDown": _r(504, 4, 32, 16, lo=-0.3, hi=0.3)},
+                {"capacity_factor": 1.25, "top_k": 2},
+                ["Out", "AuxLoss", "Overflow"], ["X", "GateW"]))
+    layers, d, f = 2, 16, 32
+    stack = {"WQ": _r(505, layers, d, d, lo=-0.25, hi=0.25),
+             "WK": _r(506, layers, d, d, lo=-0.25, hi=0.25),
+             "WV": _r(507, layers, d, d, lo=-0.25, hi=0.25),
+             "WO": _r(508, layers, d, d, lo=-0.25, hi=0.25),
+             "LN1S": _r(509, layers, d, lo=0.5, hi=1.5),
+             "LN1B": _r(510, layers, d, lo=-0.1, hi=0.1),
+             "W1": _r(511, layers, d, f, lo=-0.25, hi=0.25),
+             "B1": _r(512, layers, f, lo=-0.1, hi=0.1),
+             "W2": _r(513, layers, f, d, lo=-0.2, hi=0.2),
+             "B2": _r(514, layers, d, lo=-0.1, hi=0.1),
+             "LN2S": _r(515, layers, d, lo=0.5, hi=1.5),
+             "LN2B": _r(516, layers, d, lo=-0.1, hi=0.1)}
+    out.append(("pipeline_stack", dict({"X": tok}, **stack),
+                {"n_head": 2, "num_microbatches": 2}, ["Out"], ["X"]))
+    return out
+
+
 def control_flow_programs(fluid):
     """[(name, program, startup or None, feed, fetch names)] of small
     Programs built by ``fluid``'s layers (either package's) that hold
@@ -760,8 +796,9 @@ HOST_OPS = ("split_ids", "split_selected_rows", "merge_selected_rows",
 def run(device, part="library"):
     """Every case of ``part`` on ``device`` against the CPU: "library"
     (the dense op library and the SelectedRows host ops), "lod" (the
-    LoD, sequence, RNN and control-flow op types) or "detection" (the
-    CRF, CTC and detection op types). Returns (the op types
+    LoD, sequence, RNN and control-flow op types), "detection" (the
+    CRF, CTC and detection op types) or "parallel" (the parallel tier's
+    op types without a mesh). Returns (the op types
     held, the largest forward |difference| over the float outputs);
     raises AssertionError naming the first op that disagrees."""
     import paddle_tpu_torch as fluid
@@ -769,6 +806,8 @@ def run(device, part="library"):
         return _run_lod(fluid, device)
     if part == "detection":
         return _run_cases(fluid, device, detection_cases())
+    if part == "parallel":
+        return _run_cases(fluid, device, parallel_cases())
     held, worst = _run_cases(fluid, device, cases())
     assert _host_ops(fluid, device), \
         "op sweep: the SelectedRows host ops on %s disagree" % device

@@ -14,7 +14,8 @@ loader tests and ``tests/test_serving.py``'s feed-plan tests.
 * The loader's per-batch dicts and ``megabatches(k)`` stacks equal
   ``paddle_tpu.reader.DeviceLoader``'s on the same feeds, byte for byte.
 * ``DeviceLoader`` without ``device=`` raises on a machine without a
-  card; ``sharding=`` raises naming ROADMAP.md.
+  card; ``sharding=`` over a one-rank mesh stages whole batches
+  (``tests/test_torch_parallel_ranks.py`` shards over two ranks).
 
 The card's side (pinned staging, the side stream, events) runs in
 ``chip_smoke.py`` phase 17.
@@ -134,8 +135,14 @@ def test_device_loader_needs_a_card_by_default():
     assert not torch.cuda.is_available()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DeviceLoader(iter([]))
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        DeviceLoader(iter([]), device="cpu", sharding=object())
+    # sharding= over a mesh whose dp axis holds one rank (the rank tests
+    # shard over two): the batches stay whole plain tensors
+    from paddle_tpu_torch import parallel
+    feed = {"x": np.arange(8, dtype=np.float32).reshape(4, 2)}
+    got, = DeviceLoader([feed], device="cpu",
+                        sharding=parallel.make_mesh({"dp": 1}, "cpu"))
+    assert type(got["x"]) is torch.Tensor
+    np.testing.assert_array_equal(got["x"].numpy(), feed["x"])
 
 
 # -- the JAX package's loader on the same feeds ----------------------------

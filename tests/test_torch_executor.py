@@ -295,13 +295,21 @@ def test_host_ops_and_markers_raise():
 
 
 def test_sp_attention_on_a_mesh_raises():
+    """It no longer raises: the parallel tier is ported. On a mesh whose
+    sp axis holds one rank the op is flash attention over the whole
+    sequence, as without a mesh (ring and Ulysses over more ranks are
+    tests/test_torch_parallel_ranks.py's)."""
+    from paddle_tpu_torch import parallel
     main, startup = tfluid.Program(), tfluid.Program()
     with tfluid.program_guard(main, startup):
         q = tfluid.layers.data("q", [2, 8, 8], append_batch_size=True)
         tfluid.layers.sequence_parallel_attention(q, q, q, causal=True)
     op = main.global_block().ops[-1]
-    t = torch.zeros((1, 2, 8, 8))
-    ctx = registry.LowerContext({"q": t}, torch.device("cpu"),
-                                mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh.*item 9"):
+    t = torch.randn((1, 2, 8, 8), generator=torch.Generator().manual_seed(0))
+    outs = []
+    for mesh in (None, parallel.make_mesh({"dp": 1, "sp": 1}, "cpu")):
+        ctx = registry.LowerContext({"q": t}, torch.device("cpu"),
+                                    mesh=mesh)
         registry.lookup("sp_attention").lower(ctx, op)
+        outs.append(ctx.get(op.output("Out")[0]))
+    assert torch.equal(outs[0], outs[1])

@@ -277,10 +277,6 @@ def test_lr_schedule_five_steps(name):
 # registry completeness: the port's op types are the JAX package's, less
 # an explicit list, each with the ROADMAP.md queue 1 item it waits for
 STILL_MISSING = {
-    # collectives and the parallel tier (item 9)
-    "all_to_all": 9, "c_allgather": 9, "c_allreduce_max": 9,
-    "c_allreduce_sum": 9, "c_broadcast": 9, "c_reducescatter": 9,
-    "c_sync_comm_stream": 9, "moe_ffn": 9, "pipeline_stack": 9,
     # the wire (item 10)
     "listen_and_serv": 10, "prefetch": 10, "recv": 10, "send": 10,
     "send_barrier": 10, "send_sparse": 10,
@@ -296,11 +292,11 @@ def test_registry_is_the_jax_one_less_the_listed():
     jops = set(jregistry.registered_ops())
     tops = set(tregistry.registered_ops())
     assert tops <= jops, sorted(tops - jops)
-    assert len(STILL_MISSING) == 17
+    assert len(STILL_MISSING) == 8
     assert jops - tops == set(STILL_MISSING), (
         sorted((jops - tops) - set(STILL_MISSING)),
         sorted(set(STILL_MISSING) - (jops - tops)))
-    assert len(tops) == 221
+    assert len(tops) == 230
 
 
 # the port's op types before the dense op library and the SelectedRows
@@ -324,18 +320,22 @@ BEFORE = {
 
 
 def test_card_sweep_covers_every_added_op_on_the_cpu():
-    """``tools/op_sweep.py`` (chip_smoke.py phases 14 (c), 15 (c) and
-    16 (d)) holds one case or more of each of the 158 added op types: the
-    112 of the op library, the 32 of the LoD, sequence, RNN and
-    control-flow slice and the 14 of CRF, CTC and detection; here it
-    runs against the CPU itself, so every case must run and agree."""
+    """``tools/op_sweep.py`` (chip_smoke.py phases 14 (c), 15 (c), 16 (d)
+    and 19 (a)) holds one case or more of each of the 167 added op types:
+    the 112 of the op library, the 32 of the LoD, sequence, RNN and
+    control-flow slice, the 14 of CRF, CTC and detection and the 9 of the
+    parallel tier; here it runs against the CPU itself, so every case
+    must run and agree."""
     from paddle_tpu_torch.tools import op_sweep
     held, worst = op_sweep.run("cpu")
     held_lod, worst_lod = op_sweep.run("cpu", part="lod")
     held_det, worst_det = op_sweep.run("cpu", part="detection")
+    held_par, worst_par = op_sweep.run("cpu", part="parallel")
     added = set(tregistry.registered_ops()) - BEFORE
-    assert len(BEFORE) == 63 and len(added) == 158
+    assert len(BEFORE) == 63 and len(added) == 167
     assert len(held) == 112 and len(held_lod) == 32 and len(held_det) == 14
-    every = held | held_lod | held_det
+    assert len(held_par) == 9
+    every = held | held_lod | held_det | held_par
     assert every == added, (sorted(added - every), sorted(every - added))
     assert worst == 0.0 and worst_lod == 0.0 and worst_det == 0.0
+    assert worst_par == 0.0

@@ -4,13 +4,14 @@ VGG-16, DeepFM (tests/test_torch_deepfm.py trains it), ssd
 transformer.
 
 * Every ``TRANSFORM_ZOO`` entry the port builds gives the JAX package's
-  ``Program.to_json()`` (main and startup), built only; the entries it
-  does not build yet raise, naming ROADMAP.md.
+  ``Program.to_json()`` (main and startup), built only; the port builds
+  every entry of the JAX package's zoo.
 * Three training steps of mlp, cnn, VGG-16 and the MT model (packed and
   unpacked, with padded masks) start both packages from one startup scope
   (the JAX package's, copied in with ``load_numpy_state``) and hold the
   losses at rtol 2e-4 and every parameter at 2e-4 of max(1, max|w|), the
-  reference's multi-step bound (``__graft_entry__.py:154``). VGG's dropout
+  reference's multi-step bound (``__graft_entry__.py:154``); so does the
+  MoE LM (``transformer_moe``, SGD added to the zoo's forward). VGG's dropout
   draws cannot be compared draw for draw (threefry against the port's
   Philox), so both Programs have every ``dropout_prob`` set to 0 first;
   VGG trains with Momentum at batch 8 (``_vgg_spec`` says why), its
@@ -39,7 +40,7 @@ from paddle_tpu_torch.models import transformer as TT
 from paddle_tpu_torch.models import vgg as TV
 
 BUILT = ["mlp", "cnn", "cnn_infer", "resnet", "vgg", "deepfm", "ssd",
-         "transformer", "transformer_mt"]
+         "transformer", "transformer_moe", "transformer_mt"]
 STEP_RTOL = 2e-4
 
 
@@ -65,13 +66,41 @@ def test_to_json_identical(name):
     assert tfetch == jfetch
 
 
-@pytest.mark.parametrize("name", ["transformer_moe"])
-def test_unported_zoo_entries_raise(name):
-    assert name in JM.TRANSFORM_ZOO
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1"):
-        TM.transform_zoo_entry(name)
+def test_every_jax_zoo_entry_is_built():
+    assert sorted(TM.TRANSFORM_ZOO) == sorted(JM.TRANSFORM_ZOO)
     with pytest.raises(KeyError, match="unknown"):
         TM.transform_zoo_entry("no_such_model")
+
+
+def test_transformer_moe_trains_like_jax(one_thread):
+    """The MoE zoo entry (``sparse_moe`` FFNs, the dense fallback's
+    routing) with SGD added to both staged programs: three steps from the
+    JAX package's startup scope, the loss (with the aux loss) at rtol
+    2e-4 and every parameter within 2e-4 of max(1, max|w|)."""
+    progs = []
+    for pkg, models in ((jfluid, JM), (tfluid, TM)):
+        main, startup, feeds, fetch = _staged(pkg, models,
+                                              "transformer_moe")
+        with pkg.program_guard(main, startup), pkg.unique_name.guard():
+            pkg.optimizer.SGD(learning_rate=0.5).minimize(
+                main.global_block().var(fetch[0]))
+        progs.append((main, startup, feeds, fetch))
+    (jmain, jstart, feeds, fetch), (tmain, _, _, tfetch) = progs
+    assert tmain.to_json() == jmain.to_json() and tfetch == fetch
+    assert "moe_ffn" in [op.type for op in tmain.global_block().ops]
+    jscope, jexe, state = _jax_start(jstart)
+    tscope = tfluid.Scope()
+    tfluid.load_numpy_state(tscope, state, "cpu")
+    texe = tfluid.Executor(tfluid.CPUPlace())
+    for i in range(3):
+        feed = feeds(np.random.RandomState(60 + i))
+        with jfluid.scope_guard(jscope):
+            ref, = jexe.run(jmain, feed=feed, fetch_list=fetch)
+        got, = texe.run(tmain, feed=feed, fetch_list=fetch, scope=tscope)
+        np.testing.assert_allclose(got, np.asarray(ref), rtol=STEP_RTOL)
+    params = [p.name for p in tmain.global_block().all_parameters()]
+    assert _worst(params, tscope.get_numpy, jscope) <= STEP_RTOL
+    assert _worst(params, lambda n: state[n], jscope) > 1e-4
 
 
 def test_nets_pieces_build_the_jax_ops():

@@ -464,6 +464,39 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
      against the one-rank run at the dryrun's limits (losses 2e-4, 2e-3
      with sp or ep; weights 50 x). It logs the seconds, each rank's
      staged bytes and step ms, and the flash launches.
+  20. pserver — the wire and its runtime, one process a role
+     (``chip_smoke.py --ps-child ROLE ARGS``), spawned, each on the card.
+     (a) The flagship LM at full width through ``DistributeTranspiler``
+     (sync): one trainer and two pservers (their optimize blocks through
+     ``Executor(CUDAPlace(0))``), 5 Adam steps from the start of a local
+     ``Executor.run`` in the trainer, the weights within 2e-4 of
+     max(1, max|w|) of the local run's after every step; the flash
+     launches n_layer x 5 per kernel in the trainer (locally and through
+     the pservers) and none in the pservers; the monitor and the tracer
+     armed in the three processes: the trainer's recorder holds the 5
+     step events, and the three span logs merge (``trace.merge``) into
+     one timeline where every trainer ``rpc.send``/``rpc.get`` span has
+     its pserver span under the same trace id. (b) DeepFM at phase 14's
+     widths with both FM tables ``is_distributed`` over the same two
+     pservers (``prefetch``, ``send_sparse``): SGD on new batches and
+     lazy Adam on one batch repeated, then two trainers at fan-in 2
+     (SGD, each half of the batch), every step held (the tables read
+     back from the shards) within DFM_TOL of a local ``is_sparse`` run on
+     the card (for two trainers, one at double batch and twice the
+     rate). (c) The chaos composition of tests/test_chaos.py on the
+     full-width LM without a local optimizer: a KV store and a master
+     task queue (one process), a pserver cell whose SGD runs on the card
+     (lease, checkpoints), and the trainer under ``resilient_loop``; a
+     fault-free run, then one under CHAOS_SPEC's seeded plan (RPC drops,
+     duplicates, mid-frame closes and delays, a bitflipped trainer
+     checkpoint, a NaN batch), during which this process SIGKILLs the
+     pserver, reaps it and starts a replacement that registers through
+     the KV store and recovers from the dead cell's checkpoint. It
+     checks exact task accounting, a recovered round > 0, 1 rollback
+     and steps = tasks - 1, the final loss within 10% + 0.05 of the
+     fault-free run's, and fault, retry, reconnect, rollback and
+     checkpoint events in the flight recorder. A child that fails or
+     outlives its time fails the phase.
 
 The last three lines of standard output are the kernels' JSON line, the
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device": ...}``.
@@ -481,8 +514,8 @@ attention-weight shape [32, 8, 256, 256] f32 and its ``max_abs_err``
 is the largest difference over its comparisons (0: they must be
 bitwise).
 The flash entries add phase 18's profiled and guarded LM steps and its
-K=5 dispatch (``front_launches``), and phase 19's runs, every rank's
-(``par_launches``). The ``matmul_stats`` entry adds phase
+K=5 dispatch (``front_launches``), phase 19's runs, every rank's
+(``par_launches``), and phase 20's trainers' (``ps_launches``). The ``matmul_stats`` entry adds phase
 17 (a)'s launches through the loader's graphs (``data_launches``) and
 phase 18 (d)'s 3 fused training steps (``front_launches``), and carries
 ``cifar_shortcut_shapes``,
@@ -7608,6 +7641,928 @@ def parallel_phase(torch, smi):
     return flash
 
 
+# -- phase 20 ------------------------------------------------------------
+PS_CHILD = "--ps-child"          # phase 20: one pserver, trainer or master
+PS_STEPS = 5                     # (a): Adam steps through the pservers
+PS_TOL = 2e-4                    # of max(1, max|w|) per tensor, each step
+DFM_PS_STEPS = 3                 # (b): steps of each DeepFM run
+DFM_PS_SGD_LR = 0.1
+CHAOS_TASKS = 14                 # (c): master tasks = batches of a run
+CHAOS_LR = 0.1                   # the chaos pserver's SGD
+CHAOS_KILL_ROUND = 3             # SIGKILL once its checkpoint is this far
+CHAOS_CKPT_S = 0.25              # the pserver cell's checkpoint interval
+CHAOS_SPEC = {
+    "rpc": {"drop": 0.06, "duplicate": 0.05, "close_mid_frame": 0.03,
+            "delay": 0.08, "delay_s": 0.003, "max": 10},
+    "ckpt": {"nth": 2, "mode": "bitflip"},
+    "nan": {"step": 9, "name": "mask"},
+}
+CHAOS_SEED = 1301
+CHAOS_TTL = 2.0                  # the pservers' membership lease
+PS_CHILD_TIMEOUT = 600           # seconds, each spawn group
+
+
+def _ps_wait_file(path, timeout=300.0, proc=None):
+    """The text of a file another process writes once (a port file),
+    polled within ``timeout``; a watched process that exits first fails
+    the phase."""
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            with open(path) as f:
+                text = f.read().strip()
+            if text:
+                return text
+        except OSError:
+            pass
+        check(proc is None or proc.poll() is None,
+              "ps: the process writing %s exited %s first", path,
+              proc.returncode if proc is not None else None)
+        check(time.monotonic() < deadline, "ps: no %s after %.0f s", path,
+              timeout)
+        time.sleep(0.02)
+
+
+def _ps_write(path, obj):
+    """Write JSON where a poller reads it whole (a rename)."""
+    with open(path + ".tmp", "w") as f:
+        json.dump(obj, f)
+    os.replace(path + ".tmp", path)
+
+
+def _ps_gap(a, b):
+    """|a - b| over max(1, max|b|), the multi-step bound's scale."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(1.0, float(np.abs(b).max()))) \
+        if b.size else 0.0
+
+
+def _ps_lm_program(fluid, T, optimizer="adam"):
+    return _lm_program(fluid, T, True, optimizer=optimizer)
+
+
+def _ps_dfm_program(fluid, D, opt, dist, lr_scale=1):
+    """DeepFM at phase 14's widths, both FM tables ``is_distributed``
+    when ``dist``: Adam (DFM's rate) or SGD (at ``lr_scale`` times its
+    rate)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        fields = [fluid.layers.data("field_%d" % i, [1], dtype="int64")
+                  for i in range(DFM["num_fields"])]
+        label = fluid.layers.data("click", [1])
+        _, logit = D.deepfm(fields, DFM["vocab_size"], DFM["embed_dim"],
+                            is_sparse=True, is_distributed=dist)
+        loss = fluid.layers.mean(
+            fluid.layers.sigmoid_cross_entropy_with_logits(logit, label))
+        if opt == "sgd":
+            fluid.optimizer.SGD(
+                learning_rate=DFM_PS_SGD_LR * lr_scale).minimize(loss)
+        else:
+            fluid.optimizer.Adam(
+                learning_rate=DFM["learning_rate"]).minimize(loss)
+    return main, startup, loss
+
+
+def _ps_job_program(fluid, job):
+    from paddle_tpu_torch.models import deepfm as D
+    from paddle_tpu_torch.models import transformer as T
+    if job["kind"] == "lm":
+        return _ps_lm_program(fluid, T)
+    return _ps_dfm_program(fluid, D, job["opt"], True)
+
+
+def _ps_transpile(fluid, prog, eps, trainers, tid=0):
+    t = fluid.DistributeTranspiler(mode="pserver")
+    t.transpile(trainer_id=tid, program=prog[0], pservers=",".join(eps),
+                trainers=trainers, startup_program=prog[1])
+    return t
+
+
+def _ps_arm(tmp, proc):
+    """The monitor and the tracer of this process, each writing its own
+    log under ``tmp``."""
+    from paddle_tpu_torch import monitor, trace
+    monitor.enable(log_path=os.path.join(tmp, "mon_%s.jsonl" % proc))
+    trace.enable(log_path=os.path.join(tmp, "trace_%s.jsonl" % proc),
+                 proc=proc, clock_interval=0)
+
+
+def _ps_disarm():
+    from paddle_tpu_torch import monitor, trace
+    trace.disable()
+    monitor.disable()
+
+
+def _ps_load(fluid, scope, init, device, shard=None):
+    """``init`` ({name: array}) into ``scope`` for the names it holds; a
+    table held as a row shard gets rows i::n (``shard`` = (i, n)),
+    zero-padded to the shard's rows."""
+    vals = {}
+    for name in list(scope.local_var_names()):
+        if name not in init or scope.find_var(name) is None:
+            continue
+        arr = init[name]
+        have = tuple(scope.find_var(name).shape)
+        if have != arr.shape:
+            i, n = shard
+            part = arr[i::n]
+            arr = np.concatenate([part, np.zeros(
+                (have[0] - part.shape[0],) + arr.shape[1:], arr.dtype)])
+        vals[name] = arr
+    fluid.load_numpy_state(scope, vals, device)
+
+
+def _ps_pserver_child(args):
+    """Phase 20 (a)/(b): one pserver process serving its jobs in turn on
+    the same endpoint: each job's pserver program through
+    ``Executor(CUDAPlace(0)).run`` (its optimize blocks on the card),
+    until a trainer sends EXIT."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.monitor import runtime as mrt
+    from paddle_tpu_torch.distributed import rpc
+    from paddle_tpu_torch.ops import flash_attention as F
+    i, eps, tmp = args["index"], args["eps"], args["tmp"]
+    ep = eps[i]
+    out = []
+    for job in args["jobs"]:
+        print("pserver %d: job %s" % (i, job["name"]), file=sys.stderr,
+              flush=True)
+        prog = _ps_job_program(fluid, job)
+        t = _ps_transpile(fluid, prog, eps, job["trainers"])
+        pprog = t.get_pserver_program(ep, port_file=job["port_files"][i])
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        check(exe.device.type == "cuda", "ps: the pserver is not on the "
+              "card")
+        scope = fluid.Scope()
+        exe.run(t.get_startup_program(ep, pprog), scope=scope)
+        init = dict(np.load(job["init"]))
+        _ps_load(fluid, scope, init, exe.device, (i, len(eps)))
+        if job.get("armed"):
+            _ps_arm(tmp, "pserver%d" % i)
+        _flash_reset(F)
+        rounds0 = rpc._PS_ROUNDS.value()
+        steps0 = sum(mrt.STEPS.snapshot().values())
+        exe.run(pprog, scope=scope)          # serves until EXIT
+        torch.cuda.synchronize()
+        if job.get("armed"):
+            _ps_disarm()
+        out.append({"job": job["name"],
+                    "rounds": rpc._PS_ROUNDS.value() - rounds0,
+                    "monitor_steps": sum(mrt.STEPS.snapshot().values())
+                    - steps0, "flash": _flash_read(F)})
+    return {"index": i, "jobs": out}
+
+
+def _ps_exit(eps):
+    from paddle_tpu_torch.distributed import ops as dist_ops
+    from paddle_tpu_torch.distributed import rpc
+    for ep in eps:
+        cli = rpc.RPCClient(ep, timeout=60.0)
+        cli.shutdown_server()
+        cli.close()
+    dist_ops.reset_clients()
+
+
+def _ps_params(main, scope):
+    return {p.name: scope.get_numpy(p.name)
+            for p in main.global_block().all_parameters()
+            if scope.find_var(p.name) is not None}
+
+
+def _ps_lm_trainer(torch, fluid, args, job):
+    """Phase 20 (a) in the trainer: the local run first (5 Adam steps of
+    ``Executor.run`` on the card from the same start), then the same 5
+    steps through the transpiled program against the two pservers, the
+    weights held against the local run's after every step."""
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.ops import flash_attention as F
+    from paddle_tpu_torch import monitor
+    init = dict(np.load(job["init"]))
+    batches = [T.make_lm_batch(np.random.RandomState(s), TRAIN_BATCH,
+                               MAX_LEN, VOCAB) for s in range(PS_STEPS)]
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    local = _ps_lm_program(fluid, T)
+    scope = fluid.Scope()
+    exe.run(local[1], scope=scope)
+    fluid.load_numpy_state(scope, init, exe.device)
+    _flash_reset(F)
+    want, local_ms, local_losses = [], [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, = exe.run(local[0], feed=b, fetch_list=[local[2]],
+                        scope=scope)
+        torch.cuda.synchronize()
+        local_ms.append(1e3 * (time.perf_counter() - t0))
+        local_losses.append(float(loss))
+        want.append(_ps_params(local[0], scope))
+    local_flash = _flash_read(F)
+    prog = _ps_lm_program(fluid, T)
+    _ps_transpile(fluid, prog, args["eps"], 1)
+    ops = [op.type for op in prog[0].global_block().ops]
+    check("adam" not in ops and ops.count("send") == 1
+          and ops.count("recv") == 1, "ps (a): the trainer program is not "
+          "transpiled: %s", ops[-4:])
+    scope = fluid.Scope()
+    exe.run(prog[1], scope=scope)
+    fluid.load_numpy_state(scope, {n: v for n, v in init.items()
+                                   if scope.find_var(n) is not None},
+                           exe.device)
+    for pf in job["port_files"]:
+        _ps_wait_file(pf)
+    _ps_arm(args["tmp"], "trainer")
+    _flash_reset(F)
+    ms, losses, gaps = [], [], []
+    try:
+        for i, b in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, = exe.run(prog[0], feed=b, fetch_list=[prog[2]],
+                            scope=scope)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(loss))
+            got = _ps_params(prog[0], scope)
+            check(sorted(got) == sorted(want[i]), "ps (a): the trainer "
+                  "holds other parameters than the local run")
+            gap = max(_ps_gap(got[n], want[i][n]) for n in got)
+            gaps.append(gap)
+            check(gap <= PS_TOL, "ps (a): step %d weights %.3g from the "
+                  "local run (limit %g)", i + 1, gap, PS_TOL)
+    finally:
+        _ps_disarm()
+    flash = _flash_read(F)
+    rows = monitor.read_jsonl(os.path.join(args["tmp"],
+                                           "mon_trainer.jsonl"))
+    # the values a step moves: the gradients the send op takes (each of
+    # its parameter's size), the weights recv brings back (frame
+    # headers aside)
+    ops = {op.type: op for op in prog[0].global_block().ops}
+    sent_bytes = sum(got[n[:-len("@GRAD")]].nbytes
+                     for n in ops["send"].input("X"))
+    recv_bytes = sum(got[n].nbytes for n in ops["recv"].output("Out"))
+    _ps_exit(args["eps"])
+    return {"job": job["name"], "ms": ms, "local_ms": local_ms,
+            "losses": losses, "local_losses": local_losses, "gaps": gaps,
+            "flash": flash, "local_flash": local_flash,
+            "recorder_steps": sum(1 for r in rows if r["ev"] == "step"),
+            "sent_value_bytes": sent_bytes, "recv_value_bytes": recv_bytes,
+            "device": str(exe.device)}
+
+
+def _ps_tables(eps, names, vocab):
+    """The global tables from their mod-sharded pserver row stores."""
+    from paddle_tpu_torch.distributed import rpc
+    shards = {n: [] for n in names}
+    for ep in eps:
+        with rpc.RPCClient(ep) as cli:
+            for n in names:
+                shards[n].append(np.asarray(cli.get_var(n)))
+    out = {}
+    for n, parts in shards.items():
+        table = np.zeros((vocab,) + parts[0].shape[1:], parts[0].dtype)
+        for i, part in enumerate(parts):
+            rows = np.arange(part.shape[0]) * len(parts) + i
+            keep = rows < vocab
+            table[rows[keep]] = part[keep]
+        out[n] = table
+    return out
+
+
+def _ps_dfm_feeds(job, tid=None):
+    """SGD: a new batch a step; Adam: one batch again and again (then
+    the rows a step touches are the rows every step touches, and lazy
+    Adam on the shards is dense Adam). A trainer of a two-trainer run
+    gets its half of each batch (``tid``)."""
+    feeds = [_dfm_batch(s) for s in range(DFM_PS_STEPS)] \
+        if job["opt"] == "sgd" else [_dfm_batch(0)] * DFM_PS_STEPS
+    if tid is not None and job["trainers"] > 1:
+        n = DFM_BATCH // job["trainers"]
+        feeds = [{k: v[tid * n:(tid + 1) * n] for k, v in f.items()}
+                 for f in feeds]
+    return feeds
+
+
+def _ps_dfm_trainer(torch, fluid, args, job, tid):
+    """Phase 20 (b) in a trainer: one DeepFM run through the transpiled
+    program (prefetch, send_sparse) against the two pservers. Trainer 0
+    holds the weights after every step (the tables read back from the
+    shards) against a local ``is_sparse`` run from the same start on the
+    whole batches: for a two-trainer run (fan-in 2, SGD) one trainer at
+    double batch, whose mean gradient is half the two trainers' summed
+    ones, at twice the rate."""
+    from paddle_tpu_torch.models import deepfm as D
+    init = dict(np.load(job["init"]))
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    tables = ("fm_first_w", "fm_second_w")
+    want = []
+    if tid == 0:
+        local = _ps_dfm_program(fluid, D, job["opt"], False,
+                                lr_scale=job["trainers"])
+        scope = fluid.Scope()
+        exe.run(local[1], scope=scope)
+        fluid.load_numpy_state(scope, init, exe.device)
+        for f in _ps_dfm_feeds(job):
+            exe.run(local[0], feed=f, fetch_list=[local[2]], scope=scope)
+            want.append(_ps_params(local[0], scope))
+    prog = _ps_dfm_program(fluid, D, job["opt"], True)
+    t = _ps_transpile(fluid, prog, args["eps"], job["trainers"], tid)
+    check(sorted(t._dist_tables) == sorted(tables),
+          "ps (b): the sharded tables are %s", sorted(t._dist_tables))
+    ops = [op.type for op in prog[0].global_block().ops]
+    check(ops.count("prefetch") == 2 * DFM["num_fields"]
+          and "send_sparse" in ops and "lookup_table" not in ops,
+          "ps (b): the trainer program does not prefetch its tables")
+    scope = fluid.Scope()
+    exe.run(prog[1], scope=scope)
+    check(all(scope.find_var(n) is None for n in tables),
+          "ps (b): the trainer holds a [V, D] table")
+    fluid.load_numpy_state(scope, {n: v for n, v in init.items()
+                                   if scope.find_var(n) is not None},
+                           exe.device)
+    for pf in job["port_files"]:
+        _ps_wait_file(pf)
+    gaps, ms = [], []
+    for i, f in enumerate(_ps_dfm_feeds(job, tid)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exe.run(prog[0], feed=f, fetch_list=[prog[2]], scope=scope)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if want:
+            got = dict(_ps_params(prog[0], scope),
+                       **_ps_tables(args["eps"], tables,
+                                    DFM["vocab_size"]))
+            gap = max(_ps_gap(got[n], want[i][n]) for n in want[i])
+            gaps.append(gap)
+            check(gap <= DFM_TOL, "ps (b) %s: step %d weights %.3g from "
+                  "the local run (limit %g)", job["name"], i + 1, gap,
+                  DFM_TOL)
+    _ps_write(os.path.join(args["tmp"], "done_%s_%d" % (job["name"], tid)),
+              {"tid": tid})
+    if tid == 0:
+        for k in range(1, job["trainers"]):
+            _ps_wait_file(os.path.join(args["tmp"], "done_%s_%d"
+                                       % (job["name"], k)))
+        _ps_exit(args["eps"])
+    return {"job": job["name"], "tid": tid, "gaps": gaps, "ms": ms,
+            "trainers": job["trainers"], "opt": job["opt"]}
+
+
+def _ps_trainer_child(args):
+    import torch
+    import paddle_tpu_torch as fluid
+    out = []
+    for job in args["jobs"]:
+        print("trainer %d: job %s" % (args["tid"], job["name"]),
+              file=sys.stderr, flush=True)
+        if job["kind"] == "lm":
+            out.append(_ps_lm_trainer(torch, fluid, args, job))
+        else:
+            out.append(_ps_dfm_trainer(torch, fluid, args, job,
+                                       args["tid"]))
+    return {"tid": args["tid"], "jobs": out}
+
+
+# (c): the chaos composition of tests/test_chaos.py, one process a role
+def _chaos_master_child(args):
+    """KV store and master task queue, one of each for the fault-free
+    run and one for the chaos run; serves until the stop file."""
+    from paddle_tpu_torch.distributed.master import MasterServer, TaskQueue
+    from paddle_tpu_torch.distributed.membership import KVServer
+    tmp = args["tmp"]
+    servers, ports = [], {}
+    for run in ("base", "chaos"):
+        kv = KVServer(sweep_interval=0.05).start()
+        m = MasterServer(TaskQueue(
+            payloads=list(range(args["tasks"])), timeout_s=300,
+            snapshot_path=os.path.join(tmp, "q_%s.json" % run))).start()
+        servers += [kv, m]
+        ports["kv_" + run] = kv.endpoint
+        ports["m_" + run] = "127.0.0.1:%d" % m.port
+    _ps_write(args["port_file"], ports)
+    deadline = time.monotonic() + PS_CHILD_TIMEOUT
+    while not os.path.exists(args["stop_file"]) \
+            and time.monotonic() < deadline:
+        time.sleep(0.05)
+    for s in servers:
+        s.stop()
+    return {"ports": ports}
+
+
+def _chaos_pserver_child(args):
+    """The pserver cell: a VariableServer whose SGD runs on the card,
+    its membership lease and a checkpoint every CHAOS_CKPT_S; a replacement
+    first recovers from the dead cell's checkpoint. Serves until EXIT
+    (or dies by SIGKILL)."""
+    import threading
+    import torch
+    from paddle_tpu_torch.distributed.membership import (KVClient,
+                                                         register_pserver)
+    from paddle_tpu_torch.distributed.rpc import VariableServer
+    dev = torch.device("cuda")
+
+    def sgd_on_card(store, grads):
+        for k, g in grads.items():
+            p = k.replace("@GRAD", "")
+            if p in store:
+                w = torch.from_numpy(np.ascontiguousarray(store[p])).to(dev)
+                w -= CHAOS_LR * torch.from_numpy(
+                    np.ascontiguousarray(np.asarray(g))).to(dev)
+                store[p] = w.cpu().numpy()
+
+    server = VariableServer(fan_in=1, optimize_fn=sgd_on_card, sync=True)
+    recovered = server.recover(args["ckpt"]) if args["recover"] else None
+    server.start()
+    ep = "127.0.0.1:%d" % server.port
+    kv = KVClient(args["kv"])
+    _, lease = register_pserver(kv, 1, ep, ttl=CHAOS_TTL)
+    stop = threading.Event()
+
+    def ckpt_loop():
+        while not stop.wait(CHAOS_CKPT_S):
+            try:
+                server.checkpoint(args["ckpt"])
+            except Exception:
+                pass
+
+    th = threading.Thread(target=ckpt_loop, daemon=True)
+    th.start()
+    _ps_write(args["port_file"], {"endpoint": ep, "pid": os.getpid(),
+                                  "recovered": recovered})
+    server._shutdown.wait(PS_CHILD_TIMEOUT)
+    stop.set()
+    th.join(timeout=30)
+    lease.revoke()
+    kv.close()
+    return {"endpoint": ep, "recovered": recovered, "round": server._round}
+
+
+def _chaos_run(torch, fluid, exe, prog, params, init, batches, kv_ep,
+               master_ep, ckpt_dir):
+    """One trainer run of the composition: tasks from the master, each a
+    step (the LM's loss and gradients on the card, one tagged round to
+    the pserver found through the KV store, the new weights back) under
+    ``resilient_loop`` (background checkpoints, NaN rollback). Returns
+    the loop's summary."""
+    import itertools
+    from paddle_tpu_torch.distributed.master import MasterClient
+    from paddle_tpu_torch.distributed.membership import KVClient, PS_PREFIX
+    from paddle_tpu_torch.distributed.rpc import RPCClient
+    from paddle_tpu_torch.resilience import Policy, resilient_loop
+    main, _, avg_cost = prog
+    grads = [p + "@GRAD" for p in params]
+    pol = Policy(max_attempts=1000, base_delay=0.05, max_delay=2.0,
+                 deadline=120.0, seed=5)
+    resolver_kv = KVClient(kv_ep)
+
+    def resolve():
+        return resolver_kv.get(PS_PREFIX + "0")
+
+    scope = fluid.Scope()
+    fluid.load_numpy_state(scope, init, exe.device)
+    cli = RPCClient(resolve(), retry=pol, resolver=resolve)
+    for p in params:
+        cli.put_var(p, scope.get_numpy(p))
+    mcli = MasterClient(master_ep, retry=pol)
+    inc = "%016x" % time.time_ns() + "c0ffee00"
+    seq = itertools.count()
+
+    def step_fn(step, feeds):
+        outs = exe.run(main, feed=feeds, fetch_list=[avg_cost] + grads,
+                       scope=scope)
+        loss = float(np.asarray(outs[0]).reshape(-1)[0])
+        if not np.isfinite(loss):
+            return loss          # poisoned: push nothing, roll back
+        tag = "t0:i%s:s%d" % (inc, next(seq))
+        for name, g in zip(grads, outs[1:]):
+            cli.send_var(name, g, tag=tag)
+        cli.barrier(tag=tag)
+        fluid.load_numpy_state(scope, {p: cli.get_var(p) for p in params},
+                               exe.device)
+        return loss
+
+    def on_rollback(step):
+        for p in params:
+            cli.put_var(p, scope.get_numpy(p))
+
+    def tasks():
+        while True:
+            tid, payload = mcli.get_task()
+            if tid is None:
+                if payload == "done":
+                    return
+                time.sleep(0.02)
+                continue
+            yield batches[payload]
+            mcli.task_done(tid)
+
+    try:
+        return resilient_loop(step_fn, tasks(), ckpt_dir, program=main,
+                              scope=scope, checkpoint_every=4,
+                              max_rollbacks=4, background=True,
+                              on_rollback=on_rollback)
+    finally:
+        cli.close()
+        mcli.close()
+        resolver_kv.close()
+
+
+def _chaos_trainer_child(args):
+    """The trainer of (c): the full-width LM without a local optimizer
+    (its gradients go to the pserver), the fault-free run, then the
+    chaos run under the armed fault plan, the monitor's flight recorder
+    on."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.distributed.membership import KVClient, PS_PREFIX
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.ops import flash_attention as F
+    from paddle_tpu_torch.resilience import faults
+    tmp = args["tmp"]
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        avg_cost, _ = T.transformer_lm(
+            vocab_size=VOCAB, max_len=MAX_LEN, n_layer=N_LAYER,
+            n_head=N_HEAD, d_model=D_MODEL, d_inner=D_INNER, packed=True)
+        pg = fluid.backward.append_backward(avg_cost)
+    params = [p.name for p, _ in pg]
+    init = {n: v for n, v in np.load(args["init"]).items()
+            if main.global_block().has_var(n)}
+    batches = [T.make_lm_batch(np.random.RandomState(100 + s), TRAIN_BATCH,
+                               MAX_LEN, VOCAB) for s in range(args["tasks"])]
+    prog = (main, startup, avg_cost)
+    _flash_reset(F)
+    base = _chaos_run(torch, fluid, exe, prog, params, init, batches,
+                      args["kv_base"], args["m_base"],
+                      os.path.join(tmp, "ck_base"))
+    monitor.enable(log_path=os.path.join(tmp, "mon_chaos.jsonl"))
+    # the RPC faults hit the chaos pserver's frames alone
+    kv = KVClient(args["kv_chaos"])
+    port = int(kv.get(PS_PREFIX + "0").rsplit(":", 1)[1])
+    kv.close()
+    spec = dict(CHAOS_SPEC, rpc=dict(CHAOS_SPEC["rpc"], ports=[port]))
+    plan = faults.arm(spec, seed=CHAOS_SEED)
+    try:
+        chaos = _chaos_run(torch, fluid, exe, prog, params, init, batches,
+                           args["kv_chaos"], args["m_chaos"],
+                           os.path.join(tmp, "ck_chaos"))
+    finally:
+        faults.disarm()
+        monitor.disable()
+    evs = sorted({r["ev"] for r in monitor.read_jsonl(
+        os.path.join(tmp, "mon_chaos.jsonl"))})
+    keep = ("steps", "rollbacks", "skipped_steps", "losses", "final_loss",
+            "checkpoints", "resumed_from")
+    return {"base": {k: base[k] for k in keep},
+            "chaos": {k: chaos[k] for k in keep},
+            "trips": sorted({k for k, _ in plan.trips}),
+            "events": evs, "flash": _flash_read(F)}
+
+
+def _ps_child(argv):
+    """Phase 20: ``chip_smoke.py --ps-child ROLE ARGS.json``, one role of
+    the parameter-server runs; prints one JSON line of what it saw."""
+    import faulthandler
+    import torch
+    faulthandler.enable()
+    # a role that hangs names every thread's line before it is killed
+    faulthandler.dump_traceback_later(PS_CHILD_TIMEOUT // 2, exit=False)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    role = argv[0]
+    with open(argv[1]) as f:
+        args = json.load(f)
+    fn = {"pserver": _ps_pserver_child, "trainer": _ps_trainer_child,
+          "chaos_master": _chaos_master_child,
+          "chaos_pserver": _chaos_pserver_child,
+          "chaos_trainer": _chaos_trainer_child}[role]
+    try:
+        res = fn(args)
+    except SmokeFailure as e:
+        print("chip_smoke: %s FAILED: %s" % (role, e), file=sys.stderr)
+        return 1
+    print(json.dumps(res))
+    return 0
+
+
+def _ps_spawn(tmp, role, args, tag):
+    """Start one phase 20 role: (process, its args, out and err files)."""
+    path = os.path.join(tmp, "args_%s.json" % tag)
+    with open(path, "w") as f:
+        json.dump(args, f)
+    out = open(os.path.join(tmp, "%s.out" % tag), "w+")
+    err = open(os.path.join(tmp, "%s.err" % tag), "w+")
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    p = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                          PS_CHILD, role, path], stdout=out, stderr=err,
+                         cwd=ROOT, env=env)
+    return {"p": p, "tag": tag, "out": out, "err": err}
+
+
+def _ps_reap(kids, timeout, allow_killed=()):
+    """Wait for every child within ``timeout`` seconds, or until one
+    fails; any still running then is killed. Each must exit 0 (those in
+    ``allow_killed``, SIGKILLed by the supervisor, excepted). Returns
+    {tag: its JSON line}."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        rcs = [k["p"].poll() for k in kids]
+        if all(rc is not None for rc in rcs) or any(
+                rc not in (None, 0) and k["tag"] not in allow_killed
+                for rc, k in zip(rcs, kids)):
+            break           # all done, or one failed: stop the others
+        time.sleep(0.05)
+    for k in kids:
+        if k["p"].poll() is None:
+            k["p"].kill()
+            k["p"].wait()
+    res, bad = {}, []
+    for k in kids:
+        k["out"].seek(0)
+        k["err"].seek(0)
+        out, err = k["out"].read(), k["err"].read()
+        k["out"].close()
+        k["err"].close()
+        if k["tag"] in allow_killed:
+            continue
+        if k["p"].returncode != 0:
+            lines = [ln for ln in err.strip().splitlines() if ln.strip()]
+            bad.append("%s exited %s: %s" % (k["tag"], k["p"].returncode,
+                                             " | ".join(lines[-20:])))
+            continue
+        res[k["tag"]] = json.loads(out.strip().splitlines()[-1])
+    check(not bad, "ps: %s", "; ".join(bad))
+    return res
+
+
+def _ps_init(torch, fluid, prog, path):
+    """A program's parameters as its startup makes them on the card,
+    saved as .npz (the optimizer state each run's own startup makes)."""
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(prog[1], scope=scope)
+    np.savez(path, **_ps_params(prog[0], scope))
+
+
+def _ps_trace_check(tmp):
+    """(a)'s three span logs merged into one timeline; every trainer
+    send and recv (``rpc.send``, ``rpc.get``) has its pserver span under
+    the same trace id, parented by it or by its retry attempt."""
+    from paddle_tpu_torch.trace import merge
+    logs = [os.path.join(tmp, "trace_%s.jsonl" % p)
+            for p in ("trainer", "pserver0", "pserver1")]
+    timeline, info = merge.merge_files(logs)
+    spans = merge.load_logs(logs)["spans"]
+    by_id = {s["span"]: s for s in spans}
+    lanes = {e["args"]["name"].split(" ")[0]
+             for e in timeline["traceEvents"]
+             if e.get("name") == "process_name"}
+    check(lanes == {"trainer", "pserver0", "pserver1"}, "ps (a): merged "
+          "timeline lanes %s", sorted(lanes))
+    client = [s for s in spans if s["proc"] == "trainer"
+              and s["name"] in ("rpc.send", "rpc.get")]
+    served = [s for s in spans if s["proc"].startswith("pserver")
+              and s["name"] in ("pserver.SEND", "pserver.GET")]
+    matched = 0
+    for c in client:
+        ok = False
+        for s in served:
+            par = by_id.get(s["parent"])
+            if s["trace"] == c["trace"] and (
+                    s["parent"] == c["span"]
+                    or (par is not None and par["parent"] == c["span"])):
+                ok = True
+                break
+        matched += ok
+    check(client and matched == len(client), "ps (a): %d of %d trainer "
+          "send/recv spans have their pserver span in the merged timeline",
+          matched, len(client))
+    return {"spans": len(spans), "client": len(client),
+            "events": len(timeline["traceEvents"])}
+
+
+def ps_train_phase(torch, smi, tmp):
+    """Phase 20 (a) and (b): two pserver processes and two trainer
+    processes on the card, spawned together; the pservers serve (a)'s LM
+    job and (b)'s three DeepFM jobs in turn on the same endpoints."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import deepfm as D
+    from paddle_tpu_torch.models import transformer as T
+    lm_init = os.path.join(tmp, "lm_init.npz")
+    dfm_init = os.path.join(tmp, "dfm_init.npz")
+    _ps_init(torch, fluid, _ps_lm_program(fluid, T), lm_init)
+    _ps_init(torch, fluid, _ps_dfm_program(fluid, D, "adam", False),
+             dfm_init)
+    from paddle_tpu_torch.distributed.rpc import VariableServer
+    eps = []
+    for _ in range(2):
+        probe = VariableServer()
+        eps.append("127.0.0.1:%d" % probe.port)
+        probe.stop()
+
+    def job(name, kind, **kw):
+        return dict(name=name, kind=kind, trainers=kw.pop("trainers", 1),
+                    init=lm_init if kind == "lm" else dfm_init,
+                    port_files=[os.path.join(tmp, "port_%s_%d" % (name, i))
+                                for i in range(2)], **kw)
+
+    jobs = [job("lm", "lm", armed=True),
+            job("dfm_sgd", "dfm", opt="sgd"),
+            job("dfm_adam", "dfm", opt="adam"),
+            job("dfm_sgd_2t", "dfm", opt="sgd", trainers=2)]
+    kids = [_ps_spawn(tmp, "pserver", {"index": i, "eps": eps,
+                                       "jobs": jobs, "tmp": tmp},
+                      "pserver%d" % i) for i in range(2)]
+    kids.append(_ps_spawn(tmp, "trainer", {"tid": 0, "eps": eps,
+                                           "jobs": jobs, "tmp": tmp},
+                          "trainer0"))
+    kids.append(_ps_spawn(tmp, "trainer", {"tid": 1, "eps": eps,
+                                           "jobs": jobs[-1:], "tmp": tmp},
+                          "trainer1"))
+    res = _ps_reap(kids, PS_CHILD_TIMEOUT)
+    lm = res["trainer0"]["jobs"][0]
+    want = N_LAYER * PS_STEPS
+    for name in FLASH_KERNELS:
+        check(lm["flash"][name] == want and lm["local_flash"][name] == want,
+              "ps (a): %s launches %d through the pservers, %d locally != "
+              "3 kernels' n_layer x %d steps = %d", name, lm["flash"][name],
+              lm["local_flash"][name], PS_STEPS, want)
+    for i in range(2):
+        ps = res["pserver%d" % i]["jobs"]
+        check(not any(any(j["flash"].values()) for j in ps),
+              "ps: pserver %d launched a flash kernel", i)
+        check([j["rounds"] for j in ps] == [PS_STEPS] + [DFM_PS_STEPS] * 3,
+              "ps: pserver %d rounds %s", i, [j["rounds"] for j in ps])
+        check(ps[0]["monitor_steps"] == 1, "ps (a): pserver %d's monitor "
+              "saw %d runs", i, ps[0]["monitor_steps"])
+    check(lm["recorder_steps"] == PS_STEPS, "ps (a): the trainer's "
+          "recorder holds %d step events, not %d", lm["recorder_steps"],
+          PS_STEPS)
+    tr = _ps_trace_check(tmp)
+    log("ps (a): LM at full width through DistributeTranspiler on %s: 1 "
+        "trainer, 2 pservers on the card, %d Adam steps, weights %s from "
+        "the local run (limit %g); losses %s (local %s); step ms %s (local "
+        "%s); %.1f MB of gradients sent and %.1f MB of weights received a "
+        "step; flash "
+        "launches %s; merged trace: %d spans, %d trainer send/recv spans "
+        "each with its pserver span (%s)", lm["device"], PS_STEPS,
+        " ".join("%.2g" % g for g in lm["gaps"]), PS_TOL,
+        " ".join("%.5f" % x for x in lm["losses"]),
+        " ".join("%.5f" % x for x in lm["local_losses"]),
+        " ".join("%.1f" % x for x in lm["ms"]),
+        " ".join("%.1f" % x for x in lm["local_ms"]),
+        lm["sent_value_bytes"] / 1e6, lm["recv_value_bytes"] / 1e6, lm["flash"], tr["spans"],
+        tr["client"], smi)
+    for j in res["trainer0"]["jobs"][1:]:
+        log("ps (b) %s: DeepFM F%d V%d D%d batch %d, both FM tables "
+            "sharded over 2 pservers, %d trainer(s), %s: weights after "
+            "each step %s from the local is_sparse run%s (limit %g); "
+            "trainer 0 step ms %s (%s)", j["job"], DFM["num_fields"],
+            DFM["vocab_size"], DFM["embed_dim"], DFM_BATCH, j["trainers"],
+            "lazy Adam" if j["opt"] == "adam" else "SGD",
+            " ".join("%.2g" % g for g in j["gaps"]),
+            " at double batch" if j["trainers"] > 1 else "", DFM_TOL,
+            " ".join("%.1f" % x for x in j["ms"]), smi)
+    return {name: lm["flash"][name] + lm["local_flash"][name]
+            for name in FLASH_KERNELS}
+
+
+def ps_chaos_phase(torch, smi, tmp):
+    """Phase 20 (c): the chaos composition, one process a role; this
+    process supervises: it SIGKILLs the chaos pserver once its
+    checkpoint has reached CHAOS_KILL_ROUND, reaps it, waits for its
+    lease to lapse and starts the replacement."""
+    import signal
+    from paddle_tpu_torch.distributed.master import MasterClient
+    from paddle_tpu_torch.distributed.membership import KVClient, PS_PREFIX
+    from paddle_tpu_torch.distributed.rpc import RPCClient
+    lm_init = os.path.join(tmp, "lm_init.npz")
+    ports_file = os.path.join(tmp, "chaos_ports.json")
+    stop_file = os.path.join(tmp, "chaos_stop")
+    kids = [_ps_spawn(tmp, "chaos_master", {
+        "tmp": tmp, "tasks": CHAOS_TASKS, "port_file": ports_file,
+        "stop_file": stop_file}, "chaos_master")]
+    t0 = time.perf_counter()
+    killed = {}
+    try:
+        ports = json.loads(_ps_wait_file(ports_file, proc=kids[0]["p"]))
+        ckpt = {run: os.path.join(tmp, "ps_%s.ckpt" % run)
+                for run in ("base", "chaos")}
+        cells = {}
+        for run in ("base", "chaos"):
+            pf = os.path.join(tmp, "cell_%s.json" % run)
+            kid = _ps_spawn(tmp, "chaos_pserver", {
+                "kv": ports["kv_" + run], "ckpt": ckpt[run],
+                "recover": False, "port_file": pf}, "cell_" + run)
+            kids.append(kid)
+            cells[run] = (kid, pf)
+        for run, (kid, pf) in cells.items():
+            _ps_wait_file(pf, proc=kid["p"])
+        trainer = _ps_spawn(tmp, "chaos_trainer", dict(
+            ports, tmp=tmp, tasks=CHAOS_TASKS, init=lm_init),
+            "chaos_trainer")
+        kids.append(trainer)
+        # supervise: the kill, then the replacement
+        victim = cells["chaos"][0]
+        deadline = time.monotonic() + PS_CHILD_TIMEOUT
+        while trainer["p"].poll() is None and time.monotonic() < deadline:
+            try:
+                with open(ckpt["chaos"] + ".meta") as f:
+                    rnd = json.load(f)["round"]
+            except (OSError, ValueError, KeyError):
+                rnd = -1
+            if rnd >= CHAOS_KILL_ROUND:
+                break
+            time.sleep(0.05)
+        check(trainer["p"].poll() is None, "ps (c): the trainer exited "
+              "before the chaos pserver reached round %d", CHAOS_KILL_ROUND)
+        os.kill(victim["p"].pid, signal.SIGKILL)
+        victim["p"].wait()          # reaped: its card memory is freed
+        killed["round"] = rnd
+        kv = KVClient(ports["kv_chaos"])
+        while kv.get(PS_PREFIX + "0") is not None:
+            check(time.monotonic() < deadline, "ps (c): the killed "
+                  "pserver's lease never lapsed")
+            time.sleep(0.05)
+        kv.close()
+        pf = os.path.join(tmp, "cell_replacement.json")
+        kids.append(_ps_spawn(tmp, "chaos_pserver", {
+            "kv": ports["kv_chaos"], "ckpt": ckpt["chaos"],
+            "recover": True, "port_file": pf}, "cell_replacement"))
+        replacement = json.loads(_ps_wait_file(pf, proc=kids[-1]["p"]))
+        trainer["p"].wait(timeout=max(1.0, deadline - time.monotonic()))
+        counts = {}
+        for run in ("base", "chaos"):
+            with MasterClient(ports["m_" + run]) as mc:
+                counts[run] = mc.counts()
+        for ep in (json.loads(_ps_wait_file(cells["base"][1]))["endpoint"],
+                   replacement["endpoint"]):
+            cli = RPCClient(ep, timeout=60.0)
+            cli.shutdown_server()
+            cli.close()
+    finally:
+        _ps_write(stop_file, {})
+        res = _ps_reap(kids, PS_CHILD_TIMEOUT, allow_killed=("cell_chaos",))
+    wall = time.perf_counter() - t0
+    tr = res["chaos_trainer"]
+    base, chaos = tr["base"], tr["chaos"]
+    n = CHAOS_TASKS
+    for run in ("base", "chaos"):
+        check(counts[run] == {"todo": 0, "pending": 0, "done": n,
+                              "failed": 0}, "ps (c): %s task accounting %s",
+              run, counts[run])
+    check(replacement["recovered"] is not None
+          and replacement["recovered"] > 0, "ps (c): the replacement "
+          "recovered round %s", replacement["recovered"])
+    check({"nan", "ckpt_corrupt"} <= set(tr["trips"])
+          and set(tr["trips"]) & {"drop", "duplicate", "close_mid_frame",
+                                  "delay"}, "ps (c): faults fired %s",
+          tr["trips"])
+    check(chaos["rollbacks"] == 1 and chaos["steps"] == n - 1
+          and base["steps"] == n and base["rollbacks"] == 0,
+          "ps (c): rollbacks %d, steps %d of %d tasks (fault-free: %d)",
+          chaos["rollbacks"], chaos["steps"], n, base["steps"])
+    check(all(np.isfinite(chaos["losses"])), "ps (c): a loss is not finite")
+    fb, ff = base["final_loss"], chaos["final_loss"]
+    check(abs(ff - fb) <= 0.10 * abs(fb) + 0.05, "ps (c): final loss %.5f, "
+          "fault-free %.5f", ff, fb)
+    check(fb < base["losses"][0] and ff < chaos["losses"][0],
+          "ps (c): a run did not learn")
+    need = {"fault", "retry", "reconnect", "rollback", "checkpoint"}
+    check(need <= set(tr["events"]), "ps (c): the flight recorder holds "
+          "%s", tr["events"])
+    log("ps (c): chaos composition on the full-width LM (%d tasks): "
+        "faults %s; pserver SIGKILLed at checkpoint round %d, replacement "
+        "recovered round %d through the KV store; rollbacks %d, skipped "
+        "%s; final loss %.5f vs fault-free %.5f; recorder events %s; %.1f "
+        "s (%s)", n, tr["trips"], killed["round"], replacement["recovered"],
+        chaos["rollbacks"], chaos["skipped_steps"], ff, fb, tr["events"],
+        wall, smi)
+    return tr["flash"]
+
+
+def pserver_phase(torch, smi):
+    """Phase 20."""
+    import tempfile
+    t0 = time.perf_counter()
+    work = os.path.join(ROOT, "build", "paddle_tpu_torch")
+    os.makedirs(work, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        flash = ps_train_phase(torch, smi, tmp)
+        t1 = time.perf_counter()
+        chaos = ps_chaos_phase(torch, smi, tmp)
+    t2 = time.perf_counter()
+    for name in FLASH_KERNELS:
+        flash[name] += chaos[name]
+    log("ps: phase 20 took %.1f s ((a) and (b) %.1f, (c) %.1f); flash "
+        "launches %s (%s)", t2 - t0, t1 - t0, t2 - t1, flash, smi)
+    return flash
+
+
 def _report_profile(prof, wall, title, focus=None):
     """Device busy share of ``wall`` and the top kernels; with ``focus``,
     also the share of the kernels whose names hold it. Returns (busy
@@ -7660,6 +8615,8 @@ def main():
         return _front_profile_child(sys.argv[2])
     if sys.argv[1:2] == [PAR_CHILD]:
         return _par_child(sys.argv[2:])
+    if sys.argv[1:2] == [PS_CHILD]:
+        return _ps_child(sys.argv[2:])
     try:
         smi = device_phase(torch)
         build_phase()
@@ -7691,6 +8648,7 @@ def main():
         data = data_plane_phase(torch, smi)
         front = frontend_phase(torch, smi)
         par = parallel_phase(torch, smi)
+        ps = pserver_phase(torch, smi)
     except SmokeFailure as e:
         print("chip_smoke: FAILED: %s" % e, file=sys.stderr)
         return 1
@@ -7717,10 +8675,11 @@ def main():
             "launches": (flash_launches[name] + lm_counts[name]
                          + io_launches[name] + options_flash[name]
                          + mt_launches[name] + front["flash"][name]
-                         + par[name]),
+                         + par[name] + ps[name]),
             "graph_launches": lm_counts[name],
             "front_launches": front["flash"][name],
             "par_launches": par[name],
+            "ps_launches": ps[name],
             "io_launches": io_launches[name],
             "options_launches": options_flash[name],
             "mt_launches": mt_launches[name],

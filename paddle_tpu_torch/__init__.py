@@ -59,7 +59,13 @@ Ported so far:
     ``torch.distributed``), ``parallel`` (the mesh, the collectives, ring
     and Ulysses attention on the flash kernels, GPipe and interleaved
     pipelines, MoE) and ``ParallelExecutor`` (the global view over
-    DTensors), with ``models.transformer.transformer_lm_parallel``.
+    DTensors), with ``models.transformer.transformer_lm_parallel``;
+  * the wire and its runtime: ``DistributeTranspiler`` and the
+    parameter server (``distributed.rpc``, the six wire ops,
+    ``membership``, ``master``), ``monitor`` (metrics, the flight
+    recorder, the watchdog and the executor hooks), ``trace`` (spans
+    across processes, merged into one timeline) and ``resilience``
+    (seeded fault plans, the retry policy and ``resilient_loop``).
 
 Used as ``import paddle_tpu_torch as fluid``, as scripts use
 ``paddle_tpu``.
@@ -103,6 +109,17 @@ from .transpiler import (  # noqa: F401
 )
 from . import parallel  # noqa: F401  (registers the collective ops)
 from .parallel import ParallelExecutor  # noqa: F401
+from . import monitor  # noqa: F401
+# PADDLE_TPU_MONITOR=1 arms the runtime monitor for the whole process
+monitor.maybe_enable_from_flags()
+from . import resilience  # noqa: F401
+# PADDLE_TPU_FAULTS arms a seeded fault plan for the whole process
+resilience.faults.maybe_arm_from_flags()
+from . import trace  # noqa: F401
+# PADDLE_TPU_TRACE[=rate] arms cross-process tracing (span logs merged
+# by `python -m paddle_tpu_torch.trace merge`)
+trace.maybe_enable_from_flags()
+from .distributed import DistributeTranspiler  # noqa: F401
 
 # `import paddle_tpu_torch as paddle; paddle.fluid...` and `import
 # paddle_tpu_torch.fluid as fluid`: the package itself is the fluid

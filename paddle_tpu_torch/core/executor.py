@@ -55,9 +55,27 @@ one ``exe.run(compiled)`` event, a ``run_steps`` dispatch one
 under a device trace, one ``record_function("<type>.<seq>")`` range);
 with the profiler off none of this runs.
 
-What the port leaves out raises, naming ROADMAP.md: the wire's host (IO)
-ops (the SelectedRows and tensor-array host ops run, in ``run`` only),
-the transform pipeline and the monitor. Gradient accumulation is a
+Host (IO) ops — the wire (``distributed/ops.py``: send, recv,
+prefetch, listen_and_serv, ...), the SelectedRows ops and the tensor
+arrays — run in ``run`` only, in line with the other ops; ``run_steps``
+refuses them. A program that talks to parameter servers gets a round
+tag each run (``t<trainer>:i<incarnation>:s<seq>``, the sequence per
+program, advanced only when the run succeeds), so a retried send is
+applied once. A ``prefetch`` output that the backward marker lists as
+a gradient leaf (a distributed embedding's rows) becomes a leaf tensor
+where the op makes it. With the monitor armed (``monitor.enable`` or
+the ``monitor`` flag), ``run`` reports its step-plan build
+(``on_compile``, classified against the step keys this executor has
+seen, and ``on_compile_phase("plan_build")``), cache hits and each step
+(``on_step``, the card synchronized every ``monitor_sync_every`` steps),
+and ``run_steps`` its capture (``on_compile_phase("graph_capture")``)
+and each dispatch (``on_megastep``); the NaN guards report their trips
+(``on_nan_trip``). With tracing armed each ``run`` and ``run_steps``
+is an ``exe.step`` root span, under which the wire's RPC spans nest.
+The MFU gauge stays unset: no cost function is
+passed until the cost model is ported (ROADMAP.md, queue 1 item 11).
+What the port leaves out raises, naming ROADMAP.md: the transform
+pipeline. Gradient accumulation is a
 ``ParallelExecutor`` option, as in the JAX package: ``_build(...,
 accum_steps=k)`` runs the forward and backward once a microbatch and the
 optimizer ops once (``_lower_with_grad_accum``), and ``ParallelExecutor``
@@ -73,6 +91,8 @@ reused while it is the same object.
 import collections
 import contextlib
 import threading
+import time
+import uuid
 import weakref
 
 import numpy as np
@@ -81,6 +101,8 @@ from torch.utils import checkpoint as _checkpoint
 
 from .. import flags
 from .. import profiler as _prof
+from ..monitor import runtime as _mon
+from ..trace import runtime as _trace
 from . import graphs as _graphs
 from . import registry
 from .enforce import EnforceError, op_error
@@ -92,23 +114,12 @@ from .selected_rows import SelectedRows
 
 __all__ = ["Executor", "FeedPlanCache", "as_numpy"]
 
-# the JAX package's host (IO) ops the port does not lower: distributed
-# send/recv/prefetch (the wire). The SelectedRows host ops
-# (``distributed/ops.py``) and the tensor arrays (``ops/control_flow.py``)
-# are registered.
-_HOST_OPS = frozenset([
-    "send", "send_barrier", "send_sparse", "recv", "prefetch",
-    "listen_and_serv"])
-
-
-def _is_host_op(type):
-    return type in _HOST_OPS or registry.is_host_op(type)
+_is_host_op = registry.is_host_op
 
 # flags that switch on a JAX-package feature this slice does not port
 # (flag name: what it switches on, ROADMAP.md queue 1 item)
 _LEFT_OUT_FLAGS = {
     "transform": ("the program-transform pipeline", "11"),
-    "monitor": ("the runtime monitor", "10"),
 }
 
 
@@ -283,10 +294,9 @@ class FeedPlanCache:
     committed, so an in-place mutation between calls is honored; a value
     that is a tensor already passes through.
 
-    ``hits``, ``misses`` and ``buffer_reuses`` count for tests. The
-    monitor counters the JAX package ticks here
-    (``ptpu_feed_normalizations_total``, ``ptpu_feed_plan_hits_total``)
-    come with the monitor (ROADMAP.md, queue 1 item 10)."""
+    ``hits``, ``misses`` and ``buffer_reuses`` count for tests; the
+    monitor's ``ptpu_feed_normalizations_total`` ticks for each
+    derivation and ``ptpu_feed_plan_hits_total`` for each skipped one."""
 
     def __init__(self, capacity=64, device_fn=None):
         self._plans = collections.OrderedDict()
@@ -304,6 +314,7 @@ class FeedPlanCache:
             if plan is not None:
                 self._plans.move_to_end(key)
                 self.hits += 1
+        plan_hit = plan is not None
         if plan is None:
             plan = _derive_feed_plan(feed, accum_steps)
             with self._lock:
@@ -311,6 +322,7 @@ class FeedPlanCache:
                 self._plans[key] = plan
                 while len(self._plans) > self._capacity:
                     self._plans.popitem(last=False)
+        _mon.on_feed_plan(plan_hit)
         return _apply_feed_plan(plan, feed, self if commit else None)
 
     @staticmethod
@@ -396,10 +408,47 @@ class Executor:
         # normalization plans of run()'s and run_steps' list feeds; a
         # frozen feed's tensor is committed on this executor's device
         self._feed_plans = FeedPlanCache(device_fn=lambda: self.device)
+        # the step keys run() has built a step for (the monitor's
+        # compile classification: a key seen before is a cache hit)
+        self._step_keys = set()
+        # per-PROGRAM round counters of the send tags (retry
+        # idempotency): another host-op program run on this executor
+        # (an eval recv) must not advance a training program's round
+        # sequence. Entry: program -> [seq, program nonce].
+        self._run_seqs = weakref.WeakKeyDictionary()
+        # incarnation id: a RESTARTED trainer's seq restarts at 0 —
+        # servers evict pending grads of the dead incarnation by it.
+        # The 16-hex-digit time_ns prefix ORDERS incarnations, so a
+        # server drops a dead incarnation's straggler instead of letting
+        # it evict the live replacement's pending state; the nonce
+        # suffix breaks ties.
+        self._incarnation = "%016x" % time.time_ns() + uuid.uuid4().hex[:8]
+
+    def _reincarnate(self, min_epoch):
+        """A pserver judged our incarnation stale (possible after an
+        elastic reschedule onto a host whose clock is behind the old
+        one): mint a new incarnation with an epoch past the server's
+        max, so retried sends are accepted instead of deadlocking."""
+        epoch = max(time.time_ns(), int(min_epoch) + 1)
+        self._incarnation = "%016x" % epoch + uuid.uuid4().hex[:8]
+        return self._incarnation
 
     def run(self, program=None, feed=None, fetch_list=None,
             feed_var_name="feed", fetch_var_name="fetch", scope=None,
             return_numpy=True, use_program_cache=True):
+        trc = _trace._TRACER
+        if trc is None:
+            return self._run_impl(program, feed, fetch_list, scope,
+                                  return_numpy, use_program_cache)
+        # distributed-trace root span per step: RPC verb spans issued
+        # while this step runs (pserver sends/gets, prefetches) nest
+        # under it, making the step the unit of the fleet timeline
+        with trc.span("exe.step"):
+            return self._run_impl(program, feed, fetch_list, scope,
+                                  return_numpy, use_program_cache)
+
+    def _run_impl(self, program, feed, fetch_list, scope, return_numpy,
+                  use_program_cache):
         program = program or default_main_program()
         scope = scope or global_scope()
         fetch_names = tuple(
@@ -416,9 +465,20 @@ class Executor:
             v = scope.find_var(n)
             if v is not None:
                 state[n] = to_tensor(v, self.device)
+        check_nan = bool(flags.get_flag("check_nan_inf"))
+        host = any(_is_host_op(op.type)
+                   for op in program.global_block().ops)
+        mon_on = _mon.enabled()
+        t_build = time.perf_counter() if mon_on else 0.0
         step = self._build(program, tuple(sorted(feeds)), fetch_names,
                            tuple(sorted(state)), static_info,
-                           check_nan=bool(flags.get_flag("check_nan_inf")))
+                           check_nan=check_nan)
+        key = None
+        if mon_on and not host:
+            key = self._monitor_build(program, arrays, feeds, fetch_names,
+                                      state, static_info, check_nan,
+                                      use_program_cache,
+                                      time.perf_counter() - t_build)
         seed = self._seed(program, self._rng_counter)
         self._rng_counter += 1
         seed_t = []
@@ -430,8 +490,31 @@ class Executor:
                                          device=self.device))
             return seed_t[0]
 
+        round_ = None
+        if host:
+            # the send-tag sequence advances only on SUCCESS and is
+            # per-program: a retried step reuses its tag, so the server
+            # replaces (not doubles) the pending grad. The program nonce
+            # keeps two programs' tags distinct. seq/incarnation travel
+            # as arguments, not executor state: a shared Executor driven
+            # from two threads must not cross-tag rounds
+            entry = self._run_seqs.get(program)
+            if entry is None:
+                entry = self._run_seqs.setdefault(
+                    program, [0, uuid.uuid4().hex[:4]])
+            round_ = (entry[0], self._incarnation + entry[1])
+        if mon_on:
+            t0 = time.perf_counter()
+            timer = _mon.step_timer(self)
+            # with the profiler on every step ends synchronized anyway
+            do_sync = timer.begin(t0) or _prof._enabled
         with _tf32_off(), _prof.run_event("exe.run(compiled)", self.device):
-            out = step(state, feeds, seed_fn)
+            out = step(state, feeds, seed_fn, round_)
+        if host:
+            entry[0] += 1
+        if mon_on:
+            self._monitor_step(key, arrays, timer, t0, do_sync,
+                               "eager" if host else "exe")
         fetches, new_state, fetch_lods, guards = out
         for n, v in new_state.items():
             scope.set(n, v)
@@ -441,6 +524,46 @@ class Executor:
         if return_numpy:
             return [as_numpy(v) for v in fetches]
         return list(fetches)
+
+    def _monitor_build(self, program, arrays, feeds, fetch_names, state,
+                       static_info, check_nan, use_program_cache, dt):
+        """The monitor's compile hooks for one ``run()``: a step key
+        this executor has not built before is a compile (classified by
+        ``on_compile`` against the program's history, its build time an
+        ``on_compile_phase("plan_build")``), a known one a cache hit.
+        ``use_program_cache=False`` is a deliberate bypass: not counted
+        as a compile. Returns the key."""
+        feed_sig = tuple(sorted((n,) + _signature(v)
+                                for n, v in feeds.items()))
+        key = (program, program._version, feed_sig, fetch_names,
+               tuple(sorted(state)), check_nan,
+               bool(flags.get_flag("fuse_conv_bn")),
+               tuple(sorted(static_info.items())))
+        if key in self._step_keys:
+            _mon.on_cache_hit()
+        elif use_program_cache:
+            self._step_keys.add(key)
+            _mon.on_compile(program, key, feed_sig,
+                            tokens=_mon.tokens_in_feeds(arrays))
+            _mon.on_compile_phase("plan_build", dt)
+        return key
+
+    def _monitor_step(self, key, arrays, timer, t0, do_sync,
+                      executor="exe", k=None):
+        """The monitor's step hook for one ``run()`` (or, with ``k``, one
+        ``run_steps`` dispatch of k steps): a synchronized step reports
+        its window's average latency, the others their dispatch time."""
+        if do_sync and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        dt = timer.end_synced(now, t0) if do_sync else now - t0
+        kw = dict(feed_bytes=_mon.feed_nbytes(arrays, self.device),
+                  tokens=_mon.tokens_in_feeds(arrays), executor=executor,
+                  synced=do_sync)
+        if k is None:
+            _mon.on_step(key, dt, **kw)
+        else:
+            _mon.on_megastep(key, dt, k, **kw)
 
     @staticmethod
     def _seed(program, counter):
@@ -489,6 +612,16 @@ class Executor:
         steps that make new persistables (startup programs: ``run()``
         those)."""
         feeds, k = self._check_run_steps_args(feeds, k)
+        trc = _trace._TRACER
+        if trc is None:
+            return self._run_steps_impl(program, feeds, fetch_list, scope,
+                                        return_numpy, k, use_program_cache)
+        with trc.span("exe.step", k=k):
+            return self._run_steps_impl(program, feeds, fetch_list, scope,
+                                        return_numpy, k, use_program_cache)
+
+    def _run_steps_impl(self, program, feeds, fetch_list, scope,
+                        return_numpy, k, use_program_cache):
         program = program or default_main_program()
         scope = scope or global_scope()
         fetch_names = tuple(
@@ -520,7 +653,9 @@ class Executor:
                torch.backends.cudnn.deterministic,
                torch.backends.cudnn.benchmark)
         mega = self._megasteps.get(key) if use_program_cache else None
+        mon_on = _mon.enabled()
         if mega is None:
+            t_build = time.perf_counter()
             step = self._build(program, tuple(n for n, _, _ in feed_sig),
                                fetch_names, tuple(n for n, _, _ in
                                                   state_sig), static_info,
@@ -529,6 +664,13 @@ class Executor:
                              "Executor.run_steps(k=%d)" % k)
             if use_program_cache:
                 self._megasteps[key] = mega
+                if mon_on:
+                    _mon.on_compile(program, key, feed_sig,
+                                    tokens=_mon.tokens_in_feeds(staged))
+                    _mon.on_compile_phase("plan_build",
+                                          time.perf_counter() - t_build)
+        elif mon_on:
+            _mon.on_cache_hit()
         base = self._rng_counter
         self._rng_counter += k
         window = max(1, int(flags.get_flag("megastep_inflight")))
@@ -539,17 +681,29 @@ class Executor:
         mega.stage(staged, [self._seed(program, base + i)
                             for i in range(k)])
         mega.bind(scope)
+        if mon_on:
+            timer = _mon.step_timer(self)
         with _tf32_off(), _prof.run_event("exe.run_steps(compiled)",
                                           self.device):
             if self.device.type == "cuda":
                 if mega.graph is None:
+                    t_cap = time.perf_counter()
                     mega.capture()
                     self.stats["graph_captures"] += 1
+                    if mon_on:
+                        _mon.on_compile_phase(
+                            "graph_capture", time.perf_counter() - t_cap)
+                t0 = time.perf_counter()
+                do_sync = mon_on and timer.begin(t0)
                 mega.graph.replay()
                 self.stats["graph_replays"] += 1
             else:
+                t0 = time.perf_counter()
+                do_sync = mon_on and timer.begin(t0)
                 mega.run()
         self.stats["megastep_dispatches"] += 1
+        if mon_on:
+            self._monitor_step(key, staged, timer, t0, do_sync, k=k)
         if mega.guards is not None:
             _raise_first_nan(mega.guard_names,
                              self._read_guards(mega.guards), steps=k)
@@ -601,11 +755,13 @@ class Executor:
     def _build(self, program, feed_names, fetch_names, state_keys,
                static_info=None, check_nan=False, accum_steps=1,
                accum_loss_norm=None):
-        """The step function ``step(state, feeds, seed) -> (fetches,
-        new_state, fetch_lods, guards)`` for one program, as the JAX
-        package's ``_build`` returns it (there it is traced and jitted;
-        here it runs the lowerings eagerly each call). ``seed()`` hands
-        the random ops the step's seed, an int64 device scalar.
+        """The step function ``step(state, feeds, seed, round_=None) ->
+        (fetches, new_state, fetch_lods, guards)`` for one program, as
+        the JAX package's ``_build`` returns it (there it is traced and
+        jitted; here it runs the lowerings eagerly each call).
+        ``seed()`` hands the random ops the step's seed, an int64 device
+        scalar; ``round_`` the (sequence, incarnation) of the send tags
+        of a program with host ops.
         ``static_info`` is the feeds' static table (``@MAXLEN``); each
         step works on a copy, which the lowerings extend.
         ``fetch_lods`` holds the lengths of each fetch that carries
@@ -620,9 +776,6 @@ class Executor:
         static_info = dict(static_info or {})
         block = program.global_block()
         ops = list(block.ops)
-        for op in ops:
-            if op.type in _HOST_OPS:
-                raise _left_out("host (IO) op %r" % op.type, "10")
         persistable_names = {v.name for v in block.vars.values()
                              if v.persistable}
         read_names = set()
@@ -648,7 +801,7 @@ class Executor:
                     "(append_backward) only, not calc_gradient")
         mesh = getattr(self, "_mesh", None)
 
-        def step(state, feeds, seed):
+        def step(state, feeds, seed, round_=None):
             env = {}
             env.update(state)
             env.update(feeds)
@@ -661,6 +814,9 @@ class Executor:
                                         seed_fn=seed, rng_keys=rng_keys,
                                         static_info=dict(static_info),
                                         guards=guards)
+            # the send-tag round of a program that talks to pservers
+            ctx.run_seq, ctx.incarnation = round_ or (None,
+                                                      self._incarnation)
             if accum_steps > 1:
                 self._lower_with_grad_accum(ctx, ops, bwd_idx, feeds,
                                             accum_steps, persistable_names,
@@ -722,18 +878,32 @@ class Executor:
         leaves = {n: ctx.env[n].detach().requires_grad_(True)
                   for n in wrt_names if n in ctx.env}
         ctx.env.update(leaves)
-        names = list(leaves)
+        # wrt values a host op makes (the rows a distributed embedding's
+        # prefetch brings) become leaves where they are made, before
+        # anything reads them, as the JAX package runs such ops before
+        # its gradient trace; an intermediate a compute op makes stays
+        # in the graph (the JAX package binds no gradient for it)
+        made = [n for n in wrt_names if n not in leaves]
         use_ckpt = marker.type == "backward_marker" and \
             bool(marker.attr("checkpoint"))
         with torch.enable_grad():
             if use_ckpt:
+                names = list(leaves)
                 total = Executor._checkpointed_forward(
                     ctx, ops, bwd_idx, names, target_names,
                     [leaves[n] for n in names])
             else:
                 for op in ops[:bwd_idx]:
                     _lower_op(ctx, op)
+                    if not made or not _is_host_op(op.type):
+                        continue
+                    for n in made:
+                        if n not in leaves and n in op.output_names:
+                            leaves[n] = ctx.env[n].detach() \
+                                .requires_grad_(True)
+                            ctx.env[n] = leaves[n]
                 total = _objective(ctx.env, target_names)
+            names = list(leaves)
             # a recompute in the backward runs guarded ops again: they
             # were guarded once, in the forward
             with (ctx.guards.paused() if ctx.guards is not None
@@ -1268,8 +1438,11 @@ def _raise_first_nan(names, rows, steps=None):
                 if name[1] != kind or row[j]:
                     continue
                 if kind == "fetch":
+                    _mon.on_nan_trip("fetch", detail=name[2])
                     raise FloatingPointError(
                         "NaN/Inf detected in fetched var %r" % name[2])
+                _mon.on_nan_trip("guard", detail="%s/%s" % (name[2],
+                                                            name[3]))
                 msg = ("NaN/Inf detected in output %r of op %r "
                        "(PADDLE_TPU_CHECK_NAN_INF)" % (name[3], name[2]))
                 if steps is not None:

@@ -9,8 +9,11 @@ port's engine reads, ``fuse_conv_bn`` (the conv lowering's),
 ``megastep_inflight`` (``Executor.run_steps``'s), ``lod_bucketing``
 (the LoD feeds'), ``data_home`` (``dataset.common``'s),
 ``check_nan_inf`` (the Executor's NaN/Inf guards), ``profile_memory``
-(the profiler's), and the Executor switches of features not ported yet,
-so that setting one fails loudly instead of being ignored.
+(the profiler's), the runtime tiers' ``monitor*``, ``faults*``,
+``trace*`` and ``rpc_retry*`` (under the JAX package's names and
+defaults), and the Executor switch of the feature not ported yet
+(``transform``), so that setting it fails loudly instead of being
+ignored.
 """
 
 import os
@@ -145,8 +148,89 @@ _register("transform", bool, False,
           "run the program-transform pass pipeline before execution. "
           "Not ported yet; 1 makes Executor.run raise (see ROADMAP.md)")
 _register("monitor", bool, False,
-          "runtime telemetry (metrics, flight recorder). Not ported "
-          "yet; 1 makes Executor.run raise (see ROADMAP.md)")
+          "arm paddle_tpu_torch.monitor at import: step/compile telemetry into "
+          "the process-wide metrics registry (near-zero overhead; see "
+          "monitor_log / monitor_stall_timeout for the recorder/watchdog)")
+_register("monitor_log", str, "",
+          "flight-recorder JSONL path (with the monitor flag on); empty "
+          "= metrics only, no event log")
+_register("monitor_stall_timeout", float, 0.0,
+          "seconds without a completed step/compile before the monitor "
+          "watchdog dumps all thread stacks + a metrics snapshot "
+          "(0 = watchdog off)")
+_register("monitor_report_interval", float, 0.0,
+          "seconds between one-line monitor console reports to stderr "
+          "(0 = no reporter thread)")
+_register("monitor_peak_flops", float, 0.0,
+          "device peak FLOP/s for the MFU gauge (0 = unset: the port "
+          "keeps no table of cards, so the gauge stays unset)")
+_register("monitor_sync_every", int, 1,
+          "synchronize the card every Nth monitored step. 1 = every "
+          "step: exact latency, but serializes asynchronous launches — "
+          "fine on the CPU and for debugging. N>1: the card keeps its "
+          "launch queue full; the monitor syncs once per N steps and "
+          "reports the window-average as that step's latency "
+          "(intermediate steps log dispatch time, flagged synced=false, "
+          "and are excluded from the latency histogram/MFU)")
+_register("monitor_cost_model", bool, True,
+          "price each compiled step with the static cost model so the "
+          "monitor can derive MFU (the cost model is ROADMAP.md queue 1 "
+          "item 11: until then no step is priced)")
+_register("faults", str, "",
+          "arm a paddle_tpu_torch.resilience fault-injection plan at "
+          "import: "
+          "a JSON spec, or @/path/to/plan.json (see resilience/faults.py "
+          "for the spec schema). Empty = no injection, zero-cost hooks")
+_register("faults_seed", int, 0,
+          "decision seed for the armed fault plan — a fixed seed gives "
+          "a reproducible chaos run")
+_register("trace", str, "",
+          "arm paddle_tpu_torch.trace cross-process distributed tracing at "
+          "import: '1'/'true' records every root span, a float in "
+          "(0, 1] head-samples that fraction of roots "
+          "(PADDLE_TPU_TRACE=0.01 for fleets). Span context propagates "
+          "through RPC frames; arm the WHOLE fleet together. Empty/0 = "
+          "off, zero-cost hooks (one is-None check per site)")
+_register("trace_log", str, "",
+          "span-log JSONL path ('{pid}' substitutes the process id — "
+          "each process needs its own file). Empty = "
+          "ptpu_trace_<pid>.jsonl in the cwd. Merge the fleet's logs: "
+          "python -m paddle_tpu_torch.trace merge *.jsonl -o timeline.json")
+_register("trace_proc", str, "",
+          "process label for the merged fleet-timeline lane (default: "
+          "the executable basename) — e.g. trainer0, pserver1")
+_register("trace_clock_interval", float, 15.0,
+          "seconds between NTP-style clock-offset probes per peer "
+          "(midpoint method over an idle RPC round trip; the merge CLI "
+          "uses the min-RTT sample to skew-correct timestamps). <=0 "
+          "probes at every opportunity")
+_register("trace_tail_window", int, 256,
+          "tail-based trace retention: number of recent traces the "
+          "always-on in-memory span ring buffers per process (ALL "
+          "spans, sampled-out ones included, grouped by trace id) so "
+          "a retention decision made AFTER a trace ends — root error, "
+          "root over trace_tail_slow_ms, or an incident naming the "
+          "trace — can still promote the whole trace to the span log. "
+          "0 disables the ring and restores pre-forensics behavior "
+          "(sampled-out spans emit headerless frames)")
+_register("trace_tail_slow_ms", float, 0.0,
+          "tail-retention slow threshold: a ROOT span whose duration "
+          "reaches this many milliseconds is retroactively promoted "
+          "to the span log with reason 'slow' (derive it from the SLO "
+          "latency objective). <=0 disables the slow rule; error and "
+          "incident-offender promotion stay on")
+_register("rpc_retry", bool, True,
+          "run idempotent RPC verbs (GET/PRFT/PUT, tagged SEND/BARR, "
+          "master GETT/DONE/FAIL/PING) under the resilience retry "
+          "policy: transparent reconnect + bounded exponential backoff "
+          "on socket errors instead of dying with the first broken "
+          "connection")
+_register("rpc_retry_deadline", float, 6.0,
+          "total wall-clock budget (seconds) for one verb's retry loop "
+          "— sized to ride out a pserver replacement (membership lease "
+          "expiry + checkpoint recovery), after which the error "
+          "propagates. The backoff schedule fills the whole budget "
+          "(attempts are not the limiter)")
 
 
 def get_flag(name):
@@ -164,3 +248,15 @@ def set_flag(name, value):
             value = f.type(value)
     f._override = value
 
+
+
+def overrides():
+    """{name: current value} of every flag whose value differs from
+    its default (env var or set_flag) — the active-configuration stamp
+    a DUMP capture carries."""
+    out = {}
+    for f in _FLAGS.values():
+        v = f.value()
+        if v != f.default:
+            out[f.name] = v
+    return out

@@ -387,7 +387,9 @@ def write_json_atomic(path, obj):
 
 def write_checkpoint_arrays(dirname, step, arrays, keep_last=3):
     """The write half of save_checkpoint, taking already-collected numpy
-    arrays; keeps the newest ``keep_last`` checkpoints."""
+    arrays (so ``resilience.driver`` can snapshot the scope at a step
+    boundary and hand the fsync to a background thread); keeps the
+    newest ``keep_last`` checkpoints."""
     os.makedirs(dirname, exist_ok=True)
     ckpt_name = "ckpt-%d.npz" % step
     buf = BytesIO()
@@ -395,9 +397,12 @@ def write_checkpoint_arrays(dirname, step, arrays, keep_last=3):
     crc = write_atomic_blob(dirname, ckpt_name, buf.getbuffer())
     meta = {"step": step, "file": ckpt_name, "crc32": crc}
     write_json_atomic(os.path.join(dirname, "meta-%d.json" % step), meta)
-    # The JAX package calls its chaos hook here (resilience.faults, which
-    # corrupts the n-th checkpoint on disk); it comes with the resilience
-    # tier, ROADMAP.md queue 1 item 10.
+    # armed chaos plan: corrupt the n-th checkpoint ON DISK (after the
+    # meta landed) so load_checkpoint's CRC fallback gets exercised
+    from .resilience import faults as _faults
+    plan = _faults._ACTIVE
+    if plan is not None:
+        plan.maybe_corrupt_checkpoint(os.path.join(dirname, ckpt_name))
     steps = sorted(int(n.split("-")[1].split(".")[0])
                    for n in os.listdir(dirname) if n.startswith("meta-"))
     for s in steps[:-keep_last]:

@@ -5,11 +5,14 @@ Architecture (DeepFM): per-field sparse id embeddings feed BOTH a
 factorization machine (first-order weights + pairwise second-order
 interactions via the sum-square/square-sum identity) and a DNN over the
 concatenated embeddings; logits add. ``lookup_table`` keeps its dense
-gradient, as the JAX package's does on one device: ``is_sparse`` and
-``is_distributed`` are attributes that change nothing here. The sharded
-table (DistributeTranspiler, prefetch) and the ``serving.sparse``
-ScoringEngine that ``make_featurizer`` feeds wait for ROADMAP.md queue
-1 item 10; ``make_featurizer`` is host numpy and runs as it is.
+gradient, as the JAX package's does on one device, and ``is_sparse``
+changes nothing on one device. ``is_distributed=True`` marks both FM
+tables for ``DistributeTranspiler``: in pserver mode each table is
+row-sharded over the pservers, the trainer's lookups become
+``prefetch`` ops and the rows' gradients go back as SelectedRows
+(``send_sparse``). The ``serving.sparse`` ScoringEngine that
+``make_featurizer`` feeds waits for ROADMAP.md queue 1 item 10(b);
+``make_featurizer`` is host numpy and runs as it is.
 """
 
 from .. import layers, optimizer

@@ -62,8 +62,8 @@ from .sampling import SamplingParams
 
 __all__ = ["Engine", "Request", "sequential_generate"]
 
-_NOT_PORTED = ("is not ported yet (see ROADMAP.md, queue 1 items 6 and 10: "
-               "the serving telemetry is still to port)")
+_NOT_PORTED = ("is not ported yet (see ROADMAP.md, queue 1 items 6 and "
+               "10(b): the engine's telemetry hooks are still to port)")
 
 # the per-slot sampling state a greedy request activates with
 _GREEDY = SamplingParams()

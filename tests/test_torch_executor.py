@@ -228,16 +228,30 @@ def _small_step():
 
 @pytest.mark.parametrize("flag", ["transform", "monitor"])
 def test_left_out_flags_raise(flag, monkeypatch):
+    """``transform`` is not ported and raises, naming ROADMAP.md. The
+    monitor is ported: its flag arms it (``maybe_enable_from_flags``,
+    which the package runs at import) and the run reports its step."""
+    from paddle_tpu_torch import monitor
     exe, main, avg, scope, feed = _small_step()
     monkeypatch.setenv("PADDLE_TPU_" + flag.upper(), "1")
     assert tflags.get_flag(flag)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if flag == "transform":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            exe.run(main, feed=feed, fetch_list=[avg], scope=scope)
+        return
+    monitor.maybe_enable_from_flags()
+    try:
+        assert monitor.enabled()
+        before = monitor.summary()["steps"]
         exe.run(main, feed=feed, fetch_list=[avg], scope=scope)
+        assert monitor.summary()["steps"] == before + 1
+    finally:
+        monitor.disable()
 
 
 def test_left_out_features_raise():
-    """What the port leaves out raises (the left-out flags and the
-    wire's host ops: the tests above and below). LoD feeds, which raised
+    """What the port leaves out raises (the left-out flag: the test
+    above). LoD feeds, which raised
     here before, are ported (tests/test_torch_lod.py): a LoD src whose
     lengths cover its rows gives the dense step's loss through run(), and
     run_steps takes a list of such feeds."""
@@ -266,11 +280,14 @@ def test_left_out_features_raise():
 
 
 def test_host_ops_and_markers_raise():
+    """The wire's host ops are ported (tests/test_torch_pserver.py runs
+    them); a CUDA graph cannot hold one, so ``run_steps`` refuses a
+    program that has one, with the JAX package's message."""
     exe = tfluid.Executor(tfluid.CPUPlace())
     prog = tfluid.Program()
     prog.global_block().append_op(type="send", inputs={}, outputs={})
-    with pytest.raises(NotImplementedError, match="'send'.*ROADMAP"):
-        exe.run(prog, scope=tfluid.Scope())
+    with pytest.raises(NotImplementedError, match="host \\(IO\\) ops"):
+        exe.run_steps(prog, feeds=[{}], scope=tfluid.Scope())
     # the grad markers' rematerialization and calc_gradient are ported
     # now: checkpoint=True gives the plain gradients, and a bare
     # calc_gradient_marker (no targets, no inputs) runs and binds nothing

@@ -73,7 +73,13 @@ def test_scan_covers_the_port():
                  ("paddle_tpu_torch", "transpiler.py"),
                  ("paddle_tpu_torch", "concurrency.py"),
                  ("v2", "trainer.py"), ("v2", "parameters.py"),
-                 ("tools", "startup_cost.py")):
+                 ("tools", "startup_cost.py"),
+                 ("distributed", "rpc.py"), ("distributed", "transpiler.py"),
+                 ("distributed", "membership.py"),
+                 ("distributed", "master.py"), ("distributed", "ops.py"),
+                 ("monitor", "runtime.py"), ("monitor", "metrics.py"),
+                 ("trace", "runtime.py"), ("trace", "merge.py"),
+                 ("resilience", "driver.py"), ("resilience", "faults.py")):
         assert any(p.endswith(os.path.join(*tail)) for p in srcs), tail
 
 

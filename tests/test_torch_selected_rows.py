@@ -184,7 +184,29 @@ def test_run_steps_refuses_host_ops():
 
 
 def test_wire_ops_still_raise():
+    """The wire ops are ported (tests/test_torch_pserver.py runs them
+    against live servers); one whose server is not there raises — no
+    silent fallback to a local table. Retries off, so it fails at the
+    first refused connection."""
+    import socket
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.distributed import ops as dops
+    with socket.socket() as s:          # a port nobody listens on
+        s.bind(("127.0.0.1", 0))
+        ep = "127.0.0.1:%d" % s.getsockname()[1]
     prog = tfluid.Program()
-    prog.global_block().append_op(type="prefetch", inputs={}, outputs={})
-    with pytest.raises(NotImplementedError, match="'prefetch'.*item 10"):
-        tfluid.Executor(tfluid.CPUPlace()).run(prog, scope=tfluid.Scope())
+    blk = prog.global_block()
+    blk.create_var(name="ids", shape=[2, 1], dtype="int64")
+    blk.append_op(type="prefetch", inputs={"X": ["ids"]},
+                  outputs={"Out": ["rows"]},
+                  attrs={"table_name": "emb", "epmap": [ep],
+                         "endpoints": [ep]})
+    flags.set_flag("rpc_retry", False)
+    try:
+        with pytest.raises(Exception, match="prefetch"):
+            tfluid.Executor(tfluid.CPUPlace()).run(
+                prog, feed={"ids": np.array([[1], [2]], np.int64)},
+                scope=tfluid.Scope())
+    finally:
+        flags.set_flag("rpc_retry", None)
+        dops.reset_clients()

@@ -130,7 +130,7 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
      ``sequential_generate``'s; paged launches exactly n_layer x (decode
      steps the device ran + prefill chunks); captures, replays and
      megastep dispatches printed. Each path is timed eager against graph
-     in A/B/A/B order (3 pairs: the host varies from run to run), with
+     in A/B/A/B order (2 pairs: the host varies from run to run), with
      the medians, and traced once each way for the device busy share;
      every timing line carries the ``nvidia-smi`` line;
  10. spec    — speculative and sampled serving. Kernel #1 at the scoring
@@ -205,7 +205,7 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
      backward a step with recompute (the recompute runs the forward
      kernel again), n_layer each without; peak device memory
      (``max_memory_allocated`` after ``reset_peak_memory_stats``) lower
-     with recompute; step ms A/B/A/B (3 pairs, medians); 5 ``run()``
+     with recompute; step ms A/B/A/B (2 pairs, medians); 5 ``run()``
      calls against one ``run_steps(K=5)`` dispatch bitwise; one
      ``append_backward(checkpoint=True)`` step bitwise equal to the plain
      step. (b) The dropout kernel against its plain version, Out and Mask
@@ -383,7 +383,7 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
      same startup values: losses and every state tensor bitwise equal;
      matmul_stats launched exactly 2 a step (the two 1x1 stride-2
      projection shortcuts); images/s fed by the loader and by the list,
-     3 pairs in turns (medians), each route's busy share and the streams
+     2 pairs in turns (medians), each route's busy share and the streams
      of its host-to-device copies from a traced window. (b) matmul_stats
      at the shortcuts' shapes (M=32,768 K=16 N=32; M=8,192 K=32 N=64),
      fp32 with gradients, against its plain version at phase 7's
@@ -497,6 +497,40 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
      fault-free run's, and fault, retry, reconnect, rollback and
      checkpoint events in the flight recorder. A child that fails or
      outlives its time fails the phase.
+  21. fleet — the serving fleet and its monitoring plane, the flagship
+     LM at its own widths booted from its ``save_lm_artifact`` (v1, and
+     v2: the same program after one more Adam step). (a) Telemetry:
+     ``Engine(slots=32)`` on phase 9's mixed set with the monitor and
+     the tracer on against the same engine with both off: tokens and
+     paged launches equal, one ``serving_request`` row per request, one
+     ``engine.step`` span per iteration, ms per decode step on and off
+     (medians of interleaved pairs). (b) Three in-process cells (slots
+     8, megastep 8; every cell's device work under ``capture_lock``)
+     behind a ``Router`` and a ``Supervisor``, 96 requests of 16-128
+     prompt and 32-64 new tokens: exactly once, token-identical to one
+     engine's run of them (4 of them against ``sequential_generate``; a
+     parting passes only as a diagnosed near-tie), the cells' paged
+     launches summing to the kernel's count; again under FLEET_CHAOS (a
+     cell killed after 3 dispatches, one stalled past the router's
+     deadline, frame faults) and two more crashes, with device memory
+     after the respawns within one cell's footprint of the fleet's
+     start; again with one replica as a process of its own
+     (``--ps-child replica``), SIGKILLed mid-traffic; the ``Collector``
+     scrapes every registered replica, ``watch_fleet`` renders, and the
+     merged timeline of the two processes holds the request lanes. (c)
+     ``Autoscaler`` 1 -> 3 under a burst, drained to 1, rolled v1 -> v2
+     with a kill mid-roll (each result v1's or v2's); a healthy v2 canary
+     promoted by ``RolloutController`` on its verdicts, then one whose
+     candidate stalls aborted while v1 serves, its forensic bundle
+     verified by ``python -m paddle_tpu_torch.monitor bundle``. (d)
+     DeepFM F8 D16 V20k scoring (``build_scoring_net``) over two
+     row-sharded pservers: ``ScoringEngine`` batches of 1,024 on the
+     card bitwise equal to the direct Executor at the same shape,
+     within 1e-6 of the CPU's, then routed with ``OnlineTrainer``
+     pushing, a pserver killed and recovered mid-serve, staleness
+     within 5 s. (e) ``ParallelExecutor`` at one rank writes ``pexe``
+     rows and ``pexe.step`` spans; ``debug_nans`` raises on a planted
+     NaN on the card.
 
 The last three lines of standard output are the kernels' JSON line, the
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device": ...}``.
@@ -534,7 +568,9 @@ forward and backward against cuDNN's (``layer_ms``, ``cudnn_layer_ms``);
 ``library_ms`` is the library's route for a step, ``torch.mm`` then
 ATen's ``_thnn_fused_lstm_cell`` (two calls: no single PyTorch call
 computes the step; null where PyTorch lacks the cell).
-Paged attention's entry carries ``scoring_shape``: its times and bound
+Paged attention's ``launches`` add phase 21's (``fleet_launches``: (a)'s
+four engine runs and (b)'s fault-free fleet run). Paged attention's
+entry carries ``scoring_shape``: its times and bound
 at (d), and its launches at the scoring shape among phase 10's: counted
 inside each scoring dispatch (the kernel's counter read before and after
 it, n_layer required) and each launch's query rows (C = 5 required).
@@ -1983,7 +2019,7 @@ def resnet_parity_phase(torch, fluid, flags, exe, prog, init, batches):
 # -- phase 9 -------------------------------------------------------------
 # megastep: K steps as one CUDA graph (Executor.run_steps,
 # Engine(megastep=K)) against the eager steps, on the full-width paths
-MEGA_TRAIN_K, MEGA_TRAIN_STEPS, MEGA_SERVE_K, MEGA_PAIRS = 5, 10, 8, 3
+MEGA_TRAIN_K, MEGA_TRAIN_STEPS, MEGA_SERVE_K, MEGA_PAIRS = 5, 10, 8, 2
 
 
 def _reset_launches():
@@ -3904,7 +3940,7 @@ MT_SRC, MT_BEAM = 16, 4
 SCORE_TOL = 1e-4          # a returned score vs its teacher-forced sum
 GEN_BATCH, GEN_BEAM, GEN_LEN = 8, 4, 128
 ZOO_BATCH, ZOO_STEPS = 64, 5
-DECODE_PAIRS = 3
+DECODE_PAIRS = 2
 
 
 def _mt_program(fluid, T, packed):
@@ -5006,6 +5042,8 @@ def _lstm_timing(torch, LC):
 
 
 LSTM_LAYER_SLEEP = 60_000_000      # ~30 ms: hides a layer's enqueue
+TRACE_EDGE_S = 0.05     # host idle at a traced pass's window edges
+TRACE_TRIES = 3         # traced passes before a late window fails
 
 
 def _lstm_layer_timing(torch, LC, lengths, maxlen):
@@ -5055,18 +5093,52 @@ def _lstm_layer_timing(torch, LC, lengths, maxlen):
     return {"layer_ms": port_ms, "cudnn_layer_ms": cudnn_ms}
 
 
+def _trace_lead_s(torch, prof):
+    """Seconds from the profiler's window opening to the start of the
+    first device kernel it recorded, or None when it recorded none or
+    this torch does not expose the window's start."""
+    res = getattr(prof.profiler, "kineto_results", None)
+    if res is None or not hasattr(res, "trace_start_ns"):
+        return None
+    starts = [e.start_ns() for e in res.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA]
+    return (min(starts) - res.trace_start_ns()) / 1e9 if starts else None
+
+
 def _kernel_rows(torch, fn):
     """[(device us, launches, name)] of the device kernels one call of
     ``fn`` runs, from a traced pass after a discarded warm-up (copies and
-    fills left out), or None when the profiler saw no device time."""
+    fills left out), or None when the profiler saw no device time.
+
+    The profiler drops the records of kernels that ran before its window
+    opened by its own clock, and the window may open a little after
+    ``prof.step()`` returns: on an H100 one unpadded pass in 40 lost the
+    call's first 16 kernels. So the host idles TRACE_EDGE_S on both sides
+    of the traced call, and every kernel of it lies inside the window. A
+    pass whose first kernel starts less than TRACE_EDGE_S / 2 into the
+    window had it open late, may have lost records, and is traced again
+    (at most TRACE_TRIES passes in all)."""
     from torch.profiler import ProfilerActivity, profile, schedule
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        for _ in range(2):
+    for attempt in range(1, TRACE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
             fn()
             torch.cuda.synchronize()
             prof.step()
+            time.sleep(TRACE_EDGE_S)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(TRACE_EDGE_S)
+            prof.step()
+        lead = _trace_lead_s(torch, prof)
+        if lead is None or lead >= TRACE_EDGE_S / 2:
+            break
+        log("traced pass %d: its first kernel started %.6f s into the "
+            "profiler's window, which opened late (records may be lost)",
+            attempt, lead)
+        check(attempt < TRACE_TRIES, "the profiler's window opened late in "
+              "%d traced passes", TRACE_TRIES)
     rows = [(getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0)), ev.count,
              ev.key) for ev in prof.key_averages()]
@@ -5939,7 +6011,7 @@ DATA_SHORTCUTS = [(32768, 16, 32), (8192, 32, 64)]   # the 1x1 projections
 # function's default widths, over imdb
 SENTI = dict(emb=128, hid=512, stacked=3, batch=64, batches=8,
              run_steps=3, k=5)
-DATA_PAIRS = 3
+DATA_PAIRS = 2
 
 
 def _cifar_program(fluid):
@@ -7647,7 +7719,7 @@ PS_STEPS = 5                     # (a): Adam steps through the pservers
 PS_TOL = 2e-4                    # of max(1, max|w|) per tensor, each step
 DFM_PS_STEPS = 3                 # (b): steps of each DeepFM run
 DFM_PS_SGD_LR = 0.1
-CHAOS_TASKS = 14                 # (c): master tasks = batches of a run
+CHAOS_TASKS = 11                 # (c): master tasks = batches of a run
 CHAOS_LR = 0.1                   # the chaos pserver's SGD
 CHAOS_KILL_ROUND = 3             # SIGKILL once its checkpoint is this far
 CHAOS_CKPT_S = 0.25              # the pserver cell's checkpoint interval
@@ -8239,7 +8311,8 @@ def _ps_child(argv):
     fn = {"pserver": _ps_pserver_child, "trainer": _ps_trainer_child,
           "chaos_master": _chaos_master_child,
           "chaos_pserver": _chaos_pserver_child,
-          "chaos_trainer": _chaos_trainer_child}[role]
+          "chaos_trainer": _chaos_trainer_child,
+          "replica": _fleet_replica_child}[role]
     try:
         res = fn(args)
     except SmokeFailure as e:
@@ -8563,6 +8636,998 @@ def pserver_phase(torch, smi):
     return flash
 
 
+# -- phase 21 ----------------------------------------------------------------
+FLEET_CELLS = 3                   # (b): in-process cells
+FLEET_SLOTS = 8                   # every cell's slots: one GEMM shape
+FLEET_MEGASTEP = 8
+FLEET_REQUESTS = 96
+FLEET_CHAOS = {
+    "rpc": {"drop": 0.03, "duplicate": 0.03, "close_mid_frame": 0.02,
+            "delay": 0.05, "delay_s": 0.003, "max": 8},
+    "kill": [{"target": "replica:0", "after": 3}],
+    "stall": [{"target": "replica:1", "after": 2, "seconds": 2.5}],
+}
+FLEET_SEED = 1301
+TEL_PAIRS = 2                     # (a): interleaved off/on pairs
+SCORE_BATCH = 1024                # (d): the scoring engine's batch
+SCORE_DNN = (400, 400, 400)
+CANARY_DELTA = {
+    "window_s": 300.0, "min_pairs": 6, "min_requests": 6,
+    "objectives": [
+        {"metric": "delta_ttft", "percentile": 0.95,
+         "max_inflation": 4.0, "min_floor_s": 0.5},
+        {"metric": "delta_error_rate", "max_delta": 0.5}],
+}
+
+
+def _fleet_requests(rng, n=FLEET_REQUESTS):
+    """``n`` requests: prompts of 16-128 tokens, 32-64 new tokens."""
+    return [([1] + rng.integers(3, VOCAB, int(rng.integers(15, 128)))
+             .tolist(), int(rng.integers(32, 65))) for _ in range(n)]
+
+
+def _fleet_artifacts(torch, fluid, T, tmp):
+    """The full-width LM saved twice by ``save_lm_artifact``: v1 from a
+    seeded startup, v2 after one more Adam step of the same program.
+    Returns {"v1": dir, "v2": dir}."""
+    from paddle_tpu_torch.serving import save_lm_artifact
+    main, startup, avg_cost, logits = _io_lm(fluid, T, adam=True)
+    startup.random_seed = 21
+    fwd = _io_lm(fluid, T, adam=False)[0]
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    out = {}
+    for name in ("v1", "v2"):
+        if name == "v2":
+            batch = T.make_lm_batch(np.random.RandomState(21),
+                                    TRAIN_BATCH, MAX_LEN, VOCAB)
+            loss, = exe.run(main, feed=batch, fetch_list=[avg_cost],
+                            scope=scope)
+            check(np.isfinite(float(np.asarray(loss))), "fleet: the v2 "
+                  "Adam step's loss is not finite")
+        out[name] = os.path.join(tmp, name)
+        save_lm_artifact(out[name], fwd, scope, [logits], N_LAYER, N_HEAD,
+                         D_MODEL, MAX_LEN, end_id=VOCAB, specialize=False)
+    return out
+
+
+def _same_tokens(torch, model, reqs, got, want, what, near_ties):
+    """Each of ``got`` equal to ``want`` (request for request), or
+    parting at a near-tie ``_divergence`` diagnoses."""
+    check(len(got) == len(want), "%s: %d results for %d requests", what,
+          len(got), len(want))
+    for i, ((a, _), (b, _)) in enumerate(zip(got, want)):
+        _same_or_near_tie(torch, model, reqs[i], a, b,
+                          "%s request %d" % (what, i), near_ties)
+
+
+def _fleet_reference(torch, art, reqs, **kw):
+    """One engine's tokens over ``reqs`` (the fleet cells' settings)."""
+    from paddle_tpu_torch.serving import Engine
+    with Engine(art, slots=FLEET_SLOTS, megastep=FLEET_MEGASTEP,
+                **kw) as eng:
+        eng.warmup()
+        out = eng.generate_many([p for p, _ in reqs], [m for _, m in reqs])
+    torch.cuda.synchronize()
+    return out
+
+
+def telemetry_phase(torch, smi, arts, tmp):
+    """(a) ``Engine(slots=32)`` from the v1 artifact on phase 9's mixed
+    set with the monitor and the tracer on, against the same engine
+    with both off: tokens identical, paged launches equal, one
+    ``serving_request`` row per request, one ``engine.step`` span per
+    iteration; ms per decode step with telemetry on and off as medians
+    of interleaved pairs."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.ops import paged_attention as P
+    from paddle_tpu_torch.serving import Engine
+    from paddle_tpu_torch.trace import runtime as trt
+    reqs = _requests(np.random.default_rng(0))
+    runs = {False: [], True: []}
+    for i in range(TEL_PAIRS):
+        for on in (False, True):
+            mlog = os.path.join(tmp, "tel-%d.jsonl" % i)
+            spans = os.path.join(tmp, "tel-spans-%d.jsonl" % i)
+            if on:
+                trt.enable(log_path=spans, sample_rate=1.0, proc="tel")
+                ctx = monitor.session(log_path=mlog)
+            else:
+                ctx = contextlib.nullcontext()
+            try:
+                with ctx, Engine(arts["v1"], slots=32) as eng:
+                    eng.warmup()
+                    P.paged_attention.launches = 0
+                    out = eng.generate_many([p for p, _ in reqs],
+                                            [m for _, m in reqs])
+                    torch.cuda.synchronize()
+                    launches = P.paged_attention.launches
+                    stats = dict(eng.stats)
+            finally:
+                if on:
+                    trt.disable()
+            runs[on].append((out, launches, stats, mlog, spans))
+    base = runs[False][0]
+    for on in (False, True):
+        for out, launches, stats, mlog, spans in runs[on]:
+            check([t for t, _ in out] == [t for t, _ in base[0]],
+                  "telemetry %s: tokens differ from the run with it off",
+                  "on" if on else "off")
+            check(launches == base[1], "telemetry %s: %d paged launches, "
+                  "%d with it off", "on" if on else "off", launches,
+                  base[1])
+            if not on:
+                continue
+            rows = monitor.read_jsonl(mlog)
+            reqrows = [r for r in rows if r["ev"] == "serving_request"]
+            steprows = [r for r in rows if r["ev"] == "serving_step"]
+            check(len(reqrows) == len(reqs), "telemetry: %d "
+                  "serving_request rows for %d requests", len(reqrows),
+                  len(reqs))
+            check(len(steprows) == stats["steps"], "telemetry: %d "
+                  "serving_step rows for %d iterations", len(steprows),
+                  stats["steps"])
+            sp = [r for r in monitor.read_jsonl(spans)
+                  if r["ev"] == "span"]
+            nstep = sum(s["name"] == "engine.step" for s in sp)
+            check(nstep == stats["steps"], "telemetry: %d engine.step "
+                  "spans for %d iterations", nstep, stats["steps"])
+            check(sum(s["name"] == "serving.request" for s in sp)
+                  == len(reqs), "telemetry: serving.request spans")
+
+    def ms(run):
+        st = run[2]
+        return 1e3 * st["decode_seconds"] / st["decode_steps"]
+    off = _median([ms(r) for r in runs[False]])
+    on = _median([ms(r) for r in runs[True]])
+    log("fleet (a): Engine(slots=32) from the artifact, %d requests: "
+        "tokens and %d paged launches equal with telemetry on and off; "
+        "%d serving_request rows, %d engine.step spans = iterations; ms "
+        "per decode step off %.4f, on %.4f (medians of %d interleaved "
+        "pairs) (%s)", len(reqs), base[1], len(reqs), base[2]["steps"],
+        off, on, TEL_PAIRS, smi)
+    return {"tel_off_ms": off, "tel_on_ms": on, "launches":
+            sum(r[1] for v in runs.values() for r in v)}
+
+
+def _fleet_replica_child(args):
+    """Phase 21 (b)'s replica process (``--ps-child replica``): its engine
+    booted from the artifact on the card and warmed while the in-process
+    runs go on, then, once the go file appears, one ``fleet.Replica``
+    over it registered in the KV store, serving until it is killed (or
+    its stop file appears)."""
+    from paddle_tpu_torch.distributed.membership import KVClient
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.serving import Engine, fleet
+    from paddle_tpu_torch.trace import runtime as trt
+    _build.load_all(["paged_attention"])
+    trt.enable(log_path=args["spans"], sample_rate=1.0, proc="replica-proc")
+    eng = Engine(args["art"], slots=FLEET_SLOTS, megastep=FLEET_MEGASTEP,
+                 name="replica-proc").warmup()
+    while not os.path.exists(args["go"]):
+        time.sleep(0.05)
+    kv = KVClient(args["kv"])
+    cell = fleet.Replica(kv, None, desired=args["desired"], ttl=1.0,
+                         engine_factory=lambda name: eng, version="v1")
+    _ps_write(args["ready"], {"endpoint": cell.endpoint})
+    while not os.path.exists(args["stop"]):
+        time.sleep(0.05)
+    cell.shutdown()
+    trt.disable()
+    return {"endpoint": cell.endpoint}
+
+
+def _cleared_cublas(torch):
+    """Bytes allocated after dropping cuBLAS's workspaces (PyTorch keeps
+    one a handle and stream for the process)."""
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    return torch.cuda.memory_allocated()
+
+
+def _serve_all(router, reqs, timeout=600):
+    hs = [router.submit(p, m, session="s%d" % (i % 8))
+          for i, (p, m) in enumerate(reqs)]
+    return [h.result(timeout=timeout) for h in hs]
+
+
+def fleet_phase(torch, smi, arts, tmp, ref, near_ties):
+    """(b) Three in-process cells (slots 8, megastep 8) behind a Router
+    and a Supervisor, 96 requests: exactly once and token-identical to
+    one engine's run; again under the fault plan (a cell killed after 3
+    dispatches, one stalled, frame faults); again with one replica as a
+    process of its own, SIGKILLed mid-traffic. The Collector scrapes
+    every replica, ``watch_fleet`` renders its line, the merged
+    timeline holds the request lanes, the cells' paged launches sum to
+    the total, and device memory after three respawns stays within one
+    cell's footprint."""
+    import gc
+    import io as _io
+    import signal
+    from paddle_tpu_torch.distributed.membership import (
+        KVClient, KVServer, live_endpoints)
+    from paddle_tpu_torch.monitor.collector import Collector
+    from paddle_tpu_torch.monitor.watch import watch_fleet
+    from paddle_tpu_torch.ops import paged_attention as P
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.serving import Engine, fleet
+    from paddle_tpu_torch.trace import merge as tmerge
+    from paddle_tpu_torch.trace import runtime as trt
+    reqs, want, model = ref
+    spans = os.path.join(tmp, "fleet-spans.jsonl")
+    trt.enable(log_path=spans, sample_rate=1.0, proc="fleet")
+    kvs = KVServer(sweep_interval=0.05).start()
+    kv = KVClient(kvs.endpoint)
+    cells, sup, router, child = [], None, None, None
+    timings = {}
+    try:
+        # (b)'s replica process boots from the artifact while the
+        # in-process runs go on; it registers once told to
+        args = {"kv": kvs.endpoint, "art": arts["v1"],
+                "desired": FLEET_CELLS + 1,
+                "spans": os.path.join(tmp, "replica-proc-spans.jsonl"),
+                "go": os.path.join(tmp, "replica-proc.go"),
+                "ready": os.path.join(tmp, "replica-proc.ready"),
+                "stop": os.path.join(tmp, "replica-proc.stop")}
+        child = _ps_spawn(tmp, "replica", args, "replica-proc")
+        gc.collect()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+
+        spawn_errors = []
+
+        def engine(name):
+            # warmed (its megastep graph captured) before the cell
+            # registers, so no request reaches it first
+            return Engine(arts["v1"], slots=FLEET_SLOTS,
+                          megastep=FLEET_MEGASTEP, name=name).warmup()
+
+        def spawn():
+            try:
+                c = fleet.Replica(kv, None, desired=FLEET_CELLS + 1,
+                                  ttl=0.6, engine_factory=engine,
+                                  version="v1")
+            except Exception as e:
+                spawn_errors.append(repr(e))
+                raise
+            cells.append(c)
+            return c
+        spawn()
+        torch.cuda.synchronize()
+        cell_bytes = torch.cuda.memory_allocated() - mem0
+        for _ in range(FLEET_CELLS - 1):
+            spawn()
+        router = fleet.Router(kvs.endpoint, window=FLEET_SLOTS,
+                              max_queue=4 * FLEET_REQUESTS,
+                              stall_timeout=1.0, refresh_interval=0.05,
+                              client_timeout=0.8, name="fleet-router")
+        router.wait_for_replicas(FLEET_CELLS, timeout=60)
+        mem_cells = _cleared_cublas(torch)
+        n0 = P.paged_attention.launches
+        c0 = sum(c.engine.stats["paged_launches"] for c in cells)
+        t0 = time.perf_counter()
+        got = _serve_all(router, reqs)
+        torch.cuda.synchronize()
+        timings["fault_free_s"] = time.perf_counter() - t0
+        total = P.paged_attention.launches - n0
+        timings["launches"] = total
+        per_cell = [c.engine.stats["paged_launches"] for c in cells]
+        check(sum(per_cell) - c0 == total, "fleet: the cells' paged "
+              "launches %s sum to %d, the kernel counted %d", per_cell,
+              sum(per_cell) - c0, total)
+        check(total > 0, "fleet: no paged launch")
+        _same_tokens(torch, model, reqs, got, want, "fleet", near_ties)
+        st = dict(router.stats)
+        check(st["completed"] == st["requests"] == len(reqs)
+              and st["failed"] == 0, "fleet: router stats %s", st)
+        ntok = sum(len(t) for t, _ in got)
+        log("fleet (b): %d cells, %d requests exactly once, tokens equal "
+            "one engine's; %d tokens in %.3f s = %.1f tokens/s; paged "
+            "launches %d = the cells' %s (%s)", FLEET_CELLS, len(reqs),
+            ntok, timings["fault_free_s"],
+            ntok / timings["fault_free_s"], total, per_cell, smi)
+
+        # the fault plan, the Supervisor respawning what dies
+        sup = fleet.Supervisor(kv, spawn, desired=FLEET_CELLS,
+                               interval=0.1).start()
+        spec = dict(FLEET_CHAOS)
+        spec["rpc"] = dict(spec["rpc"], ports=[c.server.port
+                                               for c in cells])
+        plan = faults.arm(spec, seed=FLEET_SEED)
+        t0 = time.perf_counter()
+        try:
+            got = _serve_all(router, reqs)
+        finally:
+            faults.disarm()
+        timings["chaos_s"] = time.perf_counter() - t0
+        _same_tokens(torch, model, reqs, got, want, "fleet chaos",
+                     near_ties)
+        kinds = {k for k, _ in plan.trips}
+        check({"kill", "stall"} <= kinds, "fleet chaos: trips %s",
+              plan.trips)
+        st = dict(router.stats)
+        check(st["failed"] == 0 and st["completed"] == st["requests"]
+              == 2 * len(reqs), "fleet chaos: router stats %s", st)
+        router.wait_for_replicas(FLEET_CELLS, timeout=60)
+        # more deaths until the Supervisor has replaced three cells: a
+        # crash is replaced when it leaves fewer live registrations than
+        # the fleet's (the evicted stalled cell, still beating, may hold
+        # one of them)
+        crashes = 0
+        while sup.respawns < 3:
+            check(crashes < 6, "fleet: %d respawns after %d crashes",
+                  sup.respawns, crashes)
+            gc.collect()
+            torch.cuda.synchronize()
+            m_before = torch.cuda.memory_allocated()
+            deadline = time.monotonic() + 60
+            while True:
+                reg = set(live_endpoints(kv, "replica").values())
+                victim = next((c for c in cells if c.endpoint in reg
+                               and not c.engine._stop), None)
+                if victim is not None:
+                    break
+                check(time.monotonic() < deadline, "fleet: no registered "
+                      "live cell to crash: registry %s, cells %s",
+                      sorted(reg), [(c.endpoint, c.engine._stop,
+                                     repr(c.engine._error)) for c in cells])
+                time.sleep(0.05)
+            victim.crash()
+            crashes += 1
+            # the victim's lease lapses, then the registry holds the
+            # fleet's count again (the Supervisor's replacement, when one
+            # was needed)
+            deadline = time.monotonic() + 60
+            while True:
+                live = [v for v in live_endpoints(kv, "replica").values()
+                        if not v.startswith(fleet.EVICTED_PREFIX)]
+                if victim.endpoint not in live and \
+                        len(live) >= FLEET_CELLS:
+                    break
+                check(time.monotonic() < deadline, "fleet: the registry "
+                      "holds %s after a crash (spawn errors %s)", live,
+                      spawn_errors[-3:])
+                time.sleep(0.05)
+            router.wait_for_replicas(FLEET_CELLS, timeout=60)
+            gc.collect()
+            torch.cuda.synchronize()
+            log("fleet (b): a crash (respawns %d): allocated %+.1f MB",
+                sup.respawns,
+                (torch.cuda.memory_allocated() - m_before) / 1e6)
+        check(sup.respawns >= 3, "fleet: %d respawns", sup.respawns)
+        gc.collect()
+        torch.cuda.synchronize()
+        # a stalled cell the router evicted lives on (it is wedged, not
+        # dead): each live cell past the fleet's own counts once
+        alive = sum(not c.engine._stop for c in cells)
+        # PyTorch keeps a cuBLAS workspace for every handle and stream
+        # the process has used (a thread that runs a product takes a
+        # handle): the process's, not a cell's, so both readings are
+        # taken with them dropped
+        with_ws = torch.cuda.memory_allocated()
+        mem1 = _cleared_cublas(torch)
+        log("fleet (b): cells (closed, model freed, state tensors, graphs): "
+            "%s; allocated %.1f MB over the fleet's start, %.1f MB of it "
+            "cuBLAS's workspaces", [
+                (c.engine._stop, c.engine.model is None,
+                 len(c.engine._state),
+                 sum(g is not None for g in c.engine._graphs.values()))
+                for c in cells], (mem1 - mem_cells) / 1e6,
+            (with_ws - mem1) / 1e6)
+        check(mem1 - mem_cells <= (alive - FLEET_CELLS + 1) * cell_bytes,
+              "fleet: %d bytes allocated after %d respawns with %d live "
+              "cells, %d with the fleet's %d up, one cell %d", mem1,
+              sup.respawns, alive, mem_cells, FLEET_CELLS, cell_bytes)
+        log("fleet (b) chaos: trips %s; %d resubmissions, evictions %s; "
+            "%.3f s; %d respawns; allocated %.1f MB over the fleet's start "
+            "with %d live cells (one cell %.1f MB)", sorted(kinds),
+            st["resubmissions"], st["evictions"], timings["chaos_s"],
+            sup.respawns, (mem1 - mem_cells) / 1e6, alive,
+            cell_bytes / 1e6)
+        sup.stop()
+        sup = None
+
+        # one replica as a process of its own (booted meanwhile),
+        # SIGKILLed mid-traffic
+        _ps_write(args["go"], {})
+        ep = json.loads(_ps_wait_file(args["ready"], 300,
+                                      child["p"]))["endpoint"]
+        router.wait_for_replicas(FLEET_CELLS + 1, timeout=60)
+        with Collector(kv_endpoint=kvs.endpoint, roles=("replica",)) as col:
+            col.scrape_once()
+            snap = col.fleet_snapshot()
+            buf = _io.StringIO()
+            frame = watch_fleet(collector=col, once=True, out=buf)
+        eps = {e["endpoint"]: e for e in snap["__meta__"]["endpoints"]}
+        live_eps = sorted(live_endpoints(kv, "replica").values())
+        check(ep in live_eps, "fleet: the replica process %s is not "
+              "registered: %s", ep, live_eps)
+        for e in live_eps:
+            check(e in eps and eps[e]["ok"], "collector: replica %s not "
+                  "scraped: %s", e, eps.get(e))
+        line = next((ln for ln in frame.splitlines() if "fleet" in ln), "")
+        check(line, "watch_fleet rendered no fleet line")
+        log("fleet (b): collector scraped %d replicas (%d processes); "
+            "watch_fleet: %s", len(live_eps),
+            snap["__meta__"]["processes"], line.strip())
+        hs = [router.submit(p, m, session="p%d" % i)
+              for i, (p, m) in enumerate(reqs)]
+        done = 0
+        deadline = time.monotonic() + 300
+        while done < len(reqs) // 4:
+            check(time.monotonic() < deadline, "fleet: no progress before "
+                  "the kill")
+            done = sum(h.done() for h in hs)
+            time.sleep(0.01)
+        child["p"].send_signal(signal.SIGKILL)
+        child["p"].wait()
+        got = [h.result(timeout=600) for h in hs]
+        _same_tokens(torch, model, reqs, got, want, "fleet process kill",
+                     near_ties)
+        st = dict(router.stats)
+        check(st["failed"] == 0 and st["completed"] == st["requests"],
+              "fleet process kill: router stats %s", st)
+        log("fleet (b): replica process SIGKILLed after %d of %d "
+            "completions; all %d exactly once, token-identical; "
+            "resubmissions %d", done, len(reqs), len(reqs),
+            st["resubmissions"])
+    finally:
+        faults.disarm()
+        if child is not None and child["p"].poll() is None:
+            child["p"].kill()
+            child["p"].wait()
+        if child is not None:
+            child["out"].close()
+            child["err"].close()
+        if router is not None:
+            router.close()
+        if sup is not None:
+            sup.stop()
+        for c in cells:
+            try:
+                c.shutdown()
+            except Exception:
+                pass
+        trt.disable()
+        kv.shutdown_server()
+        kv.close()
+    merged, info = tmerge.merge_files(
+        [spans, os.path.join(tmp, "replica-proc-spans.jsonl")])
+    names = {e.get("name") for e in merged["traceEvents"]}
+    check({"router.dispatch", "replica.SUBM", "serving.request",
+           "engine.step"} <= names, "merged timeline: spans %s",
+          sorted(n for n in names if n))
+    lanes = [e["args"]["name"] for e in merged["traceEvents"]
+             if e.get("name") == "process_name"]
+    log("fleet (b): merged timeline of %d spans over lanes %s holds the "
+        "request lanes", info["spans"], lanes)
+    return timings
+
+
+def elastic_phase(torch, smi, arts, tmp, refs, near_ties):
+    """(c) Autoscale 1 -> 3 under a burst from the v1 artifact, drain
+    to 1; roll v1 -> v2 with a kill mid-roll (exactly once, each result
+    token-identical to its version's); canary v2 under ``rollout``:
+    healthy promoted on its verdicts, one with an injected stall aborted
+    while v1 keeps serving, its forensic bundle written and verified by
+    ``python -m paddle_tpu_torch.monitor bundle``."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.distributed.membership import KVClient, KVServer
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.serving.autoscale import Autoscaler
+    from paddle_tpu_torch.serving.fleet import Router
+    reqs, v1ref, v2ref, model1, model2 = refs
+    kvs = KVServer(sweep_interval=0.05).start()
+    kv = KVClient(kvs.endpoint)
+    auto = router = None
+    out = {}
+    mlog = os.path.join(tmp, "elastic.jsonl")
+    try:
+        with monitor.session(log_path=mlog):
+            kw = dict(slots=FLEET_SLOTS, megastep=FLEET_MEGASTEP,
+                      ttl=0.6, interval=0.05, cooldown=0.0,
+                      drain_timeout=120.0, health_timeout=120.0)
+            auto = Autoscaler(kvs.endpoint, arts["v1"], desired=1,
+                              min_replicas=1, max_replicas=5, **kw).start()
+            auto.wait_steady(timeout=120)
+            router = Router(kvs.endpoint, window=FLEET_SLOTS,
+                            max_queue=8 * FLEET_REQUESTS,
+                            stall_timeout=2.0, refresh_interval=0.05,
+                            client_timeout=1.5, name="elastic")
+            router.wait_for_replicas(1, timeout=60)
+            hs = [router.submit(p, m) for p, m in reqs]
+            t0 = time.perf_counter()
+            auto.set_desired(3, "burst")
+            st = auto.wait_steady(timeout=120)
+            out["scale_up_s"] = time.perf_counter() - t0
+            check(st["live"] == 3, "elastic: %s after scaling up", st)
+            got = [h.result(timeout=600) for h in hs]
+            _same_tokens(torch, model1, reqs, got, v1ref, "elastic burst",
+                         near_ties)
+            t0 = time.perf_counter()
+            auto.set_desired(1, "drain")
+            st = auto.wait_steady(timeout=120)
+            out["drain_s"] = time.perf_counter() - t0
+            check(st["live"] == 1, "elastic: %s after draining", st)
+            # the roll, its first drained cell killed mid-roll
+            plan = faults.arm({"kill": [{"target": "roll", "after": 0}]},
+                              seed=FLEET_SEED)
+            hs = [router.submit(p, m) for p, m in reqs]
+            t0 = time.perf_counter()
+            auto.roll(arts["v2"])
+            last = auto.wait_roll(timeout=300)
+            out["roll_s"] = time.perf_counter() - t0
+            faults.disarm()
+            check(not last["aborted"], "elastic: the roll aborted: %s",
+                  last)
+            check(("kill", "roll") in plan.trips, "elastic: no kill "
+                  "mid-roll: %s", plan.trips)
+            got = [h.result(timeout=600) for h in hs]
+            which = [_version_tokens(torch, refs, i, toks, "elastic roll",
+                                     near_ties)
+                     for i, (toks, _) in enumerate(got)]
+            v1n, v2n = which.count("v1"), which.count("v2")
+            st = auto.wait_steady(timeout=120)
+            check(st["version_mix"].get("v2") == st["live"]
+                  and not st["version_mix"].get("v1"),
+                  "elastic: version mix %s after the roll", st)
+            got = _serve_all(router, reqs[:16])
+            _same_tokens(torch, model2, reqs[:16], got, v2ref[:16],
+                         "elastic after the roll", near_ties)
+            rst = dict(router.stats)
+            check(rst["failed"] == 0 and rst["completed"]
+                  == rst["requests"], "elastic: router stats %s", rst)
+            log("fleet (c): scaled 1 -> 3 in %.3f s under a burst of %d, "
+                "drained to 1 in %.3f s, rolled v1 -> v2 in %.3f s with a "
+                "kill mid-roll (%d results v1's, %d v2's, exactly once); "
+                "version mix %s (%s)", out["scale_up_s"], len(reqs),
+                out["drain_s"], out["roll_s"], v1n, v2n,
+                st["version_mix"], smi)
+            auto.close()
+            router.close()
+            auto = router = None
+            out.update(_canary_runs(torch, kvs, kv, arts, refs, tmp,
+                                    near_ties))
+    finally:
+        faults.disarm()
+        if router is not None:
+            router.close()
+        if auto is not None:
+            auto.close()
+        kv.shutdown_server()
+        kv.close()
+    rows = monitor.read_jsonl(mlog)
+    evs = {r["ev"] for r in rows}
+    check({"scale_event", "drain", "roll", "verdict", "rollout"} <= evs,
+          "elastic: recorder rows %s", sorted(evs))
+    return out
+
+
+def _version_tokens(torch, refs, i, toks, what, near_ties):
+    """Request ``i``'s tokens must be v1's or v2's (a canary serves some
+    requests from the candidate): returns which, or fails unless they
+    part from v1's at a near-tie."""
+    reqs, v1ref, v2ref, model1, _ = refs
+    if toks == v1ref[i][0]:
+        return "v1"
+    if toks == v2ref[i][0]:
+        return "v2"
+    _same_or_near_tie(torch, model1, reqs[i], toks, v1ref[i][0],
+                      "%s request %d" % (what, i), near_ties)
+    return "v1"
+
+
+def _canary_runs(torch, kvs, kv, arts, refs, tmp, near_ties):
+    """(c)'s canary: a healthy v2 promoted on its verdicts, then (the
+    fleet back on v1) a v2 whose candidate stalls, aborted while v1
+    serves, with its forensic bundle checked by the monitor CLI."""
+    reqs, v1ref, _, model1, _ = refs
+    import threading
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.serving.autoscale import Autoscaler
+    from paddle_tpu_torch.serving.fleet import Router
+    from paddle_tpu_torch.serving.rollout import RolloutController
+    out = {}
+    for kind in ("healthy", "stalled"):
+        kw = dict(slots=FLEET_SLOTS, megastep=FLEET_MEGASTEP, ttl=0.6)
+        auto = Autoscaler(kvs.endpoint, arts["v1"], desired=2,
+                          min_replicas=1, max_replicas=5, interval=0.05,
+                          cooldown=0.0, drain_timeout=120.0,
+                          health_timeout=120.0, **kw).start()
+        router = ctl = None
+        try:
+            auto.wait_steady(timeout=120)
+            router = Router(kvs.endpoint, window=FLEET_SLOTS,
+                            max_queue=8 * FLEET_REQUESTS,
+                            stall_timeout=2.0, refresh_interval=0.05,
+                            client_timeout=1.5, name="canary-" + kind)
+            router.wait_for_replicas(2, timeout=60)
+            if kind == "stalled":
+                # the candidate wedges past the router's stall deadline:
+                # evicted, and with no respawn allowed the canary aborts
+                plan = faults.arm({"stall": [{"target": "candidate",
+                                              "after": 0,
+                                              "seconds": 30.0}]},
+                                  seed=FLEET_SEED)
+            ctl = RolloutController(
+                kvs.endpoint, router, auto, arts["v2"],
+                {"delta": CANARY_DELTA}, candidates=1,
+                shadow_fraction=1.0, canary_weight=0.3,
+                verdict_timeout=120.0 if kind == "healthy" else 10.0,
+                max_respawns=1 if kind == "healthy" else 0, capture=True,
+                capture_dir=os.path.join(tmp, "bundles-" + kind), **kw)
+            done = {}
+            th = threading.Thread(target=lambda: done.update(st=ctl.run()),
+                                  daemon=True)
+            t0 = time.perf_counter()
+            th.start()
+            i = 0
+            deadline = time.monotonic() + 300
+            while th.is_alive():
+                check(time.monotonic() < deadline, "canary %s: no end: %s",
+                      kind, ctl.status())
+                batch = [reqs[(i + j) % len(reqs)] for j in range(8)]
+                got = _serve_all(router, batch)
+                for j, (toks, _) in enumerate(got):
+                    _version_tokens(torch, refs, (i + j) % len(reqs), toks,
+                                    "canary " + kind, near_ties)
+                i += 8
+            th.join(timeout=120)
+            faults.disarm()
+            st = done.get("st") or ctl.status()
+            out["canary_%s_s" % kind] = time.perf_counter() - t0
+            if kind == "healthy":
+                check(st["phase"] == "promoted", "canary healthy: %s", st)
+                fst = auto.wait_steady(timeout=120)
+                check(not fst["version_mix"].get("v1"), "canary healthy: "
+                      "version mix %s", fst["version_mix"])
+                log("fleet (c) canary: healthy v2 promoted in %.3f s; "
+                    "verdicts %s", out["canary_healthy_s"],
+                    {p: v.get("verdict")
+                     for p, v in st["verdicts"].items()})
+                continue
+            check(("stall", "candidate") in plan.trips, "canary stalled: "
+                  "the stall never fired: %s", plan.trips)
+            check(st["phase"] in ("rolled-back", "aborted"),
+                  "canary stalled: %s", st)
+            fst = auto.wait_steady(timeout=120)
+            check(fst["version_mix"].get("v1") == 2
+                  and not fst["version_mix"].get("v2"),
+                  "canary stalled: version mix %s", fst["version_mix"])
+            got = _serve_all(router, reqs[:8])
+            _same_tokens(torch, model1, reqs[:8], got, v1ref[:8],
+                         "canary stalled, v1 after", near_ties)
+            bdir = os.path.join(tmp, "bundles-stalled")
+            bundles = sorted(d for d in os.listdir(bdir)
+                             if d.startswith("bundle-")) \
+                if os.path.isdir(bdir) else []
+            check(bundles, "canary stalled: no forensic bundle")
+            proc = subprocess.run(
+                [sys.executable, "-m", "paddle_tpu_torch.monitor",
+                 "bundle", os.path.join(bdir, bundles[-1])],
+                capture_output=True, text=True, timeout=300, cwd=ROOT)
+            check(proc.returncode == 0 and "manifest verified"
+                  in proc.stdout, "monitor bundle exited %d: %s %s",
+                  proc.returncode, proc.stdout[-2000:],
+                  proc.stderr[-2000:])
+            log("fleet (c) canary: stalled v2 %s in %.3f s, v1 serving; "
+                "bundle %s verified by the monitor CLI", st["phase"],
+                out["canary_stalled_s"], bundles[-1])
+        finally:
+            faults.disarm()
+            if ctl is not None:
+                ctl.close()
+            if router is not None:
+                router.close()
+            auto.close()
+    return out
+
+
+def _score_tables(seed, vocab, dim):
+    rng = np.random.RandomState(seed)
+    return {"fm_first_w": (rng.rand(vocab, 1) * 0.1).astype(np.float32),
+            "fm_second_w": (rng.rand(vocab, dim) * 0.1).astype(np.float32)}
+
+
+def _score_shard(shard, nshard, tables, vocab, lr=0.5):
+    from paddle_tpu_torch.distributed.rpc import VariableServer
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+    meta = {t: {"shard": shard, "num_shards": nshard, "height": vocab}
+            for t in tables}
+
+    def opt_fn(store, merged):
+        for g, val in merged.items():
+            t = g[:-5] if g.endswith("@GRAD") else g
+            if t in store and isinstance(val, SelectedRows):
+                store[t][np.asarray(val.rows) // nshard] -= \
+                    lr * np.asarray(val.value)
+    srv = VariableServer(fan_in=1, sparse_tables=meta, optimize_fn=opt_fn)
+    for t in tables:
+        srv.store[t] = np.asarray(tables[t])[shard::nshard].copy()
+    srv.start()
+    return srv, "127.0.0.1:%d" % srv.port
+
+
+def sparse_phase(torch, smi, tmp):
+    """(d) DeepFM F8 D16 V20k scoring (``build_scoring_net``) with both
+    FM tables on two row-sharded pservers, ``ScoringEngine`` with a
+    ``HotIDCache`` on the card behind the router: batches of 1,024
+    bitwise equal to the direct Executor at the same shape on the card,
+    the card's scores within 1e-6 of the CPU's, ``OnlineTrainer``
+    pushing while it serves with the measured staleness within its
+    bound, and a pserver killed mid-serve and recovered from its
+    checkpoint."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.distributed import membership as M
+    from paddle_tpu_torch.models import deepfm as dfm
+    from paddle_tpu_torch.serving import fleet
+    from paddle_tpu_torch.serving.sparse import (
+        HotIDCache, OnlineTrainer, ScoringEngine, SparseClient,
+        measure_staleness)
+    F, D, V = DFM["num_fields"], DFM["embed_dim"], DFM["vocab_size"]
+    nshard, bound = 2, 5.0
+    tables = _score_tables(21, V, D)
+    kvs = M.KVServer(sweep_interval=0.05).start()
+    kv = M.KVClient(kvs.endpoint)
+    servers, eps, leases = [], [], []
+    engines, router, cell, trainer = [], None, None, None
+    out = {}
+    mlog = os.path.join(tmp, "sparse.jsonl")
+    try:
+        for sh in range(nshard):
+            srv, ep = _score_shard(sh, nshard, tables, V)
+            servers.append(srv)
+            eps.append(ep)
+            leases.append(M.register_endpoint(kv, "ps", nshard, ep,
+                                              ttl=1.0)[1])
+        main, startup = fluid.Program(), fluid.Program()
+        startup.random_seed = 21
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            prob, _ = dfm.build_scoring_net(F, D, dnn_dims=SCORE_DNN)
+        scope = fluid.Scope()
+        fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=scope)
+        cpu_scope = fluid.Scope()
+        from paddle_tpu_torch.core.scope import load_numpy_state
+        from paddle_tpu_torch.core.executor import as_numpy
+        load_numpy_state(cpu_scope, {
+            v.name: as_numpy(scope.find_var(v.name))
+            for v in main.global_block().vars.values()
+            if v.persistable and scope.find_var(v.name) is not None},
+            "cpu")
+
+        def engine(name, place, sc, staleness=60.0):
+            cache = HotIDCache(capacity=65536, staleness_s=staleness)
+            c1 = SparseClient("fm_first_w", eps, kv=kv, cache=cache)
+            c2 = SparseClient("fm_second_w", eps, kv=kv, cache=cache)
+            feat = dfm.make_featurizer(c1, c2, F, D)
+            eng = ScoringEngine(main, sc, prob.name, feat,
+                                clients=[c1, c2], batch=SCORE_BATCH,
+                                name=name, place=place)
+            engines.append(eng)
+            return eng, feat
+        rng = np.random.RandomState(21)
+
+        def feats(n):
+            return [{"f%d" % f: [int(rng.randint(0, V))]
+                     for f in range(F)} for _ in range(n)]
+        batch = feats(SCORE_BATCH)
+        batch[1]["f0"] = [2, 5, 9]          # multi-hot, sum-pooled
+        del batch[2]["f1"]                  # an absent field pools to 0
+        card, feat = engine("card", fluid.CUDAPlace(0), scope)
+        cpu, _ = engine("cpu", fluid.CPUPlace(), cpu_scope)
+        t0 = time.perf_counter()
+        got = card.score_many(batch, timeout=300)
+        out["score_cold_ms"] = 1e3 * (time.perf_counter() - t0)
+        # the same batch again: every row a cache hit, the dispatch warm
+        t0 = time.perf_counter()
+        again = card.score_many(batch, timeout=300)
+        out["score_ms"] = 1e3 * (time.perf_counter() - t0)
+        check(again == got, "sparse: the warm batch scored differently")
+        # the direct Executor over the same featurized feed and shape
+        direct, = fluid.Executor(fluid.CUDAPlace(0)).run(
+            main, feed=feat(batch, SCORE_BATCH), fetch_list=[prob.name],
+            scope=scope)
+        direct = np.asarray(direct).reshape(-1)[:SCORE_BATCH]
+        check(np.array_equal(np.asarray(got, np.float32), direct),
+              "sparse: the scoring engine's batch of %d differs from the "
+              "direct Executor's at the same shape (largest %g)",
+              SCORE_BATCH, float(np.abs(np.asarray(got) - direct).max()))
+        on_cpu = cpu.score_many(batch, timeout=300)
+        err = float(np.abs(np.asarray(got) - np.asarray(on_cpu)).max())
+        check(err <= 1e-6, "sparse: card scores differ from the CPU's by "
+              "%g > 1e-6", err)
+        log("sparse (d): DeepFM F%d D%d V%d scoring, batch %d: card "
+            "bitwise equal to the direct Executor; card vs CPU largest "
+            "|difference| %.3g (limit 1e-6); %.3f ms for the batch "
+            "through the engine cold (rows from the pservers, the first "
+            "dispatch), %.3f ms warm (%s)", F, D, V, SCORE_BATCH, err,
+            out["score_cold_ms"], out["score_ms"], smi)
+        card.close()
+        cpu.close()
+
+        # routed, with online updates and a pserver killed mid-serve
+        with monitor.session(log_path=mlog):
+            eng, _ = engine("routed", fluid.CUDAPlace(0), scope,
+                            staleness=0.2)
+            cell = fleet.Replica(kv, None, desired=1, ttl=1.0,
+                                 role="scoring",
+                                 engine_factory=lambda name: eng)
+            router = fleet.Router(kvs.endpoint, role="scoring",
+                                  window=SCORE_BATCH,
+                                  max_queue=4 * SCORE_BATCH,
+                                  refresh_interval=0.05,
+                                  stall_timeout=30.0, name="scoring")
+            router.wait_for_replicas(1, timeout=60)
+            hot = rng.randint(0, V, 64)
+            trainer = OnlineTrainer(
+                "fm_second_w", eps, height=V, interval=0.03, kv=kv,
+                update_fn=lambda: (hot, rng.rand(len(hot), D)
+                                   .astype(np.float32) * 0.01))
+            trainer.start()
+            hs = []
+            ckpt = os.path.join(tmp, "shard0.ckpt")
+            for i in range(2 * SCORE_BATCH):
+                hs.append(router.submit(features=feats(1)[0]))
+                if i == SCORE_BATCH // 2:
+                    servers[0].checkpoint(ckpt)
+                    leases[0].revoke()
+                    servers[0].stop()
+                if i == SCORE_BATCH // 2 + SCORE_BATCH // 4:
+                    repl, new_ep = _score_shard(0, nshard, tables, V)
+                    check(repl.recover(ckpt) is not None,
+                          "sparse: the replacement shard recovered nothing")
+                    servers[0] = repl
+                    leases[0] = M.register_endpoint(kv, "ps", nshard,
+                                                    new_ep, ttl=1.0)[1]
+            res = [h.result(timeout=600) for h in hs]
+            rst = dict(router.stats)
+            check(len(res) == len(hs) and rst["failed"] == 0
+                  and rst["completed"] == rst["requests"] == len(hs),
+                  "sparse: router stats %s", rst)
+            check(all(np.isfinite(s) for _, s in res),
+                  "sparse: a routed score is not finite")
+            trainer.stop()
+            stale = measure_staleness(trainer, eng._clients[1],
+                                      probe_id=int(hot[0]), timeout=30.0)
+            check(stale < bound, "sparse: staleness %.3f s past %.1f s",
+                  stale, bound)
+            inval = eng._clients[0].cache.stats["invalidations"]
+            check(inval >= 1, "sparse: the respawned shard's incarnation "
+                  "invalidated nothing")
+        out["staleness_s"] = stale
+        log("sparse (d): %d routed requests exactly once across a pserver "
+            "kill and recovery, online updates landing; staleness %.3f s "
+            "(bound %.1f s); %d cache invalidations", len(hs), stale, bound,
+            inval)
+    finally:
+        if trainer is not None:
+            trainer.close()
+        if router is not None:
+            router.close()
+        if cell is not None:
+            cell.shutdown()
+        for eng in engines:
+            eng.close()
+            for c in eng._clients:
+                c.close()
+        for srv in servers:
+            srv.stop()
+        kv.shutdown_server()
+        kv.close()
+    return out
+
+
+def pexe_nan_phase(torch, smi, tmp):
+    """(e) ``ParallelExecutor`` at one rank on the card writes ``pexe``
+    recorder rows and ``pexe.step`` spans; the ``debug_nans`` flag
+    raises on a planted NaN on the card, naming the op."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import flags, monitor, parallel
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.trace import runtime as trt
+    main, startup, avg_cost, _ = _io_lm(fluid, T, adam=True)
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=scope)
+    mesh = parallel.make_mesh({"dp": 1}, "cuda")
+    pexe = fluid.ParallelExecutor(loss_name=avg_cost.name,
+                                  main_program=main, mesh=mesh,
+                                  scope=scope)
+    log_path = os.path.join(tmp, "pexe.jsonl")
+    spans = os.path.join(tmp, "pexe-spans.jsonl")
+    trt.enable(log_path=spans, sample_rate=1.0, proc="pexe")
+    try:
+        with monitor.session(log_path=log_path):
+            for i in range(3):
+                loss, = pexe.run([avg_cost], feed=T.make_lm_batch(
+                    np.random.RandomState(i), TRAIN_BATCH, MAX_LEN, VOCAB))
+                check(np.isfinite(float(np.asarray(loss))),
+                      "pexe: loss not finite")
+    finally:
+        trt.disable()
+    rows = [r for r in monitor.read_jsonl(log_path)
+            if r.get("executor") == "pexe"]
+    kinds = sorted({r["ev"] for r in rows})
+    nspan = sum(r["ev"] == "span" and r["name"] == "pexe.step"
+                for r in monitor.read_jsonl(spans))
+    check("compile" in kinds and "step" in kinds, "pexe: rows %s", kinds)
+    check(nspan == 3, "pexe: %d pexe.step spans for 3 steps", nspan)
+    # a planted NaN: log of a negative activation
+    nmain, nstart = fluid.Program(), fluid.Program()
+    with fluid.program_guard(nmain, nstart):
+        x = fluid.layers.data("x", [64])
+        h = fluid.layers.fc(x, 64)
+        loss = fluid.layers.mean(fluid.layers.log(h))
+        fluid.optimizer.SGD(0.1).minimize(loss)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    sc = fluid.Scope()
+    exe.run(nstart, scope=sc)
+    feed = {"x": np.random.RandomState(0).randn(32, 64).astype(np.float32)}
+    flags.set_flag("debug_nans", True)
+    try:
+        try:
+            exe.run(nmain, feed=feed, fetch_list=[loss], scope=sc)
+        except FloatingPointError as e:
+            msg = str(e)
+        else:
+            raise SmokeFailure("debug_nans: a NaN-making run did not raise")
+    finally:
+        flags.set_flag("debug_nans", None)
+    check("'log'" in msg, "debug_nans: the error names no log op: %s", msg)
+    log("fleet (e): ParallelExecutor at one rank wrote %d pexe rows (%s) "
+        "and %d pexe.step spans; debug_nans raised on the card: %s",
+        len(rows), kinds, nspan, msg)
+
+
+def fleet_serving_phase(torch, smi):
+    """Phase 21."""
+    import tempfile
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.serving import model_from_artifact, \
+        sequential_generate
+    t0 = time.perf_counter()
+    work = os.path.join(ROOT, "build", "paddle_tpu_torch")
+    os.makedirs(work, exist_ok=True)
+    near_ties = []
+    times = {}
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        arts = _fleet_artifacts(torch, fluid, T, tmp)
+        tel = telemetry_phase(torch, smi, arts, tmp)
+        t1 = time.perf_counter()
+        reqs = _fleet_requests(np.random.default_rng(21))
+        v1ref = _fleet_reference(torch, arts["v1"], reqs)
+        model1 = model_from_artifact(arts["v1"])
+        seq = sequential_generate(model1, reqs[:4])
+        for i, ((a, _), (b, _)) in enumerate(zip(v1ref[:4], seq)):
+            _same_or_near_tie(torch, model1, reqs[i], a, b,
+                              "fleet reference request %d vs "
+                              "sequential_generate" % i, near_ties)
+        times.update(fleet_phase(torch, smi, arts, tmp,
+                                 (reqs, v1ref, model1), near_ties))
+        t2 = time.perf_counter()
+        ereqs = reqs[:48]
+        v2ref = _fleet_reference(torch, arts["v2"], ereqs)
+        model2 = model_from_artifact(arts["v2"])
+        times.update(elastic_phase(torch, smi, arts, tmp,
+                                   (ereqs, v1ref[:48], v2ref, model1,
+                                    model2), near_ties))
+        t3 = time.perf_counter()
+        times.update(sparse_phase(torch, smi, tmp))
+        t4 = time.perf_counter()
+        pexe_nan_phase(torch, smi, tmp)
+    t5 = time.perf_counter()
+    launches = tel.pop("launches") + times.pop("launches")
+    log("fleet: phase 21 took %.1f s ((a) %.1f, (b) %.1f, (c) %.1f, (d) "
+        "%.1f, (e) %.1f); near-ties %d; %s (%s)", t5 - t0, t1 - t0,
+        t2 - t1, t3 - t2, t4 - t3, t5 - t4, len(near_ties),
+        json.dumps({k: round(v, 4) for k, v in dict(tel, **times).items()}),
+        smi)
+    return launches
+
+
 def _report_profile(prof, wall, title, focus=None):
     """Device busy share of ``wall`` and the top kernels; with ``focus``,
     also the share of the kernels whose names hold it. Returns (busy
@@ -8649,6 +9714,7 @@ def main():
         front = frontend_phase(torch, smi)
         par = parallel_phase(torch, smi)
         ps = pserver_phase(torch, smi)
+        fleet_launches = fleet_serving_phase(torch, smi)
     except SmokeFailure as e:
         print("chip_smoke: FAILED: %s" % e, file=sys.stderr)
         return 1
@@ -8661,8 +9727,9 @@ def main():
         "source": "paddle_tpu_torch/ops/csrc/paged_attention.cu",
         "replaces": "paddle_tpu/ops/paged_attention.py:185",
         "launches": (launches + serve_launches + spec_launches
-                     + io_launches["paged_attention"]),
+                     + io_launches["paged_attention"] + fleet_launches),
         "graph_launches": serve_launches, "spec_launches": spec_launches,
+        "fleet_launches": fleet_launches,
         "io_launches": io_launches["paged_attention"],
         "max_abs_err": max(max_err, spec_err),
         "scoring_shape": dict(spec_times, launches=scoring_launches)},

@@ -65,7 +65,13 @@ Ported so far:
     ``membership``, ``master``), ``monitor`` (metrics, the flight
     recorder, the watchdog and the executor hooks), ``trace`` (spans
     across processes, merged into one timeline) and ``resilience``
-    (seeded fault plans, the retry policy and ``resilient_loop``).
+    (seeded fault plans, the retry policy and ``resilient_loop``);
+  * the serving fleet and its monitoring plane: the engine's telemetry,
+    ``serving.fleet`` (the exactly-once router over replicas),
+    ``serving.autoscale``, ``serving.rollout``, ``serving.sparse`` (the
+    CTR scoring engine over the pserver tables), ``monitor.collector``,
+    ``signals``, ``watch``, ``forensics``, ``goodput`` and its
+    ``python -m`` CLI, ``slo`` and ``perfgate``.
 
 Used as ``import paddle_tpu_torch as fluid``, as scripts use
 ``paddle_tpu``.
@@ -119,6 +125,10 @@ from . import trace  # noqa: F401
 # PADDLE_TPU_TRACE[=rate] arms cross-process tracing (span logs merged
 # by `python -m paddle_tpu_torch.trace merge`)
 trace.maybe_enable_from_flags()
+from . import serving  # noqa: F401
+# PADDLE_TPU_TELEMETRY=1 arms the scrape-only fleet-telemetry endpoint
+from .monitor import collector as _collector  # noqa: E402
+_collector.maybe_arm_from_flags()
 from .distributed import DistributeTranspiler  # noqa: F401
 
 # `import paddle_tpu_torch as paddle; paddle.fluid...` and `import

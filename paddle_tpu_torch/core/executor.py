@@ -49,7 +49,14 @@ NaN/Inf guard, its minimum and maximum on the device (``_Guards``), and
 every float fetch one more; a step turns them into one bool tensor,
 read with one device-to-host copy a ``run()`` or a ``run_steps``
 dispatch, and the first failing op in program order is named with the
-JAX package's error text. Under the profiler (``profiler.py``) a run is
+JAX package's error text. With the ``debug_nans`` flag on (the JAX
+package's ``jax_debug_nans``), every float output of every op is
+checked for NaN as the op makes it, and every gradient an op's backward
+hands its inputs likewise (``_NanTag``), so the first op that makes a
+NaN, forward or backward, raises ``FloatingPointError`` naming it; each
+check reads the device, and ``run_steps`` then runs K plain ``run``
+calls with no capture, as the JAX flag de-optimises its programs too.
+Under the profiler (``profiler.py``) a run is
 one ``exe.run(compiled)`` event, a ``run_steps`` dispatch one
 ``exe.run_steps(compiled)`` event, each op one ``op:<type>`` event (and,
 under a device trace, one ``record_function("<type>.<seq>")`` range);
@@ -612,6 +619,16 @@ class Executor:
         steps that make new persistables (startup programs: ``run()``
         those)."""
         feeds, k = self._check_run_steps_args(feeds, k)
+        if flags.get_flag("debug_nans"):
+            # every op reads the device to check its outputs: K plain
+            # runs, no capture
+            if isinstance(feeds, dict):
+                feeds = [{n: v[i] for n, v in feeds.items()}
+                         for i in range(k)]
+            return [self.run(program, feed=f, fetch_list=fetch_list,
+                             scope=scope, return_numpy=return_numpy,
+                             use_program_cache=use_program_cache)
+                    for f in feeds]
         trc = _trace._TRACER
         if trc is None:
             return self._run_steps_impl(program, feeds, fetch_list, scope,
@@ -814,6 +831,7 @@ class Executor:
                                         seed_fn=seed, rng_keys=rng_keys,
                                         static_info=dict(static_info),
                                         guards=guards)
+            ctx.debug_nans = bool(flags.get_flag("debug_nans"))
             # the send-tag round of a program that talks to pservers
             ctx.run_seq, ctx.incarnation = round_ or (None,
                                                       self._incarnation)
@@ -1326,10 +1344,59 @@ def _lower_op(ctx, op):
     if op.type in ("feed", "fetch"):
         _lower_feed_fetch(ctx, op)
         return
-    with _prof.op_event(ctx, op):
-        _lower_op_body(ctx, op)
+    if ctx.debug_nans:
+        _lower_op_debug_nans(ctx, op)
+    else:
+        with _prof.op_event(ctx, op):
+            _lower_op_body(ctx, op)
     if ctx.guards is not None:
         ctx.guards.record(op, ctx.env)
+
+
+class _NanTag(torch.autograd.Function):
+    """Identity on an op's input whose backward checks the gradient the
+    op's backward handed it (flag ``debug_nans``)."""
+
+    @staticmethod
+    def forward(ctx, x, op_type):
+        ctx.op_type = op_type
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if g is not None and bool(torch.isnan(g).any()):
+            raise FloatingPointError(
+                "invalid value (nan) encountered in the backward of op %r "
+                "(PADDLE_TPU_DEBUG_NANS)" % ctx.op_type)
+        return g, None
+
+
+def _lower_op_debug_nans(ctx, op):
+    """One op under the ``debug_nans`` flag: its float inputs that carry
+    gradients are tagged (``_NanTag``) for the lowering alone, and each
+    float output is checked for NaN once it is made."""
+    tagged = {}
+    if torch.is_grad_enabled():
+        for n in set(op.input_names):
+            t = ctx.env.get(n)
+            if isinstance(t, torch.Tensor) and t.requires_grad \
+                    and t.is_floating_point():
+                tagged[n] = (t, _NanTag.apply(t, op.type))
+                ctx.env[n] = tagged[n][1]
+    try:
+        with _prof.op_event(ctx, op):
+            _lower_op_body(ctx, op)
+    finally:
+        for n, (t, tag) in tagged.items():
+            if ctx.env.get(n) is tag:      # not an output of the op
+                ctx.env[n] = t
+    for n in op.output_names:
+        t = ctx.env.get(n)
+        if isinstance(t, torch.Tensor) and t.is_floating_point() \
+                and bool(torch.isnan(t.detach()).any()):
+            raise FloatingPointError(
+                "invalid value (nan) encountered in output %r of op %r "
+                "(PADDLE_TPU_DEBUG_NANS)" % (n, op.type))
 
 
 def _lower_op_body(ctx, op):

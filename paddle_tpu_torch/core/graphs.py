@@ -20,10 +20,13 @@ capture records a launch instead of running one. ``StepGraph`` takes the
 launches a capture recorded back out of the counts and adds them at every
 replay, so the counts stay the number of launches that ran on the card.
 
-A capture holds ``capture_lock`` from its start to its end. Work that
-enqueues on the card from another thread (``reader.DeviceLoader``'s
-staging thread) holds it too, so none of its allocations, copies or
-waits can fall inside a capture.
+A capture holds ``capture_lock`` from its start to its end, and runs in
+the thread-local capture mode: a call that cannot be captured raises in
+the capturing thread only. Work that enqueues on the card from another
+thread holds the lock too (``reader.DeviceLoader``'s staging thread, and
+each ``serving.Engine``'s iteration, so the cells of a fleet share one
+card), so none of its launches, allocations, copies or waits can fall
+inside a capture or its launch count.
 """
 
 import threading
@@ -34,6 +37,19 @@ __all__ = ["StepGraph", "launch_counts", "capture_lock"]
 
 # held by every capture, and by other threads' device work meanwhile
 capture_lock = threading.RLock()
+
+# one side stream a device for every capture's warm-up and capture: a
+# stream of its own per graph would leave cuBLAS a workspace per stream
+# (kept for the process), and the captures are serialized by the lock
+_STREAMS = {}
+
+
+def _capture_stream(dev):
+    with capture_lock:
+        s = _STREAMS.get(dev)
+        if s is None:
+            s = _STREAMS[dev] = torch.cuda.Stream(dev)
+        return s
 
 
 def _kernel_modules():
@@ -87,23 +103,23 @@ class StepGraph:
         self._keep = ()
 
     def capture(self, warmup, body):
-        """Run ``warmup()`` eagerly on a fresh side stream, then capture
-        ``body()`` on the same stream. The paged-attention scratch the
+        """Run ``warmup()`` eagerly on the device's capture side stream,
+        then capture ``body()`` on the same stream. The paged-attention scratch the
         warm-up made is dropped, so the capture allocates its own in the
         graph's pool (its arrival counters zero-filled at every replay's
         start); the graph keeps it, and its stream, alive."""
         pa = _kernel_modules()[2]
         dev = self.device
-        stream = torch.cuda.Stream(dev)
+        stream = _capture_stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
             warmup()
         torch.cuda.synchronize(dev)
         pa.take_workspace(dev, stream.cuda_stream)
-        before = launch_counts()
         graph = torch.cuda.CUDAGraph()
         with capture_lock, torch.cuda.stream(stream):
-            graph.capture_begin()
+            before = launch_counts()
+            graph.capture_begin(capture_error_mode="thread_local")
             try:
                 body()
                 graph.capture_end()
@@ -117,10 +133,10 @@ class StepGraph:
                 raise RuntimeError(
                     "CUDA graph capture of %s failed (no eager fallback): "
                     "%s: %s" % (self.what, type(e).__name__, e)) from e
-        after = launch_counts()
-        self.launches = {k: after[k] - before[k] for k in after
-                         if after[k] != before[k]}
-        _add_launches({k: -n for k, n in self.launches.items()})
+            after = launch_counts()
+            self.launches = {k: after[k] - before[k] for k in after
+                             if after[k] != before[k]}
+            _add_launches({k: -n for k, n in self.launches.items()})
         self._graph = graph
         self._keep = (stream, pa.take_workspace(dev, stream.cuda_stream))
 

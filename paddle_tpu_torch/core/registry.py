@@ -107,8 +107,12 @@ class LowerContext:
     the collectives (``parallel/collective.py``) read it. ``static_info`` is the
     run's static table, host values the feeds fix for the whole run:
     ``<name>@MAXLEN``, the bound of a LoD value's sequence lengths,
-    which the RNN scans loop to.
+    which the RNN scans loop to. ``debug_nans`` (the flag's value for
+    the run) makes every op check its outputs, and its backward the
+    gradients it hands its inputs, for NaN.
     """
+
+    debug_nans = False
 
     def __init__(self, env, device, is_test=False, executor=None,
                  block=None, mesh=None, fetch_names=(), read_names=None,
@@ -181,11 +185,13 @@ class LowerContext:
         guards (a recompute region and the checkpointed forward, as the
         JAX package guards them); other sub-blocks (loops, branches) are
         guarded through the op that holds them."""
-        return LowerContext(env, self.device,
-                            is_test=self.is_test, executor=self.executor,
-                            block=block, mesh=self.mesh,
-                            fetch_names=self.fetch_names,
-                            read_names=self._read_names,
-                            seed_fn=self._seed_fn, rng_keys=self.rng_keys,
-                            static_info=self.static_info,
-                            guards=self.guards if guarded else None)
+        sub = LowerContext(env, self.device,
+                           is_test=self.is_test, executor=self.executor,
+                           block=block, mesh=self.mesh,
+                           fetch_names=self.fetch_names,
+                           read_names=self._read_names,
+                           seed_fn=self._seed_fn, rng_keys=self.rng_keys,
+                           static_info=self.static_info,
+                           guards=self.guards if guarded else None)
+        sub.debug_nans = self.debug_nans
+        return sub

@@ -9,11 +9,15 @@ port's engine reads, ``fuse_conv_bn`` (the conv lowering's),
 ``megastep_inflight`` (``Executor.run_steps``'s), ``lod_bucketing``
 (the LoD feeds'), ``data_home`` (``dataset.common``'s),
 ``check_nan_inf`` (the Executor's NaN/Inf guards), ``profile_memory``
-(the profiler's), the runtime tiers' ``monitor*``, ``faults*``,
-``trace*`` and ``rpc_retry*`` (under the JAX package's names and
-defaults), and the Executor switch of the feature not ported yet
-(``transform``), so that setting it fails loudly instead of being
-ignored.
+(the profiler's), ``debug_nans`` (the Executor's NaN localization),
+the runtime tiers' ``monitor*``, ``faults*``, ``trace*``,
+``rpc_retry*``, ``telemetry*``, ``slo_spec``, ``signals_spec`` and
+``forensics_dir``, the fleet tier's ``serving_fleet_*``,
+``serving_mirror_fraction``, ``serving_canary_weight`` and the sparse
+scoring tier's ``serving_sparse_*`` / ``serving_scoring_batch`` (under
+the JAX package's names and defaults), and the Executor switch of the
+feature not ported yet (``transform``), so that setting it fails
+loudly instead of being ignored.
 """
 
 import os
@@ -231,6 +235,75 @@ _register("rpc_retry_deadline", float, 6.0,
           "expiry + checkpoint recovery), after which the error "
           "propagates. The backoff schedule fills the whole budget "
           "(attempts are not the limiter)")
+
+
+_register("debug_nans", bool, False,
+          "NaN localization (the JAX package's jax_debug_nans): every "
+          "float op output of Executor.run is checked as it is made, "
+          "and the backward runs under torch.autograd.detect_anomaly, "
+          "so the first op that makes a NaN raises FloatingPointError "
+          "naming it. Reads the device after every op: run_steps then "
+          "runs K plain run() calls with no capture")
+_register("forensics_dir", str, "",
+          "directory monitor.forensics writes incident bundles into "
+          "(black-box DUMP captures assembled into a CRC-manifested "
+          "bundle when a signals incident OPENs). Empty = "
+          "forensics_bundles under the cwd")
+_register("serving_fleet_window", int, 8,
+          "serving.fleet Router per-replica in-flight window "
+          "(backpressure): at most this many journaled requests are "
+          "dispatched to one replica at a time; the rest queue "
+          "router-side")
+_register("serving_fleet_queue", int, 64,
+          "serving.fleet Router global queue bound (load shedding): "
+          "once this many requests await dispatch, submit() fast-fails "
+          "with the typed Overloaded error, counted against the SLO "
+          "error budget")
+_register("serving_sparse_staleness_s", float, 5.0,
+          "serving.sparse hot-ID cache bounded-staleness window "
+          "(seconds): a cached embedding row older than this "
+          "re-fetches from its pserver shard on next touch")
+_register("serving_sparse_cache_rows", int, 65536,
+          "serving.sparse hot-ID cache capacity in ROWS (LRU): the "
+          "per-process bound on cached embedding rows across tables")
+_register("serving_scoring_batch", int, 8,
+          "serving.sparse ScoringEngine batch capacity: requests "
+          "scored per dispatch (short batches pad to this shape)")
+_register("serving_mirror_fraction", float, 0.25,
+          "serving.fleet shadow mirroring: deterministic fraction of "
+          "accepted decode requests duplicated to CANDIDATE replicas "
+          "while a shadow mirror is armed (scored against the "
+          "incumbent's result, never served)")
+_register("serving_canary_weight", float, 0.1,
+          "serving.fleet canary split: deterministic fraction of "
+          "accepted requests served by candidate replicas while a "
+          "canary is armed")
+_register("serving_fleet_stall_timeout", float, 2.0,
+          "serving.fleet Router response-deadline watchdog: a replica "
+          "that answers no verb for this long is evicted from "
+          "dispatch, its registry slot tombstoned for the supervisor, "
+          "and its unfinished requests re-submitted to a survivor")
+_register("telemetry", bool, False,
+          "arm the scrape-only monitor.collector.TelemetryServer at "
+          "import: the process becomes METR/HLTH scrapeable by a fleet "
+          "collector")
+_register("telemetry_port", int, 0,
+          "TelemetryServer listen port (0 = ephemeral)")
+_register("telemetry_kv", str, "",
+          "membership KV endpoint (host:port) the armed "
+          "TelemetryServer registers its endpoint with (role "
+          "'telemetry', TTL lease); empty = serve unregistered")
+_register("telemetry_slots", int, 16,
+          "how many 'telemetry' role slots the lease registry offers")
+_register("signals_spec", str, "",
+          "default SLO/signals spec JSON for python -m "
+          "paddle_tpu_torch.monitor alerts. Empty = fall back to "
+          "slo_spec, then defaults-only rules")
+_register("slo_spec", str, "",
+          "default SLO spec JSON path: python -m paddle_tpu_torch.slo "
+          "uses it when no spec argument is given, and python -m "
+          "paddle_tpu_torch.monitor watch renders a live verdict line "
+          "against it")
 
 
 def get_flag(name):

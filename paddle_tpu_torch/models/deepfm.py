@@ -10,9 +10,9 @@ changes nothing on one device. ``is_distributed=True`` marks both FM
 tables for ``DistributeTranspiler``: in pserver mode each table is
 row-sharded over the pservers, the trainer's lookups become
 ``prefetch`` ops and the rows' gradients go back as SelectedRows
-(``send_sparse``). The ``serving.sparse`` ScoringEngine that
-``make_featurizer`` feeds waits for ROADMAP.md queue 1 item 10(b);
-``make_featurizer`` is host numpy and runs as it is.
+(``send_sparse``). ``make_featurizer`` (host numpy) feeds the
+``serving.sparse`` ScoringEngine, which scores ``build_scoring_net``
+over the pserver tables.
 """
 
 from .. import layers, optimizer

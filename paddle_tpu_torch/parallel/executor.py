@@ -43,7 +43,15 @@ capturing NCCL's is left out (it needs more than one card to try).
 
 ``use_bf16_compute=True`` raises: mixed precision is ROADMAP.md queue 1
 item 11.
+
+The monitor and the tracer see it as the JAX package's: each ``run`` is a
+``pexe.step`` root span (``run_steps`` one with ``k``), and with the
+monitor armed a new step key is an ``on_compile(executor="pexe")`` (its
+``compile`` row carries the mesh's device count), a known one a cache
+hit, and each step an ``on_step(executor="pexe")`` row.
 """
+
+import time
 
 import numpy as np
 import torch
@@ -57,6 +65,8 @@ from ..core.scope import global_scope, to_tensor
 from .mesh import (default_mesh, make_mesh, set_default_mesh,
                    spec_to_placements)
 from .. import flags
+from ..monitor import runtime as _mon
+from ..trace import runtime as _trace
 
 _TOK = "@ACCUM_TOKENS"
 
@@ -220,6 +230,16 @@ class ParallelExecutor:
         return _distribute(self.mesh, t, pl)
 
     def run(self, fetch_list, feed=None, feed_dict=None, return_numpy=True):
+        trc = _trace._TRACER
+        if trc is None:
+            return self._run_impl(fetch_list, feed, feed_dict,
+                                  return_numpy)
+        # the distributed-trace root span of the step
+        with trc.span("pexe.step"):
+            return self._run_impl(fetch_list, feed, feed_dict,
+                                  return_numpy)
+
+    def _run_impl(self, fetch_list, feed, feed_dict, return_numpy):
         feed = dict(feed or feed_dict or {})
         program = self._program
         scope = self._scope
@@ -262,11 +282,21 @@ class ParallelExecutor:
             v = scope.find_var(n)
             if v is not None:
                 state[n] = self._state_tensor(n, v)
+        check_nan = bool(flags.get_flag("check_nan_inf"))
+        mon_on = _mon.enabled()
+        t_build = time.perf_counter() if mon_on else 0.0
         step = exe._build(program, tuple(sorted(feeds)), fetch_names,
                           tuple(sorted(state)), static_info,
-                          check_nan=bool(flags.get_flag("check_nan_inf")),
-                          accum_steps=k_acc,
+                          check_nan=check_nan, accum_steps=k_acc,
                           accum_loss_norm=self._accum_loss_norm)
+        key = None
+        if mon_on:
+            key = self._monitor_build(program, arrays, feeds, fetch_names,
+                                      state, static_info, check_nan,
+                                      time.perf_counter() - t_build)
+            t0 = time.perf_counter()
+            timer = _mon.step_timer(self)
+            do_sync = timer.begin(t0)
         seed = exe._seed(program, exe._rng_counter)
         exe._rng_counter += 1
         seed_t = []
@@ -280,6 +310,8 @@ class ParallelExecutor:
         with _tf32_off():
             fetches, new_state, fetch_lods, guards = step(state, feeds,
                                                           seed_fn)
+        if mon_on:
+            exe._monitor_step(key, arrays, timer, t0, do_sync, "pexe")
         for n, v in new_state.items():
             scope.set(n, v)
         fetches = [_global(v) for v in fetches]
@@ -291,6 +323,29 @@ class ParallelExecutor:
         if return_numpy:
             return [as_numpy(v) for v in fetches]
         return list(fetches)
+
+    def _monitor_build(self, program, arrays, feeds, fetch_names, state,
+                       static_info, check_nan, dt):
+        """The monitor's compile hooks for one ``run()``: a new step key
+        is an ``on_compile(executor="pexe")`` over the mesh's devices
+        (its build time an ``on_compile_phase("plan_build")``), a known
+        one a cache hit. Returns the key."""
+        feed_sig = tuple(sorted((n, tuple(v.shape), str(v.dtype))
+                                for n, v in feeds.items()))
+        key = (program, program._version, feed_sig, fetch_names,
+               tuple(sorted(state)), check_nan, self._accum_steps,
+               bool(flags.get_flag("fuse_conv_bn")),
+               tuple(sorted(static_info.items())))
+        keys = self.__dict__.setdefault("_step_keys", set())
+        if key in keys:
+            _mon.on_cache_hit()
+        else:
+            keys.add(key)
+            _mon.on_compile(program, key, feed_sig, executor="pexe",
+                            tokens=_mon.tokens_in_feeds(arrays),
+                            devices=self.mesh.size)
+            _mon.on_compile_phase("plan_build", dt)
+        return key
 
     @staticmethod
     def _split_microbatches(arrays, lod_keys, static_info, k):
@@ -326,6 +381,13 @@ class ParallelExecutor:
         several ranks they run as K ``run`` calls (module docstring).
         Returns K per-step fetch lists."""
         feeds, k = Executor._check_run_steps_args(feeds, k)
+        trc = _trace._TRACER
+        if trc is None:
+            return self._run_steps_impl(fetch_list, feeds, return_numpy, k)
+        with trc.span("pexe.step", k=k):
+            return self._run_steps_impl(fetch_list, feeds, return_numpy, k)
+
+    def _run_steps_impl(self, fetch_list, feeds, return_numpy, k):
         if self._accum_steps > 1:
             raise ValueError(
                 "run_steps does not compose with gradient_"

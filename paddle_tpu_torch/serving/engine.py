@@ -33,8 +33,18 @@ and speculative decode:
   * ``Engine(<artifact dir>)`` boots the model from a
     ``save_lm_artifact`` directory (``serving/artifact.py``).
 
-Not ported yet, and refused naming ROADMAP.md when asked for: the
-telemetry (flag ``monitor``, ``NotImplementedError``).
+Every engine iteration is instrumented as the JAX package's is:
+monitor gauges and counters (``ptpu_serving_*``), a ``serving_step``
+flight-recorder row carrying the active trace id, and an
+``engine.step`` trace span. Every request is too: lifecycle stamps on
+the ``Request`` handle, a ``serving_request`` recorder row and the
+``ptpu_serving_{ttft,tpot,queue_wait}_seconds`` histograms at
+retirement, and a ``serving.request`` trace span (child spans per
+prefill chunk, a first-token mark, step-span links). The hooks read
+only host state the scheduler already holds (the dispatch's one fetch
+included): telemetry adds no device sync and nothing inside a
+megastep capture. ``shadow`` and ``version`` (set by the fleet tier)
+stamp every row; ``on_retire`` is the fleet's retirement callback.
 
 Every piece of device state lives in one dict of tensors
 (``self._state``) that the scheduler thread updates in place, so a
@@ -53,7 +63,9 @@ import torch
 
 from .. import flags, resolve_device
 from ..core import graphs as _graphs
+from ..monitor import runtime as _monrt
 from ..ops import paged_attention as _paged_ops
+from ..trace import runtime as _trc
 from . import artifact as _artifact
 from . import kvpool as _kvpool
 from . import sampling as _sampling
@@ -62,8 +74,21 @@ from .sampling import SamplingParams
 
 __all__ = ["Engine", "Request", "sequential_generate"]
 
-_NOT_PORTED = ("is not ported yet (see ROADMAP.md, queue 1 items 6 and "
-               "10(b): the engine's telemetry hooks are still to port)")
+
+def _flag(name, default):
+    """A registered flag's value, or ``default`` for a name this
+    package does not register."""
+    try:
+        return flags.get_flag(name)
+    except KeyError:
+        return default
+
+
+def _paged_launches():
+    """The paged-attention kernel's launch count (0 when its entry point
+    is wrapped by something that keeps no count)."""
+    return getattr(_paged_ops.paged_attention, "launches", 0)
+
 
 # the per-slot sampling state a greedy request activates with
 _GREEDY = SamplingParams()
@@ -78,12 +103,14 @@ class Request:
     the sum of token log-probs. ``sampling`` is None for a greedy
     request. The engine stamps ``t_enqueue``/``t_admit``/
     ``t_first_token``/``t_retire`` (``time.perf_counter``) before
-    resolving it."""
+    resolving it. ``request_id`` (the fleet router's durable id) rides
+    the request's ``serving.request`` span as ``rid``, so a request
+    re-executed on a second replica joins up in ``trace merge``."""
 
     __slots__ = ("prompt", "max_new", "tokens", "score", "_event",
                  "_error", "t_enqueue", "t_admit", "t_first_token",
-                 "t_retire", "prefill_chunks", "rid", "preemptions",
-                 "_seq", "sampling")
+                 "t_retire", "prefill_chunks", "_span", "rid",
+                 "preemptions", "_seq", "sampling")
 
     def __init__(self, prompt, max_new, request_id=None, sampling=None):
         self.prompt = [int(t) for t in prompt]
@@ -103,6 +130,12 @@ class Request:
         self.t_first_token = None
         self.t_retire = None
         self.prefill_chunks = 0
+        attrs = {"prompt_len": len(self.prompt),
+                 "max_new": self.max_new}
+        if request_id is not None:
+            attrs["rid"] = str(request_id)
+        self._span = _trc.detached_span("serving.request", **attrs)
+        self._span.start()
 
     @property
     def queue_wait(self):
@@ -193,11 +226,10 @@ class Engine:
                  spec_drafter=None, spec_layers=None):
         if slots < 1:
             raise ValueError("slots must be >= 1, got %r" % (slots,))
-        if flags.get_flag("monitor"):
-            raise NotImplementedError("serving telemetry (flag monitor) %s"
-                                      % _NOT_PORTED)
         dev = resolve_device(device)
-        if _artifact.is_artifact_path(model):
+        # a model the engine booted is the engine's own: close frees it
+        self._own_model = _artifact.is_artifact_path(model)
+        if self._own_model:
             # serving cold start: the artifact directory in place of a
             # live model object
             model = _artifact.model_from_artifact(model, device=dev)
@@ -215,6 +247,16 @@ class Engine:
         self.device = mdev
         self.slots = int(slots)
         self.name = name
+        # the canary plane (serving.fleet, serving.rollout): ``shadow``
+        # marks every row and metric as mirrored traffic, scored and
+        # never served; ``version`` stamps the artifact version on the
+        # serving_request rows
+        self.shadow = False
+        self.version = None
+        # the fleet's retirement callback: called with each retired or
+        # failed request after its future resolves
+        self.on_retire = None
+        self._preempted_iter = 0
         self._chunk = int(prefill_chunk if prefill_chunk is not None
                           else flags.get_flag("serving_prefill_chunk"))
         self._chunk = max(1, min(self._chunk, model.max_len))
@@ -269,7 +311,10 @@ class Engine:
         # decode_steps counts the steps whose emits were consumed (a
         # scoring dispatch is one); decode_steps_run the plain steps the
         # device ran (a megastep that drains early runs more than it
-        # consumes); spec_draft_steps the truncated drafter's steps
+        # consumes); spec_draft_steps the truncated drafter's steps;
+        # paged_launches the attention kernel's launches this engine's
+        # iterations made (a card's cells run their device work under
+        # capture_lock, so each cell's count is its own)
         self.stats = {"steps": 0, "decode_steps": 0, "decode_steps_run": 0,
                       "tokens": 0, "admissions": 0, "retirements": 0,
                       "active_slot_steps": 0, "prefill_chunks": 0,
@@ -280,7 +325,8 @@ class Engine:
                       "megastep_dispatches": 0, "graph_captures": 0,
                       "graph_replays": 0, "spec_dispatches": 0,
                       "spec_drafted": 0, "spec_accepted": 0,
-                      "spec_emitted": 0, "spec_draft_steps": 0}
+                      "spec_emitted": 0, "spec_draft_steps": 0,
+                      "paged_launches": 0}
         self._ready = threading.Event()
         self._thread = threading.Thread(
             target=self._loop, daemon=True, name="ptt-" + name)
@@ -376,7 +422,8 @@ class Engine:
         step, capturing its graph too. Call before submitting
         requests."""
         self._ready.wait()
-        with self._cv:
+        # capture_lock before the condition, the loop thread's order
+        with _graphs.capture_lock, self._cv:
             if self._queue or any(r is not None for r in self._recs):
                 raise RuntimeError(
                     "warmup() must run before traffic is submitted")
@@ -405,6 +452,13 @@ class Engine:
         """Enqueue one request; returns its Request handle. ``prompt``
         is the token-id prefix (>= 1 token). ``sampling``: None (greedy)
         or a ``SamplingParams`` (or its dict form)."""
+        with self._cv:
+            if self._stop:
+                if self._error is not None:
+                    raise RuntimeError(
+                        "engine is closed (loop died: %r)"
+                        % (self._error,))
+                raise RuntimeError("engine is closed")
         prompt = [int(t) for t in (prompt or [self.model.bos_id])]
         max_new = int(max_new_tokens)
         if max_new < 1:
@@ -452,7 +506,11 @@ class Engine:
 
     def close(self):
         """Stop the engine loop. Requests still queued or in flight are
-        failed (their ``result()`` raises)."""
+        failed (their ``result()`` raises). The engine's device state
+        goes with it: its CUDA graphs (their pools and the paged
+        kernel's split workspace they hold), the KV pool, the decode
+        buffers and a model it booted from an artifact, so a fleet that
+        respawns cells does not grow."""
         with self._cv:
             already = self._stop
             self._stop = True
@@ -461,6 +519,13 @@ class Engine:
             return
         self._thread.join()
         self._fail_all(RuntimeError("engine closed"))
+        with _graphs.capture_lock:
+            self._graphs = {False: None, True: None}
+            self._state = {}
+            self._btab = self._mega_out = None
+            self._spec_in = self._spec_out = None
+            if self._own_model:
+                self.model = None
 
     def __enter__(self):
         return self
@@ -731,6 +796,7 @@ class Engine:
                 freed = self._prefix.evict(1)
                 if freed:
                     self.stats["prefix_evictions"] += freed
+                    _monrt.on_prefix_evictions(freed)
                     continue
             if not preempt:
                 return None
@@ -767,7 +833,9 @@ class Engine:
         del req.tokens[:]
         req.score = None
         req.preemptions += 1
+        req._span.annotate(preemptions=req.preemptions)
         self.stats["preemptions"] += 1
+        self._preempted_iter += 1
         with self._cv:
             self._queue.appendleft(req)
 
@@ -849,23 +917,136 @@ class Engine:
     def _step_once(self):
         """One engine iteration = admissions + one prefill chunk per
         prefilling slot + one decode dispatch over the active batch (K
-        steps when ``_choose_k`` allows it, else one)."""
+        steps when ``_choose_k`` allows it, else one), inside an
+        ``engine.step`` span, closed by the ``serving_step`` row and the
+        retired requests' ``serving_request`` rows."""
         finished = ()
+        self._preempted_iter = 0
         try:
-            admitted = self._admit()
-            self._advance_prefills()
-            finished = self._decode(self._choose_k())
-            self.stats["steps"] += 1
-            self.stats["admissions"] += admitted
-            self.stats["retirements"] += len(finished)
-            if self._paged:
-                self.stats["kv_peak_blocks"] = max(
-                    self.stats["kv_peak_blocks"], self._pool.used)
+            with _trc.span("engine.step") as sp:
+                admitted = self._admit()
+                # the clock starts after admission: the wait-for-batch
+                # window is admission policy, not step latency
+                t0 = time.perf_counter()
+                # the iteration's device work holds capture_lock: the
+                # cells of a fleet share one card from their own
+                # threads, and no cell's launch may fall inside another
+                # cell's megastep capture (nor its launch count)
+                with _graphs.capture_lock:
+                    n0 = _paged_launches()
+                    self._advance_prefills()
+                    (active, finished, steps_run, emitted,
+                     trips) = self._decode(self._choose_k())
+                    self.stats["paged_launches"] += _paged_launches() - n0
+                with self._cv:
+                    depth = len(self._queue)
+                self.stats["steps"] += 1
+                self.stats["admissions"] += admitted
+                self.stats["retirements"] += len(finished)
+                dt = time.perf_counter() - t0
+                # dt is per logical step: the post-admit wall time over
+                # the steps the dispatch ran; k the steps consumed
+                per = dt / max(1, trips)
+                sp.annotate(active=active, admitted=admitted,
+                            retired=len(finished), queue=depth, dt=per,
+                            k=steps_run,
+                            **({"megastep_dt": dt} if trips > 1
+                               else {}))
+                kv = {}
+                if self._paged:
+                    used = self._pool.used
+                    self.stats["kv_peak_blocks"] = max(
+                        self.stats["kv_peak_blocks"], used)
+                    kv = {"kv_used": used,
+                          "kv_total": self._pool.num_blocks,
+                          "kv_bytes_used": used * self._block_bytes,
+                          "kv_bytes_total": (self._pool.num_blocks
+                                             * self._block_bytes),
+                          "prefix_hits": self.stats["prefix_hits"],
+                          "prefix_misses": self.stats["prefix_misses"],
+                          "preempted": self._preempted_iter}
+                    if self._speculative:
+                        # cumulative, like the prefix counters
+                        for name in ("spec_drafted", "spec_accepted",
+                                     "spec_emitted", "spec_dispatches"):
+                            kv[name] = self.stats[name]
+                _monrt.on_serving_step(
+                    active=active, slots=self.slots, queue_depth=depth,
+                    emitted=emitted, admitted=admitted,
+                    retired=len(finished), engine=self.name, dt=dt,
+                    k=steps_run, dispatched=trips,
+                    shadow=self.shadow, version=self.version, **kv)
+                for req, _ in finished:
+                    self._retire_telemetry(req)
         finally:
             # resolve futures even if the iteration raised: a request
             # popped from its slot lives only in `finished` here
             for req, score in finished:
                 req._finish(score)
+            cb = self.on_retire
+            if cb is not None:
+                for req, _ in finished:
+                    try:
+                        cb(req)
+                    except Exception:
+                        pass
+
+    def _retire_telemetry(self, req, error=None):
+        """Per-request attribution at retirement: the TTFT/TPOT/
+        queue_wait histograms, a ``serving_request`` row and the
+        request span closed with the same figures. Never raises: an
+        exception here would strand the other requests' futures."""
+        try:
+            lat = req.latency()
+            ctx = req._span.ctx
+            _monrt.on_serving_request(
+                engine=self.name, queue_wait=lat["queue_wait"],
+                ttft=lat["ttft"],
+                # a single-token request has no inter-token interval
+                tpot=lat["tpot"] if lat["tokens"] > 1 else None,
+                tokens=lat["tokens"],
+                prefill_chunks=lat["prefill_chunks"],
+                prompt_len=len(req.prompt),
+                trace_id=(ctx.trace_id
+                          if ctx is not None
+                          and (ctx.sampled or _trc.tail_armed())
+                          else None),
+                shadow=self.shadow, version=self.version,
+                error=None if error is None else repr(error))
+            req._span.annotate(
+                **{k: v for k, v in lat.items() if v is not None})
+        except Exception:
+            pass
+        try:
+            req._span.finish(error=error)
+        except Exception:
+            pass
+
+    @staticmethod
+    def _step_span_id():
+        """The ambient ``engine.step`` span id (loop thread), or None
+        when that span is neither sampled nor buffered by the tail ring:
+        stamped on request child spans so the merged timeline joins a
+        request's lane to the iterations that drove it."""
+        cur = _trc.current_span()
+        ctx = getattr(cur, "ctx", None)
+        if ctx is None or not (ctx.sampled or _trc.tail_armed()):
+            return None
+        return ctx.span_id
+
+    @staticmethod
+    def _first_token_mark(req):
+        """The zero-width ``request.first_token`` child span. Guarded:
+        earlier slots of this dispatch may already be popped into the
+        caller's ``finished``, and a span-log error must not strand
+        them."""
+        try:
+            with _trc.child_span("request.first_token", req._span,
+                                 step_span=Engine._step_span_id()):
+                pass
+            req._span.annotate(ttft=req.ttft)
+        except Exception:
+            pass
 
     def _admit(self):
         admitted = 0
@@ -883,6 +1064,9 @@ class Engine:
                 if self._recs[slot] is None:
                     req = self._queue.popleft()
                     req.t_admit = time.perf_counter()
+                    req._span.annotate(slot=slot,
+                                       queue_wait=req.queue_wait,
+                                       admit_step=self._step_span_id())
                     if req._seq is None:
                         req._seq = next(self._admit_seq)
                     rec = {"req": req, "cursor": 0, "live": False,
@@ -907,6 +1091,7 @@ class Engine:
         blocks, ntok = self._prefix.match(req.prompt)
         hit = bool(blocks)
         self.stats["prefix_hits" if hit else "prefix_misses"] += 1
+        _monrt.on_prefix_lookup(hit)
         if not hit:
             return
         rec["table"] = list(blocks)
@@ -917,6 +1102,7 @@ class Engine:
         # need, and activation copy-on-writes the last shared block
         rec["cursor"] = min(ntok, len(req.prompt) - 1)
         self.stats["prefix_hit_tokens"] += rec["cursor"]
+        req._span.annotate(prefix_hit_tokens=rec["cursor"])
 
     def _advance_prefills(self):
         """One prompt chunk per prefilling slot per iteration. A slot
@@ -937,15 +1123,19 @@ class Engine:
                 chunk = np.zeros((self._chunk,), np.int64)
                 chunk[:len(toks)] = toks
                 chunk = torch.from_numpy(chunk).to(self.device)
-                if self._paged:
-                    self.model._prefill_chunk_paged(
-                        self._state, chunk, cur, len(toks),
-                        self._btab_dev(self._btab_row(rec)),
-                        block_kernel=self._block_kernel,
-                        attn_unroll=self._attn_unroll)
-                else:
-                    self.model._prefill_chunk_slot(self._state, slot, chunk,
-                                                   cur, len(toks))
+                with _trc.child_span(
+                        "request.prefill_chunk", req._span, start=cur,
+                        tokens=len(toks),
+                        step_span=self._step_span_id()):
+                    if self._paged:
+                        self.model._prefill_chunk_paged(
+                            self._state, chunk, cur, len(toks),
+                            self._btab_dev(self._btab_row(rec)),
+                            block_kernel=self._block_kernel,
+                            attn_unroll=self._attn_unroll)
+                    else:
+                        self.model._prefill_chunk_slot(
+                            self._state, slot, chunk, cur, len(toks))
                 rec["cursor"] = cur + len(toks)
                 req.prefill_chunks += 1
                 self.stats["prefill_chunks"] += 1
@@ -1054,7 +1244,7 @@ class Engine:
         truncated drafter's steps when it drafts, the scoring step, one
         packed fetch (``out`` [S, gamma+3]); then the accepted prefix
         plus the bonus token are committed on the host. Counts as one
-        decode step. Returns [(request, score)]."""
+        decode step. Returns ``_decode``'s tuple."""
         live = [s for s, r in enumerate(self._recs)
                 if r is not None and r["live"]]
         t0 = time.perf_counter()
@@ -1095,6 +1285,7 @@ class Engine:
             self._publish_prefix(rec, req)
             if ne and req.t_first_token is None:
                 req.t_first_token = now
+                self._first_token_mark(req)
             if fins[slot]:
                 req.t_retire = now
                 if scores is None:              # one [S] fetch a dispatch
@@ -1102,14 +1293,16 @@ class Engine:
                 finished.append((req, float(scores[slot])))
                 self._release_blocks(rec)
                 self._recs[slot] = None
+        drafted = int(nd.sum())
         self.stats["spec_dispatches"] += 1
-        self.stats["spec_drafted"] += int(nd.sum())
+        self.stats["spec_drafted"] += drafted
         self.stats["spec_accepted"] += accepted
         self.stats["spec_emitted"] += emitted
         self.stats["decode_steps"] += 1
         self.stats["active_slot_steps"] += len(live)
         self.stats["tokens"] += emitted
-        return finished
+        _monrt.on_spec(drafted=drafted, accepted=accepted)
+        return len(live), finished, 1, emitted, 1
 
     def _decode(self, k=1):
         """One decode dispatch over the active batch: a single eager
@@ -1120,8 +1313,9 @@ class Engine:
         one copy, and retire finished requests. A slot retired at step j
         consumes no later rows. A speculative engine drafts first: when
         any live slot has a draft, one scoring dispatch
-        (``_decode_spec``) takes the iteration's place. Returns
-        [(request, score)]."""
+        (``_decode_spec``) takes the iteration's place. Returns (slots
+        active at dispatch, [(request, score)], steps consumed, tokens
+        emitted, steps the device ran)."""
         if self._speculative:
             got = self._build_drafts()
             if got is not None:
@@ -1138,7 +1332,8 @@ class Engine:
         live = [s for s, r in enumerate(self._recs)
                 if r is not None and r["live"]]
         if not live:
-            return []
+            return 0, [], 0, 0, 0
+        active0 = len(live)
         t0 = time.perf_counter()
         if self._paged:
             self._set_btab(self._btab_all())
@@ -1157,11 +1352,14 @@ class Engine:
         self.stats["decode_steps_run"] += out.shape[1]
         scores = None
         finished = []
+        emitted = steps_run = 0
         now = time.perf_counter()
         for j in range(out.shape[1]):
             if not live:
                 break
             emits, fins = out[0, j], out[1, j]
+            steps_run += 1
+            emitted += len(live)
             self.stats["decode_steps"] += 1
             self.stats["active_slot_steps"] += len(live)
             self.stats["tokens"] += len(live)
@@ -1173,6 +1371,7 @@ class Engine:
                 self._publish_prefix(rec, req)
                 if req.t_first_token is None:
                     req.t_first_token = now
+                    self._first_token_mark(req)
                 if fins[slot]:
                     req.t_retire = now
                     if scores is None:          # one [S] fetch a dispatch
@@ -1186,7 +1385,7 @@ class Engine:
                         self._release_blocks(rec)
                     self._recs[slot] = None
                     live.remove(slot)
-        return finished
+        return active0, finished, steps_run, emitted, out.shape[1]
 
     def _fail_all(self, err):
         with self._cv:
@@ -1198,10 +1397,19 @@ class Engine:
         for rec in slotted:                # pool accounting stays clean
             if self._paged:
                 self._release_blocks(rec)
+        cb = self.on_retire
         for req in pending:
+            # failed requests retire for attribution too: their row and
+            # span carry the error, and the SLO error budget counts them
             if req.t_retire is None:
                 req.t_retire = time.perf_counter()
+            self._retire_telemetry(req, error=err)
             req._fail(err)
+            if cb is not None:
+                try:
+                    cb(req)
+                except Exception:
+                    pass
 
 
 # -- sequential baseline ---------------------------------------------------

@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
 package, so it runs on a machine that has neither installed.
 
-An AST scan of every ``paddle_tpu_torch/**/*.py``, ``chip_smoke.py`` and
-``lstm_ab.py`` rejects imports of ``jax``, ``jaxlib``, ``paddle_tpu`` and
+An AST scan of every ``paddle_tpu_torch/**/*.py``, ``chip_smoke.py``,
+``lstm_ab.py`` and ``trace_window_probe.py`` rejects imports of ``jax``, ``jaxlib``, ``paddle_tpu`` and
 ``paddle_tpu.*`` (``paddle_tpu_torch`` itself is allowed), and a fresh
 interpreter importing the port's serving package must not load jax.
 """
@@ -19,7 +19,8 @@ BANNED = ("jax", "jaxlib", "paddle_tpu")
 
 
 def _sources():
-    out = [os.path.join(ROOT, f) for f in ("chip_smoke.py", "lstm_ab.py")]
+    out = [os.path.join(ROOT, f) for f in ("chip_smoke.py", "lstm_ab.py",
+                                           "trace_window_probe.py")]
     for dirpath, dirnames, filenames in os.walk(
             os.path.join(ROOT, "paddle_tpu_torch")):
         dirnames[:] = [d for d in dirnames if d != "__pycache__"]
@@ -79,7 +80,15 @@ def test_scan_covers_the_port():
                  ("distributed", "master.py"), ("distributed", "ops.py"),
                  ("monitor", "runtime.py"), ("monitor", "metrics.py"),
                  ("trace", "runtime.py"), ("trace", "merge.py"),
-                 ("resilience", "driver.py"), ("resilience", "faults.py")):
+                 ("resilience", "driver.py"), ("resilience", "faults.py"),
+                 ("serving", "fleet.py"), ("serving", "autoscale.py"),
+                 ("serving", "rollout.py"), ("sparse", "cache.py"),
+                 ("sparse", "online.py"), ("sparse", "scoring.py"),
+                 ("monitor", "collector.py"), ("monitor", "goodput.py"),
+                 ("monitor", "signals.py"), ("monitor", "watch.py"),
+                 ("monitor", "forensics.py"), ("monitor", "__main__.py"),
+                 ("paddle_tpu_torch", "slo.py"),
+                 ("paddle_tpu_torch", "perfgate.py")):
         assert any(p.endswith(os.path.join(*tail)) for p in srcs), tail
 
 
@@ -109,7 +118,16 @@ def test_import_leaves_jax_unloaded():
             "paddle_tpu_torch.models.vgg, paddle_tpu_torch.ops.beam_search, "
             "paddle_tpu_torch.ops.rnn_ops, paddle_tpu_torch.ops.lstm_cell, "
             "paddle_tpu_torch.ops.sequence_ops, "
-            "paddle_tpu_torch.tools.op_sweep; "
+            "paddle_tpu_torch.tools.op_sweep, "
+            "paddle_tpu_torch.serving.fleet, "
+            "paddle_tpu_torch.serving.autoscale, "
+            "paddle_tpu_torch.serving.rollout, "
+            "paddle_tpu_torch.serving.sparse.scoring, "
+            "paddle_tpu_torch.monitor.collector, "
+            "paddle_tpu_torch.monitor.signals, "
+            "paddle_tpu_torch.monitor.forensics, "
+            "paddle_tpu_torch.monitor.__main__, "
+            "paddle_tpu_torch.slo, paddle_tpu_torch.perfgate; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -24,8 +24,9 @@ identities). This module ports the rest, each case its own test:
 The replica-wire, SLO-gate and metrics-gauge cases of
 ``tests/test_kvpool.py`` (its ``test_sampling_over_replica_wire_and_
 router_journal``, ``test_kv_rows_slo_gate_and_watch_line`` and
-``test_metrics_gauges_reflect_pool``) need the fleet, SLO and monitor
-tiers, which wait on ROADMAP.md queue 1 item 10.
+``test_metrics_gauges_reflect_pool``) run through the fleet, SLO and
+monitor tiers, whose port is held by tests/test_torch_fleet.py,
+tests/test_torch_slo.py and tests/test_torch_telemetry.py.
 
 Scores (sums of fp32 log-probs) are compared at rtol 1e-5 / atol 1e-5
 against the JAX package (the packages sum in other orders).

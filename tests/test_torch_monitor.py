@@ -268,7 +268,7 @@ def test_step_events_and_cli_summary(tmp_path, capsys):
     # (ROADMAP.md queue 1 item 11)
     assert all(e["mfu"] is None for e in steps)
     assert monitor.registry().get("ptpu_mfu").value() is None
-    # the summary the monitor CLI (item 10(b)) prints reads the same
+    # the summary the monitor CLI prints reads the same
     s = monitor.summary()
     assert s["steps"] == 4 and s["p50_s"] > 0 and s["mfu"] is None
 
@@ -411,17 +411,11 @@ def test_monitor_step_spans_route_into_profiler_trace(tmp_path):
 
 # -- the port against the JAX package ---------------------------------------
 
-# metric names the JAX package registers and the port does not: the
-# serving fleet's (serving/fleet.py, ROADMAP.md queue 1 item 10(b)). No
-# name is XLA's alone: the port reports its step-plan build and CUDA
-# graph capture under ptpu_xla_compile_seconds, the JAX package's name
-JAX_ONLY_METRICS = {
-    "ptpu_fleet_canary_total", "ptpu_fleet_duplicate_results_total",
-    "ptpu_fleet_evictions_total", "ptpu_fleet_mirror_dropped_total",
-    "ptpu_fleet_mirrored_total", "ptpu_fleet_queue_depth",
-    "ptpu_fleet_replicas", "ptpu_fleet_requests_total",
-    "ptpu_fleet_resubmissions_total", "ptpu_fleet_shed_total",
-}
+# metric names the JAX package registers and the port does not: none
+# since the serving fleet (serving/fleet.py) is ported. No name is XLA's
+# alone: the port reports its step-plan build and CUDA graph capture
+# under ptpu_xla_compile_seconds, the JAX package's name
+JAX_ONLY_METRICS = set()
 XLA_ONLY_METRICS = set()
 # recorder keys that name the runtime: jax's version there, torch's here
 RUNTIME_KEY = {"jax": "torch"}

@@ -186,7 +186,8 @@ def test_default_attention_path_selection(lms):
 
 
 def test_unported_options_raise(lms):
-    """The telemetry still raises, naming ROADMAP.md; the dense layout
+    """The telemetry is ported (tests/test_torch_telemetry.py), so the
+    monitor flag no longer refuses the engine; the dense layout
     (tests/test_torch_dense_serving.py) and artifact cold start
     (tests/test_torch_artifact.py) are ported, so ``paged=False`` builds
     a dense engine and a path that holds no artifact raises the
@@ -211,11 +212,12 @@ def test_unported_options_raise(lms):
             assert eng._speculative
     finally:
         flags.set_flag("serving_speculative", None)
-    # the monitor flag (PADDLE_TPU_MONITOR in the environment) refuses
+    # the monitor flag (PADDLE_TPU_MONITOR in the environment) leaves
+    # the engine serving
     flags.set_flag("monitor", "1")
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            serving.Engine(tlm, slots=1, device="cpu")
+        with serving.Engine(tlm, slots=1, device="cpu") as eng:
+            assert len(eng.submit([1, 5], 3).result(30)[0]) == 3
     finally:
         flags.set_flag("monitor", None)
     with serving.Engine(tlm, slots=1, device="cpu") as eng:

@@ -71,7 +71,15 @@ Ported so far:
     ``serving.autoscale``, ``serving.rollout``, ``serving.sparse`` (the
     CTR scoring engine over the pserver tables), ``monitor.collector``,
     ``signals``, ``watch``, ``forensics``, ``goodput`` and its
-    ``python -m`` CLI, ``slo`` and ``perfgate``.
+    ``python -m`` CLI, ``slo`` and ``perfgate``;
+  * the fused ops (``ops/fused.py``), mixed precision (``amp``: bf16
+    products with fp32 accumulation and master weights, pinned per
+    executor by ``DistributedStrategy(use_bf16_compute=True)``) and the
+    specializing half of the transform tier (``transform``: the
+    bitwise-verified passes, fusion and ``specialize_for_inference``,
+    armed in the Executor by the flag ``transform``), behind
+    ``io.save_inference_model`` and ``serving.save_lm_artifact`` on
+    their defaults (specialized) and with ``bf16=True``.
 
 Used as ``import paddle_tpu_torch as fluid``, as scripts use
 ``paddle_tpu``.
@@ -100,6 +108,7 @@ from .core import (  # noqa: F401
 from .core import backward  # noqa: F401
 from .core.selected_rows import SelectedRows  # noqa: F401
 from .param_attr import ParamAttr, WeightNormParamAttr  # noqa: F401
+from . import amp  # noqa: F401
 from . import flags  # noqa: F401
 from .data_feeder import DataFeeder  # noqa: F401
 from . import dataset  # noqa: F401

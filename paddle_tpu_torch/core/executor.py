@@ -80,9 +80,14 @@ and each dispatch (``on_megastep``); the NaN guards report their trips
 (``on_nan_trip``). With tracing armed each ``run`` and ``run_steps``
 is an ``exe.step`` root span, under which the wire's RPC spans nest.
 The MFU gauge stays unset: no cost function is
-passed until the cost model is ported (ROADMAP.md, queue 1 item 11).
-What the port leaves out raises, naming ROADMAP.md: the transform
-pipeline. Gradient accumulation is a
+passed until the cost model is ported (ROADMAP.md, queue 1 item 11(b)).
+With the flag ``transform`` on, each step is built from the program the
+transform tier's pass pipeline rewrote (``transform.passes.
+maybe_transform_for_build``, memoized per program version; constant
+folding runs on the executor's device), while every key stays the
+caller's program. Under AMP (``amp.amp_guard``) the matmul-class
+lowerings run in bfloat16; ``run_steps`` keys its CUDA graphs by the
+AMP state. Gradient accumulation is a
 ``ParallelExecutor`` option, as in the JAX package: ``_build(...,
 accum_steps=k)`` runs the forward and backward once a microbatch and the
 optimizer ops once (``_lower_with_grad_accum``), and ``ParallelExecutor``
@@ -108,6 +113,7 @@ from torch.utils import checkpoint as _checkpoint
 
 from .. import flags
 from .. import profiler as _prof
+from ..amp import amp_enabled
 from ..monitor import runtime as _mon
 from ..trace import runtime as _trace
 from . import graphs as _graphs
@@ -123,29 +129,10 @@ __all__ = ["Executor", "FeedPlanCache", "as_numpy"]
 
 _is_host_op = registry.is_host_op
 
-# flags that switch on a JAX-package feature this slice does not port
-# (flag name: what it switches on, ROADMAP.md queue 1 item)
-_LEFT_OUT_FLAGS = {
-    "transform": ("the program-transform pipeline", "11"),
-}
-
-
-def _left_out(what, item):
-    return NotImplementedError(
-        "%s is not ported to paddle_tpu_torch yet (ROADMAP.md, queue 1 "
-        "item %s)" % (what, item))
-
-
-def _refuse_left_out_flags():
-    for name, (what, item) in _LEFT_OUT_FLAGS.items():
-        if flags.get_flag(name):
-            raise _left_out("%s (PADDLE_TPU_%s)" % (what, name.upper()),
-                            item)
-
-
 def as_numpy(value):
     """A fetched value as a numpy array; a SelectedRows passes through,
-    as in the JAX package."""
+    as in the JAX package. A bfloat16 value (an AMP activation) widens to
+    float32 exactly: numpy holds no bfloat16."""
     if isinstance(value, SelectedRows):
         return value
     if isinstance(value, (list, tuple)):
@@ -156,6 +143,8 @@ def as_numpy(value):
             # collective every rank of its mesh makes
             from ..parallel.collective import global_value
             value = global_value(value)
+        if value.dtype == torch.bfloat16:
+            value = value.float()
         return value.detach().cpu().numpy()
     return np.asarray(value)
 
@@ -461,7 +450,6 @@ class Executor:
         fetch_names = tuple(
             f.name if isinstance(f, Variable) else str(f)
             for f in (fetch_list or []))
-        _refuse_left_out_flags()
         arrays, static_info = _normalize_feeds(feed or {},
                                                plan_cache=self._feed_plans)
         feeds = {k: self._feed_tensor(k, v) for k, v in arrays.items()}
@@ -652,7 +640,6 @@ class Executor:
                 "run_steps cannot fuse programs with host (IO) ops — "
                 "send/recv/prefetch must hit the wire once per step; "
                 "use run() per step")
-        _refuse_left_out_flags()
         staged, feed_sig, static_info = _stack_feeds(feeds, k,
                                                      self._feed_plans)
         state_sig = []
@@ -663,10 +650,13 @@ class Executor:
         state_sig = tuple(sorted(state_sig))
         check_nan = bool(flags.get_flag("check_nan_inf"))
         # what picks the kernels a capture holds is part of the key too:
-        # the conv fusion flag and cuDNN's algorithm switches
+        # the conv fusion flag, the AMP state, the armed transform and
+        # cuDNN's algorithm switches
         key = (program, program._version, feed_sig,
                tuple(sorted(static_info.items())), fetch_names,
                state_sig, k, check_nan, bool(flags.get_flag("fuse_conv_bn")),
+               amp_enabled(), bool(flags.get_flag("transform")),
+               flags.get_flag("transform_passes"),
                torch.backends.cudnn.deterministic,
                torch.backends.cudnn.benchmark)
         mega = self._megasteps.get(key) if use_program_cache else None
@@ -790,6 +780,11 @@ class Executor:
         split by the caller, LoD feeds by ``_normalize_feeds``), the
         forward and backward run once a microbatch and the optimizer ops
         once (``_lower_with_grad_accum``)."""
+        # the armed transform (flag ``transform``): the step is built
+        # from the rewritten clone, memoized on the caller's program
+        from ..transform.passes import maybe_transform_for_build
+        program = maybe_transform_for_build(program, fetch_names,
+                                            self.device)
         static_info = dict(static_info or {})
         block = program.global_block()
         ops = list(block.ops)

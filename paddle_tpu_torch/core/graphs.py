@@ -26,9 +26,14 @@ the capturing thread only. Work that enqueues on the card from another
 thread holds the lock too (``reader.DeviceLoader``'s staging thread, and
 each ``serving.Engine``'s iteration, so the cells of a fleet share one
 card), so none of its launches, allocations, copies or waits can fall
-inside a capture or its launch count.
+inside a capture or its launch count. A CUDA graph freed during a
+capture invalidates it (its ``reset`` is not permitted there), and the
+cyclic garbage collector can free a dead engine's or executor's graph at
+any allocation: so a capture collects garbage first, under the lock,
+and keeps the collector off until it ends.
 """
 
+import gc
 import threading
 
 import torch
@@ -86,6 +91,22 @@ def _add_launches(delta):
             pa.paged_attention.launches += n
 
 
+class _collector_off:
+    """Garbage collected now, and the cyclic collector off until the
+    block ends (restored as it was): no CUDA graph is freed inside a
+    capture. Entered under ``capture_lock``, so captures do not
+    interleave their switching."""
+
+    def __enter__(self):
+        gc.collect()
+        self._was = gc.isenabled()
+        gc.disable()
+
+    def __exit__(self, *exc):
+        if self._was:
+            gc.enable()
+
+
 class StepGraph:
     """One CUDA graph of step bodies on ``device``. ``what`` names the
     call in errors; ``launches`` holds the kernel launches one replay
@@ -117,7 +138,7 @@ class StepGraph:
         torch.cuda.synchronize(dev)
         pa.take_workspace(dev, stream.cuda_stream)
         graph = torch.cuda.CUDAGraph()
-        with capture_lock, torch.cuda.stream(stream):
+        with capture_lock, torch.cuda.stream(stream), _collector_off():
             before = launch_counts()
             graph.capture_begin(capture_error_mode="thread_local")
             try:

@@ -15,9 +15,8 @@ the runtime tiers' ``monitor*``, ``faults*``, ``trace*``,
 ``forensics_dir``, the fleet tier's ``serving_fleet_*``,
 ``serving_mirror_fraction``, ``serving_canary_weight`` and the sparse
 scoring tier's ``serving_sparse_*`` / ``serving_scoring_batch`` (under
-the JAX package's names and defaults), and the Executor switch of the
-feature not ported yet (``transform``), so that setting it fails
-loudly instead of being ignored.
+the JAX package's names and defaults), and the transform tier's
+``transform`` / ``transform_passes``.
 """
 
 import os
@@ -149,8 +148,18 @@ _register("profile_memory", bool, False,
           "record device live/peak bytes on every profiler event "
           "(FLAGS_benchmark memory-logging parity, operator.cc:576-578)")
 _register("transform", bool, False,
-          "run the program-transform pass pipeline before execution. "
-          "Not ported yet; 1 makes Executor.run raise (see ROADMAP.md)")
+          "arm paddle_tpu_torch.transform in the Executor: each step is "
+          "built from the program rewritten by the optimizing pass "
+          "pipeline (see transform_passes), memoized per program "
+          "version, while the Executor's keys stay the caller's "
+          "program; the passes are semantics-preserving "
+          "(bitwise-identical fetches, pinned in "
+          "tests/test_torch_transform.py)")
+_register("transform_passes", str, "all",
+          "which optimizing passes the armed transform runs: 'all', "
+          "'none', or a comma list from {constant_fold, cse, dead_op, "
+          "fusion, bf16_cast} in application order ('all' excludes "
+          "the opt-in, non-bitwise bf16_cast)")
 _register("monitor", bool, False,
           "arm paddle_tpu_torch.monitor at import: step/compile telemetry into "
           "the process-wide metrics registry (near-zero overhead; see "
@@ -179,7 +188,7 @@ _register("monitor_sync_every", int, 1,
 _register("monitor_cost_model", bool, True,
           "price each compiled step with the static cost model so the "
           "monitor can derive MFU (the cost model is ROADMAP.md queue 1 "
-          "item 11: until then no step is priced)")
+          "item 11(b): until then no step is priced)")
 _register("faults", str, "",
           "arm a paddle_tpu_torch.resilience fault-injection plan at "
           "import: "

@@ -21,13 +21,16 @@ one rule, everywhere in this module:
     ``Executor.run`` at each step).
 
 64-bit arrays load narrowed to 32-bit (``to_tensor``), as the port's
-executor holds them, so a checkpoint of either package loads. bfloat16
-parameters of a ``bf16=True`` artifact (stored as a ``uint16`` view,
-named in ``param_dtypes``) decode to ``torch.bfloat16`` bit for bit.
-The transform tier is not ported: ``save_inference_model`` with
-``specialize=True`` or ``bf16=True`` raises, naming ROADMAP.md queue 1
-item 11, and callers pass ``specialize=False``. Loading a specialized
-artifact the JAX package wrote works (its fused ops parse as any op).
+executor holds them, so a checkpoint of either package loads. A
+bfloat16 value is written as its raw 2-byte records (numpy dtype
+``V2``), the records the JAX package's ``np.save`` writes for a
+bfloat16 array; such records (of either package) load back as
+``torch.bfloat16`` bit for bit. bfloat16 parameters of a ``bf16=True``
+artifact are stored as a ``uint16`` view, named in ``param_dtypes``, as
+the JAX package stores them. ``save_inference_model`` specializes by
+default (``transform.specialize_for_inference``: prune, then dead_op,
+constant_fold, cse and fusion), with ``bf16=True`` the bf16 cast pass
+too, and ``specialize=False`` writes the plain pruned Program.
 """
 
 import json
@@ -81,12 +84,17 @@ def _host(scope, name):
             from .parallel.collective import global_value
             val = global_value(val)
         if val.dtype == torch.bfloat16:
-            raise TypeError(
-                "var %r is bfloat16, which npy/npz cannot hold; the port "
-                "writes no bfloat16 files (the bf16 artifact path is "
-                "ROADMAP.md queue 1 item 11)" % name)
+            # numpy holds no bfloat16: the raw 2-byte records, the
+            # records the JAX package's np.save of a bfloat16 array writes
+            return val.detach().cpu().view(torch.int16).numpy() \
+                .view(_RAW_BF16)
         return val.detach().cpu().numpy()
     return np.asarray(val)
+
+
+# the numpy dtype of a bfloat16 array's records in an .npy / .npz file,
+# as numpy (which has no bfloat16) reads the JAX package's files too
+_RAW_BF16 = np.dtype("V2")
 
 
 def _device(executor, scope, name):
@@ -108,6 +116,8 @@ def _bf16(arr):
 
 
 def _put(scope, name, value, executor):
+    if isinstance(value, np.ndarray) and value.dtype == _RAW_BF16:
+        value = _bf16(value.view(np.uint16))
     scope.set(name, to_tensor(value, _device(executor, scope, name)))
 
 
@@ -217,21 +227,22 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
                          main_program=None, model_filename="__model__",
                          params_filename=None, scope=None,
                          specialize=True, bf16=False, config=None):
-    """Emit the servable artifact: the Program pruned to ``target_vars``
-    and cloned for test (``model_filename``), ONE params blob (npz via
-    ``write_atomic_blob``) and ``__manifest__.json`` with the feed and
-    fetch names, both files' CRC32s, per-param dtypes and the caller's
-    ``config``. Returns the fetch names.
+    """Emit the servable artifact.
 
-    The signature is the JAX package's, whose default ``specialize=True``
-    runs its transform tier (and ``bf16=True`` its bf16 cast pass). That
-    tier is not ported, so callers pass ``specialize=False``; either
-    flag set raises ``NotImplementedError``."""
-    if specialize or bf16:
-        raise NotImplementedError(
-            "save_inference_model(specialize=True or bf16=True) runs the "
-            "transform tier, which is not ported to paddle_tpu_torch yet "
-            "(ROADMAP.md, queue 1 item 11); pass specialize=False")
+    ``specialize=True`` (default) runs
+    ``transform.specialize_for_inference``: prune to the inference
+    subgraph, then dead_op + constant_fold + cse + fusion to a fixed
+    point (all bitwise-gated passes; constant folding runs on the
+    executor's device, or where the scope's values live); ``bf16=True``
+    additionally applies the opt-in rtol-gated bf16 operand-cast pass
+    (bf16-typed params are stored half width). ``specialize=False``
+    writes the plain prune + clone(for_test) carve.
+
+    Layout under ``dirname``: the Program JSON (``model_filename``),
+    ONE params blob (npz via ``write_atomic_blob``) and
+    ``__manifest__.json`` with the feed and fetch names, both files'
+    CRC32s, per-param dtypes, the transform's accounting and the
+    caller's ``config``. Returns the fetch names."""
     main_program = main_program or default_main_program()
     scope = scope or global_scope()
     if isinstance(feeded_var_names, str):
@@ -241,18 +252,41 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
     fetch_names = [v if isinstance(v, str) else v.name for v in target_vars]
     os.makedirs(dirname, exist_ok=True)
 
-    inference_program = get_inference_program(fetch_names, main_program)
+    transform_stats = None
+    if specialize:
+        from .transform.infer import specialize_for_inference
+        spec = specialize_for_inference(
+            main_program, feeded_var_names, fetch_names, bf16=bf16,
+            device=_fold_device(executor, scope, main_program))
+        inference_program = spec.program
+        transform_stats = spec.to_dict()
+    else:
+        inference_program = get_inference_program(fetch_names,
+                                                   main_program)
     d = inference_program.to_dict()
     d["feed_names"] = list(feeded_var_names)
     d["fetch_names"] = fetch_names
     model_crc = write_atomic_blob(dirname, model_filename,
                                   json.dumps(d).encode("utf-8"))
 
+    # ONE params blob: every persistable of the inference program, in
+    # its program dtype (the bf16 pass flips weight-only params to
+    # bfloat16: stored as a uint16 view, the dtype recorded)
     params_file = params_filename or "__params__.npz"
     if not params_file.endswith(".npz"):
         params_file += ".npz"
-    arrays = {v.name: _host(scope, v.name)
-              for v in inference_program.list_vars() if v.persistable}
+    arrays, param_dtypes = {}, {}
+    for v in inference_program.list_vars():
+        if not v.persistable:
+            continue
+        arr = _host(scope, v.name)
+        if v.dtype == "bfloat16" and arr.dtype != _RAW_BF16:
+            arr = torch.from_numpy(np.ascontiguousarray(arr)).to(
+                torch.bfloat16).view(torch.int16).numpy().view(_RAW_BF16)
+        if arr.dtype == _RAW_BF16:
+            param_dtypes[v.name] = "bfloat16"
+            arr = arr.view(np.uint16)
+        arrays[v.name] = arr
     buf = BytesIO()
     np.savez(buf, **arrays)
     params_crc = write_atomic_blob(dirname, params_file, buf.getbuffer())
@@ -263,12 +297,25 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
         "params_file": params_file, "params_crc32": params_crc,
         "feed_names": list(feeded_var_names),
         "fetch_names": fetch_names,
-        "param_dtypes": {},
-        "bf16": False,
-        "transform": None,
+        "param_dtypes": param_dtypes,
+        "bf16": bool(bf16),
+        "transform": transform_stats,
         "config": dict(config or {}),
     })
     return fetch_names
+
+
+def _fold_device(executor, scope, program):
+    """Where the inference program will run, for constant folding: the
+    executor's device, else the device of the scope's first
+    persistable tensor, else the CPU."""
+    if executor is not None:
+        return executor.device
+    for v in program.list_vars():
+        val = scope.find_var(v.name) if v.persistable else None
+        if isinstance(val, torch.Tensor):
+            return val.device
+    return torch.device("cpu")
 
 
 def load_inference_manifest(dirname):

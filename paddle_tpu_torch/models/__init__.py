@@ -6,7 +6,7 @@ zoo. ``TRANSFORM_ZOO`` names each entry's ``zoo_spec*`` factory, a
 programs. The port builds mlp, cnn, cnn_infer, resnet, vgg, deepfm, ssd,
 transformer, transformer_moe and transformer_mt: every entry of the JAX
 package's Program-level zoo. The analysis zoo
-(``ZOO``, ``zoo_entry``) waits for item 11.
+(``ZOO``, ``zoo_entry``) waits for item 11(b).
 """
 
 import importlib

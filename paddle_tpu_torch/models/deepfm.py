@@ -1,5 +1,5 @@
 """DeepFM CTR model (the counterpart of ``paddle_tpu/models/deepfm.py``,
-but for its ``analysis_entry``: ROADMAP.md, queue 1 item 11).
+but for its ``analysis_entry``: ROADMAP.md, queue 1 item 11(b)).
 
 Architecture (DeepFM): per-field sparse id embeddings feed BOTH a
 factorization machine (first-order weights + pairwise second-order

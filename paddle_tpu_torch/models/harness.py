@@ -6,7 +6,7 @@ The counterpart of ``paddle_tpu/models/harness.py``: ``staged_programs``,
 ``place`` (a keyword the JAX package does not have: its harness runs on
 the CPU): None is the card, ``CPUPlace()`` the CPU. Its
 ``program_entry`` (the static analyzer's harness) waits for ROADMAP.md
-queue 1 item 11.
+queue 1 item 11(b).
 """
 
 import numpy as np

@@ -3,7 +3,7 @@ benchmark/fluid/mnist.py), and the composed ``cnn_infer`` pipeline.
 
 The counterpart of ``paddle_tpu/models/mlp.py`` but for its
 ``analysis_entry*`` functions, whose static-analysis harness is not
-ported (ROADMAP.md, queue 1 item 11). Built through the port's
+ported (ROADMAP.md, queue 1 item 11(b)). Built through the port's
 ``layers``, each emits the JAX package's Program.
 """
 

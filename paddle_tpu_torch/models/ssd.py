@@ -5,7 +5,7 @@ multiclass_nms}_op.cc).
 
 The counterpart of ``paddle_tpu/models/ssd.py`` but for its
 ``analysis_entry``, whose static-analysis harness is not ported
-(ROADMAP.md, queue 1 item 11), with ``make_batch``, a seeded batch of
+(ROADMAP.md, queue 1 item 11(b)), with ``make_batch``, a seeded batch of
 images and ground truth. A compact VGG-ish backbone feeds two
 detection feature maps; training uses the fused batch-aware
 ``ssd_loss`` op, inference decodes and NMSes with ``detection_output``.

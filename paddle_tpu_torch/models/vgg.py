@@ -1,7 +1,7 @@
 """VGG-16 with batch norm and dropout (reference benchmark/fluid/vgg.py).
 
 The counterpart of ``paddle_tpu/models/vgg.py`` but for its
-``analysis_entry`` (ROADMAP.md, queue 1 item 11). Built through the
+``analysis_entry`` (ROADMAP.md, queue 1 item 11(b)). Built through the
 port's ``nets`` and ``layers``, it emits the JAX package's Program; its
 dropouts draw on the CUDA dropout kernel on the card.
 """

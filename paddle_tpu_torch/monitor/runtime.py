@@ -11,7 +11,7 @@ the caching allocator's ``memory_allocated`` /
 itself (``on_compile_phase``: its step-plan build and its CUDA-graph
 capture), under the same metric. The MFU gauge needs a cost function
 (``on_compile(cost_fn=...)``), which the port's Executor does not pass
-until the static cost model is ported (ROADMAP.md queue 1 item 11):
+until the static cost model is ported (ROADMAP.md queue 1 item 11(b)):
 until then the gauge stays unset. ``peak_flops`` comes only from
 ``enable(peak_flops=)``/``set_peak_flops`` or the ``monitor_peak_flops``
 flag.

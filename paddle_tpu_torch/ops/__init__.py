@@ -8,6 +8,7 @@ from . import conv  # noqa: F401
 from . import crf_ctc  # noqa: F401
 from . import detection_ops  # noqa: F401
 from . import elementwise  # noqa: F401
+from . import fused  # noqa: F401
 from . import loss  # noqa: F401
 from . import math  # noqa: F401
 from . import metrics_ops  # noqa: F401

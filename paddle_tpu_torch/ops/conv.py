@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import flags
+from ..amp import amp_out, maybe_bf16
 from ..core.registry import register
 from . import matmul_stats
 
@@ -77,17 +78,21 @@ def _layout(op):
 def _conv_nd(ctx, op, nsp, groups=None):
     x = ctx.in1(op, "Input")
     w = ctx.in1(op, "Filter")
+    out_dtype = x.dtype
+    x, w = maybe_bf16(x, w)
     strides = _pair(op.attr("strides", [1] * nsp), nsp)
     paddings = _pair(op.attr("paddings", [0] * nsp), nsp)
     dilations = _pair(op.attr("dilations", [1] * nsp), nsp)
     groups = groups or int(op.attr("groups", 1) or 1)
     layout = _layout(op)
     if nsp == 2 and _maybe_conv1x1_bn_fused(
-            ctx, op, x, w, strides, paddings, dilations, groups, layout):
+            ctx, op, x, w, strides, paddings, dilations, groups, layout,
+            out_dtype):
         return
     out = _CONV[nsp](_channels_first(x, layout), w, stride=strides,
                      padding=paddings, dilation=dilations, groups=groups)
-    ctx.set_out(op, "Output", _channels_last(out, layout))
+    ctx.set_out(op, "Output", amp_out(_channels_last(out, layout),
+                                      out_dtype))
 
 
 @register("conv2d")
@@ -115,6 +120,8 @@ def _conv_transpose_nd(ctx, op, nsp):
     compute the extra rows instead)."""
     x = ctx.in1(op, "Input")
     w = ctx.in1(op, "Filter")
+    out_dtype = x.dtype
+    x, w = maybe_bf16(x, w)
     strides = _pair(op.attr("strides", [1] * nsp), nsp)
     paddings = _pair(op.attr("paddings", [0] * nsp), nsp)
     dilations = _pair(op.attr("dilations", [1] * nsp), nsp)
@@ -129,7 +136,7 @@ def _conv_transpose_nd(ctx, op, nsp):
             flat += [0, max(0, int(out_size[i]) - out.shape[2 + i])]
         if any(flat):
             out = F.pad(out, flat)
-    ctx.set_out(op, "Output", out)
+    ctx.set_out(op, "Output", amp_out(out, out_dtype))
 
 
 @register("conv2d_transpose")
@@ -143,7 +150,7 @@ def _conv3d_transpose(ctx, op):
 
 
 def _maybe_conv1x1_bn_fused(ctx, op, x, w, strides, paddings, dilations,
-                            groups, layout):
+                            groups, layout, out_dtype):
     """1x1-conv + train-BN stat fusion: the conv runs as a matmul whose
     epilogue accumulates the per-channel shifted stats BN needs
     (matmul_colstats), so BN skips its own read of the conv output. The
@@ -174,7 +181,7 @@ def _maybe_conv1x1_bn_fused(ctx, op, x, w, strides, paddings, dilations,
     y2, s1, s2 = matmul_stats.matmul_colstats(xt, w.reshape(co, ci).t(), c)
     out = y2.reshape(n, hh, ww, co).permute(0, 3, 1, 2)
     ctx.env[out_name + "@BNSTATS"] = (s1, s2)
-    ctx.set_out(op, "Output", out)
+    ctx.set_out(op, "Output", amp_out(out, out_dtype))
     return True
 
 

@@ -304,8 +304,11 @@ def _check(cond, msg, *args):
 def _check_cuda(xp, w, h0, c0, peep, lens):
     tensors = [xp, w, h0, c0] + ([] if peep is None else [peep])
     _check(all(x.dtype == torch.float32 for x in tensors),
-           "float32 only (bf16 and fp16 LSTMs wait for amp, ROADMAP.md "
-           "queue 2), got %s", sorted({str(x.dtype) for x in tensors}))
+           "float32 only (under AMP the weights stay float32 and the lstm "
+           "lowering steps a bfloat16 Input in float32, as the JAX "
+           "package does; an LSTM whose weights are bfloat16 or float16 "
+           "has no step kernel), got %s",
+           sorted({str(x.dtype) for x in tensors}))
     _check(all(x.device == xp.device for x in tensors + [lens]),
            "every operand on one CUDA device")
     _check(all(x.is_contiguous() for x in tensors + [lens]),

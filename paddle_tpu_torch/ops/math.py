@@ -6,13 +6,15 @@ conv_shift.
 The counterpart of ``paddle_tpu/ops/math.py``. The products are plain ``torch.matmul``
 (cuBLAS on the card), as the JAX package leaves them to XLA; fp32 stays
 fp32 as long as TF32 is off (``torch.backends.cuda.matmul.allow_tf32``,
-False by default).
+False by default). Under AMP (``amp.py``) ``mul`` and ``matmul`` take
+bfloat16 operands, accumulate in fp32 and keep a bfloat16 result.
 """
 
 import functools
 
 import torch
 
+from ..amp import amp_out, maybe_bf16
 from ..core.registry import register
 from ..core.scope import torch_dtype
 from .common import lod_valid_mask, reshape
@@ -32,11 +34,13 @@ def _mul(ctx, op):
     product reshaped back to X's leading dims + Y's trailing dims."""
     x = ctx.in1(op, "X")
     y = ctx.in1(op, "Y")
+    out_dtype = x.dtype
+    x, y = maybe_bf16(x, y)
     xn = op.attr("x_num_col_dims", 1)
     yn = op.attr("y_num_col_dims", 1)
     x2, xshape = _flatten2d(x, xn)
     y2 = y.reshape(functools.reduce(lambda a, b: a * b, y.shape[:yn], 1), -1)
-    out = torch.matmul(x2, y2)
+    out = amp_out(torch.matmul(x2, y2), out_dtype)
     ctx.set_out(op, "Out", reshape(out, xshape[:xn] + tuple(y.shape[yn:])))
 
 
@@ -44,11 +48,13 @@ def _mul(ctx, op):
 def _matmul(ctx, op):
     x = ctx.in1(op, "X")
     y = ctx.in1(op, "Y")
+    out_dtype = x.dtype
+    x, y = maybe_bf16(x, y)
     if op.attr("transpose_X", False) and x.dim() > 1:
         x = x.transpose(-1, -2)
     if op.attr("transpose_Y", False) and y.dim() > 1:
         y = y.transpose(-1, -2)
-    out = torch.matmul(x, y)
+    out = amp_out(torch.matmul(x, y), out_dtype)
     alpha = op.attr("alpha", 1.0)
     if alpha != 1.0:
         out = out * alpha

@@ -50,7 +50,7 @@ def _batch_norm(ctx, op):
     ``@BNSTATS`` stash (ops/conv.py, popped so no later run sees it) or
     from its own f32 pass over x. The running statistics are written
     detached under MeanOut/VarianceOut and the Mean/Variance names; the
-    normalisation is one per-channel FMA in x's dtype."""
+    normalisation is one per-channel FMA, rounded once to x's dtype."""
     x = ctx.in1(op, "X")
     scale = ctx.in1(op, "Scale")
     bias = ctx.in1(op, "Bias")
@@ -96,9 +96,14 @@ def _batch_norm(ctx, op):
                 ctx.env[names[0]] = value
 
     inv = torch.rsqrt(var + eps)
-    a = (scale * inv).to(x.dtype)
-    b = (bias - mean * scale * inv).to(x.dtype)
-    ctx.set_out(op, "Y", x * a.reshape(bshape) + b.reshape(bshape))
+    # a bf16 x (AMP) is normalised in fp32 and rounded once, as XLA's
+    # fused elementwise code does for the JAX package; eager bf16 would
+    # round the product and again the sum
+    xf = x.float() if x.dtype == torch.bfloat16 else x
+    a = (scale * inv).to(xf.dtype)
+    b = (bias - mean * scale * inv).to(xf.dtype)
+    ctx.set_out(op, "Y", (xf * a.reshape(bshape)
+                          + b.reshape(bshape)).to(x.dtype))
 
 
 @register("softmax")

@@ -94,6 +94,25 @@ def _peepholes(op, bias, d):
     return None
 
 
+def _promoted_input(xp, w, bias, h, c):
+    """The lstm's input in the dtype its step computes in: the JAX
+    package's step is ``x_t + h @ W + b`` under jnp type promotion, so a
+    bfloat16 Input (an AMP ``fc`` without a bias) with float32 weights
+    steps in float32. Its ``lax.scan`` refuses a carry whose dtype the
+    step changes, so an initial state (H0/C0, by default zeros of the
+    Input's dtype) in another dtype than the step's raises here too."""
+    step = torch.promote_types(xp.dtype, w.dtype)
+    if bias is not None:
+        step = torch.promote_types(step, bias.dtype)
+    if h.dtype != step or c.dtype != step:
+        raise TypeError(
+            "lstm: the step computes in %s (Input %s, Weight %s) but the "
+            "initial state is %s/%s: give H0 and C0 in %s, as the JAX "
+            "package's scan requires (its carry keeps one dtype)"
+            % (step, xp.dtype, w.dtype, h.dtype, c.dtype, step))
+    return xp.to(step)
+
+
 def _cell_acts(op):
     """The (gate, cell, candidate) activation codes of an lstm/lstmp."""
     return tuple(ACT_CODES[op.attr(a, dflt)] for a, dflt in (
@@ -110,9 +129,6 @@ def _lstm(ctx, op):
     w = ctx.in1(op, "Weight")                                   # [D,4D]
     d = w.shape[0]
     bias = ctx.in1(op, "Bias")
-    if bias is not None:
-        xp = xp + bias[:, :4 * d]           # once for every step
-    peep = _peepholes(op, bias, d)
     n = xp.shape[1]
     h = ctx.in1(op, "H0")
     c = ctx.in1(op, "C0")
@@ -120,6 +136,10 @@ def _lstm(ctx, op):
         if h is None else h.contiguous()
     c = torch.zeros((n, d), dtype=xp.dtype, device=xp.device) \
         if c is None else c.contiguous()
+    xp = _promoted_input(xp, w, bias, h, c)
+    if bias is not None:
+        xp = xp + bias[:, :4 * d]           # once for every step
+    peep = _peepholes(op, bias, d)
     hs, cs = lstm_scan(xp.contiguous(), w.contiguous(), h, c, peep, lens,
                        acts, op.attr("is_reverse", False))
     _set_seq_out(ctx, op, "Hidden", _unpad_to_lod(hs, lens, total), lens,

@@ -41,8 +41,10 @@ as K ``run`` calls without capture: gloo's collectives (a blocking copy
 through host memory and a CPU call) cannot be captured in a graph, and
 capturing NCCL's is left out (it needs more than one card to try).
 
-``use_bf16_compute=True`` raises: mixed precision is ROADMAP.md queue 1
-item 11.
+``DistributedStrategy(use_bf16_compute=True)`` pins AMP (``amp.py``) on
+for this executor's steps, ``run`` and ``run_steps``, and restores the
+ambient setting after each; False (the default) leaves the ambient AMP
+setting alone, as in the JAX package.
 
 The monitor and the tracer see it as the JAX package's: each ``run`` is a
 ``pexe.step`` root span (``run_steps`` one with ``k``), and with the
@@ -51,11 +53,13 @@ monitor armed a new step key is an ``on_compile(executor="pexe")`` (its
 hit, and each step an ``on_step(executor="pexe")`` row.
 """
 
+import contextlib
 import time
 
 import numpy as np
 import torch
 
+from ..amp import amp_guard
 from ..core.executor import (Executor, _is_lod, _normalize_feeds,
                              _raise_first_nan, _tf32_off, _trim_fetches,
                              as_numpy, FeedPlanCache)
@@ -113,11 +117,6 @@ class ParallelExecutor:
                 "multi-trainer mode requires init_parallel_env() "
                 "across exactly num_trainers processes"
                 % (num_trainers, world))
-        if bool(getattr(strategy, "use_bf16_compute", False)):
-            raise NotImplementedError(
-                "DistributedStrategy(use_bf16_compute=True) (mixed "
-                "precision) is not ported to paddle_tpu_torch yet "
-                "(ROADMAP.md, queue 1 item 11)")
         self.num_trainers = num_trainers
         self.trainer_id = trainer_id if num_trainers > 1 else \
             (dist.get_rank() if dist.is_initialized() else 0)
@@ -154,6 +153,10 @@ class ParallelExecutor:
                 "gradient_accumulation_loss_norm must be 'sequence', "
                 "'token', or 'token:<feed_name>'; got %r"
                 % (self._accum_loss_norm,))
+        # use_bf16_compute=True pins AMP on for THIS executor's steps
+        # (restored after each: the process-wide setting is not leaked)
+        self._force_bf16 = bool(getattr(strategy, "use_bf16_compute",
+                                        False))
 
     @property
     def device_count(self):
@@ -229,15 +232,22 @@ class ParallelExecutor:
                 t.redistribute(self.mesh.dtensor_mesh, pl)
         return _distribute(self.mesh, t, pl)
 
+    def _amp(self):
+        """The AMP scope of this executor's steps: pinned on under
+        ``use_bf16_compute=True``, else the ambient setting."""
+        return amp_guard(True) if self._force_bf16 else \
+            contextlib.nullcontext()
+
     def run(self, fetch_list, feed=None, feed_dict=None, return_numpy=True):
         trc = _trace._TRACER
-        if trc is None:
-            return self._run_impl(fetch_list, feed, feed_dict,
-                                  return_numpy)
-        # the distributed-trace root span of the step
-        with trc.span("pexe.step"):
-            return self._run_impl(fetch_list, feed, feed_dict,
-                                  return_numpy)
+        with self._amp():
+            if trc is None:
+                return self._run_impl(fetch_list, feed, feed_dict,
+                                      return_numpy)
+            # the distributed-trace root span of the step
+            with trc.span("pexe.step"):
+                return self._run_impl(fetch_list, feed, feed_dict,
+                                      return_numpy)
 
     def _run_impl(self, fetch_list, feed, feed_dict, return_numpy):
         feed = dict(feed or feed_dict or {})
@@ -382,10 +392,13 @@ class ParallelExecutor:
         Returns K per-step fetch lists."""
         feeds, k = Executor._check_run_steps_args(feeds, k)
         trc = _trace._TRACER
-        if trc is None:
-            return self._run_steps_impl(fetch_list, feeds, return_numpy, k)
-        with trc.span("pexe.step", k=k):
-            return self._run_steps_impl(fetch_list, feeds, return_numpy, k)
+        with self._amp():
+            if trc is None:
+                return self._run_steps_impl(fetch_list, feeds,
+                                            return_numpy, k)
+            with trc.span("pexe.step", k=k):
+                return self._run_steps_impl(fetch_list, feeds,
+                                            return_numpy, k)
 
     def _run_steps_impl(self, fetch_list, feeds, return_numpy, k):
         if self._accum_steps > 1:

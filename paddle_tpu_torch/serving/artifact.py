@@ -37,11 +37,12 @@ def save_lm_artifact(dirname, program, scope, targets, n_layer, n_head,
     program: the Program + params via ``io.save_inference_model``, plus
     the model config the serving boot needs. ``targets`` must keep the
     whole forward live (the logits head). ``dtype='bfloat16'`` makes the
-    loaded engine run the bf16 model. The signature is the JAX
-    package's; the transform tier behind its default ``specialize=True``
-    (and ``bf16=True``) is not ported, so callers pass
-    ``specialize=False`` (``io.save_inference_model`` raises
-    otherwise)."""
+    loaded engine run the bf16 model. ``specialize=True`` (the default)
+    writes the specialized Program (``transform.specialize_for_inference``:
+    fused matmul chains, folded constants); ``bf16=True`` also stores the
+    matmul-class parameters half width through the bf16 cast pass. The
+    decode model reads either (``extract_params`` follows fused ops and
+    casts)."""
     cfg = {"kind": LM_KIND, "n_layer": int(n_layer),
            "n_head": int(n_head), "d_model": int(d_model),
            "max_len": int(max_len), "bos_id": int(bos_id),

@@ -5,7 +5,8 @@ control-flow slice added (``run(device, part="lod")``), for each
 CRF, CTC and detection op type (``run(device, part="detection")``), and
 for each op type of the parallel tier without a mesh (``run(device,
 part="parallel")``: the collectives as identities, ``moe_ffn`` and
-``pipeline_stack`` on their one-device paths),
+``pipeline_stack`` on their one-device paths), and for the two fused
+ops (``run(device, part="fused")``),
 each a one-op Program (or, for control flow, a small Program built by
 the layers) run
 through ``Executor(CUDAPlace(0))`` and through ``Executor(CPUPlace())``
@@ -22,7 +23,8 @@ its Cost recomputed from its own SampleLabels. ``print`` and ``range``
 read the host and ``delete_var`` only drops a name: they run, and their
 outputs are held as the others'.
 
-Used by ``chip_smoke.py`` (phases 14 (c), 15 (c), 16 (d) and 19 (a));
+Used by ``chip_smoke.py`` (phases 11 (d), 14 (c), 15 (c), 16 (d) and
+19 (a));
 ``run``
 returns the op types held. On the CPU against itself it is the tests'
 check that every case runs; tests/test_torch_sequence_ops.py holds
@@ -580,6 +582,30 @@ def parallel_cases():
     return out
 
 
+def fused_cases():
+    """[(op type, inputs, attrs, output slots, wrt slots)] of the fused
+    ops (``ops/fused.py``): a mul anchor with its bias and relu, a conv2d
+    anchor with a channel bias and tanh, and a cast/scale pair."""
+    return [
+        ("fused_matmul_bias_act",
+         {"X": _r(600, 3, 4, 8), "Y": _r(601, 8, 6), "Bias": _r(602, 6)},
+         {"mm_type": "mul", "mm_attrs": {"x_num_col_dims": 2},
+          "add_attrs": {"axis": -1}, "act_type": "relu", "act_attrs": {}},
+         ["Out"], ["X", "Y", "Bias"]),
+        ("fused_matmul_bias_act",
+         {"X": _r(603, 2, 3, 6, 6), "Y": _r(604, 4, 3, 3, 3),
+          "Bias": _r(605, 4)},
+         {"mm_type": "conv2d",
+          "mm_attrs": {"strides": [1, 1], "paddings": [1, 1]},
+          "add_attrs": {"axis": 1}, "act_type": "tanh", "act_attrs": {}},
+         ["Out"], ["X", "Y"]),
+        ("fused_scale_cast", {"X": _r(606, 4, 5)},
+         {"ops": [["cast", {"out_dtype": "float32"}],
+                  ["scale", {"scale": 0.5, "bias": 1.0}]]},
+         ["Out"], ["X"]),
+    ]
+
+
 def control_flow_programs(fluid):
     """[(name, program, startup or None, feed, fetch names)] of small
     Programs built by ``fluid``'s layers (either package's) that hold
@@ -797,8 +823,8 @@ def run(device, part="library"):
     """Every case of ``part`` on ``device`` against the CPU: "library"
     (the dense op library and the SelectedRows host ops), "lod" (the
     LoD, sequence, RNN and control-flow op types), "detection" (the
-    CRF, CTC and detection op types) or "parallel" (the parallel tier's
-    op types without a mesh). Returns (the op types
+    CRF, CTC and detection op types), "parallel" (the parallel tier's
+    op types without a mesh) or "fused" (the fused ops). Returns (the op types
     held, the largest forward |difference| over the float outputs);
     raises AssertionError naming the first op that disagrees."""
     import paddle_tpu_torch as fluid
@@ -808,6 +834,8 @@ def run(device, part="library"):
         return _run_cases(fluid, device, detection_cases())
     if part == "parallel":
         return _run_cases(fluid, device, parallel_cases())
+    if part == "fused":
+        return _run_cases(fluid, device, fused_cases())
     held, worst = _run_cases(fluid, device, cases())
     assert _host_ops(fluid, device), \
         "op sweep: the SelectedRows host ops on %s disagree" % device

@@ -21,7 +21,8 @@ Program and values live in a port scope too. Pinned:
   * a port-written artifact boots the JAX engine with identical tokens,
     and ``Engine(<dir>)`` equals an engine over ``from_program`` on the
     live port scope;
-  * every ``ArtifactError`` case, and the refused write path;
+  * every ``ArtifactError`` case, and the default (specialized) write
+    path, byte for byte the JAX package's;
   * a fresh interpreter that imports only ``paddle_tpu_torch`` serves
     from the directory on the CPU with ``jax`` never loaded.
 """
@@ -284,9 +285,18 @@ def test_artifact_error_no_manifest(tmp_path):
 
 
 def test_save_lm_artifact_default_raises(src, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
-        serving.save_lm_artifact(str(tmp_path / "a"), src["tmain"],
-                                 src["tscope"], [src["tlogits"]], *CFG)
+    """The default write path (``specialize=True``, refused before the
+    transform tier was ported) now runs, and writes the JAX package's
+    specialized artifact byte for byte from the same Program and
+    values."""
+    d = serving.save_lm_artifact(str(tmp_path / "a"), src["tmain"],
+                                 src["tscope"], [src["tlogits"]], *CFG,
+                                 end_id=VOCAB)
+    want = src["arts"]["specialized"]
+    for f in ("__model__", "__params__.npz", tio.MANIFEST):
+        with open(os.path.join(d, f), "rb") as a, \
+                open(os.path.join(want, f), "rb") as b:
+            assert a.read() == b.read(), f
 
 
 # -- a fresh process serves from the directory ----------------------------

@@ -228,17 +228,34 @@ def _small_step():
 
 @pytest.mark.parametrize("flag", ["transform", "monitor"])
 def test_left_out_flags_raise(flag, monkeypatch):
-    """``transform`` is not ported and raises, naming ROADMAP.md. The
-    monitor is ported: its flag arms it (``maybe_enable_from_flags``,
-    which the package runs at import) and the run reports its step."""
+    """Both flags once stood for features left out; both are ported.
+    ``transform`` arms the pass pipeline: the step runs from the
+    rewritten clone (the LM's fc chains fused) and its loss and state
+    are bitwise the unarmed step's. The monitor's flag arms it
+    (``maybe_enable_from_flags``, which the package runs at import) and
+    the run reports its step."""
     from paddle_tpu_torch import monitor
     exe, main, avg, scope, feed = _small_step()
+    if flag == "transform":
+        init = {n: scope.find_var(n).clone()
+                for n in scope.local_var_names()
+                if isinstance(scope.find_var(n), torch.Tensor)}
+        want = exe.run(main, feed=feed, fetch_list=[avg], scope=scope)
+        armed = tfluid.Scope()
+        for n, v in init.items():
+            armed.set(n, v.clone())
+        monkeypatch.setenv("PADDLE_TPU_TRANSFORM", "1")
+        assert tflags.get_flag("transform")
+        got = tfluid.Executor(tfluid.CPUPlace()).run(
+            main, feed=feed, fetch_list=[avg], scope=armed)
+        assert got[0].tobytes() == want[0].tobytes()
+        for n in init:
+            assert torch.equal(armed.find_var(n), scope.find_var(n)), n
+        meta = main._transform_applied
+        assert meta["patterns"]["matmul_bias"] >= 1, meta
+        return
     monkeypatch.setenv("PADDLE_TPU_" + flag.upper(), "1")
     assert tflags.get_flag(flag)
-    if flag == "transform":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            exe.run(main, feed=feed, fetch_list=[avg], scope=scope)
-        return
     monitor.maybe_enable_from_flags()
     try:
         assert monitor.enabled()

@@ -18,8 +18,8 @@ same Program JSON and manifest, the same CRC32s. So here:
     ``tests/test_specialize.py``: the corrupt matrix and the legacy
     directory) hold in the port;
   * the port's own rules: the load-device rule, bfloat16 blobs decoded
-    bit for bit, 64-bit arrays narrowed, the transform-tier write paths
-    refused naming ROADMAP.md.
+    bit for bit, 64-bit arrays narrowed; the transform-tier write paths
+    (specialized, bf16) write the JAX package's files byte for byte.
 
 The LM is ``transformer_lm(vocab 128, max_len 32, 2 layers, 2 heads,
 d_model 64, d_inner 128, packed=True)``.
@@ -447,6 +447,46 @@ def test_bf16_blobs_decode_bitwise_and_uint16_is_refused():
         tfluid.core.scope.to_tensor(bits, "cpu")
 
 
+@pytest.mark.parametrize("filename", [None, "all"], ids=["npy", "npz"])
+def test_bf16_values_save_as_the_jax_package_does(tmp_path, filename):
+    """A bfloat16 scope value (an AMP model's, a bf16 artifact's
+    weights) is written as its raw 2-byte records, the records the JAX
+    package's np.save writes for a bfloat16 array (numpy holds no
+    bfloat16; only the header's byte-order mark differs, '|V2' against
+    ml_dtypes' '<V2'). The port loads both packages' files back as
+    bfloat16 bit for bit."""
+    import ml_dtypes
+    bits = np.random.default_rng(1).integers(
+        0, 2 ** 15, (3, 4)).astype(np.uint16)      # finite, positive
+    prog = tfluid.Program()
+    prog.global_block().create_var(name="w", shape=(3, 4),
+                                   dtype="bfloat16", persistable=True)
+    jprog = jfluid.Program()
+    jprog.global_block().create_var(name="w", shape=(3, 4),
+                                    dtype="bfloat16", persistable=True)
+    held = tfluid.Scope()
+    held.set("w", tio._bf16(bits))
+    jscope = jfluid.Scope()
+    jscope.set("w", bits.view(ml_dtypes.bfloat16))
+    td, jd = str(tmp_path / "port"), str(tmp_path / "jax")
+    tio.save_persistables(None, td, prog, filename=filename, scope=held)
+    with jfluid.scope_guard(jscope):
+        jfluid.io.save_persistables(None, jd, jprog, filename=filename,
+                                    scope=jscope)
+    for d in (td, jd):
+        if filename is None:
+            raw = np.load(os.path.join(d, "w.npy"))
+        else:
+            with np.load(os.path.join(d, filename + ".npz")) as z:
+                raw = z["w"]
+        assert raw.dtype.itemsize == 2 and raw.dtype.kind == "V"
+        assert raw.tobytes() == bits.tobytes()
+        back = tfluid.Scope()
+        tio.load_persistables(None, d, prog, filename=filename, scope=back)
+        assert back.find_var("w").dtype == torch.bfloat16
+        assert torch.equal(back.find_var("w"), held.find_var("w"))
+
+
 def test_64bit_arrays_load_narrowed(tmp_path):
     ck = str(tmp_path / "ckpt")
     tio.write_checkpoint_arrays(ck, 1, {
@@ -460,12 +500,42 @@ def test_64bit_arrays_load_narrowed(tmp_path):
 
 
 @pytest.mark.parametrize("kw", [{"specialize": True}, {"bf16": True}])
-def test_transform_write_paths_raise(mlp, tmp_path, kw):
-    kw = dict({"specialize": False}, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
-        tio.save_inference_model(str(tmp_path / "a"), ["x"], [mlp["pred"]],
-                                 mlp["exe"], main_program=mlp["main"],
-                                 scope=mlp["scope"], **kw)
+def test_transform_write_paths_raise(tmp_path, kw):
+    """The transform tier's write paths (refused before it was ported):
+    the specialized artifact (the default) and the bf16 one, written by
+    both packages from the same Program and values, are the same files
+    byte for byte; the port loads the bf16 one with its weights
+    bfloat16."""
+    progs, scopes = [], []
+    for fluid in (jfluid, tfluid):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            x, label, pred, loss = _mlp(fluid)
+            fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+        progs.append((main, startup, pred))
+    jmain, jstart, jpred = progs[0]
+    tmain, _, tpred = progs[1]
+    jscope = _jax_start(jstart)
+    tscope = tfluid.Scope()
+    tfluid.load_numpy_state(tscope, _state(jscope, _persistables(jmain)),
+                            "cpu")
+    jd, td = str(tmp_path / "jax"), str(tmp_path / "port")
+    with jfluid.scope_guard(jscope):
+        jfluid.io.save_inference_model(jd, ["x"], [jpred], None,
+                                       main_program=jmain, scope=jscope,
+                                       **kw)
+    tio.save_inference_model(td, ["x"], [tpred], None, main_program=tmain,
+                             scope=tscope, **kw)
+    for f in ("__model__", "__params__.npz", tio.MANIFEST):
+        with open(os.path.join(jd, f), "rb") as a, \
+                open(os.path.join(td, f), "rb") as b:
+            assert a.read() == b.read(), f
+    held = tfluid.Scope()
+    prog, _, _ = tio.load_inference_model(td, None, scope=held)
+    assert "fused_matmul_bias_act" in [op.type for op in
+                                       prog.global_block().ops]
+    w = held.find_var("fc_0.w_0")
+    assert w.dtype == (torch.bfloat16 if kw.get("bf16") else torch.float32)
 
 
 def test_jax_specialized_artifact_loads_in_the_port(tmp_path):

@@ -612,3 +612,23 @@ def test_run_steps_body_has_no_host_read(model, fused, no_host_reads):
     ref = [ref_exe.run(main, feed=f, fetch_list=fetch, scope=ref_scope)
            for f in feeds[:2]]
     np.testing.assert_array_equal([g[0] for g in got], [r[0] for r in ref])
+
+
+def test_capture_keeps_the_collector_off():
+    """A CUDA graph freed inside a capture invalidates it, and the cyclic
+    collector can free a dead engine's graph at any allocation: a capture
+    collects first and keeps the collector off until it ends, restoring
+    it as it was (``core/graphs._collector_off``)."""
+    import gc
+    from paddle_tpu_torch.core import graphs
+    assert gc.isenabled()
+    with graphs._collector_off():
+        assert not gc.isenabled()
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with graphs._collector_off():
+            assert not gc.isenabled()
+        assert not gc.isenabled()
+    finally:
+        gc.enable()

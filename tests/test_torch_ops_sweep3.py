@@ -275,11 +275,9 @@ def test_lr_schedule_five_steps(name):
 
 # --------------------------------------------------------------------------
 # registry completeness: the port's op types are the JAX package's, less
-# an explicit list, each with the ROADMAP.md queue 1 item it waits for
-STILL_MISSING = {
-    # the transform pipeline's fused ops (item 11)
-    "fused_matmul_bias_act": 11, "fused_scale_cast": 11,
-}
+# an explicit list, each with the ROADMAP.md queue 1 item it waits for;
+# the last two (the fused ops) came with the transform tier
+STILL_MISSING = {}
 
 
 def test_registry_is_the_jax_one_less_the_listed():
@@ -289,11 +287,11 @@ def test_registry_is_the_jax_one_less_the_listed():
     jops = set(jregistry.registered_ops())
     tops = set(tregistry.registered_ops())
     assert tops <= jops, sorted(tops - jops)
-    assert len(STILL_MISSING) == 2
+    assert len(STILL_MISSING) == 0
     assert jops - tops == set(STILL_MISSING), (
         sorted((jops - tops) - set(STILL_MISSING)),
         sorted(set(STILL_MISSING) - (jops - tops)))
-    assert len(tops) == 236
+    assert len(jops) == len(tops) == 238
 
 
 # the port's op types before the dense op library and the SelectedRows
@@ -317,12 +315,12 @@ BEFORE = {
 
 
 def test_card_sweep_covers_every_added_op_on_the_cpu():
-    """``tools/op_sweep.py`` (chip_smoke.py phases 14 (c), 15 (c), 16 (d)
-    and 19 (a)) holds one case or more of each of the 167 added op types:
-    the 112 of the op library, the 32 of the LoD, sequence, RNN and
-    control-flow slice, the 14 of CRF, CTC and detection and the 9 of the
-    parallel tier; here it runs against the CPU itself, so every case
-    must run and agree. The six wire ops need live servers: they are
+    """``tools/op_sweep.py`` (chip_smoke.py phases 11 (d), 14 (c), 15
+    (c), 16 (d) and 19 (a)) holds one case or more of each of the 169
+    added op types: the 112 of the op library, the 32 of the LoD,
+    sequence, RNN and control-flow slice, the 14 of CRF, CTC and
+    detection, the 9 of the parallel tier and the 2 fused ops; here it
+    runs against the CPU itself, so every case must run and agree. The six wire ops need live servers: they are
     held by tests/test_torch_pserver.py and chip_smoke.py phase 20, not
     by the sweep."""
     from paddle_tpu_torch.tools import op_sweep
@@ -330,14 +328,15 @@ def test_card_sweep_covers_every_added_op_on_the_cpu():
     held_lod, worst_lod = op_sweep.run("cpu", part="lod")
     held_det, worst_det = op_sweep.run("cpu", part="detection")
     held_par, worst_par = op_sweep.run("cpu", part="parallel")
+    held_fused, worst_fused = op_sweep.run("cpu", part="fused")
     wire = {"send", "send_barrier", "send_sparse", "recv", "prefetch",
             "listen_and_serv"}
     assert wire <= set(tregistry.registered_ops())
     added = set(tregistry.registered_ops()) - BEFORE - wire
-    assert len(BEFORE) == 63 and len(added) == 167
+    assert len(BEFORE) == 63 and len(added) == 169
     assert len(held) == 112 and len(held_lod) == 32 and len(held_det) == 14
-    assert len(held_par) == 9
-    every = held | held_lod | held_det | held_par
+    assert len(held_par) == 9 and len(held_fused) == 2
+    every = held | held_lod | held_det | held_par | held_fused
     assert every == added, (sorted(added - every), sorted(every - added))
     assert worst == 0.0 and worst_lod == 0.0 and worst_det == 0.0
-    assert worst_par == 0.0
+    assert worst_par == 0.0 and worst_fused == 0.0

@@ -13,6 +13,7 @@ with the profiler off, and the device trace's per-op ranges.
 
 import json
 import threading
+import warnings
 
 import numpy as np
 import pytest
@@ -277,6 +278,56 @@ def test_device_trace_holds_the_op_ranges(tmp_path, monkeypatch):
         "complete": True}
 
 
+def test_traced_block_lies_inside_the_padded_window(tmp_path, monkeypatch):
+    """The device trace records after a discarded warm-up cycle and pads
+    its window: the card idles ``_TRACE_EDGE_S`` after recording starts
+    and before it stops, so a window that opens a little late loses no
+    leading kernel records (on the CPU route, over the CPU activity: the
+    block's first op range starts at least one edge into the window,
+    its last ends at least one edge before the window closes). The check's kernel rows equal the
+    launch counters' deltas over the block: a packed LM step with
+    dropout runs the plain versions here, which count no launch, and the
+    trace holds no kernel."""
+    from paddle_tpu.models import transformer as JT
+    from paddle_tpu_torch.core.graphs import launch_counts
+    from paddle_tpu_torch.models import transformer as TT
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.program_guard(main, startup), tfluid.unique_name.guard():
+        loss, _ = TT.transformer_lm(vocab_size=64, max_len=16, n_layer=1,
+                                    n_head=2, d_model=32, d_inner=64,
+                                    packed=True, dropout_rate=0.1)
+        tfluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    scope = tfluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = JT.make_lm_batch(np.random.RandomState(3), 4, 16, 64)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(tprof, "_ACTIVITIES", ("CPU",))
+    before = launch_counts()
+    with tfluid.profiler.profiler("All", "total", str(tmp_path / "p")):
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    after = launch_counts()
+    check = tprof.last_device_trace_check()
+    launched = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+    assert {k: r["launched"] for k, r in check["kernels"].items()} == \
+        launched
+    assert all(r["traced"] == r["launched"]
+               for r in check["kernels"].values())
+    assert check["complete"]
+    events = json.loads((tmp_path / "p" / "device_trace.json")
+                        .read_text())["traceEvents"]
+    window = next(e for e in events if e.get("cat") == "Trace")
+    ops = [e for e in events if e.get("cat") == "user_annotation"
+           and "." in str(e.get("name"))
+           and str(e["name"]).rsplit(".", 1)[1].isdigit()]
+    assert ops
+    edge_us = tprof._TRACE_EDGE_S * 1e6
+    first = min(e["ts"] for e in ops)
+    last = max(e["ts"] + e["dur"] for e in ops)
+    assert first - window["ts"] >= 0.9 * edge_us
+    assert window["ts"] + window["dur"] - last >= 0.9 * edge_us
+
+
 def _trace_file(tmp_path, events):
     path = tmp_path / "trace.json"
     path.write_text(json.dumps({"traceEvents": events}))
@@ -340,3 +391,50 @@ def test_incomplete_trace_warns(tmp_path, monkeypatch):
     check = tprof.last_device_trace_check()
     assert check["kernels"] == {"dropout": {"launched": 2, "traced": 0}}
     assert not check["complete"]
+
+
+def test_trace_retakes_an_incomplete_trace(tmp_path, monkeypatch):
+    """``profiler.trace`` calls its block again while the trace's check
+    finds it incomplete, at most ``_TRACE_TRIES`` calls: a block whose
+    first two calls count a launch that never ran is traced three times,
+    its last trace complete and no warning given; a block that always
+    falls short is traced ``_TRACE_TRIES`` times and warns once."""
+    from paddle_tpu_torch.ops import dropout
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(tprof, "_ACTIVITIES", ("CPU",))
+    monkeypatch.setattr(dropout.dropout, "launches",
+                        dropout.dropout.launches)   # restored after
+    calls = []
+
+    def block(short_for):
+        calls.append(None)
+        if len(calls) <= short_for:
+            dropout.dropout.launches += 1     # counted, never run
+        return len(calls)
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        assert tfluid.profiler.trace(lambda: block(2),
+                                     str(tmp_path / "a")) == 3
+    assert not [w for w in caught if "incomplete" in str(w.message)]
+    check = tprof.last_device_trace_check()
+    assert check["complete"] and check["passes"] == 3
+    assert check["kernels"] == {}
+    calls.clear()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        tfluid.profiler.trace(lambda: block(99), str(tmp_path / "b"))
+    assert len(calls) == tprof._TRACE_TRIES == 3
+    assert len([w for w in caught if issubclass(w.category, RuntimeWarning)
+                and "incomplete" in str(w.message)]) == 1
+    check = tprof.last_device_trace_check()
+    assert not check["complete"] and check["passes"] == 3
+    assert check["kernels"] == {"dropout": {"launched": 1, "traced": 0}}
+
+
+def test_trace_needs_a_card(monkeypatch):
+    """``profiler.trace``, like ``cuda_profiler``, raises without a card
+    and never calls its block."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        tfluid.profiler.trace(lambda: pytest.fail("called"), "unused")

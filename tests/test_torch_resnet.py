@@ -245,16 +245,22 @@ def test_unported_vision_ops_raise():
     prior_box run (ROADMAP.md, queue 1 item 7, done), as do adaptive
     pooling, pool3d and im2sequence (tests/test_torch_ops_sweep3.py,
     tests/test_torch_sequence_ops.py), each against the JAX package
-    here; an op type the port still lacks (``fused_matmul_bias_act``,
-    queue 1 item 11) raises NotImplementedError naming ROADMAP.md."""
+    here. The last op types the port lacked, the fused ops, came with
+    the transform tier: a ``fused_matmul_bias_act`` over a conv2d
+    anchor (conv + channel bias + relu) runs and agrees with the JAX
+    package's."""
     x = {"X": _rand(16, 1, 2, 4, 4)}
-    prog = _program(tfluid, [("fused_matmul_bias_act", {"X": ["x"]},
-                              {"Out": ["out"]}, {})], {"x": x["X"]},
-                    ["out"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tfluid.Executor(tfluid.CPUPlace()).run(
-            prog, feed={"x": x["X"]}, fetch_list=["out"],
-            scope=tfluid.Scope())
+    got, want = _run_both(
+        [("fused_matmul_bias_act", {"X": ["x"], "Y": ["w"], "Bias": ["b"]},
+          {"Out": ["out"]},
+          {"mm_type": "conv2d",
+           "mm_attrs": {"strides": [1, 1], "paddings": [1, 1]},
+           "add_attrs": {"axis": 1}, "act_type": "relu",
+           "act_attrs": {}})],
+        {"x": x["X"], "w": _rand(21, 3, 2, 3, 3), "b": _rand(22, 3)},
+        ["out"])
+    _assert_same(got, want, ["out"])
+    assert (got[0] > 0).any() and (got[0] == 0).any()
     prior = np.sort(_rand(18, 6, 2, 2), axis=1).reshape(6, 4)
     for op_type, inputs, outputs, attrs, arrays in (
             ("box_coder", {"PriorBox": ["p"], "TargetBox": ["x"]},

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Count the kernel records torch.profiler loses at the edges of its
-window, on the card, with and without the idle edges chip_smoke's
-``_kernel_rows`` puts around a traced call.
+window, on the card, with and without the idle edges the port's
+profiler (``paddle_tpu_torch.profiler._TRACE_EDGE_S``) puts around a
+traced call.
 
 The traced call is one eager training step of chip_smoke's stacked LSTM
 (``_lstm_program``, ``_lstm_batch``; 1,314 kernels, 768 of them the step
 kernels). Each pass is a warm-up step and a traced step under
-``schedule(wait=0, warmup=1, active=1)``, as ``_kernel_rows`` runs it;
-the padded passes idle ``TRACE_EDGE_S`` on both sides of the traced
+``schedule(wait=0, warmup=1, active=1)``, as the profiler runs it;
+the padded passes idle ``_TRACE_EDGE_S`` on both sides of the traced
 step. Half the passes run beside busy host processes, one a core. A
 pass that records fewer kernels than the complete one is listed with
 where its records went missing (a ``difflib`` diff of the kernel names
@@ -46,6 +47,7 @@ def main():
     from paddle_tpu_torch.ops import _build
     _build.load_all(["lstm_cell"])
     import paddle_tpu_torch as fluid
+    edge = fluid.profiler._TRACE_EDGE_S
     exe = fluid.Executor(fluid.CUDAPlace(0))
     main_prog, startup, loss = cs._lstm_program(fluid)
     init = cs._init_of(fluid, exe, startup)
@@ -81,14 +83,14 @@ def main():
         return [e.name() for e in evs], lead
 
     # the reference: the longest of a few padded passes
-    complete = max((traced(cs.TRACE_EDGE_S)[0] for _ in range(3)), key=len)
+    complete = max((traced(edge)[0] for _ in range(3)), key=len)
     lost = {}
     for load in (0, len(os.sched_getaffinity(0))):
         procs = [subprocess.Popen([sys.executable, "-c", "while 1: pass"])
                  for _ in range(load)]
         try:
             for n in range(2 * args.passes):
-                pad = (0.0, cs.TRACE_EDGE_S)[n % 2]
+                pad = (0.0, edge)[n % 2]
                 names, lead = traced(pad)
                 key = "load %d, %s" % (load, "padded" if pad else "bare")
                 tally = lost.setdefault(key, [0, 0])

@@ -467,15 +467,22 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
      (``chip_smoke.py --parallel-rank b 2 R STORE``) over a gloo group,
      the port's collectives staged through pinned host memory: ring and
      Ulysses attention over sp=2 at [32, 8, 256, 64] fp32, causal and
-     not, forward and backward, against ``flash_attention_lse`` over the
-     whole sequence in one process at phase 5's limits, each rank's flash
-     launches exact (causally rank 0 runs its diagonal only, rank 1 its
-     diagonal and one full block); ``gpipe`` over pp=2 on the LM's
-     4-layer stack (3 SGD steps) against the one-rank loop (2e-4, weights
-     50 x), and the same steps as one ``run_steps`` call: 3 ``run``
-     calls over the two ranks, no graph captured, bitwise equal to them;
-     ``moe_ffn`` over ep=2 with 4 experts, top-1 and top-2, on
-     8,192 tokens: routing (overflow, aux) identical to one rank, the
+     not, forward and backward, on each rank's sequence block of Q, K
+     and V (DTensors over the sp mesh; the output leaves as the rank's
+     block), against ``flash_attention_lse`` over the whole sequence in
+     one process at phase 5's limits, each rank's flash launches exact
+     (causally rank 0 runs its diagonal only, rank 1 its diagonal and
+     one full block), each rank's staged bytes a call at most the count
+     from the code (``_par_staged_count``: 64 MiB for the ring, 128 MiB
+     for Ulysses) and printed beside the 160 and 224 MiB the calls
+     staged on whole tensors (``PAR_STAGED_BEFORE``); ``gpipe``
+     over pp=2 on the LM's 4-layer stack (3 SGD steps) against the
+     one-rank loop (2e-4, weights 50 x), each rank holding half the
+     stage weights' bytes, and the same steps as one ``run_steps`` call:
+     3 ``run`` calls over the two ranks, no graph captured, bitwise equal
+     to them; ``moe_ffn`` over ep=2 with 4 experts, top-1 and top-2, on
+     8,192 tokens, each rank passing its ep block of the experts (half
+     their bytes): routing (overflow, aux) identical to one rank, the
      output at rtol 1e-4 / atol 1e-5. (c) Four rank processes: which of
      DTensor's collectives gloo carries for CUDA tensors here (probed; a
      probe that fails otherwise than by gloo's refusal, or times out,
@@ -483,8 +490,11 @@ nor ``paddle_tpu``. Phases, each fatal on failure:
      sp, dp x pp, dp x ep) whose collectives it carries (dp x sp, dp x pp
      and dp x ep must run), at (a)'s widths, 3 SGD steps
      against the one-rank run at the dryrun's limits (losses 2e-4, 2e-3
-     with sp or ep; weights 50 x). It logs the seconds, each rank's
-     staged bytes and step ms, and the flash launches.
+     with sp or ep; weights 50 x), each rank's flash launches exact
+     (``_par_flash_want``), and under pp or ep each rank holding half its
+     stage and expert blocks' bytes. It logs the seconds, each rank's
+     staged bytes, held state bytes beside the whole scope's, step ms,
+     and the flash launches.
   20. pserver — the wire and its runtime, one process a role
      (``chip_smoke.py --ps-child ROLE ARGS``), spawned, each on the card.
      (a) The flagship LM at full width through ``DistributeTranspiler``
@@ -7571,6 +7581,48 @@ PAR_ISSUED = "chip_smoke: probe issued on CUDA tensors: "
 PAR_PROBE_TIMEOUT_S = 60      # gloo's, on each probe rank
 # a probe's message: the LM's [32, 256, 512] fp32 activation, 16 MB
 PAR_PROBE_FLOATS = TRAIN_BATCH * MAX_LEN * D_MODEL
+# (b)'s staged bytes a rank a call (forward and backward) when each rank
+# entered the whole Q, K and V and left with the output gathered whole,
+# as the calls ran before ranks held their sequence blocks, by variant
+PAR_STAGED_BEFORE = {"ring": 160 << 20, "ulysses": 224 << 20}
+
+
+def _par_staged_count(variant, block, whole=False):
+    """The bytes a rank stages in one (b) call on its sequence block of
+    ``block`` bytes a tensor, from the code (``collective.py``: a gloo
+    collective of CUDA tensors copies its send buffers to host memory and
+    its receive buffers back, each counted once): the ring rotates K and
+    V sp - 1 times forward and sends each step's dK and dV home as often
+    backward (``ring._Ring``); Ulysses makes 8 all-to-alls of a block (Q,
+    K, V and the output, and their gradients), each staging all its
+    chunks out and back (``_raw_all_to_all``). On its block nothing is
+    gathered: the output is the rank's block. On ``whole`` tensors each
+    rank slices its block of Q, K and V on entry (no collective), and 4
+    all-gathers stage a block out and the sp blocks of the whole back:
+    the output's forward (``_ExitPlain``), dQ's, dK's and dV's backward
+    (``_EnterPlain``)."""
+    sp = 2
+    gathers = 4 * (1 + sp) * block if whole else 0
+    if variant == "ring":
+        return 2 * (sp - 1) * 2 * block * 2 + gathers
+    return 8 * block * 2 + gathers
+
+
+def _held_bytes(scope, names):
+    """(bytes this rank holds, bytes of the whole values) over the
+    scope's values of ``names``: a held block's and a DTensor's local
+    block against its global shape."""
+    held = whole = 0
+    for n in names:
+        v = scope.find_var(n)
+        if v is None or not hasattr(v, "element_size"):
+            continue
+        size = v.element_size()
+        local = v.to_local() if hasattr(v, "placements") else v
+        shape = getattr(v, "global_shape", tuple(v.shape))
+        held += local.numel() * size
+        whole += int(np.prod(shape, dtype=np.int64)) * size
+    return held, whole
 
 
 def _par_program(fluid, T, strategy, experts):
@@ -7700,48 +7752,70 @@ def par_one_rank_phase(torch, smi):
     return total
 
 
-def _par_attn(torch, parallel, F, C, rank, variant, causal):
+def _par_attn(torch, parallel, F, C, rank, variant, causal, whole=False):
     """Phase 19 (b): ring or Ulysses over sp=2, forward and backward, on
-    this rank; held against flash_attention_lse over the whole sequence
-    in this process (after the launch counters are read)."""
+    this rank's sequence block of Q, K and V (DTensors over the sp mesh:
+    the block enters as it is and the output leaves as the rank's block),
+    or with ``whole`` on the whole Q, K and V as plain tensors (each rank
+    slices its block on entry and gathers the output whole); held against
+    flash_attention_lse over the whole sequence in this process (after
+    the launch counters are read), and its staged bytes against the
+    count from the code."""
+    from torch.distributed.tensor import DTensor, Shard
     mesh = parallel.make_mesh({"sp": 2})
     b, h, t, d = PAR_ATTN
     g = torch.Generator().manual_seed(7)
     q, k, v, w = [torch.randn(b, h, t, d, generator=g).to("cuda")
                   for _ in range(4)]
-    for x in (q, k, v):
-        x.requires_grad_(True)
+    spec = (None, None, "sp", None)
+    block = (lambda mesh, spec, x: x) if whole else parallel.blocks.block_of
+    leaves = [block(mesh, spec, x).requires_grad_(True) for x in (q, k, v)]
     fn = parallel.ring_attention if variant == "ring" else \
         parallel.ulysses_attention
     staged = C.staged_bytes
     torch.cuda.synchronize()
     _flash_reset(F)
     t0 = time.perf_counter()
-    out = fn(q, k, v, mesh, causal=causal)
-    (out * w).sum().backward()
+    if whole:
+        out = fn(*leaves, mesh, causal=causal)
+    else:
+        ins = [DTensor.from_local(x, mesh.dtensor_mesh, [Shard(2)],
+                                  run_check=False, shape=q.shape,
+                                  stride=q.stride()) for x in leaves]
+        out = fn(*ins, mesh, causal=causal).to_local()
+    (out * block(mesh, spec, w)).sum().backward()
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0)
+    staged = C.staged_bytes - staged
     counts = _flash_read(F)
     if variant == "ulysses":
         want = 1
     else:
         want = 1 + rank if causal else 2
-    what = "par (b) %s %s rank %d" % (variant, "causal" if causal
-                                      else "full", rank)
+    what = "par (b) %s %s%s rank %d" % (variant, "causal" if causal
+                                        else "full",
+                                        " whole" if whole else "", rank)
     for name in FLASH_KERNELS:
         check(counts[name] == want, "%s: %s launched %d times, expected "
               "%d", what, name, counts[name], want)
+    count = _par_staged_count(variant, q.numel() * 4 // 2, whole)
+    check(staged <= count, "%s: staged %d bytes, more than the %d the "
+          "code moves", what, staged, count)
+    check(tuple(out.shape) == (b, h, t // (1 if whole else 2), d), "%s: "
+          "the output is %s", what, tuple(out.shape))
     qr, kr, vr = [x.detach().clone().requires_grad_(True)
                   for x in (q, k, v)]
     ro, _ = F.flash_attention_lse(qr, kr, vr, causal=causal)
     (ro * w).sum().backward()
+    ro = block(mesh, spec, ro.detach())
     err = float((out - ro).abs().max())
     check(torch.allclose(out, ro, rtol=RTOL, atol=ATOL), "%s: the output "
           "is %.3g from flash_attention_lse over the whole sequence",
           what, err)
-    for name, got, ref in (("dq", q.grad, qr.grad), ("dk", k.grad,
-                                                      kr.grad),
-                           ("dv", v.grad, vr.grad)):
+    for name, got, ref in (("dq", leaves[0].grad, qr.grad),
+                           ("dk", leaves[1].grad, kr.grad),
+                           ("dv", leaves[2].grad, vr.grad)):
+        ref = block(mesh, spec, ref)
         scale = float(ref.abs().max())
         gerr = float((got - ref).abs().max())
         check(gerr <= ATOL * scale + RTOL * scale, "%s: %s is %.3g from "
@@ -7749,7 +7823,26 @@ def _par_attn(torch, parallel, F, C, rank, variant, causal):
               scale)
         err = max(err, gerr / max(scale, 1e-30))
     return {"what": what, "launches": counts, "ms": ms, "err": err,
-            "staged": C.staged_bytes - staged}
+            "staged": staged, "count": count, "whole": whole,
+            "before": PAR_STAGED_BEFORE[variant]}
+
+
+def _par_flash_want(axes, rank):
+    """Each flash kernel's launches on ``rank`` in PAR_STEPS steps of the
+    LM over ``axes``, from the code: the ring's causal shards (1 + its sp
+    coordinate a layer: later shards are skipped), a gpipe stage's layers
+    for each of its 2 * pp microbatches, or one a layer."""
+    names = [a for a, _ in axes]
+    sizes = dict(axes)
+    coords = np.unravel_index(rank, [sizes[a] for a in names])
+    at = dict(zip(names, coords))
+    if sizes.get("pp", 1) > 1:
+        per = N_LAYER // sizes["pp"] * 2 * sizes["pp"]
+    elif sizes.get("sp", 1) > 1:
+        per = N_LAYER * (1 + int(at["sp"]))
+    else:
+        per = N_LAYER
+    return per * PAR_STEPS
 
 
 def _par_lm(torch, fluid, parallel, T, axes, seed, tol, experts, rank,
@@ -7789,6 +7882,21 @@ def _par_lm(torch, fluid, parallel, T, axes, seed, tol, experts, rank,
     ms = 1e3 * (time.perf_counter() - t0) / PAR_STEPS
     counts = _flash_read(F)
     staged = C.staged_bytes - staged
+    want = _par_flash_want(list(axes.items()), rank)
+    for name in FLASH_KERNELS:
+        check(counts[name] == want, "%s rank %d: %s launched %d times in "
+              "%d steps, expected %d", what, rank, name, counts[name],
+              PAR_STEPS, want)
+    # what this rank holds of the state: every persistable, and the held
+    # blocks (stage and expert weights, their accumulators) alone
+    pers = sorted(init)
+    held, whole = _held_bytes(sb, pers)
+    blocks = [n for n in pers if hasattr(sb.find_var(n), "global_shape")]
+    hb, hw = _held_bytes(sb, blocks)
+    if "pp" in axes or "ep" in axes:
+        check(blocks and 2 * hb == hw, "%s rank %d: holds %d of the %d "
+              "bytes of its %d stage and expert blocks, not half", what,
+              rank, hb, hw, len(blocks))
     if steps:
         sc = _scope_from(fluid, init, exe.device)
         again = fluid.ParallelExecutor(loss_name=avg_cost.name,
@@ -7817,13 +7925,16 @@ def _par_lm(torch, fluid, parallel, T, axes, seed, tol, experts, rank,
               "run (limit %g)", what, gap, 50 * tol)
     return {"what": what, "losses": lp, "one_rank": le, "gap": gap,
             "ms": ms, "staged": staged, "launches": counts,
-            "run_steps": steps}
+            "run_steps": steps, "held": held, "whole": whole,
+            "held_blocks": hb, "whole_blocks": hw, "blocks": len(blocks)}
 
 
-def _par_moe(torch, parallel, C, top_k, rank):
-    """Phase 19 (b): moe_ffn over ep=2 against the same call without a
-    mesh, on this rank: the routing (overflow, aux) identical, the
-    output at rtol 1e-4 / atol 1e-5."""
+def _par_moe(torch, parallel, C, top_k, rank, whole=False):
+    """Phase 19 (b): moe_ffn over ep=2 on this rank's ep block of the
+    expert stacks (or with ``whole`` on the whole stacks, sliced on
+    entry) against the same call without a mesh, on this rank: the
+    routing (overflow, aux) identical, the output at rtol 1e-4 / atol
+    1e-5."""
     from paddle_tpu_torch.parallel import moe
     tokens, d, e, hidden = PAR_MOE
     g = torch.Generator().manual_seed(11)
@@ -7833,16 +7944,22 @@ def _par_moe(torch, parallel, C, top_k, rank):
     down = (torch.randn(e, hidden, d, generator=g)
             * hidden ** -0.5).to("cuda")
     mesh = parallel.make_mesh({"ep": 2})
+    # this rank's ep block of the expert stacks, held as such
+    up_b, down_b = [w if whole else parallel.blocks.block_of(
+        mesh, ("ep",), w) for w in (up, down)]
+    held = (up_b.numel() + down_b.numel()) * 4
+    all_bytes = (up.numel() + down.numel()) * 4
     staged = C.staged_bytes
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out, aux, st = moe.moe_ffn(x, gate, up, down, mesh=mesh, top_k=top_k,
-                               return_stats=True)
+    out, aux, st = moe.moe_ffn(x, gate, up_b, down_b, mesh=mesh,
+                               top_k=top_k, return_stats=True)
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0)
     ref, raux, rst = moe.moe_ffn(x, gate, up, down, top_k=top_k,
                                  return_stats=True)
-    what = "par (b) moe top-%d rank %d" % (top_k, rank)
+    what = "par (b) moe top-%d%s rank %d" % (top_k, " whole" if whole
+                                             else "", rank)
     check(float(st["overflow"]) == float(rst["overflow"])
           and float(aux) == float(raux), "%s: routing differs: overflow "
           "%r vs %r, aux %r vs %r", what, float(st["overflow"]),
@@ -7850,8 +7967,11 @@ def _par_moe(torch, parallel, C, top_k, rank):
     err = float((out - ref).abs().max())
     check(torch.allclose(out, ref, rtol=RTOL, atol=ATOL), "%s: output "
           "%.3g from the one-rank call", what, err)
+    check(held == (all_bytes if whole else all_bytes // 2), "%s: holds %d "
+          "of the experts' %d bytes", what, held, all_bytes)
     return {"what": what, "overflow": float(st["overflow"]), "err": err,
-            "ms": ms, "staged": C.staged_bytes - staged}
+            "ms": ms, "staged": C.staged_bytes - staged, "held": held,
+            "whole": all_bytes}
 
 
 def _par_probe(torch, dist, name):
@@ -7932,11 +8052,18 @@ def _par_child(argv):
             res["attn"] = [_par_attn(torch, parallel, F, C, rank, v, c)
                            for v in ("ring", "ulysses")
                            for c in (False, True)]
+            # the whole-tensor entry the port keeps (each rank slices on
+            # entry and gathers the output), causal
+            res["attn"] += [_par_attn(torch, parallel, F, C, rank, v, True,
+                                      whole=True)
+                            for v in ("ring", "ulysses")]
             res["lm"] = [_par_lm(torch, fluid, parallel, T, {"pp": 2}, 3,
                                  2e-4, 0, rank, "par (b) gpipe pp=2",
                                  steps=True)]
             res["moe"] = [_par_moe(torch, parallel, C, k, rank)
                           for k in (1, 2)]
+            res["moe"].append(_par_moe(torch, parallel, C, 1, rank,
+                                       whole=True))
         elif probe:
             res["probe"] = _par_probe(torch, dist, part[len("probe:"):])
         else:
@@ -8008,19 +8135,36 @@ def _par_spawn(part, world, tmp, extra=()):
 
 def _par_log(res):
     for r in res:
-        for item in r.get("attn", []) + r.get("moe", []):
-            log("%s: %.1f ms forward and backward, max rel err %.3g, "
-                "staged %d bytes%s", item["what"], item["ms"], item["err"],
-                item["staged"], ", flash launches %s" % item["launches"]
-                if "launches" in item else "")
+        for item in r.get("attn", []):
+            log("%s: %.1f ms forward and backward on %s, max rel err "
+                "%.3g, staged %d bytes (%.1f MiB; the code's count %.1f "
+                "MiB; before ranks held blocks, whole tensors in and "
+                "out: %.0f MiB), flash launches %s", item["what"],
+                item["ms"],
+                "the whole tensors" if item["whole"]
+                else "its sequence block", item["err"], item["staged"],
+                item["staged"] / 2 ** 20, item["count"] / 2 ** 20,
+                item["before"] / 2 ** 20, item["launches"])
+        for item in r.get("moe", []):
+            log("%s: %.1f ms, max rel err %.3g, staged %d bytes; holds "
+                "%d of the experts' %d bytes (%.1f of %.1f MB)",
+                item["what"], item["ms"], item["err"], item["staged"],
+                item["held"], item["whole"], item["held"] / 1e6,
+                item["whole"] / 1e6)
         for item in r.get("lm", []):
             log("%s rank %d: losses %s%s, step ms %.1f, staged %d bytes a "
-                "run of %d steps%s", item["what"], r["rank"],
-                " ".join("%.6f" % x for x in item["losses"]),
+                "run of %d steps; holds %d of its state's %d bytes (%.1f "
+                "of %.1f MB), %d stage and expert blocks %d of %d bytes "
+                "(%.1f of %.1f MB); flash launches %s%s", item["what"],
+                r["rank"], " ".join("%.6f" % x for x in item["losses"]),
                 " (one rank %s, final weights %.3g from it)"
                 % (" ".join("%.6f" % x for x in item["one_rank"]),
                    item["gap"]) if item["one_rank"] else "", item["ms"],
-                item["staged"], PAR_STEPS,
+                item["staged"], PAR_STEPS, item["held"], item["whole"],
+                item["held"] / 1e6, item["whole"] / 1e6, item["blocks"],
+                item["held_blocks"], item["whole_blocks"],
+                item["held_blocks"] / 1e6, item["whole_blocks"] / 1e6,
+                item["launches"],
                 "; run_steps(K=%d): %d run() calls, no graph, bitwise "
                 "equal" % (PAR_STEPS, PAR_STEPS) if item["run_steps"]
                 else "")

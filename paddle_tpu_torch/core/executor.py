@@ -129,6 +129,16 @@ __all__ = ["Executor", "FeedPlanCache", "as_numpy"]
 
 _is_host_op = registry.is_host_op
 
+def _whole(value):
+    """A scope value as a plain run reads it: a ``ParallelExecutor``'s
+    DTensor or held block (``parallel/blocks.Held``) gathered whole, a
+    collective every rank of its mesh makes; any other value as it is."""
+    if isinstance(value, torch.Tensor) and hasattr(value, "full_tensor"):
+        from ..parallel.collective import global_value
+        return global_value(value)
+    return value
+
+
 def as_numpy(value):
     """A fetched value as a numpy array; a SelectedRows passes through,
     as in the JAX package. A bfloat16 value (an AMP activation) widens to
@@ -138,11 +148,7 @@ def as_numpy(value):
     if isinstance(value, (list, tuple)):
         return [as_numpy(v) for v in value]
     if isinstance(value, torch.Tensor):
-        if hasattr(value, "full_tensor"):
-            # a DTensor (ParallelExecutor's state): its global value, a
-            # collective every rank of its mesh makes
-            from ..parallel.collective import global_value
-            value = global_value(value)
+        value = _whole(value)
         if value.dtype == torch.bfloat16:
             value = value.float()
         return value.detach().cpu().numpy()
@@ -459,7 +465,7 @@ class Executor:
         for n in persistable:
             v = scope.find_var(n)
             if v is not None:
-                state[n] = to_tensor(v, self.device)
+                state[n] = to_tensor(_whole(v), self.device)
         check_nan = bool(flags.get_flag("check_nan_inf"))
         host = any(_is_host_op(op.type)
                    for op in program.global_block().ops)
@@ -1246,7 +1252,7 @@ class _Megastep:
         for n, t in self.state.items():
             value = scope.find_var(n)
             if value is not t:
-                t.copy_(to_tensor(value, self.device))
+                t.copy_(to_tensor(_whole(value), self.device))
                 scope.set(n, t)
         self._owner = weakref.ref(scope)
 
@@ -1402,7 +1408,13 @@ def _lower_op_body(ctx, op):
             "(registered: %d ops; ROADMAP.md queue 1 lists what remains)"
             % (op.type, len(registry.registered_ops())))
     try:
-        info.lower(ctx, op)
+        if ctx.mesh is not None:
+            # ParallelExecutor's held and sequence blocks
+            # (parallel/blocks.py, parallel/seqblocks.py)
+            from ..parallel import blocks
+            blocks.lower(ctx, op, info.lower)
+        else:
+            info.lower(ctx, op)
     except _PASS_THROUGH:
         raise
     except Exception as e:  # annotate with op context (enforce.h:203 parity)

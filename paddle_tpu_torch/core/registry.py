@@ -131,6 +131,18 @@ class LowerContext:
         self.fetch_names = tuple(fetch_names or ())
         # names some op of the block or a fetch reads; None = unknown
         self._read_names = read_names
+        # {name: hint} of the persistables held as this rank's block
+        # (``ParallelExecutor``; ``parallel/blocks.py``)
+        self.held = getattr(executor, "_held", None) or {}
+
+    def held_spec(self, name):
+        """The hint of ``name`` (or of the parameter ``name`` is the
+        gradient of) where this rank holds it as a block, else None."""
+        if not self.held or name is None:
+            return None
+        if name.endswith("@GRAD"):
+            name = name[:-len("@GRAD")]
+        return self.held.get(name)
 
     def is_read(self, name):
         """Whether anything reads var ``name`` in this run, so a lowering

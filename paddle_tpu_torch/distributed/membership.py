@@ -60,6 +60,10 @@ DRAINING_PREFIX = "draining:"
 # strip "version:<ver>:" to recover the endpoint.
 VERSION_PREFIX = "version:"
 
+# a lease's heartbeat stops after this many lease lengths of transport
+# errors in a row (the KV gone, not a torn connection)
+_LEASE_GIVE_UP_TTLS = 20
+
 _REG = _metrics.registry()
 _HEARTBEATS = _REG.counter("ptpu_lease_heartbeats_total",
                            "TTL-lease keepalive beats sent")
@@ -375,7 +379,11 @@ class _Lease:
     heartbeat RECLAIMS the key with a CAS create-if-absent; if someone
     else claimed it first, ``lost`` is set and heartbeating stops — the
     owner must check ``lost`` and re-register rather than keep serving a
-    slot it no longer holds (split-brain guard)."""
+    slot it no longer holds (split-brain guard). A transport error (a
+    torn or timed-out KV connection) loses nothing: the heartbeat drops
+    the connection and beats again, reconnecting, for up to
+    ``_LEASE_GIVE_UP_TTLS`` lease lengths of failed beats in a row; only
+    then (the KV gone) does it stop."""
 
     def __init__(self, kv, key, ttl, value="alive"):
         self.kv = kv
@@ -389,11 +397,14 @@ class _Lease:
         self._thread.start()
 
     def _run(self):
+        failing_since = None
         while not self._stop.wait(self.ttl / 3.0):
             try:
                 _HEARTBEATS.inc()
-                if self.kv.lease_keepalive(self.key, self.ttl,
-                                           expect=self.value):
+                ok = self.kv.lease_keepalive(self.key, self.ttl,
+                                             expect=self.value)
+                failing_since = None
+                if ok:
                     continue
                 # A mark() in flight? The KV may already hold the NEW
                 # value while self.value still reads the old one —
@@ -416,7 +427,16 @@ class _Lease:
                 _LEASE_LOST.inc()
                 return
             except (ConnectionError, OSError):
-                return
+                # the connection, not the lease: a desynced or torn
+                # stream is dropped and the next beat reconnects (and
+                # reclaims the key if it lapsed meanwhile)
+                now = time.monotonic()
+                failing_since = failing_since or now
+                if now - failing_since > _LEASE_GIVE_UP_TTLS * self.ttl:
+                    return
+                drop = getattr(self.kv, "_drop_conn", None)
+                if drop is not None:
+                    drop()
 
     def mark(self, new_value):
         """Transition the lease's registered VALUE in place (e.g. ep ->

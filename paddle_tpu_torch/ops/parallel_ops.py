@@ -14,7 +14,11 @@ The kernel wrappers read ``data_ptr()``, so no DTensor reaches a kernel:
 under ``ParallelExecutor`` every path enters its computation through
 ``parallel._shard_map.shard_map``, which hands the body this rank's
 local blocks (the batch on ``dp``, the heads on ``tp``, the sequence on
-``sp``) and puts the result's blocks back together.
+``sp``) and puts the result's blocks back together. The stage weights
+of ``pipeline_stack`` and the expert stacks of ``moe_ffn`` arrive as the
+blocks this rank holds (``parallel/blocks.py``) and enter as they are;
+``sp_attention``'s Q/K/V arrive as each rank's sequence block where
+``sp`` is a DTensor axis, and its output leaves as one.
 """
 
 import functools
@@ -31,19 +35,6 @@ def _is_dtensor(x):
     return isinstance(x, DTensor)
 
 
-def _spec_of(x, mesh, drop=None):
-    """The PartitionSpec of DTensor ``x``'s placements (the mesh axes that
-    shard each dim, in mesh order), without a Shard(``drop``)."""
-    from torch.distributed.tensor import Shard
-    from ..parallel.mesh import PartitionSpec as P
-    dims = [[] for _ in range(x.dim())]
-    for a, p in zip(mesh.dtensor_axes, x.placements):
-        if isinstance(p, Shard) and p.dim != drop:
-            dims[p.dim].append(a)
-    return P(*[tuple(d) if len(d) > 1 else (d[0] if d else None)
-               for d in dims])
-
-
 def _batch_whole(mesh, x, dim=0):
     """A DTensor's dim ``dim`` made whole (its Shard there gathered)
     around a reshape between [B, ...] and the pipeline's [M, B/M, ...]:
@@ -51,16 +42,16 @@ def _batch_whole(mesh, x, dim=0):
     the pipeline's shard_map takes. A plain tensor passes through."""
     if not _is_dtensor(x):
         return x
-    from ..parallel._shard_map import relayout
-    return relayout(mesh, x, _spec_of(x, mesh, drop=dim))
+    from ..parallel._shard_map import relayout, spec_of
+    return relayout(mesh, x, spec_of(mesh, x, drop=dim))
 
 
 def _batch_like(mesh, out, x):
     """``out`` laid out as ``x`` (the inverse of ``_batch_whole``)."""
     if not _is_dtensor(x):
         return out
-    from ..parallel._shard_map import relayout
-    return relayout(mesh, out, _spec_of(x, mesh))
+    from ..parallel._shard_map import relayout, spec_of
+    return relayout(mesh, out, spec_of(mesh, x))
 
 
 def _mesh_axis(ctx, name):
@@ -145,9 +136,20 @@ def _moe_ffn(ctx, op):
     cf = float(op.attr("capacity_factor", 1.25))
     top_k = int(op.attr("top_k", 1))
     from ..parallel import moe
+    from ..parallel._shard_map import held
     shape = x.shape
     flat = x.reshape(-1, shape[-1])
     mesh = ctx.mesh if (_mesh_axis(ctx, "ep") or _is_dtensor(x)) else None
+    # expert stacks this rank holds as its ep block (parallel/blocks.py)
+    spec = ctx.held_spec(op.input("WUp")[0])
+    if spec is not None:
+        w_up = held(w_up.view_as(w_up), spec)
+    spec = ctx.held_spec(op.input("WDown")[0])
+    if spec is not None:
+        w_down = held(w_down.view_as(w_down), spec)
+    if ctx.held_spec(op.input("GateW")[0]) is not None:
+        gate_w = _gathered(ctx.mesh, gate_w,
+                           ctx.held_spec(op.input("GateW")[0]))
     out, aux, stats = moe.moe_ffn(
         flat, gate_w, w_up, w_down, capacity_factor=cf, top_k=top_k,
         mesh=mesh, return_stats=True)
@@ -320,6 +322,35 @@ _TP_SPEC_TAILS = {
 }
 
 
+def _global_shape(ctx, name, value):
+    """The Program's shape of ``name`` where the block gives it (a held
+    block's global shape), else ``value``'s."""
+    var = ctx.block.vars.get(name) if ctx.block is not None else None
+    if var is not None and ctx.held_spec(name) is not None:
+        return tuple(var.shape)
+    return tuple(value.shape)
+
+
+def _gathered(mesh, value, spec):
+    """A held block gathered whole, for a reader that needs the whole."""
+    from ..parallel import blocks
+    return blocks._Gather.apply(value, mesh, spec)
+
+
+def _stacked(value, s, per, spec):
+    """A [L, ...] stack as the gpipe schedule's [S, per, ...]: a held
+    block on ``pp`` ([per, ...], ``spec`` its hint) is this rank's
+    [1, per, ...] of it, marked so the pipeline's shard_map takes it as
+    it is."""
+    if spec is None:
+        return value.reshape((s, per) + tuple(value.shape[1:]))
+    from ..parallel._shard_map import held
+    lead = spec[0] if spec else None
+    rows = 1 if lead is not None else s
+    return held(value.reshape((rows, per) + tuple(value.shape[1:])),
+                (lead, None) + tuple(spec[1:]))
+
+
 @register("pipeline_stack")
 def _pipeline_stack(ctx, op):
     """A stack of L identical causal decoder layers with layer-stacked
@@ -348,12 +379,25 @@ def _pipeline_stack(ctx, op):
     moe_top_k = int(op.attr("moe_top_k", 1))
     moe_cf = float(op.attr("moe_capacity_factor", 1.25))
     gate_groups = int(op.attr("moe_gate_groups", 1) or 1)
+    slots = dict(zip(_STACK_KEYS, _STACK_SLOTS))
     if moe:
         params["gate_w"] = ctx.in1(op, "GateW")
         params["w_up"] = ctx.in1(op, "WUp")
         params["w_down"] = ctx.in1(op, "WDown")
-    n_layer = params["wq"].shape[0]
+        slots.update(gate_w="GateW", w_up="WUp", w_down="WDown")
+    # the parameters this rank holds as blocks (parallel/blocks.py), and
+    # every parameter's global shape
+    held = {k: ctx.held_spec(op.input(slots[k])[0]) for k in params}
+    held = {k: v for k, v in held.items() if v is not None}
+    shapes = {k: _global_shape(ctx, op.input(slots[k])[0], p)
+              for k, p in params.items()}
+    n_layer = shapes["wq"][0]
     mesh = _mesh_axis(ctx, "pp")
+    if mesh is None:
+        # the dense loop reads every layer
+        for k, spec in held.items():
+            params[k] = _gathered(ctx.mesh, params[k], spec)
+        held = {}
 
     if mesh is None:
         dense = functools.partial(_pipeline_dense, op, n_head=n_head,
@@ -399,7 +443,7 @@ def _pipeline_stack(ctx, op):
                 % (gate_groups, dp_size, ep_size))
     if tp_axis:
         tp = mesh.shape["tp"]
-        d_inner = params["w1"].shape[-1] if "w1" in params else 0
+        d_inner = shapes["w1"][-1] if "w1" in params else 0
         if n_head % tp or d_inner % tp:
             raise ValueError(
                 "pipeline_stack tp composition needs n_head (%d) and "
@@ -470,12 +514,22 @@ def _pipeline_stack(ctx, op):
                 "pipeline_stack: %d layers not divisible into %d stages "
                 "x %d virtual chunks" % (n_layer, s, v_chunks))
         per = n_layer // (s * v_chunks)
-        # device d holds global chunks {d, d+S, ...}: [L,...] ->
-        # [V, S, per, ...] -> [S, V, per, ...]
-        stacked = {
-            k: p.reshape((v_chunks, s, per) + tuple(p.shape[1:]))
-            .transpose(0, 1)
-            for k, p in params.items()}
+        if v_chunks % s == 0 and len(held) == len(params):
+            # each stage's contiguous [L/S, ...] rows, the held blocks as
+            # they are; the schedule's one all_to_all over pp gives
+            # device d its chunks {d, d+S, ...}
+            stacked = {k: _stacked(v, s, n_layer // s, held[k])
+                       for k, v in params.items()}
+        else:
+            # device d holds global chunks {d, d+S, ...}: [L,...] ->
+            # [V, S, per, ...] -> [S, V, per, ...], from the whole stack
+            stacked = {
+                k: _gathered(ctx.mesh, p, held[k]) if k in held else p
+                for k, p in params.items()}
+            stacked = {
+                k: p.reshape((v_chunks, s, per) + tuple(p.shape[1:]))
+                .transpose(0, 1)
+                for k, p in stacked.items()}
         m = int(op.attr("num_microbatches", 0)) or min(s, b)
         if b % m:
             raise ValueError("pipeline_stack: batch %d not divisible by "
@@ -494,7 +548,7 @@ def _pipeline_stack(ctx, op):
             raise ValueError("pipeline_stack: %d layers not divisible by "
                              "pp=%d stages" % (n_layer, s))
         per = n_layer // s
-        stacked = {k: v.reshape((s, per) + tuple(v.shape[1:]))
+        stacked = {k: _stacked(v, s, per, held.get(k))
                    for k, v in params.items()}
         m = int(op.attr("num_microbatches", 0)) or 2 * s
         if b % m:

@@ -295,14 +295,18 @@ def _lookup_table(ctx, op):
     padding_idx = op.attr("padding_idx", -1)
     if hasattr(w, "placements") or hasattr(ids, "placements"):
         # DTensors (ParallelExecutor): the gather and its index_put
-        # gradient on each rank's block, the table whole
+        # gradient on each rank's block of ids as it is laid out (the
+        # batch on dp, the sequence on sp), the table whole
         # (parallel/mesh.py lists why)
-        from ..parallel._shard_map import shard_map
+        from ..parallel._shard_map import shard_map, spec_of
         from ..parallel.mesh import PartitionSpec as P
-        batch = "dp" if "dp" in ctx.mesh.axis_names else None
+        if hasattr(ids, "placements"):
+            spec = spec_of(ctx.mesh, ids)
+        else:
+            spec = P("dp" if "dp" in ctx.mesh.axis_names else None)
         out = shard_map(lambda w_, i_: _rows(w_, i_, padding_idx),
-                        mesh=ctx.mesh, in_specs=(P(), P(batch)),
-                        out_specs=P(batch))(w, ids)
+                        mesh=ctx.mesh, in_specs=(P(), spec),
+                        out_specs=spec)(w, ids)
     else:
         out = _rows(w, ids, padding_idx)
     ctx.set_out(op, "Out", out)

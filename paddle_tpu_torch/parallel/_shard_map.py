@@ -7,11 +7,16 @@ collectives (``collective.psum(x, "sp")`` ...) resolve axis names, and
 puts the blocks of the result back together.
 
 A value enters as a DTensor (``ParallelExecutor``'s global view over
-the ``dp`` x ``tp`` sub-mesh: its local block is moved to the spec's
-placements there by the port's collectives, then sliced by hand along
-the ``pp``/``sp``/``ep`` axes it is split on) or as a plain tensor,
-which every rank holds whole (its block is a slice, and a plain result
-is gathered whole again). Gradients follow JAX's rule for
+the DTensor sub-mesh, ``parallel/mesh.py``: its local block is moved to
+the spec's placements there by the port's collectives, then sliced by
+hand along the manual axes it is split on; a block already laid out as
+the spec wants moves nothing), as a held block (a plain tensor marked
+by ``held``: this rank's block of a value placed by its hint, taken as
+it is on every dim where the spec names the same axes, gathered or
+sliced on the others), or as a plain tensor, which every rank holds
+whole (its block is a slice). A plain result is gathered whole again;
+a DTensor result is this rank's block, placed as the out spec says (no
+gather over the DTensor axes). Gradients follow JAX's rule for
 ``check_vma=False``, which keeps every composition exact: an input's
 gradient is summed over the mesh axes its spec leaves out (each rank's
 body may use a replicated value for part of the work), and an output's
@@ -26,7 +31,7 @@ import torch
 from . import collective as C
 from .mesh import PartitionSpec, spec_axes
 
-__all__ = ["shard_map", "relayout"]
+__all__ = ["shard_map", "relayout", "held", "spec_of"]
 
 
 def _is_dtensor(x):
@@ -101,21 +106,32 @@ def _gather(mesh, x, dims):
 
 
 class _EnterPlain(torch.autograd.Function):
-    """A whole (replicated) tensor -> this rank's block; backward gathers
-    the blocks' gradients and sums over the unmentioned axes."""
+    """A plain tensor, split on the dims of ``have`` (a held block's;
+    whole on the others) -> this rank's block on the dims of ``dims``:
+    a dim split the same way stays as it is, the others are gathered,
+    then sliced. The backward takes the block's gradient back the same
+    way, summed over the unmentioned axes ``free`` (a held dim the spec
+    does not name is one: its gradient is summed, then sliced)."""
 
     @staticmethod
-    def forward(ctx, x, mesh, dims, free):
-        ctx.mesh, ctx.dims, ctx.free = mesh, dims, free
-        return _block(mesh, x, dims).clone()
+    def forward(ctx, x, mesh, have, dims, free):
+        regather = [d for d in have if d not in dims]
+        recut = [d for d in dims if d not in have]
+        ctx.mesh, ctx.regather, ctx.recut, ctx.free = (mesh, regather,
+                                                       recut, free)
+        if not regather and not recut:
+            return x.view_as(x)
+        return _block(mesh, _gather(mesh, x.contiguous(), regather),
+                      recut).clone()
 
     @staticmethod
     def backward(ctx, g):
         mesh = ctx.mesh
-        g = _gather(mesh, g.contiguous(), ctx.dims)
+        g = _gather(mesh, g.contiguous(), ctx.recut)
         for a in ctx.free:
             g = C._raw_all_reduce(g, mesh.group(a))
-        return g, None, None, None
+        g = _block(mesh, g, ctx.regather)
+        return g, None, None, None, None
 
 
 class _ExitPlain(torch.autograd.Function):
@@ -244,15 +260,39 @@ def relayout(mesh, x, spec):
         return _exit(mesh, _enter(mesh, x, spec), spec, True)
 
 
+def held(x, spec):
+    """Mark plain tensor ``x`` as this rank's block of a value placed by
+    hint ``spec`` (``parallel/blocks.py``): a region takes it as it is
+    where its in spec names the same axes. Returns ``x``."""
+    x._ptpu_held = tuple(spec)
+    return x
+
+
+def spec_of(mesh, x, drop=None):
+    """The PartitionSpec of DTensor ``x``'s placements (the mesh axes
+    that shard each dim, in mesh order), without a Shard(``drop``)."""
+    from torch.distributed.tensor import Shard
+    dims = [[] for _ in range(x.dim())]
+    for a, p in zip(mesh.dtensor_axes, x.placements):
+        if isinstance(p, Shard) and p.dim != drop:
+            dims[p.dim].append(a)
+    return PartitionSpec(*[tuple(d) if len(d) > 1 else (d[0] if d else None)
+                           for d in dims])
+
+
 def _enter(mesh, x, spec):
     (d_dims, _), (dims, free) = _split(mesh, _layout(mesh, spec, x.dim()))
+    have = []
     if _is_dtensor(x):
         x = _dtensor_local(mesh, x, d_dims)
     else:
         dims, free = _layout(mesh, spec, x.dim())
-    if not dims and not free:
+        mark = getattr(x, "_ptpu_held", None)
+        if mark is not None:
+            have = _layout(mesh, mark, x.dim())[0]
+    if not dims and not free and not have:
         return x
-    return _EnterPlain.apply(x, mesh, dims, free)
+    return _EnterPlain.apply(x, mesh, have, dims, free)
 
 
 def _exit(mesh, y, spec, as_dtensor):

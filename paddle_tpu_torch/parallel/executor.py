@@ -7,27 +7,40 @@ rank (``distributed/launch.py``) and keeps the same contract: every rank
 runs the same script with the same global feed and takes its own shard,
 and every fetch is the global value on every rank.
 
-DTensor plays GSPMD's part. Over a mesh of more than one rank:
+DTensor and held blocks play GSPMD's part. Over a mesh of more than one
+rank (``parallel/mesh.py`` says which axes are which):
 
-  * state becomes DTensors over the ``dp`` x ``tp`` sub-mesh
-    (``Mesh.dtensor_mesh``), placed by its hint
-    (``mesh.spec_to_placements``: Shard on the named mesh dims, Replicate
-    elsewhere), each rank taking its block of the global value the scope
-    holds, and stays so in the scope between steps (``io`` gathers it to
-    save it). Along ``pp``, ``sp`` and ``ep`` every rank holds the whole
-    value (a pipeline stage's layers and an ``ep`` rank's experts are
-    sliced out inside their shard_map), so the JAX package's placement
-    of stage and expert weights on those axes is a replication here;
+  * state is placed by its hint. A persistable whose hint names only
+    DTensor axes (``dp``, ``tp``, and ``sp`` where ``tp`` has one rank)
+    becomes a DTensor over ``Mesh.dtensor_mesh`` (``spec_to_placements``:
+    Shard on the named mesh dims, Replicate elsewhere). One whose hint
+    names a manual axis (``pp``, ``ep``, or ``sp`` beside ``tp``) is
+    held as this rank's block of the scope's global value
+    (``parallel/blocks.py``): stage weights on ``pp``, expert weights on
+    ``ep``, the pipeline's gates, and the accumulators of such a
+    parameter (Adam's moments). Either way each rank takes its block of
+    the global value the scope holds, and the block stays in the scope
+    between steps (``io`` gathers it to save it). A held block's
+    gradient and its optimizer update stay local;
   * a dense feed is sharded on ``dp`` along its batch dim (each rank's
-    block of the global feed: no communication); LoD buffers, whose row
-    counts are data, stay replicated;
-  * the lowerings run unchanged: DTensor's sharding propagation inserts
-    the reductions, so the flagship LM's ``reduce_sum(masked) /
-    reduce_sum(mask)`` is global over the batch, as in the JAX package;
-    the parallel ops enter their kernels through ``shard_map``
-    (``ops/parallel_ops.py``);
-  * a fetch is the DTensor's global value (``collective.global_value``:
-    ``full_tensor`` through the port's collectives).
+    block of the global feed: no communication), and where ``sp`` is a
+    DTensor axis, a feed of the program's sequence length along dim 1
+    too, so the LM's activations are each rank's sequence block from the
+    embedding lookup to the loss; LoD buffers, whose row counts are
+    data, stay replicated;
+  * the lowerings run on DTensors, and DTensor's sharding propagation
+    inserts the reductions, so the flagship LM's ``reduce_sum(masked) /
+    reduce_sum(mask)`` is global over the batch and the sequence, as in
+    the JAX package. One hook in ``core/executor._lower_op_body``
+    (``blocks.lower``) steps in before a lowering in two cases: an op
+    that reads a held block (``parallel/blocks.py``), and an op with a
+    sequence-block rule that meets a [B, T] block split on ``sp``
+    (``parallel/seqblocks.py``). The parallel ops enter their kernels
+    through ``shard_map`` (``ops/parallel_ops.py``), which takes a block
+    as it is where its spec matches;
+  * a fetch is the global value (``collective.global_value``:
+    ``full_tensor`` through the port's collectives, a held block
+    gathered the same way).
 
 Where the lowerings and the layouts step around DTensor is listed in
 one place, ``parallel/mesh.py``'s docstring.
@@ -66,6 +79,7 @@ from ..core.executor import (Executor, _is_lod, _normalize_feeds,
 from ..core.places import CPUPlace, CUDAPlace
 from ..core.program import Variable, default_main_program
 from ..core.scope import global_scope, to_tensor
+from . import blocks
 from .mesh import (default_mesh, make_mesh, set_default_mesh,
                    spec_to_placements)
 from .. import flags
@@ -92,9 +106,20 @@ def _distribute(mesh, t, placements):
                               shape=t.shape, stride=t.stride())
 
 
-def _global(v):
-    """A fetched value as every rank's global tensor."""
+def _held_spec(held, name):
+    """The hint of fetch ``name`` where it is a held block (a held
+    persistable or its gradient), else None."""
+    if name.endswith("@GRAD"):
+        name = name[:-len("@GRAD")]
+    return held.get(name)
+
+
+def _global(v, mesh=None, spec=None):
+    """A fetched value as every rank's global tensor (``spec``: the hint
+    of a held block)."""
     from .collective import global_value
+    if spec is not None:
+        return blocks.whole(mesh, spec, v)
     return global_value(v) if _is_dtensor(v) else v
 
 
@@ -134,6 +159,7 @@ class ParallelExecutor:
             CUDAPlace(dev.index or 0)
         self._exe = Executor(place)
         self._exe._mesh = self.mesh     # the parallel lowerings read it
+        self._exe._held = {}            # set a run by _placement
         self.device = self._exe.device
         # feed plans only: the feeds are placed per rank below
         self._feed_plans = FeedPlanCache(device_fn=None)
@@ -204,8 +230,30 @@ class ParallelExecutor:
                     "over: 'token:<feed_name>'." % sorted(toks))
 
     # -- placement --------------------------------------------------------
+    def _placement(self):
+        """(``{name: hint}`` of the state held as blocks, the sequence
+        lengths of ``_seq_lens``), memoized on the program's version; the
+        step's lowerings read the first through ``ctx.held_spec``."""
+        prog = self._program
+        key = (prog, prog._version)
+        if getattr(self, "_placement_key", None) != key:
+            self._placement_key = key
+            self._exe._held = blocks.held_specs(prog, self.mesh)
+            self._seq = self._seq_lens()
+        return self._exe._held, self._seq
+
     def _state_tensor(self, name, value):
+        spec = self._exe._held.get(name)
+        if spec is not None:
+            if isinstance(value, blocks.Held):
+                return value.local()
+            t = to_tensor(value, self.device)
+            if _is_dtensor(t):
+                t = _global(t)
+            return blocks.block_of(self.mesh, spec, t)
         t = to_tensor(value, self.device)
+        if isinstance(t, blocks.Held):
+            t = t.full_tensor()
         if not self._sharded:
             return t
         pl = spec_to_placements(self.mesh,
@@ -216,9 +264,30 @@ class ParallelExecutor:
             return t
         return _distribute(self.mesh, t, pl)
 
-    def _feed_tensor(self, name, value, replicated, batch_dim=0):
+    def _seq_lens(self):
+        """The sequence lengths the program's sequence-parallel ops run
+        over (``sp_attention``'s Q dim 2, ``pipeline_stack``'s X dim 1),
+        where ``sp`` is a DTensor axis of this mesh; else empty."""
+        mesh = self.mesh
+        if mesh.shape.get("sp", 1) <= 1 or "sp" not in mesh.dtensor_axes:
+            return set()
+        block = self._program.global_block()
+        out = set()
+        for op in block.ops:
+            slot, dim = {"sp_attention": ("Q", 2),
+                         "pipeline_stack": ("X", 1)}.get(op.type, (0, 0))
+            if slot and op.input(slot):
+                shape = block.vars[op.input(slot)[0]].shape
+                if len(shape) > dim and shape[dim] > 0:
+                    out.add(int(shape[dim]))
+        return out
+
+    def _feed_tensor(self, name, value, replicated, batch_dim=0,
+                     seq=()):
         """A feed on this rank: its ``dp`` block as a DTensor (a DTensor
-        feed, a sharded ``DeviceLoader``'s, is laid out the same way)."""
+        feed, a sharded ``DeviceLoader``'s, is laid out the same way),
+        and its ``sp`` block along the dim after the batch where that dim
+        is one of the sequence lengths ``seq``."""
         t = to_tensor(value, self.device)
         if not self._sharded:
             return _global(t)
@@ -227,6 +296,10 @@ class ParallelExecutor:
         pl = [Replicate() for _ in axes]
         if not replicated and "dp" in axes and t.dim() > batch_dim:
             pl[axes.index("dp")] = Shard(batch_dim)
+        if not replicated and "sp" in axes and t.dim() > batch_dim + 1 \
+                and t.shape[batch_dim + 1] in seq \
+                and t.shape[batch_dim + 1] % self.mesh.shape["sp"] == 0:
+            pl[axes.index("sp")] = Shard(batch_dim + 1)
         if _is_dtensor(t):
             return t if tuple(t.placements) == tuple(pl) else \
                 t.redistribute(self.mesh.dtensor_mesh, pl)
@@ -281,10 +354,11 @@ class ParallelExecutor:
             arrays = self._split_microbatches(arrays, lod_keys,
                                               static_info, k_acc)
         feeds = {}
+        held, seq = self._placement()
         for n, v in arrays.items():
             stacked = k_acc > 1 and not n.endswith(_TOK)
             feeds[n] = self._feed_tensor(n, v, n in lod_keys,
-                                         1 if stacked else 0)
+                                         1 if stacked else 0, seq)
         persistable = [v.name for v in program.global_block().vars.values()
                        if v.persistable]
         state = {}
@@ -322,9 +396,17 @@ class ParallelExecutor:
                                                           seed_fn)
         if mon_on:
             exe._monitor_step(key, arrays, timer, t0, do_sync, "pexe")
+        block = program.global_block()
         for n, v in new_state.items():
+            spec = held.get(n)
+            if spec is not None:
+                shape = tuple(block.vars[n].shape)
+                if tuple(v.shape) == shape:   # a whole value the step made
+                    v = blocks.block_of(self.mesh, spec, v)
+                v = blocks.Held(v, spec, self.mesh, shape)
             scope.set(n, v)
-        fetches = [_global(v) for v in fetches]
+        fetches = [_global(v, self.mesh, _held_spec(held, n))
+                   for n, v in zip(fetch_names, fetches)]
         fetch_lods = {n: _global(v) for n, v in fetch_lods.items()}
         fetches = _trim_fetches(fetch_names, fetches, fetch_lods)
         if guards is not None:

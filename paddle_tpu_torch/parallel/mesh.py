@@ -14,15 +14,30 @@ its per-axis process groups carry the collectives
 (``parallel/collective.py``). A mesh of one rank has no process group to
 use and places nothing.
 
-``ParallelExecutor``'s DTensors live on the sub-mesh of the ``dp`` and
-``tp`` axes (``dtensor_mesh``): those are the axes the JAX package's
-GSPMD propagates through a whole program (the batch, the Megatron
-hints). The ``pp``, ``sp`` and ``ep`` axes are worked only inside the
-shard_map counterparts (the pipeline, ring/Ulysses, the MoE dispatch),
-which slice and gather along them by hand; outside those a value is the
-same on every rank of them. DTensor's redistribution planner searches
-placement paths per op, and over three mesh dims that search takes
-minutes a step on the CPU, which is what keeps the DTensor mesh at two.
+Where each rank's block of a value lives (``ParallelExecutor``):
+
+  * DTensors over the DTensor sub-mesh (``dtensor_mesh``): ``dp`` and
+    ``tp``, and ``sp`` where ``tp`` has one rank (``dtensor_axes``).
+    These are the axes the JAX package's GSPMD propagates through a
+    whole program: the batch, the Megatron hints and, under ``dp`` x
+    ``sp``, the LM's activations, which are each rank's sequence block
+    from the embedding lookup to the loss (the feeds of the program's
+    sequence length are sharded on ``sp`` at the feed). DTensor's
+    redistribution planner searches placement paths per op, and over
+    three mesh dims that search takes minutes a step on the CPU, which
+    is what keeps the DTensor mesh at two: where ``tp`` has more than
+    one rank, ``sp`` stays out of it, and a value is whole along ``sp``
+    between the ring/Ulysses regions (ROADMAP.md, item 9(b));
+  * held blocks on the other axes, the manual ones (``manual_axes``:
+    ``pp``, ``ep``, and ``sp`` beside ``tp``): a persistable whose hint
+    names one of them (stage weights on ``pp``, expert weights on
+    ``ep``, the Adam moments that follow such a parameter) is a plain
+    tensor holding this rank's block on every axis its hint names
+    (``block_slices``), ``tp`` included, tracked by its hint
+    (``parallel/blocks.py``). Its only readers are the shard_map
+    regions that take it as it is (the pipeline, the MoE dispatch) and
+    the optimizer ops, which update it in place of the whole; any other
+    reader gets the value gathered whole, as a fetch and a save do.
 
 Where the port steps around DTensor. This is the one list; a new
 lowering that meets a DTensor value checks it first.
@@ -46,6 +61,15 @@ lowering that meets a DTensor value checks it first.
     normalized");
   * ``gather`` (``softmax_with_cross_entropy``): gathers along the last
     dim by its index, as DTensor's strategy wants normalized dims;
+  * a [B, T, ...] sequence block (``sp`` on the DTensor mesh): DTensor
+    cannot flatten B and T while T is split without gathering it (the
+    H100's PyTorch 2.11 refuses the view), and its strategies gather a
+    flattened block's ``_StridedShard`` rows. So the ops the LM runs on
+    it take one rule each from one hook (``parallel/seqblocks.py``:
+    ``mul`` by position, the loss's ``reshape`` to rows, its
+    ``softmax_with_cross_entropy``, ``elementwise_*`` and ``reduce_sum``
+    on each rank's block), and a fetch of such rows gathers them along T
+    (``collective.move_local``);
   * the kernel wrappers read ``data_ptr()``, so no DTensor reaches a
     kernel: the parallel ops enter them through shard_map.
 """
@@ -58,8 +82,10 @@ import torch.distributed as dist
 
 _DEFAULT_MESH = None
 
-# the axes ParallelExecutor's DTensors are laid out over (module docstring)
-DTENSOR_AXES = ("dp", "tp")
+# the axes ParallelExecutor's DTensors may be laid out over, in the order
+# the mesh names them; ``sp`` only where ``tp`` has one rank (the module
+# docstring)
+DTENSOR_AXES = ("dp", "tp", "sp")
 
 
 class PartitionSpec(tuple):
@@ -101,13 +127,26 @@ class Mesh:
 
     @property
     def dtensor_axes(self):
-        """The mesh axes of ``dtensor_mesh``, in mesh order."""
-        return tuple(a for a in self.axis_names if a in DTENSOR_AXES)
+        """The mesh axes of ``dtensor_mesh``, in mesh order: ``dp`` and
+        ``tp``, and ``sp`` where ``tp`` has one rank."""
+        sp = self.shape.get("tp", 1) <= 1
+        return tuple(a for a in self.axis_names if a in DTENSOR_AXES
+                     and (a != "sp" or sp))
+
+    @property
+    def manual_axes(self):
+        """The axes of more than one rank that are not DTensor axes: a
+        value is split on them by hand, as a held block or inside a
+        shard_map region."""
+        daxes = self.dtensor_axes
+        return tuple(a for a in self.axis_names
+                     if self.shape[a] > 1 and a not in daxes)
 
     @property
     def dtensor_mesh(self):
-        """The DeviceMesh of this rank's ``dp`` x ``tp`` slice (None when
-        those axes hold one rank: nothing is a DTensor then)."""
+        """The DeviceMesh of this rank's slice over ``dtensor_axes``
+        (None when those axes hold one rank: nothing is a DTensor
+        then)."""
         axes = self.dtensor_axes
         if self.device_mesh is None or \
                 all(self.shape[a] <= 1 for a in axes):
@@ -209,12 +248,42 @@ def spec_axes(entry):
     return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
 
 
+def block_slices(mesh, spec, shape, axes=None):
+    """This rank's block of a value of global ``shape`` placed by hint
+    ``spec`` (the counterpart of ``spec_to_named_sharding``'s placement):
+    (the block's shape, [(dim, start, size)] of each dim it is split
+    on). A dim is split over the named mesh axes of more than one rank
+    (those in ``axes`` when given), the first the major one; an axis
+    name that is not in the mesh replicates the dim. A dim that does not
+    split evenly raises ``ValueError``, as the JAX placement does."""
+    out, cuts = list(shape), []
+    for dim, entry in enumerate(tuple(spec or ())[:len(out)]):
+        names = tuple(a for a in spec_axes(entry)
+                      if mesh.shape.get(a, 1) > 1
+                      and (axes is None or a in axes))
+        if not names:
+            continue
+        n, idx = 1, 0
+        for a in names:
+            n *= mesh.shape[a]
+            idx = idx * mesh.shape[a] + mesh.axis_index(a)
+        if out[dim] % n:
+            raise ValueError(
+                "the sharding spec %r implies that the global size of its "
+                "dimension %d should be divisible by %d, but it is equal "
+                "to %d (full shape: %s)"
+                % (tuple(spec), dim, n, out[dim], tuple(shape)))
+        out[dim] //= n
+        cuts.append((dim, idx * out[dim], out[dim]))
+    return tuple(out), cuts
+
+
 def spec_to_placements(mesh, spec):
     """The DTensor placements (one a ``dtensor_mesh`` dim) of a sharding
     hint: the counterpart of ``spec_to_named_sharding``. A dim names the
     mesh axes it is split over; an axis name that is not in this mesh
-    replicates the dim, as there, and so does a ``pp``/``sp``/``ep``
-    axis (the module docstring)."""
+    replicates the dim, as there, and so does a manual axis (a held
+    block's, the module docstring)."""
     from torch.distributed.tensor import Replicate, Shard
     axes = mesh.dtensor_axes
     placements = [Replicate() for _ in axes]

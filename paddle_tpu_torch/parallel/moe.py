@@ -172,17 +172,26 @@ def moe_ffn(x, gate_w, w_up, w_down, capacity_factor=1.25, rng=None,
 
     x       [T, D] tokens
     gate_w  [D, E]
-    w_up    [E, D, H] stacked expert weights (shard on ep)
-    w_down  [E, H, D]
+    w_up    [E, D, H] stacked expert weights (shard on ep), or over a
+            mesh with ep ranks this rank's [E / ep, D, H] block of them
+    w_down  [E, H, D], or its [E / ep, H, D] block
     Returns ([T, D], aux_loss), plus a stats dict ({"overflow": frac of
     dropped token-expert assignments}) when return_stats=True."""
     t, d = x.shape
     e = gate_w.shape[1]
     capacity = max(1, int(capacity_factor * top_k * t / e))
     if mesh is not None and mesh.size > 1:
-        from ._shard_map import shard_map
+        from ._shard_map import held, shard_map
         from .mesh import PartitionSpec as P
         ep = ep_axis if ep_axis in mesh.axis_names else None
+        n_ep = mesh.shape[ep] if ep else 1
+        if n_ep > 1:
+            # expert stacks of E / ep experts: this rank's ep block, held
+            # (the pipeline's lowering marks them itself)
+            w_up, w_down = [
+                held(w.view_as(w), (ep,)) if w.shape[0] * n_ep == e
+                and getattr(w, "_ptpu_held", None) is None else w
+                for w in (w_up, w_down)]
         fn = shard_map(
             lambda x_, g_, u_, w_: _moe_ffn_sharded(
                 x_, g_, u_, w_, capacity, top_k, ep),

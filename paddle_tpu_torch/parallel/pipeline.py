@@ -121,6 +121,7 @@ def _exchange(group, sched, send, recv_like, back=False):
                               if t is not None])
     ops, buf = [], None
     if send is not None:
+        C._count("send", [send])
         x = send.contiguous()
         x = C._host(x) if stage else x
         ops.append(dist.P2POp(dist.isend, x,
@@ -277,11 +278,28 @@ def _gpipe_sharded(params, xs, stage_fn, axis_name, with_aux=False,
                 None, with_aux, aux_mean_axes)
 
 
+def _reblock(p, n_chunks, axis_name):
+    """This stage's contiguous rows [V * per, ...] (global chunks
+    d*V .. d*V + V - 1) as its interleaved chunks {d, d+S, ...}
+    [V, per, ...], by one tiled all_to_all over the stages (V a multiple
+    of S): chunk a*S + r goes to stage r, which receives stage d's at
+    position d*V/S + a, global chunk r + S*(d*V/S + a)."""
+    s = C.axis_size(axis_name)
+    per = p.shape[0] // n_chunks
+    x = p.reshape((n_chunks // s, s, per) + tuple(p.shape[1:]))
+    x = C.all_to_all(x, axis_name, 1, 0)
+    return x.reshape((n_chunks, per) + tuple(p.shape[1:]))
+
+
 def _interleaved_sharded(params, xs, stage_fn, axis_name, n_chunks,
-                         with_aux=False, aux_mean_axes=()):
+                         with_aux=False, aux_mean_axes=(), rows=()):
     """Interleaved path: params leaves arrive [1, V, ...] — this shard's
-    V chunk slices. stage_fn(chunk_params, x) runs ONE chunk."""
-    local = _tree(lambda p: p[0], params)
+    V chunk slices — or, the leaves at the flat indices ``rows``, [1,
+    L/S, ...], this stage's contiguous rows, re-blocked here
+    (``_reblock``). stage_fn(chunk_params, x) runs ONE chunk."""
+    leaves, rebuild = _flatten(params)
+    local = rebuild([_reblock(p[0], n_chunks, axis_name) if i in rows
+                     else p[0] for i, p in enumerate(leaves)])
     return _run(local, xs,
                 lambda p, chunk, x: stage_fn(_tree(lambda q: q[chunk], p),
                                              x),
@@ -341,7 +359,9 @@ def gpipe(stage_fn, stacked_params, microbatches, mesh, axis_name="pp",
     """Run ``stage_fn(params_i, x)`` as an S-stage pipeline.
 
     stacked_params: EITHER a pytree whose leaves have leading dim S
-                    (= mesh[axis]) — sharded on ``axis_name`` — OR a
+                    (= mesh[axis]) — sharded on ``axis_name``; a leaf
+                    marked ``_shard_map.held`` on it is this rank's
+                    [1, ...] row, taken as it is — OR a
                     list/tuple of S per-stage pytrees with arbitrary
                     per-stage shapes (replicated, selected by stage).
     microbatches:   [M, mb, T, ...] tensor of M microbatches.
@@ -380,10 +400,13 @@ def gpipe(stage_fn, stacked_params, microbatches, mesh, axis_name="pp",
         return fn(params_seq, microbatches)
 
     for leaf in _leaves(stacked_params):
-        if leaf.shape[0] != s:
+        # a held block (``_shard_map.held``) is this stage's row of it
+        rows = leaf.shape[0] * (s if (getattr(leaf, "_ptpu_held", None)
+                                      or (None,))[0] == axis_name else 1)
+        if rows != s:
             raise ValueError(
                 "stacked_params leading dim %d != %d pipeline stages"
-                % (leaf.shape[0], s))
+                % (rows, s))
     pspec = _param_specs(stacked_params, param_specs, (axis_name,))
     fn = shard_map(
         functools.partial(_gpipe_sharded, stage_fn=stage_fn,
@@ -399,7 +422,11 @@ def gpipe_interleaved(stage_fn, stacked_params, microbatches, mesh,
     """Interleaved virtual-stage pipeline: device d holds the V =
     n_chunks chunk param slices {d, d+S, ...}.
 
-    stacked_params: pytree with leaves [S, V, per_chunk, ...].
+    stacked_params: pytree with leaves [S, V, per_chunk, ...]. A leaf
+                    marked ``_shard_map.held`` on ``axis_name`` is this
+                    stage's block as the pp placement holds it, its
+                    contiguous rows [1, L/S, ...] (V a multiple of S):
+                    the schedule re-blocks it with one all_to_all.
     microbatches:   [M, mb, ...], M <= S.
     stage_fn(chunk_params, x) runs ONE chunk (per_chunk layers).
     """
@@ -409,8 +436,17 @@ def gpipe_interleaved(stage_fn, stacked_params, microbatches, mesh,
         raise ValueError(
             "interleaved schedule needs microbatches M=%d <= S=%d "
             "pipeline stages (use gpipe for the large-M regime)" % (m, s))
-    for leaf in _leaves(stacked_params):
-        if leaf.shape[0] != s or leaf.shape[1] != n_chunks:
+    rows = set()
+    for i, leaf in enumerate(_leaves(stacked_params)):
+        if (getattr(leaf, "_ptpu_held", None) or (None,))[0] == axis_name:
+            rows.add(i)
+            if leaf.shape[0] != 1 or n_chunks % s or \
+                    leaf.shape[1] % n_chunks:
+                raise ValueError(
+                    "a held interleaved leaf must be a stage's [1, L/S, "
+                    "...] rows with V=%d a multiple of S=%d; got %s"
+                    % (n_chunks, s, tuple(leaf.shape)))
+        elif leaf.shape[0] != s or leaf.shape[1] != n_chunks:
             raise ValueError(
                 "interleaved stacked_params leaves must be "
                 "[S=%d, V=%d, ...]; got %s"
@@ -423,6 +459,7 @@ def gpipe_interleaved(stage_fn, stacked_params, microbatches, mesh,
     fn = shard_map(
         functools.partial(_interleaved_sharded, stage_fn=stage_fn,
                           axis_name=axis_name, n_chunks=n_chunks,
-                          with_aux=with_aux, aux_mean_axes=aux_axes),
+                          with_aux=with_aux, aux_mean_axes=aux_axes,
+                          rows=frozenset(rows)),
         mesh=mesh, in_specs=(pspec, xspec), out_specs=out_specs)
     return fn(stacked_params, microbatches)

@@ -88,6 +88,7 @@ replica1.jsonl ...``).
 import collections
 import itertools
 import json
+import socket
 import threading
 import time
 import uuid
@@ -246,6 +247,10 @@ class ReplicaServer:
         self._jobs = {}            # rid -> {"req": Request, "t0": ts}
         self._accepted = 0         # SUBMs admitted (fault thresholds)
         self._stall_until = 0.0
+        # set by kill(): the 'process' is dead, and no live connection
+        # may answer again (the sockets are in _conns)
+        self._dead = False
+        self._conns = set()
         # event-driven delivery: the engine's completion hook wakes
         # long-polling handlers the moment a future resolves, so the
         # router sees a result one RPC round trip after retirement
@@ -255,6 +260,10 @@ class ReplicaServer:
 
         class Handler(socketserver.BaseRequestHandler):
             def handle(self):
+                with outer._lock:
+                    if outer._dead:
+                        return
+                    outer._conns.add(self.request)
                 try:
                     while True:
                         op, name, payload, tctx = _recv_msg(
@@ -273,6 +282,9 @@ class ReplicaServer:
                             break
                 except (ConnectionError, OSError):
                     pass
+                finally:
+                    with outer._lock:
+                        outer._conns.discard(self.request)
 
         class Server(socketserver.ThreadingTCPServer):
             allow_reuse_address = True
@@ -295,6 +307,25 @@ class ReplicaServer:
         if self._thread.is_alive():
             self._server.shutdown()
         self._server.server_close()
+
+    def kill(self):
+        """The process dying: from now on no connection answers, the
+        live ones included (a handler mid long-poll raises instead of
+        delivering), and their sockets are shut, as the death of the
+        process would shut them; then the listener stops. ``stop``
+        alone leaves accepted connections serving, so results that
+        retire after it (the dying engine's errors) could still leave
+        a dead cell."""
+        with self._fin_cv:
+            self._dead = True
+            conns = list(self._conns)
+            self._fin_cv.notify_all()
+        for sock in conns:
+            try:
+                sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+        self.stop()
 
     def drain(self):
         """Close admissions (new SUBM gets the typed DRNG NACK, which
@@ -368,6 +399,8 @@ class ReplicaServer:
             del self._jobs[rid]
 
     def _dispatch(self, sock, op, name, payload):
+        if self._dead:
+            raise ConnectionError("replica killed")
         self._maybe_fault()
         if op == "SUBM":
             body = json.loads(bytes(payload).decode())
@@ -433,6 +466,8 @@ class ReplicaServer:
             deadline = time.monotonic() + wait
             with self._fin_cv:
                 while True:
+                    if self._dead:
+                        raise ConnectionError("replica killed")
                     done = self._collect_done_locked(cap)
                     remaining = deadline - time.monotonic()
                     if done or remaining <= 0:
@@ -589,7 +624,12 @@ class Replica:
         them on a survivor)."""
         self.lease._stop.set()
         try:
-            self.server.stop()
+            # every connection dies before the engine fails its
+            # in-flight requests: those errors stay in the dead cell
+            # (their rows carry them; the router re-executes the
+            # requests and drops the shadow copies), as a killed
+            # process's would
+            self.server.kill()
         except OSError:
             pass
         self.engine.close()

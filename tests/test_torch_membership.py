@@ -613,6 +613,34 @@ def test_lease_reclaims_after_stall(kv):
     assert kv.get(PS_PREFIX + "0") == "epB:1"
 
 
+def test_lease_survives_a_torn_kv_connection(kv):
+    """A transport error on the holder's KV connection (a torn or
+    desynced stream) is not a lost lease: the heartbeat drops the
+    connection, reconnects on its next beat and keeps the slot, within
+    the lease. (The heartbeat used to end on the first such error, and
+    the slot lapsed for good while its holder lived on: a registration
+    lost and never reclaimed.)"""
+    import socket
+    from paddle_tpu_torch.distributed.membership import (KVClient,
+                                                         register_endpoint)
+    own = KVClient("%s:%d" % kv._addr)
+    try:
+        _, lease = register_endpoint(own, "replica", 1, "epA:1", ttl=0.3)
+        for _ in range(3):
+            with own._lock:
+                own._sock.shutdown(socket.SHUT_RDWR)
+            # well past the lease: the key must still be ours
+            deadline = time.monotonic() + 1.0
+            while time.monotonic() < deadline:
+                assert kv.get("/replica/0") == "epA:1"
+                time.sleep(0.05)
+        assert lease._thread.is_alive() and not lease.lost
+        lease.revoke()
+        assert kv.get("/replica/0") is None
+    finally:
+        own.close()
+
+
 def test_revoke_is_compare_and_delete(kv):
     """Even when `lost` was never observed (heartbeat thread raced or
     died), revoke only deletes the key if it still holds OUR value."""

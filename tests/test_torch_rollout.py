@@ -539,7 +539,6 @@ def _run_rollout_chaos(arts, reqs, seq, seed, tmp_path, tag):
             pass
 
 
-@pytest.mark.slow
 def test_rollout_chaos_pass_promotes(rng, arts, tmp_path):
     """Tier-1 gate: the full pipeline under seeded frame faults +
     mid-shadow and mid-canary candidate kills — PASS verdicts from

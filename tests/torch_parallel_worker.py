@@ -9,12 +9,22 @@ each case's arrays to ``<dir>/<case id>.npz`` (a per-rank case writes
 ``<case id>.r<R>.npz`` too). Case kinds:
 
   lm      ``transformer_lm_parallel`` at the dryrun's widths over a mesh,
-          N SGD steps through ``ParallelExecutor`` from given initial
-          parameters: per-step losses and the final weights (gathered);
+          N SGD (or Adam) steps, optionally with a global-norm clip,
+          through ``ParallelExecutor`` from given initial parameters:
+          per-step losses, the final weights (gathered), each
+          persistable's shape on this rank, the
+          collectives the run made (``collective.calls`` and
+          ``sent_bytes`` by kind, and DTensor's own functional
+          collectives by kind), and each ``sp_attention``'s Q and output
+          as they entered and left (local and global shapes, placements);
           with ``run_steps``, the same steps again as one ``run_steps``
-          call from the same state (``steps_`` results)
-  attn    ring or Ulysses attention on whole tensors made from a seed:
-          the output and the gradients of sum(out * w)
+          call from the same state (``steps_`` results); with ``eval``,
+          the trained scope's loss on the next batch through a plain
+          ``Executor`` (``eval_loss``)
+  attn    ring or Ulysses attention on whole tensors made from a seed
+          (or, with ``blocks``, on each rank's block of them as DTensors):
+          the output and the gradients of sum(out * w), and the
+          collectives the call made
   loader  ``DeviceLoader(sharding=mesh)``: each rank's staged batches
 
 An lm case with ``save`` also writes ``io.save_checkpoint`` from the
@@ -22,6 +32,7 @@ sharded scope.
 """
 
 import argparse
+import collections
 import faulthandler
 import json
 import os
@@ -36,6 +47,77 @@ import paddle_tpu_torch as fluid  # noqa: E402
 from paddle_tpu_torch import parallel  # noqa: E402
 from paddle_tpu_torch.distributed import launch  # noqa: E402
 from paddle_tpu_torch.models import transformer as T  # noqa: E402
+from paddle_tpu_torch.parallel import collective as C  # noqa: E402
+
+# DTensor's own functional collectives, by kind (its ops call them by
+# module attribute)
+FUNCOL = collections.Counter()
+
+
+def _count_funcol():
+    import torch.distributed._functional_collectives as funcol
+    for name in ("all_reduce", "all_gather_tensor", "reduce_scatter_tensor",
+                 "all_to_all_single", "all_gather_tensor_autograd",
+                 "reduce_scatter_tensor_autograd", "all_reduce_coalesced"):
+        fn = getattr(funcol, name, None)
+        if fn is None:
+            continue
+
+        def counted(*a, _fn=fn, _name=name, **k):
+            FUNCOL[_name] += 1
+            return _fn(*a, **k)
+        setattr(funcol, name, counted)
+
+
+_count_funcol()
+
+
+def _collectives():
+    """A snapshot of the collectives made so far."""
+    return (collections.Counter(C.calls), collections.Counter(C.sent_bytes),
+            collections.Counter(FUNCOL))
+
+
+def _since(snap, out, prefix=""):
+    calls, sent, funcol = snap
+    for kind, n in (collections.Counter(C.calls) - calls).items():
+        out["%scalls/%s" % (prefix, kind)] = np.asarray(n)
+    for kind, n in (collections.Counter(C.sent_bytes) - sent).items():
+        out["%ssent/%s" % (prefix, kind)] = np.asarray(n)
+    for kind, n in (collections.Counter(FUNCOL) - funcol).items():
+        out["%sfuncol/%s" % (prefix, kind)] = np.asarray(n)
+
+
+def _local_shape(v):
+    """The shape of this rank's block of a scope value."""
+    if hasattr(v, "placements"):
+        return tuple(v.to_local().shape)
+    return tuple(v.shape)
+
+
+class _SpProbe:
+    """Records each ``sp_attention``'s Q and output as they enter and
+    leave the lowering."""
+
+    def __init__(self):
+        from paddle_tpu_torch.core import registry
+        self.info = registry.lookup("sp_attention")
+        self.lower, self.rows = self.info.lower, []
+
+    def __enter__(self):
+        def lower(ctx, op):
+            q = ctx.in1(op, "Q")
+            self.lower(ctx, op)
+            o = ctx.get(op.output("Out")[0])
+            self.rows.append([_local_shape(q), tuple(q.shape),
+                              _local_shape(o), tuple(o.shape),
+                              str(getattr(q, "placements", "")),
+                              str(getattr(o, "placements", ""))])
+        self.info.lower = lower
+        return self
+
+    def __exit__(self, *exc):
+        self.info.lower = self.lower
 
 
 def _mesh(case):
@@ -60,7 +142,13 @@ def _lm(case):
             vocab_size=64, max_len=16, n_layer=case.get("n_layer", 2),
             n_head=4, d_model=32, d_inner=64, strategy=st,
             num_experts=case.get("num_experts", 0))
-        fluid.optimizer.SGD(learning_rate=0.1).minimize(avg_cost)
+        if case.get("clip"):
+            fluid.clip.set_gradient_clip(
+                fluid.clip.GradientClipByGlobalNorm(case["clip"]))
+        if case.get("optimizer") == "adam":
+            fluid.optimizer.Adam(learning_rate=1e-3).minimize(avg_cost)
+        else:
+            fluid.optimizer.SGD(learning_rate=0.1).minimize(avg_cost)
     scope = fluid.Scope()
     with np.load(case["init"]) as z:
         init = {k: z[k] for k in z.files}
@@ -71,12 +159,18 @@ def _lm(case):
     batches = [T.make_lm_batch(np.random.RandomState(case["seed"] + 100 * i),
                                4 * axes.get("dp", 1), 16, 64)
                for i in range(case.get("steps", 3))]
-    losses = [float(np.asarray(pexe.run([avg_cost], feed=f)[0]))
-              for f in batches]
+    snap = _collectives()
+    with _SpProbe() as probe:
+        losses = [float(np.asarray(pexe.run([avg_cost], feed=f)[0]))
+                  for f in batches]
     out = {"losses": np.asarray(losses)}
+    _since(snap, out)
+    if probe.rows:
+        out["sp_attention"] = np.asarray(json.dumps(probe.rows))
     names = sorted(v.name for v in main.global_block().vars.values()
                    if v.persistable and scope.find_var(v.name) is not None)
     for n in names:
+        out["shape/" + n] = np.asarray(_local_shape(scope.find_var(n)))
         out["w/" + n] = fluid.core.executor.as_numpy(scope.find_var(n))
     if case.get("run_steps"):
         # the same steps as one run_steps call from the same state
@@ -96,6 +190,16 @@ def _lm(case):
     if case.get("save"):
         fluid.io.save_checkpoint(case["save"], len(losses),
                                  main_program=main, scope=scope)
+    if case.get("eval"):
+        # the trained scope read by a plain Executor on every rank (its
+        # held blocks gathered whole), on the next batch
+        feed = T.make_lm_batch(np.random.RandomState(
+            case["seed"] + 100 * len(batches)), 4 * axes.get("dp", 1), 16,
+            64)
+        exe = fluid.Executor(fluid.CPUPlace())
+        out["eval_loss"] = np.asarray(float(np.asarray(exe.run(
+            main.clone(for_test=True), feed=feed, fetch_list=[avg_cost],
+            scope=scope)[0])))
     return out
 
 
@@ -105,15 +209,43 @@ def _attn(case):
     rng = np.random.RandomState(case["seed"])
     q, k, v, w = (torch.tensor(rng.randn(b, h, t, d).astype(np.float32))
                   for _ in range(4))
-    for x in (q, k, v):
-        x.requires_grad_(True)
     fn = (parallel.ring_attention if case["variant"] == "ring"
           else parallel.ulysses_attention)
+    ba = case.get("batch_axis")
+    snap = _collectives()
+    if case.get("blocks"):
+        # each rank's [B/dp, H, T/sp, D] block, as DTensors
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        pl = [Shard(0) if a == "dp" else Shard(2) if a == "sp"
+              else Replicate() for a in mesh.dtensor_axes]
+        spec = (ba, None, "sp", None)
+        leaves = [parallel.blocks.block_of(mesh, spec, x).requires_grad_(
+            True) for x in (q, k, v)]
+        glob = [DTensor.from_local(x, mesh.dtensor_mesh, pl,
+                                   run_check=False, shape=q.shape,
+                                   stride=q.stride()) for x in leaves]
+        out = fn(*glob, mesh, axis_name="sp", causal=case["causal"],
+                 batch_axis=ba)
+        local = out.to_local()
+        (local * parallel.blocks.block_of(mesh, spec, w)).sum().backward()
+        res = {"out_local": np.asarray(local.shape)}
+        _since(snap, res)
+        whole = [C.global_value(DTensor.from_local(
+            x, mesh.dtensor_mesh, pl, run_check=False, shape=q.shape,
+            stride=q.stride())) for x in [local.detach()] +
+            [x.grad for x in leaves]]
+        res.update(zip(("out", "dq", "dk", "dv"),
+                       (x.numpy() for x in whole)))
+        return res
+    for x in (q, k, v):
+        x.requires_grad_(True)
     out = fn(q, k, v, mesh, axis_name="sp", causal=case["causal"],
-             batch_axis=case.get("batch_axis"))
+             batch_axis=ba)
     (out * w).sum().backward()
-    return {"out": out.detach().numpy(), "dq": q.grad.numpy(),
-            "dk": k.grad.numpy(), "dv": v.grad.numpy()}
+    res = {"out": out.detach().numpy(), "dq": q.grad.numpy(),
+           "dk": k.grad.numpy(), "dv": v.grad.numpy()}
+    _since(snap, res)
+    return res
 
 
 def _loader(case):
